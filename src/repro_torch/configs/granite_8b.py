@@ -1,0 +1,14 @@
+"""granite-8b [arXiv:2405.04324; hf]: llama-arch code model, GQA kv=8."""
+from repro_torch.configs.base import ModelConfig
+
+CONFIG = ModelConfig(
+    arch_id="granite-8b", family="dense",
+    n_layers=36, d_model=4096, n_heads=32, n_kv_heads=8, head_dim=128,
+    d_ff=14336, vocab_size=49152,
+)
+
+SMOKE_CONFIG = CONFIG.with_(
+    n_layers=2, d_model=64, n_heads=4, n_kv_heads=2, head_dim=16,
+    d_ff=128, vocab_size=512, loss_chunk=64,
+    attn_chunk_q=16, attn_chunk_kv=16,
+)
