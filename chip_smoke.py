@@ -5,16 +5,18 @@
 
 Phases; any failure raises and the script exits non-zero:
 
-1. build   -- compile every CUDA kernel of the serving path from
-              ``src/repro_torch/csrc`` (one nvcc per source, all started
-              together) and print the card's name and power limit.
-2. kernels -- each kernel against its plain PyTorch version at the serving
-              path's shapes, in f32 and bf16, within the tolerances in
-              ``TOL``; then its device time per call (torch.profiler)
-              beside its plain version's, a one-call PyTorch yardstick's
-              where one exists, and its bound on the H100 (bytes over
-              3.35 TB/s or operations over the dtype's peak, whichever is
-              larger).  ``call_ms`` adds the host's launch time.
+1. build   -- compile every CUDA kernel of the serving and training paths
+              from ``src/repro_torch/csrc`` (one nvcc per source, all
+              started together) and print the card's name and power limit.
+2. kernels -- each kernel against its plain PyTorch version at its path's
+              shapes (serving: f32 and bf16; training: the three buckets
+              of the 4-layer llama3-8b plan, f32, and bf16 W for the Adam
+              update), within the tolerances in ``TOL``; then its device
+              time per call (torch.profiler) beside its plain version's, a
+              one-call PyTorch yardstick's where one exists, and its bound
+              on the H100 (bytes over 3.35 TB/s or operations over the
+              dtype's peak, whichever is larger).  ``call_ms`` adds the
+              host's launch time.
 3. serve   -- full-width llama3-8b (32 layers, bf16, seeded random weights)
               through ``ContinuousEngine(max_slots=4, page_size=16)``: 8
               requests, prompts of 64..1024 tokens, 32 new tokens each,
@@ -24,9 +26,24 @@ Phases; any failure raises and the script exits non-zero:
               and each kernel's launch count; then request 0's prefill and
               first decode-step logits on the paged kernel path against the
               static engine's ring cache with plain exact attention.
-4. report  -- one ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and
-              last ``{"ok": true, "device": {...}}``.  Per-case detail goes
-              to ``chiprun_out/chip_smoke.json``.
+4. train   -- full-width llama3-8b cut to 4 layers (f32 params, grads and
+              full-rank Adam state for all 32 layers come to ~75 GB before
+              activations), bf16 compute, ``galore-sara-adam`` on
+              ``engine="bucketed"`` with ``svd_backend="randomized"`` and
+              the launcher's defaults (rank 512, tau 200, alpha 0.25, lr
+              0.01, warmup 100), seq 512, batch 8, 3 steps through
+              ``train_loop``: a refresh at step 0, then 2 hot steps.
+              Checks the bucket plan, finite losses (the first near
+              ln(vocab)), each kernel's exact launch count, and on one more
+              hot step each bucket's R, W', M', V' from the kernels against
+              the plain versions on the same stacks, one bucket at a time;
+              then profiles one hot step (device busy share, time by
+              kernel).
+5. report  -- one ``{"kernels": [...]}`` line (``launches`` summed over
+              the serve and train runs, each run's own count beside it in
+              ``launches_by_path``), the ``nvidia-smi`` line, and last ``{"ok": true,
+              "device": {...}}``.  Per-case detail goes to
+              ``chiprun_out/chip_smoke.json``.
 
 The script imports nothing of JAX or of the JAX package ``repro``.
 """
@@ -57,6 +74,13 @@ TOL = {
     "rmsnorm": {"float32": (1e-5, 1e-5), "bfloat16": (1e-5, 2.0**-7)},
     "flash_attention_fwd": {"float32": (2e-5, 1e-5), "bfloat16": (2e-2, 2.0**-7)},
     "paged_decode_attention": {"float32": (2e-5, 1e-5), "bfloat16": (2e-2, 2.0**-7)},
+    # The optimizer kernels sum thousands of f32 products (d = 4096, n =
+    # 14336) in another order than cuBLAS: atol is relative to the largest
+    # |plain| output of the case (check_close's rel_atol), rtol 1e-4.  The
+    # Adam update's bf16 W' may round one bf16 ulp (2^-7) apart.
+    "galore_project_batched": {"float32": (1e-5, 1e-4)},
+    "lowrank_adam_update_batched": {"float32": (1e-5, 1e-4), "bfloat16": (1e-5, 2.0**-7)},
+    "power_iter_batched": {"float32": (1e-5, 1e-4)},
 }
 
 KERNELS = {
@@ -75,7 +99,25 @@ KERNELS = {
         "source": "src/repro_torch/csrc/paged_decode.cu",
         "replaces": "src/repro/kernels/flash_attention_decode/kernel.py:111",
     },
+    "galore_project_batched": {
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/galore_project.cu",
+        "replaces": "src/repro/kernels/galore_project/kernel.py:153",
+    },
+    "lowrank_adam_update_batched": {
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/lowrank_adam.cu",
+        "replaces": "src/repro/kernels/lowrank_update/kernel.py:105",
+    },
+    "power_iter_batched": {
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/power_iter.cu",
+        "replaces": "src/repro/kernels/power_iter/kernel.py:99",
+    },
 }
+SERVE_KERNELS = ("rmsnorm", "flash_attention_fwd", "paged_decode_attention")
+TRAIN_KERNELS = ("rmsnorm", "flash_attention_fwd", "galore_project_batched",
+                 "lowrank_adam_update_batched", "power_iter_batched")
 
 SEED = 0
 PAGE_SIZE = 16
@@ -84,6 +126,15 @@ NEW_TOKENS = 32
 PROMPT_LENS = [1024, 128, 517, 1000, 255, 777, 64, 333]
 ARRIVALS = [0, 0, 1, 2, 4, 8, 12, 20]
 POOL_PAGES = 160  # usable pages: fewer than four 1024-token requests need
+
+# train phase: llama3-8b at full width, 4 layers, the launcher's defaults
+TRAIN_LAYERS = 4
+TRAIN_STEPS, TRAIN_SEQ, TRAIN_BATCH = 3, 512, 8
+TRAIN_OPT = dict(rank=512, tau=200, alpha=0.25, lr=0.01, grad_clip_norm=1.0,
+                 engine="bucketed", svd_backend="randomized")
+TRAIN_WARMUP = 100
+# (d, n, rank, B) of the bucket plan at 4 layers: k/v, q/o, mlp
+TRAIN_BUCKETS = [(1024, 4096, 512, 8), (4096, 4096, 512, 8), (4096, 14336, 512, 12)]
 
 
 def log(msg: str) -> None:
@@ -148,12 +199,23 @@ def bound(nbytes: float, ops: float, dtype_name: str):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def check_close(what: str, got, want, atol: float, rtol: float) -> float:
+def off_tolerance(got, want, atol: float, rtol: float, rel_atol: bool = False):
+    """(|got - want|, mask of the elements outside atol + rtol * |want|,
+    atol times max |want| when ``rel_atol``; non-finite ``got`` is off)."""
     got32, want32 = got.float(), want.float()
+    if rel_atol:
+        atol = atol * float(want32.abs().max())
+    err = (got32 - want32).abs()
+    return err, ~torch.isfinite(got32) | (err > atol + rtol * want32.abs()), atol
+
+
+def check_close(what: str, got, want, atol: float, rtol: float,
+                rel_atol: bool = False) -> float:
+    """Max |got - want|, raising unless every element is within
+    atol + rtol * |want| (atol times max |want| when ``rel_atol``)."""
     if got.shape != want.shape:
         raise AssertionError(f"{what}: shape {tuple(got.shape)} != {tuple(want.shape)}")
-    err = (got32 - want32).abs()
-    bad = ~torch.isfinite(got32) | (err > atol + rtol * want32.abs())
+    err, bad, atol = off_tolerance(got, want, atol, rtol, rel_atol)
     max_err = float(err.max()) if err.numel() else 0.0
     if bool(bad.any()):
         raise AssertionError(
@@ -324,6 +386,133 @@ def kernel_cases(results):
             }
             record("paged_decode_attention", label, dtype, err,
                    window == 0 and dtype == torch.bfloat16, timing)
+    return cases
+
+
+def optimizer_kernel_cases(results):
+    """The training path's kernels at the bucket shapes of the 4-layer
+    full-width plan (``TRAIN_BUCKETS``).  Inputs on the scale of the real
+    ones: unit-normal gradient stacks, orthonormal projectors and sketch
+    bases, weights ~0.02, Adam moments of a few steps."""
+    from repro_torch.kernels.galore_project.kernel import galore_project_batched
+    from repro_torch.kernels.galore_project.ref import project_ref
+    from repro_torch.kernels.lowrank_update.kernel import lowrank_adam_update_batched
+    from repro_torch.kernels.lowrank_update.ref import lowrank_adam_update_ref
+    from repro_torch.kernels.power_iter.kernel import power_iter_batched
+    from repro_torch.kernels.power_iter.ref import power_iter_ref
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    cases = []
+    kw = dict(b1=0.9, b2=0.999, eps=1e-8)
+    # The launcher's peak step size, lr 0.01 x alpha 0.25: the update
+    # lr_alpha * |P @ N| is then several bf16 ulps of |W| ~ 0.02, so the
+    # bf16 W' tolerance can see a lost or mis-scaled back-projection.
+    step, lr_alpha, lr_wd = 3, 0.01 * 0.25, 0.0
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=dev) * scale
+
+    def orthonormal(b, d, k):
+        return torch.linalg.qr(randn(b, d, k))[0].contiguous()
+
+    def record(name, label, dtype, err, main, timing):
+        dn = str(dtype).split(".")[-1]
+        case = {"kernel": name, "case": label, "dtype": dn, "max_abs_err": err,
+                "tolerance": TOL[name][dn], "tolerance_atol_relative": True}
+        case.update(timing)
+        cases.append(case)
+        log(f"{name} {label} {dn}: max_abs_err {err:.3e} "
+            + " ".join(f"{k} {v}" for k, v in timing.items()))
+        r = results[name]
+        r["max_abs_err"] = max(r.get("max_abs_err", 0.0), err)
+        if main:
+            r.update(timing)
+
+    def timed(kernel, plain, library, b_ms, b_by, iters):
+        return {
+            "ms": device_ms(kernel, iters=iters, warmup=1),
+            "call_ms": call_ms(kernel, iters=iters, warmup=1),
+            "plain_ms": device_ms(plain, iters=iters, warmup=1),
+            "library_ms": device_ms(library, iters=iters, warmup=1) if library else None,
+            "bound_ms": b_ms, "bound_by": b_by,
+        }
+
+    for d, n, r, b in TRAIN_BUCKETS:
+        label = f"B={b} d={d} n={n} r={r}"
+        main = (d, n) == (4096, 14336)
+        iters = 5 if main else 10
+        # -- kernel 4: R = P^T G ------------------------------------------
+        g = randn(b, d, n)
+        p = orthonormal(b, d, r)
+        got = galore_project_batched(g, p)
+        want = project_ref(g, p)
+        torch.cuda.synchronize()
+        err = check_close(f"project {label}", got, want,
+                          *TOL["galore_project_batched"]["float32"], rel_atol=True)
+        del got, want
+        b_ms, b_by = bound(4 * (b * d * n + b * d * r + b * r * n), 2 * b * r * d * n, "float32")
+        record("galore_project_batched", label, torch.float32, err, main, timed(
+            lambda: galore_project_batched(g, p), lambda: project_ref(g, p),
+            lambda: torch.bmm(p.transpose(1, 2), g), b_ms, b_by, iters))
+        del g
+        # -- kernel 5: fused Adam update, f32 W (and bf16 W on the mlp bucket)
+        rg = randn(b, r, n)
+        m = randn(b, r, n, scale=0.1)
+        v = randn(b, r, n, scale=0.1) ** 2
+        for dtype in (torch.float32, torch.bfloat16) if main else (torch.float32,):
+            dn = str(dtype).split(".")[-1]
+            w = randn(b, d, n, scale=0.02).to(dtype)
+            got = lowrank_adam_update_batched(w, p, rg, m, v, step, lr_alpha, lr_wd, **kw)
+            want = lowrank_adam_update_ref(w, p, rg, m, v, step=step, lr_alpha=lr_alpha,
+                                           lr_wd=lr_wd, **kw)
+            torch.cuda.synchronize()
+            err = 0.0
+            for part, a, c in zip(("W'", "M'", "V'"), got, want):
+                tol = TOL["lowrank_adam_update_batched"][dn if part == "W'" else "float32"]
+                err = max(err, check_close(f"adam {part} {label} {dn}", a, c, *tol,
+                                           rel_atol=True))
+            # The case sees the update: the W' tolerance rejects a good share
+            # of W itself, what a kernel that skipped the back-projection
+            # gives (in bf16, updates under half an ulp round back to W).
+            _, off, _ = off_tolerance(w, want[0], *TOL["lowrank_adam_update_batched"][dn],
+                                      rel_atol=True)
+            seen = float(off.float().mean())
+            if seen < 0.25:
+                raise AssertionError(f"adam {label} {dn}: the W' tolerance rejects only "
+                                     f"{seen:.3f} of an unchanged W")
+            log(f"adam {label} {dn}: the W' tolerance rejects {seen:.3f} of an unchanged W")
+            del got, want, off
+            es = w.element_size()
+            nbytes = 2 * b * d * n * es + 4 * (b * d * r + 5 * b * r * n)
+            b_ms, b_by = bound(nbytes, 2 * b * d * r * n + 12 * b * r * n, "float32")
+            record("lowrank_adam_update_batched", label, dtype, err,
+                   main and dtype == torch.float32, timed(
+                       lambda: lowrank_adam_update_batched(w, p, rg, m, v, step, lr_alpha,
+                                                           lr_wd, **kw),
+                       lambda: lowrank_adam_update_ref(w, p, rg, m, v, step=step,
+                                                       lr_alpha=lr_alpha, lr_wd=lr_wd, **kw),
+                       None, b_ms, b_by, iters))
+            del w
+        del rg, m, v, p
+        torch.cuda.empty_cache()
+        # -- kernel 9: Y = G (G^T Q), on the buckets whose sketch k' < d ---
+        kp = min(4 * r + 8, d)
+        if kp < d:
+            g = randn(b, d, n)
+            q = orthonormal(b, d, kp)
+            got = power_iter_batched(g, q)
+            want = power_iter_ref(g, q)
+            torch.cuda.synchronize()
+            err = check_close(f"power_iter {label} k'={kp}", got, want,
+                              *TOL["power_iter_batched"]["float32"], rel_atol=True)
+            del got, want
+            b_ms, b_by = bound(4 * (b * d * n + 2 * b * d * kp), 4 * b * d * n * kp, "float32")
+            record("power_iter_batched", f"{label} k'={kp}", torch.float32, err, main, timed(
+                lambda: power_iter_batched(g, q), lambda: power_iter_ref(g, q),
+                None, b_ms, b_by, 3))
+            del g, q
+            torch.cuda.empty_cache()
     return cases
 
 
@@ -529,6 +718,228 @@ def profile_serving(model, params):
 
 
 # ---------------------------------------------------------------------------
+# phase 4: pretrain full-width llama3-8b (depth cut) with galore-sara-adam
+# ---------------------------------------------------------------------------
+
+
+def train(cfg, dev: str = "cuda", steps: int = TRAIN_STEPS, seq: int = TRAIN_SEQ,
+          batch: int = TRAIN_BATCH, opt_kw=None, expect_buckets=TRAIN_BUCKETS):
+    """Phase 4 (see the module docstring); ``dev="cpu"`` with a smoke config
+    rehearses it without a card."""
+    import math
+
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.core import buckets as buckets_lib
+    from repro_torch.core import make_optimizer
+    from repro_torch.core.lowrank import tree_leaves, tree_unflatten
+    from repro_torch.core.schedules import cosine_with_warmup
+    from repro_torch.data.synthetic import SyntheticDataConfig, SyntheticDataset
+    from repro_torch.kernels import counters
+    from repro_torch.kernels.galore_project import kernel as project_kernel
+    from repro_torch.kernels.galore_project.ref import project_ref
+    from repro_torch.kernels.lowrank_update import kernel as update_kernel
+    from repro_torch.kernels.lowrank_update.ref import lowrank_adam_update_ref
+    from repro_torch.models import build_model
+    from repro_torch.train.loop import train_loop
+    from repro_torch.train.step import make_train_step
+
+    def sync():
+        if dev == "cuda":
+            torch.cuda.synchronize()
+
+    opt_kw = dict(TRAIN_OPT, **(opt_kw or {}))
+    model = build_model(cfg, device=dev)
+    t0 = time.perf_counter()
+    tc = TrainConfig(total_steps=steps, seed=SEED)
+    params = model.init(torch.Generator(device=dev).manual_seed(tc.seed))
+    n_params = sum(p.numel() for p in tree_leaves(params))
+    opt = make_optimizer(
+        "galore-sara-adam", params,
+        lr_schedule=cosine_with_warmup(opt_kw["lr"], TRAIN_WARMUP, steps), **opt_kw)
+    del params  # train_loop makes the same params from tc.seed and owns them
+    plan = [(bk.d, bk.n, bk.rank, bk.batch) for bk in opt.bucket_plan.buckets]
+    if plan != list(expect_buckets):
+        raise AssertionError(f"bucket plan {plan} != {expect_buckets}")
+    data = SyntheticDataset(
+        SyntheticDataConfig(vocab_size=cfg.vocab_size, seq_len=seq, global_batch=batch),
+        device=dev)
+    # Memory by phase of each step (``timed`` below opens and closes it):
+    # allocated at its start, the peak of forward and backward, the peak of
+    # the optimizer update.
+    phase_mem = []
+
+    def update_probe(*a, **k):
+        if dev == "cuda":
+            phase_mem[-1].append(torch.cuda.max_memory_allocated())
+            torch.cuda.reset_peak_memory_stats()
+        return opt.update(*a, **k)
+
+    fns = make_train_step(model, opt._replace(update=update_probe), train_cfg=tc)
+    sync()
+    log(f"train: {cfg.arch_id} {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{n_params / 1e9:.3f} B params f32, buckets {plan}, set up in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    step_ms, step_peak = [], []
+
+    def timed(fn):
+        def run(*a, **k):
+            sync()
+            if dev == "cuda":
+                phase_mem.append([torch.cuda.memory_allocated()])
+                torch.cuda.reset_peak_memory_stats()
+            t = time.perf_counter()
+            out = fn(*a, **k)
+            sync()
+            step_ms.append((time.perf_counter() - t) * 1e3)
+            if dev == "cuda":
+                phase_mem[-1].append(torch.cuda.max_memory_allocated())
+                step_peak.append(max(phase_mem[-1][1:]))
+            else:
+                step_peak.append(0)
+            return out
+        return run
+
+    loop_fns = dict(fns, step=timed(fns["step"]), refresh_step=timed(fns["refresh_step"]))
+    counters.reset()
+    res = train_loop(model, opt, data, tc, loop_fns, log_every=1)
+    sync()
+    launches = counters.snapshot()
+    peak = max(step_peak)
+    state = res.state
+    tokens = batch * seq
+    hot_ms = sum(step_ms[1:]) / max(len(step_ms) - 1, 1)
+    log(f"train: losses {res.losses}; refresh step {step_ms[0]:.1f} ms, hot steps "
+        f"{[round(t, 1) for t in step_ms[1:]]} ms: {tokens / hot_ms * 1e3:.1f} tokens/s "
+        f"hot; max_memory_allocated per step "
+        f"{[round(b / 2**30, 2) for b in step_peak]} GiB")
+    log(f"train launches {launches}")
+    log("train memory by step, GiB [at start, forward+backward peak, update peak]: "
+        f"{[[round(b / 2**30, 2) for b in m] for m in phase_mem]}")
+    if not all(math.isfinite(x) for x in res.losses):
+        raise AssertionError(f"non-finite training loss: {res.losses}")
+    if abs(res.losses[0] - math.log(cfg.vocab_size)) > 1.0:
+        raise AssertionError(
+            f"first loss {res.losses[0]:.3f} is not near ln(vocab) = "
+            f"{math.log(cfg.vocab_size):.3f} for random weights")
+    nl, nb = cfg.n_layers, len(plan)
+    kp_lt_d = sum(1 for d, n, r, _ in plan
+                  if min(4 * r + opt_kw.get("svd_oversample", 8), d) < d)
+    expect = {
+        # per step: 2 per layer + the final norm forward, 2 per layer again
+        # in the remat recompute of each block
+        "rmsnorm": steps * (4 * nl + 1),
+        "flash_attention_fwd": steps * 2 * nl,  # forward + remat recompute
+        "galore_project_batched": steps * nb,
+        "lowrank_adam_update_batched": steps * nb,
+        "power_iter_batched": 2 * kp_lt_d,  # one refresh, 2 iterations
+    }
+    if launches != expect:
+        raise AssertionError(f"train launch counts {launches} != expected {expect}")
+
+    # One more hot step's stacks, bucket by bucket: R, then W', M', V' from
+    # the kernels against the plain versions on the same inputs.
+    step = state.opt_state.step + 1
+    lr_alpha = opt.config.lr_schedule(state.opt_state.step) * opt.config.alpha
+    flat_p = tree_leaves(state.params)
+    leaves = [p.detach().requires_grad_(True) for p in flat_p]
+    loss, _ = model.loss(tree_unflatten(state.params, leaves), data.batch_at(steps))
+    flat_g = list(torch.autograd.grad(loss, leaves))
+    del leaves, loss
+    parity = []
+    for bk, bst in zip(opt.bucket_plan.buckets, state.opt_state.buckets):
+        w = buckets_lib._gather(bk, flat_p)
+        g = buckets_lib._gather(bk, flat_g)
+        if dev == "cuda":
+            r_k = project_kernel.galore_project_batched(g, bst.projector)
+        else:
+            r_k = project_ref(g, bst.projector)
+        r_p = project_ref(g, bst.projector)
+        del g
+        label = f"bucket d={bk.d} n={bk.n} B={bk.batch}"
+        errs = {"R": check_close(f"train {label} R", r_k, r_p,
+                                 *TOL["galore_project_batched"]["float32"], rel_atol=True)}
+        del r_k
+        args = (w, bst.projector, r_p, bst.m, bst.v)
+        if dev == "cuda":
+            got = update_kernel.lowrank_adam_update_batched(*args, step, lr_alpha)
+        else:
+            got = lowrank_adam_update_ref(*args, b1=0.9, b2=0.999, eps=1e-8, step=step,
+                                          lr_alpha=lr_alpha)
+        want = lowrank_adam_update_ref(*args, b1=0.9, b2=0.999, eps=1e-8, step=step,
+                                       lr_alpha=lr_alpha)
+        for part, a, c in zip(("W'", "M'", "V'"), got, want):
+            errs[part] = check_close(f"train {label} {part}", a, c,
+                                     *TOL["lowrank_adam_update_batched"]["float32"],
+                                     rel_atol=True)
+        del got, want, w, r_p, args
+        if dev == "cuda":
+            torch.cuda.empty_cache()
+        log(f"train hot-step {label}: kernel vs plain max abs err {errs}")
+        parity.append({"bucket": label, "max_abs_err": errs})
+    del flat_g, flat_p
+    profile = (profile_train_step(make_train_step(model, opt, train_cfg=tc), state,
+                                  data.batch_at(steps)) if dev == "cuda" else None)
+    return {
+        "layers": nl, "params": n_params, "buckets": plan, "steps": steps,
+        "tokens_per_step": tokens, "losses": res.losses, "history": res.history,
+        "refresh_step_ms": step_ms[0], "hot_step_ms": step_ms[1:],
+        "hot_tokens_per_s": tokens / hot_ms * 1e3,
+        "max_memory_allocated": peak, "max_memory_allocated_per_step": step_peak,
+        "memory_by_phase": phase_mem,
+        "launches": launches, "expected": expect,
+        "hot_step_parity": parity, "profile": profile,
+    }
+
+
+def profile_train_step(fns, state, batch):
+    """Device time by kernel over one hot step under torch.profiler; busy
+    share = summed kernel time / host wall time (one stream)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fns["step"](state, batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    groups = {"matmul": 0.0, "galore_project_batched": 0.0,
+              "lowrank_adam_update_batched": 0.0, "flash_attention_fwd": 0.0,
+              "rmsnorm": 0.0, "other": 0.0}
+    kernels = []
+    for e in prof.key_averages():
+        us = _device_us(e)
+        if us <= 0 or e.key.startswith(("cuda", "aten::", "Memcpy", "Memset")):
+            continue
+        low = e.key.lower()
+        if "batched_gemm" in low and "storef32" in low:
+            g = "galore_project_batched"
+        elif "adam" in low:
+            g = "lowrank_adam_update_batched"
+        elif "flash_fwd" in low:
+            g = "flash_attention_fwd"
+        elif "rmsnorm" in low:
+            g = "rmsnorm"
+        elif any(w in low for w in ("gemm", "gemv", "nvjet", "cutlass", "sm90_", "xmma")):
+            g = "matmul"
+        else:
+            g = "other"
+        groups[g] += us / 1e3
+        kernels.append((us / 1e3, e.count, e.key[:90]))
+    kernels.sort(reverse=True)
+    busy = sum(groups.values())
+    log(f"train profile: one hot step, wall {wall_ms:.1f} ms, device busy {busy:.1f} ms "
+        f"({busy / wall_ms:.3f})")
+    log("train profile by group (ms): " + ", ".join(f"{k} {v:.2f}" for k, v in groups.items()))
+    for t, c, n in kernels[:10]:
+        log(f"  {t:9.3f} ms  x{c:<6d} {n}")
+    return {"wall_ms": wall_ms, "device_busy_ms": busy,
+            "device_busy_share": busy / wall_ms if wall_ms else None,
+            "ms_by_group": groups,
+            "top_kernels": [{"ms": t, "count": c, "name": n} for t, c, n in kernels[:15]]}
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -558,25 +969,35 @@ def main() -> int:
 
     results = {name: dict(name=name, **meta) for name, meta in KERNELS.items()}
     t0 = time.perf_counter()
-    cases = kernel_cases(results)
+    cases = kernel_cases(results) + optimizer_kernel_cases(results)
     log(f"kernels vs plain versions: {len(cases)} cases passed in "
         f"{time.perf_counter() - t0:.1f} s")
 
     from repro_torch.configs.registry import get_config
 
+    t0 = time.perf_counter()
     served = serve(get_config("llama3-8b"))  # full width and depth, bf16
+    log(f"serve phase: {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    trained = train(get_config("llama3-8b").with_(n_layers=TRAIN_LAYERS))
+    log(f"train phase: {time.perf_counter() - t0:.1f} s")
     for name, r in results.items():
-        r["launches"] = served["launches"].get(name, 0)
-        if r["launches"] <= 0:
-            raise AssertionError(f"{name} never launched on the serving path")
+        by_path = {"serve": served["launches"].get(name, 0),
+                   "train": trained["launches"].get(name, 0)}
+        r["launches_by_path"] = by_path
+        r["launches"] = sum(by_path.values())
+        for path, want in (("serve", SERVE_KERNELS), ("train", TRAIN_KERNELS)):
+            if name in want and by_path[path] <= 0:
+                raise AssertionError(f"{name} never launched on the {path} path")
 
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         {"card": smi, "kernels": list(results.values()), "cases": cases,
-         "serve": served}, indent=1))
-    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+         "serve": served, "train": trained}, indent=1))
+    keys = ("name", "route", "source", "replaces", "launches", "launches_by_path",
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in results.values()]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

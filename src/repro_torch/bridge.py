@@ -1,18 +1,23 @@
-"""Carry weights between the JAX package and the port, through numpy.
+"""Carry weights and optimizer state between the JAX package and the
+port, through numpy.
 
 Both packages keep one parameter layout: nested dicts with the same leaf
 names and shapes, including the scan-stacked ``(L, ...)`` block leaves.
 So a JAX tree turned into numpy (``jax.tree.map(np.asarray, params)``),
 or the ``.npy`` leaves of a JAX checkpoint, map name for name onto the
-port's params, and back.
+port's params, and back.  ``opt_state_from_numpy`` does the same for the
+low-rank optimizer's state.
 """
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, List
 
 import numpy as np
 import torch
 
+from repro_torch.core import buckets as buckets_lib
+from repro_torch.core import inner as inner_lib
+from repro_torch.core import lowrank as lowrank_lib
 from repro_torch.device import DeviceLike, resolve_device
 
 Tree = Dict[str, Any]
@@ -45,3 +50,59 @@ def params_to_numpy(params: Dict[str, Any]) -> Tree:
         return (x.float() if x.dtype == torch.bfloat16 else x).numpy()
 
     return conv(params)
+
+
+def opt_state_from_numpy(
+    optimizer: "lowrank_lib.LowRankOptimizer", state: Any, device: DeviceLike = "cuda"
+) -> "lowrank_lib.LowRankOptState":
+    """A JAX ``LowRankOptState`` read out as numpy
+    (``jax.tree_util.tree_map(np.asarray, state)``) -> the port's state for
+    ``optimizer`` (built on the same params and config).
+
+    Carried: ``step``; every per-leaf ``LeafState`` that holds data (the
+    Adam or MSGD state of full-rank leaves, and projector and moments of
+    low-rank leaves on the reference engine); each bucket's stacked
+    (projector, m, v).  The JAX state's ``key`` cannot be carried (the port
+    draws with torch): the new state gets a fresh ``TorchDraws`` from the
+    config's seed, which a caller may replace."""
+    dev = resolve_device(device)
+    cfg = optimizer.config
+
+    def t(x):
+        return torch.from_numpy(np.array(x, copy=True)).to(dev)
+
+    # sorted-key walk of the dicts; the per-leaf LeafState tuples are leaves
+    jax_leaves: List[Any] = lowrank_lib.tree_leaves(state.leaves)
+    if len(jax_leaves) != len(optimizer.specs):
+        raise ValueError(
+            f"state has {len(jax_leaves)} leaves, the optimizer {len(optimizer.specs)}"
+        )
+    bucketed = optimizer.state_layout.plan.bucketed if optimizer.state_layout else ()
+    leaves = []
+    for i, jl in enumerate(jax_leaves):
+        if i in bucketed:
+            leaves.append(lowrank_lib.LeafState(
+                projector=torch.zeros((), dtype=torch.float32, device=dev), inner=None))
+            continue
+        v = getattr(jl.inner, "v", None)
+        leaves.append(lowrank_lib.LeafState(
+            projector=t(jl.projector),
+            inner=inner_lib.fused_state(cfg.inner, t(jl.inner.m),
+                                        t(v) if v is not None else None),
+        ))
+    bucket_states = tuple(
+        buckets_lib.BucketState(
+            projector=t(b.projector), m=t(b.m), v=t(b.v) if b.v is not None else None
+        )
+        for b in state.buckets
+    )
+    if optimizer.state_layout is not None and len(bucket_states) != len(
+        optimizer.state_layout.plan.buckets
+    ):
+        raise ValueError("the state's buckets do not match the optimizer's plan")
+    return lowrank_lib.LowRankOptState(
+        step=int(np.asarray(state.step)),
+        draws=lowrank_lib.TorchDraws(cfg.seed, dev),
+        leaves=leaves,
+        buckets=bucket_states,
+    )

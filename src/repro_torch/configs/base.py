@@ -1,9 +1,9 @@
-"""Model configuration, from ``src/repro/configs/base.py::ModelConfig``.
+"""Model and training configuration, from ``src/repro/configs/base.py``.
 
-The fields the dense families use, with the JAX config's names and
-defaults, so a config compares field by field with its reference; only the
-dtypes are torch's.  The other families' fields come with their slices;
-training, shape, mesh and rank-schedule configs with the training slice.
+``ModelConfig`` has the fields the dense families use, with the JAX
+config's names and defaults, so a config compares field by field with its
+reference; only the dtypes are torch's.  The other families' fields come
+with their slices; shape, mesh and rank-schedule configs with theirs.
 """
 from __future__ import annotations
 
@@ -37,7 +37,8 @@ class ModelConfig:
     attn_impl: str = "auto"  # auto | exact | chunked | pallas
     attn_chunk_q: int = 512
     attn_chunk_kv: int = 1024
-    loss_chunk: int = 2048  # chunked cross-entropy, for the training slice
+    loss_chunk: int = 2048  # tokens per chunked-xent block
+    remat: str = "block"  # none | block: recompute each block in backward
 
     def with_(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
@@ -49,3 +50,21 @@ class ModelConfig:
     @property
     def kv_dim(self) -> int:
         return self.n_kv_heads * self.head_dim
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """The fields of ``src/repro/configs/base.py::TrainConfig`` that the
+    port's train step and loop read, with the JAX defaults.  The refresh
+    cadence (``tau``, ``refresh_groups``) and gradient clipping are read
+    from the optimizer's ``OptimizerConfig``.  Checkpoint, recovery,
+    spectrum-logging and rank-schedule fields come with their slices
+    (ROADMAP queue 1)."""
+
+    total_steps: int = 10000
+    seed: int = 0
+    microbatch: int = 0  # 0 = no gradient accumulation
+    # Gradient-accumulation partial-sum dtype.  f32 by default: bf16 partial
+    # sums lose low-order bits across microbatches.  The accumulated
+    # gradient is cast back to the param dtype either way.
+    accum_dtype: Any = torch.float32

@@ -1,0 +1,17 @@
+"""repro_torch.core -- the paper's contribution: SARA low-rank optimization,
+from ``src/repro/core``."""
+from repro_torch.core.api import OptimizerConfig, make_optimizer, parse_name
+from repro_torch.core.lowrank import (
+    LowRankOptimizer,
+    LowRankOptState,
+    make_lowrank_optimizer,
+)
+
+__all__ = [
+    "OptimizerConfig",
+    "make_optimizer",
+    "parse_name",
+    "LowRankOptimizer",
+    "LowRankOptState",
+    "make_lowrank_optimizer",
+]

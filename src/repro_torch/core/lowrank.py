@@ -1,0 +1,503 @@
+"""The low-rank optimization wrapper (Algorithm 1), from
+``src/repro/core/lowrank.py``.
+
+Composes a projector-selection method (``projectors.py``: dominant, SARA)
+with an inner stateful optimizer (``inner.py``: Adam, MSGD) over a nested
+dict of parameters, flattened in sorted key order exactly as
+``jax.tree_util`` flattens the JAX tree, so leaf indices, bucket entries
+and the per-leaf draws line up with the reference.
+
+As in the reference:
+
+  * ``update(..., refresh=False)`` is the hot step and
+    ``update(..., refresh=True, group=g)`` recomputes the projectors of
+    refresh group ``g`` first; the caller alternates on step % tau.
+  * ``engine="reference"`` runs a per-leaf project -> inner -> back-project
+    loop; ``engine="bucketed"`` groups the low-rank leaves into buckets
+    whose moments and projectors live stacked (``LowRankOptState.buckets``)
+    and runs one batched projection and one fused update per bucket
+    (the CUDA kernels on the card).  Under ``svd_backend="randomized"``
+    the bucketed refresh is one batched chain per bucket.
+  * ``update(..., apply=True)`` returns new params instead of updates.
+
+The step count and the learning-rate schedule live on the host (a Python
+int and float); the state's draw source (``TorchDraws``) makes the
+refresh's random sketches and Gumbel noise from a ``torch.Generator``.
+
+Not ported here: ``projected=``/``StackedGrads`` (compressed DP),
+``skip_nonfinite``, ``shard_axes`` and ZeRO, Fira, the quantized inners,
+checkpoint layout converters and rank schedules (ROADMAP queue 1).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple
+
+import torch
+
+from repro_torch.core import buckets as buckets_lib
+from repro_torch.core import inner as inner_lib
+from repro_torch.core import projectors as proj_lib
+from repro_torch.core.sampling import gumbel_noise
+
+PyTree = Any
+
+DEFAULT_EXCLUDE = (
+    "embed",
+    "lm_head",
+    "norm",
+    "bias",
+    "router",
+    "gate_w",
+    "conv",
+    "a_log",
+    "dt_",
+    "scale",
+    "pos_",
+)
+
+_LATER = "ROADMAP queue 1"
+
+
+@dataclasses.dataclass(frozen=True)
+class OptimizerConfig:
+    """Everything needed to build Algorithm 1, with the JAX field names and
+    defaults.  ``lr_schedule`` maps the int step to a float."""
+
+    method: str = "sara"  # full | dominant | sara (others: a later slice)
+    inner: str = "adam"
+    rank: int = 128
+    rank_schedule: str = ""  # not ported: raises
+    group_ranks: Tuple[int, ...] = ()  # not ported: raises
+    tau: int = 200
+    alpha: float = 0.25  # GaLore scale factor applied to the low-rank update
+    lr: float = 0.01
+    lr_schedule: Optional[Callable[[int], float]] = None
+    weight_decay: float = 0.0
+    grad_clip_norm: float = 0.0  # 0 disables
+    fira: bool = False  # not ported: raises
+    momentum_carry: str = "keep"  # keep | reset | reproject
+    refresh_groups: int = 1
+    engine: str = "reference"  # reference | bucketed
+    state_sharding: str = ""  # not ported: "zero" raises
+    min_dim: int = 16  # leaves with min(m, n) < this stay full-rank
+    exclude: Tuple[str, ...] = DEFAULT_EXCLUDE
+    seed: int = 0
+    svd_backend: str = "exact"
+    svd_oversample: int = 8
+    svd_power_iters: int = 2
+    sara_pool_factor: int = 4
+    projector_dtype: Any = torch.float32
+    b1: float = 0.9
+    b2: float = 0.999
+    eps: float = 1e-8
+
+    def projector_config(self) -> proj_lib.ProjectorConfig:
+        return proj_lib.ProjectorConfig(
+            method=self.method, rank=self.rank, svd_backend=self.svd_backend,
+            svd_oversample=self.svd_oversample,
+            svd_power_iters=self.svd_power_iters,
+            sara_pool_factor=self.sara_pool_factor, dtype=self.projector_dtype,
+        )
+
+    def inner_kwargs(self) -> Dict[str, Any]:
+        """The inner optimizer's hyperparameters, shared by both engines."""
+        if self.inner == "msgd":
+            return dict(b1=self.b1)
+        return dict(b1=self.b1, b2=self.b2, eps=self.eps)
+
+    def make_inner(self) -> inner_lib.InnerOptimizer:
+        return inner_lib.make_inner(self.inner, **self.inner_kwargs())
+
+
+class LeafSpec(NamedTuple):
+    """Static per-leaf plan (computed once from path and shape)."""
+
+    path: str
+    lowrank: bool
+    side: str  # 'left' | 'right' (ignored if not lowrank)
+    rank: int
+    group: int  # refresh group
+
+
+class LeafState(NamedTuple):
+    projector: torch.Tensor  # (.., d, r), or a () placeholder
+    inner: Any
+
+
+class TorchDraws:
+    """The refresh's draw source: Gaussian sketches and Gumbel noise from a
+    ``torch.Generator`` on the params' device.
+
+    Like the JAX key chain (split the state key once per refresh, then fold
+    in the global leaf index, ``lowrank.py:673, 800``), each leaf's draws
+    depend only on (seed, refresh count, leaf index), so the reference and
+    bucketed engines draw the same numbers.  The numbers are not JAX's:
+    the parity tests swap in a source that recomputes JAX's draws."""
+
+    def __init__(self, seed: int, device, refreshes: int = 0):
+        self.seed = int(seed)
+        self.device = torch.device(device)
+        self.refreshes = refreshes
+
+    def split(self) -> "TorchDraws":
+        """The source of the next refresh (JAX: ``key, subkey = split(key)``)."""
+        return TorchDraws(self.seed, self.device, self.refreshes + 1)
+
+    def leaf(self, leaf_idx: int, batch_shape: Tuple[int, ...],
+             sketch: Optional[Tuple[int, int]], gumbel_len: Optional[int],
+             device=None) -> proj_lib.LeafDraws:
+        nb = 1
+        for s in batch_shape:
+            nb *= s
+        mix = (self.seed * 0x9E3779B1 + self.refreshes * 0x85EBCA77
+               + (leaf_idx + 1) * 0xC2B2AE3D) % (2**63 - 1)
+        dev = torch.device(device) if device is not None else self.device
+        gen = torch.Generator(device=dev).manual_seed(mix)
+        omega = (torch.randn((nb,) + tuple(sketch), generator=gen, device=dev)
+                 if sketch is not None else None)
+        gumbel = (gumbel_noise((nb, gumbel_len), gen, dev)
+                  if gumbel_len is not None else None)
+        return proj_lib.LeafDraws(omega, gumbel)
+
+
+class LowRankOptState(NamedTuple):
+    step: int  # updates applied so far (host int)
+    draws: Any  # the refresh's draw source (TorchDraws)
+    leaves: List[LeafState]  # one per param leaf, in flat order
+    buckets: Tuple[buckets_lib.BucketState, ...] = ()
+
+
+class AuxInfo(NamedTuple):
+    grad_norm: torch.Tensor
+    update_norm: torch.Tensor
+    mean_refresh_overlap: torch.Tensor  # ||P_new^T P_old||_F^2 / r, mean
+
+
+# ---------------------------------------------------------------------------
+# flattening in jax.tree_util's order
+# ---------------------------------------------------------------------------
+
+
+# The walks are module-level functions taking their accumulator as an
+# argument: a nested function that calls itself is a reference cycle, and
+# its closure would keep every leaf (a whole step's gradients) alive until
+# the cyclic garbage collector happens to run.
+
+
+def flatten_with_path(tree: PyTree) -> List[Tuple[str, Any]]:
+    """(path string, leaf) pairs of a nested dict in sorted key order, with
+    ``jax.tree_util.keystr`` paths (``"['blocks']['q_proj']"``)."""
+    out: List[Tuple[str, Any]] = []
+    _walk(tree, "", out)
+    return out
+
+
+def _walk(node, prefix: str, out: List[Tuple[str, Any]]) -> None:
+    if isinstance(node, dict):
+        for k in sorted(node):
+            _walk(node[k], f"{prefix}[{k!r}]", out)
+    else:
+        out.append((prefix, node))
+
+
+def tree_leaves(tree: PyTree) -> List[Any]:
+    return [leaf for _, leaf in flatten_with_path(tree)]
+
+
+def tree_unflatten(like: PyTree, leaves: Sequence[Any]) -> PyTree:
+    """A nested dict shaped like ``like`` holding ``leaves`` in flat order."""
+    it = iter(leaves)
+    out = _build(like, it)
+    if next(it, None) is not None:
+        raise ValueError("more leaves than the tree has")
+    return out
+
+
+def _build(node, it):
+    if isinstance(node, dict):
+        return {k: _build(node[k], it) for k in sorted(node)}
+    return next(it)
+
+
+# ---------------------------------------------------------------------------
+# the static plan
+# ---------------------------------------------------------------------------
+
+
+def default_lowrank_filter(path: str, shape: Tuple[int, ...], cfg: OptimizerConfig) -> bool:
+    if cfg.method == "full":
+        return False
+    if len(shape) < 2:
+        return False
+    if min(shape[-2], shape[-1]) < cfg.min_dim:
+        return False
+    low = path.lower()
+    return not any(pat in low for pat in cfg.exclude)
+
+
+def build_specs(
+    params: PyTree,
+    cfg: OptimizerConfig,
+    lowrank_filter: Optional[Callable[[str, Tuple[int, ...]], bool]] = None,
+) -> List[LeafSpec]:
+    """Static plan: one LeafSpec per param leaf, in flat order."""
+    specs = []
+    n_lowrank = 0
+    for ps, leaf in flatten_with_path(params):
+        shape = tuple(leaf.shape)
+        if lowrank_filter is not None:
+            lowrank = lowrank_filter(ps, shape)
+        else:
+            lowrank = default_lowrank_filter(ps, shape, cfg)
+        if lowrank:
+            side = proj_lib.projection_side(shape)
+            group = n_lowrank % max(cfg.refresh_groups, 1)
+            base_rank = cfg.group_ranks[group] if cfg.group_ranks else cfg.rank
+            rank = min(base_rank, proj_lib.projector_dim(shape))
+            n_lowrank += 1
+        else:
+            side, rank, group = "left", 0, 0
+        specs.append(LeafSpec(ps, lowrank, side, rank, group))
+    return specs
+
+
+class LowRankOptimizer(NamedTuple):
+    """(init, update, specs).  ``bucket_plan`` is the static bucketing
+    (None for the reference engine); ``state_layout`` is non-None iff the
+    state is stored bucket-native."""
+
+    init: Callable[[PyTree], LowRankOptState]
+    update: Callable[..., Tuple[PyTree, LowRankOptState, AuxInfo]]
+    specs: List[LeafSpec]
+    config: OptimizerConfig
+    bucket_plan: Optional[buckets_lib.BucketPlan] = None
+    state_layout: Optional[buckets_lib.StateLayout] = None
+
+
+def _placeholder(device) -> LeafState:
+    return LeafState(projector=torch.zeros((), dtype=torch.float32, device=device), inner=None)
+
+
+def _global_norm(leaves: Sequence[torch.Tensor]) -> torch.Tensor:
+    return torch.sqrt(sum(torch.sum(torch.square(x.float())) for x in leaves))
+
+
+def _unsupported(cfg: OptimizerConfig) -> None:
+    if cfg.method not in ("full",) + proj_lib.METHODS:
+        raise ValueError(f"unknown method {cfg.method!r}")
+    if cfg.method not in ("full",) + proj_lib.PORTED_METHODS:
+        raise NotImplementedError(
+            f"projector method {cfg.method!r} is not yet ported to repro_torch "
+            f"(remaining projectors, {_LATER} item 7)"
+        )
+    for flag, what, item in (
+        (cfg.fira, "Fira", 7), (cfg.state_sharding, "ZeRO state sharding", 11),
+        (cfg.rank_schedule, "rank schedules", 10), (cfg.group_ranks, "group_ranks", 10),
+    ):
+        if flag:
+            raise NotImplementedError(
+                f"{what} is not yet ported to repro_torch ({_LATER} item {item})"
+            )
+
+
+def make_lowrank_optimizer(
+    cfg: OptimizerConfig,
+    params_like: PyTree,
+    lowrank_filter: Optional[Callable[[str, Tuple[int, ...]], bool]] = None,
+) -> LowRankOptimizer:
+    """Build the optimizer for a concrete parameter structure."""
+    _unsupported(cfg)
+    if cfg.momentum_carry not in ("keep", "reset", "reproject"):
+        raise ValueError(f"unknown momentum_carry {cfg.momentum_carry!r}")
+    if cfg.engine not in ("reference", "bucketed"):
+        raise ValueError(f"unknown engine {cfg.engine!r}")
+    if cfg.rank < 1:
+        raise ValueError(f"rank must be >= 1, got {cfg.rank}")
+    specs = build_specs(params_like, cfg, lowrank_filter)
+    inner = cfg.make_inner()
+    pcfg = cfg.projector_config()
+    flat_like = tree_leaves(params_like)
+    groups = max(cfg.refresh_groups, 1)
+
+    bucket_plan = None
+    state_layout = None
+    if cfg.engine == "bucketed":
+        bucket_plan = buckets_lib.build_bucket_plan(specs, flat_like)
+        if bucket_plan.buckets and inner.fused_eligible:
+            state_layout = buckets_lib.build_state_layout(
+                bucket_plan, specs, flat_like, inner_name=cfg.inner,
+                projector_dtype=cfg.projector_dtype,
+            )
+
+    def init(params: PyTree) -> LowRankOptState:
+        flat = tree_leaves(params)
+        device = flat[0].device
+        leaves = []
+        for spec, p in zip(specs, flat):
+            if spec.lowrank and state_layout is not None:
+                leaves.append(_placeholder(device))  # lives in the stacks
+            elif spec.lowrank:
+                lead = tuple(p.shape[:-2])
+                d = min(p.shape[-2], p.shape[-1])
+                eye = torch.eye(d, spec.rank, dtype=cfg.projector_dtype, device=device)
+                proj = eye.expand(lead + (d, spec.rank)).clone()
+                if spec.side == "left":
+                    rshape = lead + (spec.rank, p.shape[-1])
+                else:
+                    rshape = lead + (p.shape[-2], spec.rank)
+                z = torch.zeros(rshape, dtype=torch.float32, device=device)
+                leaves.append(LeafState(projector=proj, inner=inner.init(z)))
+            else:
+                leaves.append(LeafState(
+                    projector=torch.zeros((), dtype=torch.float32, device=device),
+                    inner=inner.init(p),
+                ))
+        bucket_states = (
+            buckets_lib.init_bucket_states(state_layout, device)
+            if state_layout is not None else ()
+        )
+        return LowRankOptState(
+            step=0, draws=TorchDraws(cfg.seed, device), leaves=leaves,
+            buckets=bucket_states,
+        )
+
+    def _lr_at(step: int) -> float:
+        if cfg.lr_schedule is not None:
+            return float(cfg.lr_schedule(step))
+        return float(cfg.lr)
+
+    def _leaf_draws(draws, i: int, spec: LeafSpec, g: torch.Tensor) -> proj_lib.LeafDraws:
+        shape = tuple(g.shape)
+        d = min(shape[-2], shape[-1])
+        n = max(shape[-2], shape[-1])
+        sketch, glen = proj_lib.draw_shapes(d, n, pcfg, spec.rank)
+        return draws.leaf(i, shape[:-2], sketch, glen, g.device)
+
+    def _carry(spec: LeafSpec, st: LeafState, new_p: torch.Tensor) -> Tuple[LeafState, torch.Tensor]:
+        old_p = st.projector
+        c = torch.einsum("...dn,...do->...no", new_p, old_p)
+        overlap = torch.mean(torch.sum(c.float() ** 2, dim=(-2, -1)) / spec.rank)
+        inner_state = st.inner
+        if cfg.momentum_carry == "reset":
+            inner_state = type(inner_state)(*[torch.zeros_like(x) for x in inner_state])
+        elif cfg.momentum_carry == "reproject":
+            m = inner_state.m
+            if spec.side == "left":
+                m2 = torch.einsum("...no,...ok->...nk", c, m)
+            else:
+                m2 = torch.einsum("...ko,...no->...kn", m, c)
+            inner_state = inner_state._replace(m=m2.to(m.dtype))
+        return LeafState(projector=new_p, inner=inner_state), overlap
+
+    def update(
+        grads: PyTree,
+        state: LowRankOptState,
+        params: PyTree,
+        *,
+        refresh: bool,
+        group: int = 0,
+        projected: bool = False,
+        apply: bool = False,
+        skip_nonfinite: bool = False,
+        shard_axes=None,
+    ) -> Tuple[PyTree, LowRankOptState, AuxInfo]:
+        """Returns (updates, or new params with ``apply=True``, new state,
+        aux).  ``state`` is not modified."""
+        if projected or skip_nonfinite or shard_axes is not None:
+            raise NotImplementedError(
+                "projected gradients, the skip-step gate and sharded state are "
+                f"not yet ported to repro_torch ({_LATER} items 9 and 11)"
+            )
+        if state_layout is not None and not state.buckets:
+            raise ValueError("bucket-native optimizer got a per-leaf state")
+        step = state.step + 1  # 1-indexed for bias correction
+        lr = _lr_at(state.step)
+        flat_g = tree_leaves(grads)
+        flat_p = tree_leaves(params)
+        gnorm = _global_norm(flat_g)
+        if cfg.grad_clip_norm and cfg.grad_clip_norm > 0:
+            scale = torch.clamp(cfg.grad_clip_norm / (gnorm + 1e-12), max=1.0)
+            flat_g = [g * scale.to(g.dtype) for g in flat_g]
+        draws = state.draws.split() if refresh else state.draws
+        g_now = group % groups
+
+        overlaps: List[torch.Tensor] = []
+        fused: Dict[int, torch.Tensor] = {}
+        new_buckets = state.buckets
+        bucket_norm_sq: List[torch.Tensor] = []
+        if state_layout is not None:
+            if refresh:
+                def _refresh_fn(g, leaf_draws, old_p, spec):
+                    return proj_lib.refresh_projector(
+                        g, leaf_draws, old_p, pcfg, side=spec.side, rank=spec.rank
+                    )
+
+                stacked_fn = None
+                if proj_lib.batched_refresh_supported(pcfg):
+                    def stacked_fn(gs, leaf_draws, old_ps, rank):
+                        return proj_lib.refresh_projector_stacked(
+                            gs, leaf_draws, old_ps, pcfg, rank=rank
+                        )
+
+                new_buckets, bucket_overlaps = buckets_lib.bucketed_refresh(
+                    state_layout, state.buckets, specs, flat_g, draws,
+                    pcfg, _refresh_fn, group=g_now,
+                    momentum_carry=cfg.momentum_carry, stacked_refresh_fn=stacked_fn,
+                )
+                overlaps.extend(bucket_overlaps)
+            fused, new_buckets, bucket_norm_sq = buckets_lib.bucketed_update(
+                bucket_plan, cfg, new_buckets, flat_g, flat_p, step, lr, apply=apply,
+            )
+
+        flat_out: List[torch.Tensor] = []
+        norm_sq: List[torch.Tensor] = []
+        new_leaves: List[LeafState] = []
+        for i, (spec, st, g, p) in enumerate(zip(specs, state.leaves, flat_g, flat_p)):
+            if i in fused:
+                flat_out.append(fused[i])
+                new_leaves.append(st)
+                continue
+            if not spec.lowrank:
+                direction, inner_state = inner.update(g, st.inner, step)
+                upd = -lr * direction
+                if cfg.weight_decay:
+                    upd = upd - lr * cfg.weight_decay * p.float()
+                upd = upd.to(p.dtype)
+                norm_sq.append(torch.sum(torch.square(upd.float())))
+                flat_out.append((p + upd) if apply else upd)
+                new_leaves.append(LeafState(st.projector, inner_state))
+                continue
+            if refresh and spec.group == g_now:
+                new_p = proj_lib.refresh_projector(
+                    g, _leaf_draws(draws, i, spec, g), st.projector, pcfg,
+                    side=spec.side, rank=spec.rank,
+                ).to(st.projector.dtype)
+                st, ov = _carry(spec, st, new_p)
+                overlaps.append(ov)
+            proj = st.projector
+            r_g = proj_lib.project(g.float(), proj, spec.side)
+            direction, inner_state = inner.update(r_g, st.inner, step)
+            full_dir = proj_lib.backproject(direction.to(proj.dtype), proj, spec.side)
+            upd = -lr * cfg.alpha * full_dir.float()
+            if cfg.weight_decay:
+                upd = upd - lr * cfg.weight_decay * p.float()
+            upd = upd.to(p.dtype)
+            norm_sq.append(torch.sum(torch.square(upd.float())))
+            flat_out.append((p + upd) if apply else upd)
+            new_leaves.append(LeafState(proj, inner_state))
+
+        zero = torch.zeros((), dtype=torch.float32, device=gnorm.device)
+        unorm = torch.sqrt(sum(norm_sq, zero) + sum(bucket_norm_sq, zero))
+        mean_overlap = torch.mean(torch.stack(overlaps)) if overlaps else zero
+        new_state = LowRankOptState(
+            step=step, draws=draws, leaves=new_leaves, buckets=new_buckets
+        )
+        aux = AuxInfo(grad_norm=gnorm, update_norm=unorm, mean_refresh_overlap=mean_overlap)
+        return tree_unflatten(params, flat_out), new_state, aux
+
+    return LowRankOptimizer(
+        init=init, update=update, specs=specs, config=cfg,
+        bucket_plan=bucket_plan, state_layout=state_layout,
+    )
+

@@ -41,6 +41,18 @@ SIGNATURES = {
         "repro_paged_decode_attention",
         [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P],
     ),
+    "galore_project": (
+        "repro_galore_project_batched",
+        [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+    ),
+    "lowrank_adam": (
+        "repro_lowrank_adam_update_batched",
+        [_P] * 9 + [_I] * 5 + [_F] * 9 + [_P],
+    ),
+    "power_iter": (
+        "repro_power_iter_batched",
+        [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    ),
 }
 
 _loaded: Dict[str, ctypes.CDLL] = {}

@@ -2,14 +2,16 @@
 
 Replaces the TPU kernel ``src/repro/kernels/flash_attention/kernel.py::
 flash_attention_fwd``.  The source's header says how the kernel is laid out
-and what bounds it on the H100 (operations, at the serving shapes).  Only
-the forward is ported: serving needs no backward.
+and what bounds it on the H100 (operations, at the serving shapes).  The
+kernel is the forward; ``flash_attention_autograd`` adds the gradient by
+recomputing the plain version, as the JAX package's ``custom_vjp`` does.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import build, counters
+from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
 NAME = "flash_attention_fwd"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -57,3 +59,37 @@ def flash_attention_fwd(
     build.check(err, NAME)
     counters.LAUNCHES[NAME] += 1
     return out
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Forward: the CUDA kernel.  Backward: autograd through
+    ``flash_attention_ref`` recomputed from the saved q, k, v, exactly as
+    the JAX package's ``custom_vjp`` does
+    (``src/repro/kernels/flash_attention/kernel.py:198-208``): it has no
+    backward kernel either."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, q_offset):
+        ctx.save_for_backward(q, k, v)
+        ctx.kw = dict(causal=causal, window=window, q_offset=q_offset)
+        return flash_attention_fwd(q, k, v, **ctx.kw)
+
+    @staticmethod
+    def backward(ctx, g):
+        saved = ctx.saved_tensors
+        with torch.enable_grad():
+            leaves = [t.detach().requires_grad_(need)
+                      for t, need in zip(saved, ctx.needs_input_grad[:3])]
+            out = flash_attention_ref(*leaves, **ctx.kw)
+            wanted = [t for t in leaves if t.requires_grad]
+            got = iter(torch.autograd.grad(out, wanted, g))
+        grads = [next(got) if t.requires_grad else None for t in leaves]
+        return (*grads, None, None, None)
+
+
+def flash_attention_autograd(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+    causal: bool = True, window: int = 0, q_offset: int = 0,
+) -> torch.Tensor:
+    """``flash_attention_fwd`` with a gradient (see ``_FlashAttention``)."""
+    return _FlashAttention.apply(q, k, v, causal, window, q_offset)

@@ -1,7 +1,8 @@
 """Flash-attention dispatch (``models/attention.py`` routes prefill here).
 
-CUDA tensors go to the hand-written kernel, CPU tensors to the plain
-version.  The position arguments keep the models' signature; like the TPU
+CUDA tensors go to the hand-written kernel, through its autograd wrapper
+where a gradient is wanted (training), CPU tensors to the plain version.
+The position arguments keep the models' signature; like the TPU
 kernel (``src/repro/kernels/flash_attention/ops.py:5-7``), both paths take
 positions to be ``arange``: contiguous self-attention, the only call site.
 """
@@ -26,4 +27,6 @@ def flash_attention(
     del q_positions, kv_positions  # contiguous by contract (see above)
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, causal=causal, window=window)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return kernel_lib.flash_attention_autograd(q, k, v, causal=causal, window=window)
     return kernel_lib.flash_attention_fwd(q, k, v, causal=causal, window=window)

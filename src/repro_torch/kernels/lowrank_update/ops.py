@@ -1,0 +1,76 @@
+"""Dispatch of the bucketed engine's primitives, from
+``src/repro/kernels/lowrank_update/ops.py``: CUDA tensors go to the
+hand-written kernels, CPU tensors to the plain versions.  Every function
+takes stacked (B, d, n) / (B, d, r) / (B, r, n) operands in the canonical
+side='left' orientation (core/buckets.py transposes side='right' leaves
+on the way in and out).
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from repro_torch.kernels.galore_project import kernel as project_kernel
+from repro_torch.kernels.galore_project.ref import project_ref
+from repro_torch.kernels.lowrank_update import kernel as update_kernel
+from repro_torch.kernels.lowrank_update import ref as ref_lib
+
+
+def bucketed_project(g: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """R = P^T G: g (B, d, n), p (B, d, r) -> (B, r, n) f32."""
+    if g.device.type == "cpu":
+        return project_ref(g, p)
+    return project_kernel.galore_project_batched(g.contiguous(), p.contiguous())
+
+
+def bucketed_adam_update(
+    w: torch.Tensor,  # (B, d, n)
+    p: torch.Tensor,  # (B, d, r)
+    r_g: torch.Tensor,  # (B, r, n)
+    m: torch.Tensor,  # (B, r, n)
+    v: torch.Tensor,  # (B, r, n)
+    step: int,
+    lr_alpha: float,
+    lr_wd: float = 0.0,
+    *,
+    b1: float = 0.9,
+    b2: float = 0.999,
+    eps: float = 1e-8,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """W' = (1-lr_wd) W - lr_alpha P@N, plus new moments, one call."""
+    if w.device.type == "cpu":
+        return ref_lib.lowrank_adam_update_ref(
+            w, p, r_g, m, v, b1=b1, b2=b2, eps=eps, step=step,
+            lr_alpha=lr_alpha, lr_wd=lr_wd,
+        )
+    return update_kernel.lowrank_adam_update_batched(
+        w.contiguous(), p.contiguous(), r_g.contiguous(), m.contiguous(),
+        v.contiguous(), step, lr_alpha, lr_wd, b1=b1, b2=b2, eps=eps,
+    )
+
+
+def bucketed_msgd_update(
+    w: torch.Tensor,
+    p: torch.Tensor,
+    r_g: torch.Tensor,
+    m: torch.Tensor,
+    lr_alpha: float,
+    lr_wd: float = 0.0,
+    *,
+    b1: float = 0.9,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """MSGD's fused update: the plain version on the CPU.  Its Hopper kernel
+    (``lowrank_msgd_update_batched``) comes with the slice of the other
+    inner optimizers (ROADMAP queue 1 item 7, queue 2 row 6); the card
+    does not fall back to the plain version meanwhile."""
+    if w.device.type != "cpu":
+        raise NotImplementedError(
+            "the bucketed msgd update has no CUDA kernel yet "
+            "(lowrank_msgd_update_batched comes with the remaining-inners "
+            "slice, ROADMAP queue 1 item 7); use inner='adam' or the "
+            "reference engine on the card"
+        )
+    return ref_lib.lowrank_msgd_update_ref(
+        w, p, r_g, m, b1=b1, lr_alpha=lr_alpha, lr_wd=lr_wd
+    )

@@ -21,6 +21,7 @@ import functools
 import torch
 
 from repro_torch.kernels import counters
+from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
 
 NAME = "rmsnorm"
 
@@ -73,3 +74,31 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5) -> torch.Te
         )
     counters.LAUNCHES[NAME] += 1
     return y
+
+
+class _RMSNorm(torch.autograd.Function):
+    """Forward: the Triton kernel.  Backward: autograd through the plain
+    version, recomputed from the saved inputs.  The JAX package has no
+    backward kernel for RMSNorm either; its gradient is XLA's."""
+
+    @staticmethod
+    def forward(ctx, x, scale, eps):
+        ctx.save_for_backward(x, scale)
+        ctx.eps = eps
+        return rmsnorm(x, scale, eps)
+
+    @staticmethod
+    def backward(ctx, gy):
+        x, scale = ctx.saved_tensors
+        with torch.enable_grad():
+            xd = x.detach().requires_grad_(ctx.needs_input_grad[0])
+            sd = scale.detach().requires_grad_(ctx.needs_input_grad[1])
+            wanted = [t for t in (xd, sd) if t.requires_grad]
+            got = iter(torch.autograd.grad(rmsnorm_ref(xd, sd, ctx.eps), wanted, gy))
+        return (next(got) if xd.requires_grad else None,
+                next(got) if sd.requires_grad else None, None)
+
+
+def rmsnorm_autograd(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """``rmsnorm`` with a gradient (see ``_RMSNorm``)."""
+    return _RMSNorm.apply(x, scale, eps)

@@ -1,5 +1,7 @@
-"""RMSNorm dispatch: the Triton kernel for CUDA tensors, the plain version
-for CPU tensors (``models/layers.rmsnorm`` routes through here)."""
+"""RMSNorm dispatch: the Triton kernel for CUDA tensors, through its
+autograd wrapper where a gradient is wanted (training; the wrapper costs
+host time per call that serving does not pay), the plain version for CPU
+tensors (``models/layers.rmsnorm`` routes through here)."""
 from __future__ import annotations
 
 import torch
@@ -11,4 +13,6 @@ from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     if x.device.type == "cpu":
         return rmsnorm_ref(x, scale, eps)
+    if torch.is_grad_enabled() and (x.requires_grad or scale.requires_grad):
+        return kernel_lib.rmsnorm_autograd(x, scale, eps)
     return kernel_lib.rmsnorm(x, scale, eps)

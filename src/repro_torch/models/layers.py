@@ -1,15 +1,15 @@
 """Shared layers, from ``src/repro/models/layers.py``: plain functions over
 parameter dicts whose names follow the JAX tree (``*_proj``, ``embed``,
-``lm_head``, ``*_norm``, ``*_bias``).  ``chunked_cross_entropy`` comes with
-the training slice.
+``lm_head``, ``*_norm``, ``*_bias``).
 """
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional, Sequence
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.rmsnorm import ops as rmsnorm_ops
@@ -116,3 +116,45 @@ def apply_mlp(params: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor
     u = x @ params["up_proj"].to(dt)
     h = torch.square(torch.relu(u.float())).to(dt)
     return h @ params["down_proj"].to(dt)
+
+
+# ---------------------------------------------------------------------------
+# Chunked cross entropy (memory-efficient loss for huge vocab x long seq)
+# ---------------------------------------------------------------------------
+
+
+def _xent_chunk(hc: torch.Tensor, lm_head: torch.Tensor, yc: torch.Tensor):
+    """(summed NLL, token count) of one sequence chunk; labels < 0 masked."""
+    logits = (hc @ lm_head.to(hc.dtype)).float()
+    logz = torch.logsumexp(logits, dim=-1)
+    picked = torch.gather(logits, -1, yc.clamp(min=0).long()[..., None])[..., 0]
+    mask = (yc >= 0).float()
+    return torch.sum((logz - picked) * mask), torch.sum(mask)
+
+
+def chunked_cross_entropy(
+    hidden: torch.Tensor,  # (B, S, D)
+    lm_head: torch.Tensor,  # (D, V)
+    labels: torch.Tensor,  # (B, S) int; -1 = masked
+    chunk: int = 2048,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Mean NLL over non-masked tokens without materializing (B, S, V)
+    logits: the sequence runs in chunks (the batch dim is kept), logits are
+    f32, and each chunk is recomputed in backward (``checkpoint``) instead
+    of storing its O(B x chunk x V) residuals.  Returns (mean_loss,
+    n_tokens), as ``src/repro/models/layers.py:132-172``; the ragged last
+    chunk is sliced rather than padded with masked labels (same sums)."""
+    s = hidden.shape[1]
+    cs = min(chunk, s)
+    total = hidden.new_zeros((), dtype=torch.float32)
+    count = hidden.new_zeros((), dtype=torch.float32)
+    for start in range(0, s, cs):
+        hc = hidden[:, start:start + cs]
+        yc = labels[:, start:start + cs]
+        if torch.is_grad_enabled():
+            nll, n = checkpoint(_xent_chunk, hc, lm_head, yc, use_reentrant=False)
+        else:
+            nll, n = _xent_chunk(hc, lm_head, yc)
+        total = total + nll
+        count = count + n
+    return total / torch.clamp(count, min=1.0), count

@@ -4,8 +4,9 @@
     params = model.init(torch.Generator(model.device).manual_seed(0))
     logits, cache = model.prefill(params, {"tokens": ...})
     logits, cache = model.decode(params, cache, {"token": ...})
+    loss, metrics = model.loss(params, {"tokens": ..., "labels": ...})
 
-Only ``family="dense"`` is ported; ``loss`` comes with the training slice.
+Only ``family="dense"`` is ported.
 """
 from __future__ import annotations
 
@@ -26,6 +27,7 @@ class Model(NamedTuple):
     init: Callable[[torch.Generator], Any]
     prefill: Callable[..., Any]  # (params, batch, capacity=None)
     decode: Callable[..., Any]  # (params, cache, batch)
+    loss: Callable[..., Any]  # (params, batch) -> (loss, metrics)
 
 
 def build_model(cfg: ModelConfig, device: DeviceLike = "cuda") -> Model:
@@ -44,4 +46,5 @@ def build_model(cfg: ModelConfig, device: DeviceLike = "cuda") -> Model:
             p, cfg, b["tokens"], capacity=capacity or b["tokens"].shape[1]
         ),
         decode=lambda p, c, b: tfm.decode_step(p, cfg, c, b["token"]),
+        loss=lambda p, b: tfm.loss_fn(p, cfg, b),
     )

@@ -3,13 +3,16 @@ granite, nemotron), from ``src/repro/models/transformer.py``.
 
 Parameters are plain dicts with the JAX tree's names and shapes; block
 leaves carry a leading (L,) axis, and the layers run as a Python loop over
-views of them.  ``loss_fn`` comes with the training slice.
+views of them.  Under ``cfg.remat == "block"`` each block is recomputed in
+backward (``torch.utils.checkpoint``), as the JAX scan body is
+(``transformer.py:232-233``).
 """
 from __future__ import annotations
 
 from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
@@ -130,6 +133,19 @@ def layer_params(blocks: Params, i: int) -> Params:
     }
 
 
+def unbind_layers(blocks: Params, n_layers: int) -> List[Params]:
+    """Every layer's views of the stacked block leaves, one ``unbind`` per
+    leaf.  Its backward stacks the L gradient slices once; indexing each
+    layer (``layer_params``) would instead add up L full-size, zero-padded
+    (L, ...) gradients per leaf in backward."""
+    out: List[Params] = [{} for _ in range(n_layers)]
+    for k, v in blocks.items():
+        parts = unbind_layers(v, n_layers) if isinstance(v, dict) else torch.unbind(v, 0)
+        for i in range(n_layers):
+            out[i][k] = parts[i]
+    return out
+
+
 # ---------------------------------------------------------------------------
 # Attention sub-layer and dense block
 # ---------------------------------------------------------------------------
@@ -218,16 +234,34 @@ def forward_hidden(
     positions = torch.arange(s, dtype=torch.int32, device=h.device).expand(b, s)
     ks: List[torch.Tensor] = []
     vs: List[torch.Tensor] = []
-    for i in range(cfg.n_layers):
-        h, (k, v) = dense_block(
-            layer_params(params["blocks"], i), h, cfg, positions, positions
-        )
+    remat = cfg.remat == "block" and torch.is_grad_enabled()
+    for p in unbind_layers(params["blocks"], cfg.n_layers):
+        if remat:
+            h, (k, v) = checkpoint(
+                dense_block, p, h, cfg, positions, positions, use_reentrant=False
+            )
+        else:
+            h, (k, v) = dense_block(p, h, cfg, positions, positions)
         if collect_kv:
             ks.append(k)
             vs.append(v)
     h = L.rmsnorm(h, params["final_norm"], cfg.rms_eps)
     kvs = (torch.stack(ks), torch.stack(vs)) if collect_kv else None
     return h, kvs
+
+
+def loss_fn(
+    params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor]
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Next-token loss of a dense LM, from ``transformer.py:270-287``:
+    (loss, {"loss", "aux", "tokens"}); labels of -1 carry no loss.  Dense
+    models have no auxiliary loss, so ``aux`` is 0."""
+    h, _ = forward_hidden(params, cfg, batch["tokens"])
+    loss, n_tok = L.chunked_cross_entropy(
+        h, lm_head_matrix(params, cfg), batch["labels"], cfg.loss_chunk
+    )
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    return loss, {"loss": loss, "aux": aux, "tokens": n_tok}
 
 
 # ---------------------------------------------------------------------------

@@ -7,19 +7,33 @@ there, skip the repo's conftest (it imports JAX):
     PYTHONPATH=src python -m pytest -q -p no:cacheprovider --noconftest -m gpu tests/test_torch_gpu.py
 
 The shapes and inputs here are shared with tests/test_torch_kernels.py,
-which holds the plain versions against JAX on the CPU.
+which holds the plain versions against JAX on the CPU (the optimizer
+kernels' plain versions: tests/test_torch_optim_kernels.py).  The autograd
+cases hold the gradients through the RMSNorm and flash wrappers (kernel
+forward, plain-version recompute backward) against autograd through the
+plain versions.
 """
 import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels.flash_attention.kernel import flash_attention_fwd
+from repro_torch.kernels.flash_attention.kernel import (
+    flash_attention_autograd,
+    flash_attention_fwd,
+)
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 from repro_torch.kernels.flash_attention_decode.kernel import (
     paged_decode_attention_kernel,
 )
 from repro_torch.kernels.flash_attention_decode.ref import paged_decode_attention_ref
+from repro_torch.kernels.galore_project.kernel import galore_project_batched
+from repro_torch.kernels.galore_project.ref import project_ref
+from repro_torch.kernels.lowrank_update.kernel import lowrank_adam_update_batched
+from repro_torch.kernels.lowrank_update.ref import lowrank_adam_update_ref
+from repro_torch.kernels.power_iter.kernel import power_iter_batched
+from repro_torch.kernels.power_iter.ref import power_iter_ref
 from repro_torch.kernels.rmsnorm.kernel import rmsnorm as rmsnorm_kernel
+from repro_torch.kernels.rmsnorm.kernel import rmsnorm_autograd
 from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
 
 TORCH = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -131,3 +145,127 @@ def test_wrappers_count_launches_and_reject_bad_inputs_on_gpu():
         flash_attention_fwd(q.transpose(1, 2), k, k)
     assert counters.snapshot() == {"flash_attention_fwd": 1, "rmsnorm": 1}
 
+
+
+# (B, d, n, r): ragged edges on every tile axis, 128-aligned, and r > 128
+OPT_SHAPES = {"ragged": (3, 40, 72, 8), "aligned": (2, 256, 384, 64), "wide_r": (1, 300, 130, 160)}
+
+
+def _opt_inputs(seed, shape, dtype):
+    b, d, n, r = shape
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    w = (0.1 * torch.randn(b, d, n, generator=g, device="cuda")).to(TORCH[dtype])
+    p = torch.randn(b, d, r, generator=g, device="cuda") / d**0.5
+    rg = 0.1 * torch.randn(b, r, n, generator=g, device="cuda")
+    m = 0.1 * torch.randn(b, r, n, generator=g, device="cuda")
+    v = (0.01 * torch.randn(b, r, n, generator=g, device="cuda")) ** 2
+    return w, p, rg, m, v
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", list(OPT_SHAPES))
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_project_kernel_matches_plain_on_gpu(shape, dtype):
+    _require_card()
+    g, p, *_ = _opt_inputs(2, OPT_SHAPES[shape], dtype)
+    got = galore_project_batched(g, p)
+    torch.testing.assert_close(got, project_ref(g, p), **TOL["float32"])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", list(OPT_SHAPES))
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("step,lr_wd", [(1, 0.0), (9, 1e-3)])
+def test_adam_update_kernel_matches_plain_on_gpu(shape, dtype, step, lr_wd):
+    _require_card()
+    w, p, rg, m, v = _opt_inputs(3, OPT_SHAPES[shape], dtype)
+    got = lowrank_adam_update_batched(w, p, rg, m, v, step, 0.0025, lr_wd)
+    want = lowrank_adam_update_ref(w, p, rg, m, v, b1=0.9, b2=0.999, eps=1e-8,
+                                   step=step, lr_alpha=0.0025, lr_wd=lr_wd)
+    assert got[0].dtype == w.dtype
+    torch.testing.assert_close(got[0].float(), want[0].float(), **TOL[dtype])
+    for a, b in zip(got[1:], want[1:]):
+        torch.testing.assert_close(a, b, **TOL["float32"])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(2, 40, 72, 12), (2, 256, 640, 40), (1, 300, 130, 130)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_power_iter_kernel_matches_plain_on_gpu(shape, dtype):
+    _require_card()
+    b, m, n, kp = shape
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    g = (0.1 * torch.randn(b, m, n, generator=gen, device="cuda")).to(TORCH[dtype])
+    q = torch.linalg.qr(torch.randn(b, m, kp, generator=gen, device="cuda"))[0].contiguous()
+    got = power_iter_batched(g, q)
+    want = power_iter_ref(g, q)
+    # f32 sums over m, then n, in other orders: relative to the output's scale
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5 * float(want.abs().max()))
+
+
+@pytest.mark.gpu
+def test_optimizer_wrappers_count_launches_and_reject_bad_inputs_on_gpu():
+    _require_card()
+    from repro_torch.kernels import counters
+
+    w, p, rg, m, v = _opt_inputs(5, OPT_SHAPES["ragged"], "float32")
+    counters.reset()
+    galore_project_batched(w, p)
+    power_iter_batched(w, p)
+    lowrank_adam_update_batched(w, p, rg, m, v, 1, 0.1)
+    want = {"galore_project_batched": 1, "power_iter_batched": 1,
+            "lowrank_adam_update_batched": 1}
+    assert counters.snapshot() == want
+    with pytest.raises(TypeError):
+        galore_project_batched(w, p.bfloat16())
+    with pytest.raises(ValueError, match="contiguous"):
+        power_iter_batched(w.transpose(1, 2).contiguous().transpose(1, 2), p)
+    with pytest.raises(ValueError, match="mismatched"):
+        lowrank_adam_update_batched(w, p, rg[:, :4], m, v, 1, 0.1)
+    assert counters.snapshot() == want
+
+
+# ---------------------------------------------------------------------------
+# on the card: gradients through the kernel wrappers
+# ---------------------------------------------------------------------------
+
+
+def _grads(fn, inputs, weight):
+    leaves = [t.detach().clone().requires_grad_(True) for t in inputs]
+    out = fn(*leaves)
+    (out.float() * weight).sum().backward()
+    return out.detach(), [t.grad for t in leaves]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rmsnorm_autograd_matches_plain_on_gpu(dtype):
+    _require_card()
+    g = torch.Generator(device="cuda").manual_seed(6)
+    x = torch.randn(3, 37, 512, generator=g, device="cuda").to(TORCH[dtype])
+    scale = 1 + 0.1 * torch.randn(512, generator=g, device="cuda")
+    weight = torch.randn(3, 37, 512, generator=g, device="cuda")
+    out_k, grads_k = _grads(lambda a, s: rmsnorm_autograd(a, s, 1e-5), (x, scale), weight)
+    out_p, grads_p = _grads(lambda a, s: rmsnorm_ref(a, s, 1e-5), (x, scale), weight)
+    torch.testing.assert_close(out_k.float(), out_p.float(), **TOL[dtype])
+    for a, b in zip(grads_k, grads_p):  # both recompute through the plain version
+        torch.testing.assert_close(a.float(), b.float(), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["gqa_causal", "window", "ragged"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_autograd_matches_plain_on_gpu(case, dtype):
+    _require_card()
+    b, sq, sk, h, kvh, d, causal, window, q_offset = FLASH_CASES[case]
+    g = torch.Generator(device="cuda").manual_seed(7)
+    q = torch.randn(b, sq, h, d, generator=g, device="cuda").to(TORCH[dtype])
+    k = torch.randn(b, sk, kvh, d, generator=g, device="cuda").to(TORCH[dtype])
+    v = torch.randn(b, sk, kvh, d, generator=g, device="cuda").to(TORCH[dtype])
+    weight = torch.randn(b, sq, h, d, generator=g, device="cuda")
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    out_k, grads_k = _grads(lambda *a: flash_attention_autograd(*a, **kw), (q, k, v), weight)
+    out_p, grads_p = _grads(lambda *a: flash_attention_ref(*a, **kw), (q, k, v), weight)
+    torch.testing.assert_close(out_k.float(), out_p.float(), **TOL[dtype])
+    for a, b_ in zip(grads_k, grads_p):  # the same plain recompute on both sides
+        torch.testing.assert_close(a.float(), b_.float(), rtol=1e-5, atol=1e-5)
