@@ -5,8 +5,8 @@ Both packages keep one parameter layout: nested dicts with the same leaf
 names and shapes, including the scan-stacked ``(L, ...)`` block leaves.
 So a JAX tree turned into numpy (``jax.tree.map(np.asarray, params)``),
 or the ``.npy`` leaves of a JAX checkpoint, map name for name onto the
-port's params, and back.  ``opt_state_from_numpy`` does the same for the
-low-rank optimizer's state.
+port's params, and back.  ``opt_state_from_numpy`` and
+``opt_state_to_numpy`` do the same for the low-rank optimizer's state.
 """
 from __future__ import annotations
 
@@ -52,27 +52,39 @@ def params_to_numpy(params: Dict[str, Any]) -> Tree:
     return conv(params)
 
 
+def _inner_from(name: str, jinner, t):
+    """A per-leaf inner state of the port from one with the same field
+    names (a JAX state read out as numpy, or ``opt_state_to_numpy``'s)."""
+    fm = inner_lib.fused_moments(name, jinner)
+    return inner_lib.fused_state(name, *(None if x is None else t(x) for x in fm))
+
+
 def opt_state_from_numpy(
     optimizer: "lowrank_lib.LowRankOptimizer", state: Any, device: DeviceLike = "cuda"
 ) -> "lowrank_lib.LowRankOptState":
     """A JAX ``LowRankOptState`` read out as numpy
-    (``jax.tree_util.tree_map(np.asarray, state)``) -> the port's state for
-    ``optimizer`` (built on the same params and config).
+    (``jax.tree_util.tree_map(np.asarray, state)``), or the port's own from
+    ``opt_state_to_numpy`` -> the port's state for ``optimizer`` (built on
+    the same params and config), bit for bit.
 
     Carried: ``step``; every per-leaf ``LeafState`` that holds data (the
-    Adam or MSGD state of full-rank leaves, and projector and moments of
+    inner state of full-rank leaves, and projector and inner state of
     low-rank leaves on the reference engine); each bucket's stacked
-    (projector, m, v).  The JAX state's ``key`` cannot be carried (the port
-    draws with torch): the new state gets a fresh ``TorchDraws`` from the
-    config's seed, which a caller may replace."""
+    ``BucketState``.  Inner states keep their dtypes: f32 moments,
+    adam_mini's per-row v, adam8bit's uint8 codes and f32 scales.  The JAX
+    state's ``key`` cannot be carried (the port draws with torch): the new
+    state gets a fresh ``TorchDraws`` from the config's seed, which a
+    caller may replace."""
     dev = resolve_device(device)
     cfg = optimizer.config
 
     def t(x):
         return torch.from_numpy(np.array(x, copy=True)).to(dev)
 
-    # sorted-key walk of the dicts; the per-leaf LeafState tuples are leaves
-    jax_leaves: List[Any] = lowrank_lib.tree_leaves(state.leaves)
+    # JAX's per-leaf states sit in a dict tree (a sorted-key walk puts them
+    # in flat order); opt_state_to_numpy's are a flat list already
+    jax_leaves: List[Any] = (list(state.leaves) if isinstance(state.leaves, list)
+                             else lowrank_lib.tree_leaves(state.leaves))
     if len(jax_leaves) != len(optimizer.specs):
         raise ValueError(
             f"state has {len(jax_leaves)} leaves, the optimizer {len(optimizer.specs)}"
@@ -84,16 +96,10 @@ def opt_state_from_numpy(
             leaves.append(lowrank_lib.LeafState(
                 projector=torch.zeros((), dtype=torch.float32, device=dev), inner=None))
             continue
-        v = getattr(jl.inner, "v", None)
         leaves.append(lowrank_lib.LeafState(
-            projector=t(jl.projector),
-            inner=inner_lib.fused_state(cfg.inner, t(jl.inner.m),
-                                        t(v) if v is not None else None),
-        ))
+            projector=t(jl.projector), inner=_inner_from(cfg.inner, jl.inner, t)))
     bucket_states = tuple(
-        buckets_lib.BucketState(
-            projector=t(b.projector), m=t(b.m), v=t(b.v) if b.v is not None else None
-        )
+        buckets_lib.BucketState(*(None if x is None else t(x) for x in b))
         for b in state.buckets
     )
     if optimizer.state_layout is not None and len(bucket_states) != len(
@@ -106,3 +112,23 @@ def opt_state_from_numpy(
         leaves=leaves,
         buckets=bucket_states,
     )
+
+
+def opt_state_to_numpy(state: "lowrank_lib.LowRankOptState") -> "lowrank_lib.LowRankOptState":
+    """The inverse of ``opt_state_from_numpy``: the port's state with every
+    tensor as a numpy array, dtypes kept (uint8 codes included); per-leaf
+    states stay a flat list, the draw source is dropped (None)."""
+
+    def n(x):
+        return None if x is None else x.detach().cpu().numpy()
+
+    leaves = [
+        lowrank_lib.LeafState(
+            projector=n(leaf.projector),
+            inner=None if leaf.inner is None else type(leaf.inner)(*map(n, leaf.inner)),
+        )
+        for leaf in state.leaves
+    ]
+    buckets = tuple(buckets_lib.BucketState(*map(n, b)) for b in state.buckets)
+    return lowrank_lib.LowRankOptState(step=state.step, draws=None, leaves=leaves,
+                                       buckets=buckets)

@@ -6,9 +6,11 @@
     new_params, state, aux = opt.update(grads, state, params, refresh=True, apply=True)
 
 Names compose  <projector>[-sara]? - <inner>  as in the reference
-(``galore-sara-adam`` is the paper's method).  Names that resolve to a
-projector or inner not yet ported raise ``NotImplementedError`` when the
-optimizer is built.
+(``galore-sara-adam`` is the paper's method; ``-msgd``, ``-adam-mini``
+and ``-adam8bit`` select the other ported inners).  Names that resolve to
+a projector or inner not yet ported (adafactor, Fira, golore, grass,
+online_pca, identity) raise ``NotImplementedError`` when the optimizer is
+built.
 """
 from __future__ import annotations
 

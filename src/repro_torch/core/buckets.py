@@ -8,17 +8,16 @@
     moments (B, r, n) and projectors (B, d, r) of covered leaves live in
     ``BucketState`` buffers, not per leaf;
   * ``bucketed_update`` runs each bucket's hot step as two calls, the
-    batched projection R = P^T G and the fused Adam update that writes W'
-    (``kernels/lowrank_update/ops.py``: the CUDA kernels on the card, the
-    plain versions on the CPU);
+    batched projection R = P^T G and the inner's fused update (Adam, MSGD,
+    Adam-mini or 8-bit Adam) that writes W' (``kernels/lowrank_update/
+    ops.py``: the CUDA kernels on the card, the plain versions on the CPU);
   * ``bucketed_refresh`` refreshes all same-group entries of a bucket as
     one batched chain (randomized SVD), or leaf by leaf (exact SVD).
 
 Draws are inputs: each refreshed leaf asks the state's draw source for its
 sketch and Gumbel noise by its global leaf index, as the JAX key chain
-folds the leaf index (``buckets.py:850-861``).  ZeRO padding, the modeled
-accounting and the quantized layouts (adam_mini, adam8bit) are not ported
-(ROADMAP queue 1 items 7 and 11).
+folds the leaf index (``buckets.py:850-861``).  ZeRO padding and the
+modeled accounting are not ported (ROADMAP queue 1 items 11 and 12).
 """
 from __future__ import annotations
 
@@ -29,6 +28,15 @@ import torch
 from repro_torch.core import inner as inner_lib
 from repro_torch.core.projectors import LeafDraws, draw_shapes
 from repro_torch.kernels.lowrank_update import ops as update_ops
+from repro_torch.kernels.lowrank_update import quantize as qz
+
+# Inner optimizers with a fused update (kernels/lowrank_update).
+FUSED_INNERS = ("adam", "msgd", "adam8bit", "adam_mini")
+
+# Inners whose state layout follows the per-leaf rows (adam_mini's per-row
+# v, adam8bit's per-row-chunk scales), which a bucket mixing left and right
+# leaves cannot stack into one buffer: their plans split by side.
+SIDE_HOMOGENEOUS_INNERS = ("adam8bit", "adam_mini")
 
 
 class BucketEntry(NamedTuple):
@@ -46,7 +54,8 @@ class Bucket(NamedTuple):
     n: int  # free dim after orientation
     rank: int
     entries: Tuple[BucketEntry, ...]
-    side: str = "any"  # adam/msgd buckets may mix sides
+    # 'left' | 'right' in a side-split plan; 'any' where sides may mix
+    side: str = "any"
 
     @property
     def batch(self) -> int:
@@ -62,9 +71,12 @@ def _dtype_name(dtype: torch.dtype) -> str:
     return str(dtype).split(".")[-1]
 
 
-def build_bucket_plan(flat_specs: Sequence, flat_params: Sequence) -> BucketPlan:
+def build_bucket_plan(flat_specs: Sequence, flat_params: Sequence, *,
+                      split_sides: bool = False) -> BucketPlan:
     """Static bucketing: group low-rank leaves by (d, n, rank, dtype), in the
-    sorted key order of the JAX plan.  The rank is clamped to d here."""
+    sorted key order of the JAX plan.  The rank is clamped to d here.
+    ``split_sides`` adds the side to the key and stamps it on the bucket
+    (``SIDE_HOMOGENEOUS_INNERS``)."""
     groups: Dict[Tuple, List[BucketEntry]] = {}
     for i, (spec, leaf) in enumerate(zip(flat_specs, flat_params)):
         if not spec.lowrank:
@@ -81,9 +93,12 @@ def build_bucket_plan(flat_specs: Sequence, flat_params: Sequence) -> BucketPlan
         for s in leaf.shape[:-2]:
             b *= s
         key = (d_c, n_c, min(spec.rank, d_c), _dtype_name(leaf.dtype))
+        if split_sides:
+            key = key + (spec.side,)
         groups.setdefault(key, []).append(BucketEntry(i, spec.side, b))
     buckets = tuple(
-        Bucket(d=k[0], n=k[1], rank=k[2], entries=tuple(es))
+        Bucket(d=k[0], n=k[1], rank=k[2], entries=tuple(es),
+               side=k[4] if split_sides else "any")
         for k, es in sorted(groups.items(), key=lambda kv: kv[0])
     )
     covered = frozenset(e.leaf_idx for bk in buckets for e in bk.entries)
@@ -96,26 +111,48 @@ def build_bucket_plan(flat_specs: Sequence, flat_params: Sequence) -> BucketPlan
 
 
 class BucketState(NamedTuple):
-    """One bucket's optimizer state, stacked: ``projector`` (B, d, r) in
-    canonical orientation for both sides; ``m``/``v`` (B, r, n) f32 in the
-    canonical 'left' orientation (side='right' slices enter transposed);
-    ``v`` is None for msgd."""
+    """One bucket's optimizer state, stacked.  ``projector`` is (B, d, r) in
+    canonical orientation for both sides; moments are (B, r, n) in the
+    canonical 'left' orientation (side='right' slices enter transposed):
+
+      adam       m, v (B, r, n) f32
+      msgd       m (B, r, n) f32; v is None
+      adam_mini  m (B, r, n) f32; v the per-row second moment, (B, r) for
+                 'left' buckets, (B, n) for 'right' ones (per-leaf rows)
+      adam8bit   m, v (B, r, n) uint8 codes, element-aligned with the stack;
+                 ``m_scale``/``v_scale`` the f32 per-row-chunk scales in
+                 per-leaf row order, (B, r, nb) 'left', (B, n, nb_r) 'right'
+
+    ``m_scale``/``v_scale`` are None for the unquantized inners."""
 
     projector: torch.Tensor
     m: torch.Tensor
     v: Optional[torch.Tensor]
+    m_scale: Optional[torch.Tensor] = None
+    v_scale: Optional[torch.Tensor] = None
+
+
+class _Like(NamedTuple):
+    """A shape and dtype, where no tensor is at hand."""
+
+    shape: Tuple[int, ...]
+    dtype: torch.dtype
 
 
 class LeafStateTemplate(NamedTuple):
-    """Per-leaf canonical shapes (static): what the per-leaf layout stores."""
+    """Per-leaf canonical shapes and dtypes (static): what the per-leaf
+    layout stores."""
 
-    projector: Tuple[int, ...]
-    m: Tuple[int, ...]
+    projector: _Like
+    m: _Like
+    v: Optional[_Like]
+    m_scale: Optional[_Like] = None
+    v_scale: Optional[_Like] = None
 
 
 class StateLayout(NamedTuple):
     plan: BucketPlan
-    inner_name: str  # 'adam' | 'msgd'
+    inner_name: str  # 'adam' | 'msgd' | 'adam_mini' | 'adam8bit'
     has_v: bool
     templates: Dict[int, LeafStateTemplate]  # keyed by leaf_idx
     projector_dtype: torch.dtype = torch.float32
@@ -132,6 +169,14 @@ def build_state_layout(
     """Canonical per-leaf templates for every bucketed leaf."""
     del flat_specs
     has_v = inner_lib.fused_has_second_moment(inner_name)
+    if inner_name in SIDE_HOMOGENEOUS_INNERS:
+        for bucket in plan.buckets:
+            if bucket.side not in ("left", "right"):
+                raise ValueError(
+                    f"{inner_name!r} needs a side-homogeneous bucket plan "
+                    "(build_bucket_plan(split_sides=True))"
+                )
+    f32 = torch.float32
     templates: Dict[int, LeafStateTemplate] = {}
     for bucket in plan.buckets:
         for e in bucket.entries:
@@ -141,23 +186,43 @@ def build_state_layout(
                 mshape = lead + (bucket.rank, shape[-1])
             else:
                 mshape = lead + (shape[-2], bucket.rank)
-            templates[e.leaf_idx] = LeafStateTemplate(
-                lead + (bucket.d, bucket.rank), mshape
-            )
+            proj = _Like(lead + (bucket.d, bucket.rank), projector_dtype)
+            m_scale = None
+            if inner_name == "adam8bit":
+                m = _Like(mshape, torch.uint8)
+                m_scale = _Like(mshape[:-1] + (qz.num_blocks(mshape[-1]),), f32)
+                v = m
+            elif inner_name == "adam_mini":
+                m = _Like(mshape, f32)
+                v = _Like(mshape[:-1], f32)
+            else:
+                m = _Like(mshape, f32)
+                v = m if has_v else None
+            templates[e.leaf_idx] = LeafStateTemplate(proj, m, v, m_scale, m_scale)
     return StateLayout(plan, inner_name, has_v, templates, projector_dtype)
 
 
 def init_bucket_states(layout: StateLayout, device) -> Tuple[BucketState, ...]:
     """Eye projectors (the first refresh installs the real ones) and zero
-    moments, stacked."""
+    moments, stacked (quantized zeros for adam8bit: the codes and scales
+    of ``inner.adam8bit().init``)."""
     out = []
     for bucket in layout.plan.buckets:
         B, d, n, r = bucket.batch, bucket.d, bucket.n, bucket.rank
         eye = torch.eye(d, r, dtype=layout.projector_dtype, device=device)
         proj = eye.expand(B, d, r).clone()
-        m = torch.zeros((B, r, n), dtype=torch.float32, device=device)
-        v = torch.zeros_like(m) if layout.has_v else None
-        out.append(BucketState(projector=proj, m=m, v=v))
+        z = torch.zeros((B, r, n), dtype=torch.float32, device=device)
+        if layout.inner_name == "adam8bit":
+            mc, ms = qz.quantize_stacked(z, bucket.side, signed=True)
+            vc, vs = qz.quantize_stacked(z, bucket.side, signed=False)
+            out.append(BucketState(proj, mc, vc, ms, vs))
+            continue
+        if layout.inner_name == "adam_mini":
+            rows = r if bucket.side == "left" else n
+            v = torch.zeros((B, rows), dtype=torch.float32, device=device)
+        else:
+            v = torch.zeros_like(z) if layout.has_v else None
+        out.append(BucketState(projector=proj, m=z, v=v))
     return tuple(out)
 
 
@@ -179,11 +244,14 @@ def _gather(bucket: Bucket, leaves) -> torch.Tensor:
     return parts[0].contiguous() if len(parts) == 1 else torch.cat(parts, dim=0)
 
 
-class _Like(NamedTuple):
-    """A shape and dtype for ``_scatter``, where no tensor is at hand."""
-
-    shape: Tuple[int, ...]
-    dtype: torch.dtype
+def _gather_plain(bucket: Bucket, leaves, trailing: int) -> torch.Tensor:
+    """Plain (never transposed) stack of buffers with ``trailing`` trailing
+    dims: projectors and scales (2), adam_mini's per-row v (1)."""
+    parts = []
+    for e in bucket.entries:
+        x = leaves[e.leaf_idx]
+        parts.append(x.reshape((-1,) + tuple(x.shape[x.dim() - trailing:])))
+    return parts[0].contiguous() if len(parts) == 1 else torch.cat(parts, dim=0)
 
 
 def _scatter(bucket: Bucket, stacked: torch.Tensor, likes) -> Dict[int, torch.Tensor]:
@@ -201,32 +269,71 @@ def _scatter(bucket: Bucket, stacked: torch.Tensor, likes) -> Dict[int, torch.Te
     return out
 
 
-def _scatter_proj(bucket: Bucket, stacked: torch.Tensor, shapes) -> Dict[int, torch.Tensor]:
-    """Split a plain (never transposed) stack per leaf: projectors."""
+def _scatter_proj(bucket: Bucket, stacked: torch.Tensor, likes) -> Dict[int, torch.Tensor]:
+    """Split a plain (never transposed) stack per leaf: projectors, scales
+    and adam_mini's per-row v (``reshape`` restores any trailing rank)."""
     out: Dict[int, torch.Tensor] = {}
     off = 0
     for e in bucket.entries:
-        out[e.leaf_idx] = stacked[off:off + e.batch].reshape(shapes[e.leaf_idx])
+        like = likes[e.leaf_idx]
+        out[e.leaf_idx] = stacked[off:off + e.batch].reshape(like.shape).to(like.dtype)
         off += e.batch
     return out
+
+
+def leaf_states_to_bucketed(
+    layout: StateLayout, flat_states: Sequence
+) -> Tuple[BucketState, ...]:
+    """Per-leaf canonical -> storage: ``flat_states`` holds objects with
+    ``.projector`` and ``.inner`` at the bucketed indices.  Reshapes,
+    transposes and concatenations only: codes transpose like moments,
+    scales and per-row v stack in per-leaf row order, and nothing is
+    requantized."""
+    out = []
+    for bucket in layout.plan.buckets:
+        proj = _gather_plain(bucket, {e.leaf_idx: flat_states[e.leaf_idx].projector
+                                      for e in bucket.entries}, 2)
+        fm = {e.leaf_idx: inner_lib.fused_moments(layout.inner_name,
+                                                  flat_states[e.leaf_idx].inner)
+              for e in bucket.entries}
+        m = _gather(bucket, {i: x.m for i, x in fm.items()})
+        v = m_scale = v_scale = None
+        if layout.inner_name == "adam8bit":
+            v = _gather(bucket, {i: x.v for i, x in fm.items()})
+            m_scale = _gather_plain(bucket, {i: x.m_scale for i, x in fm.items()}, 2)
+            v_scale = _gather_plain(bucket, {i: x.v_scale for i, x in fm.items()}, 2)
+        elif layout.inner_name == "adam_mini":
+            v = _gather_plain(bucket, {i: x.v for i, x in fm.items()}, 1)
+        elif layout.has_v:
+            v = _gather(bucket, {i: x.v for i, x in fm.items()})
+        out.append(BucketState(proj, m, v, m_scale, v_scale))
+    return tuple(out)
 
 
 def bucketed_to_leaf_states(
     layout: StateLayout, bucket_states: Sequence[BucketState]
 ) -> Dict[int, Tuple[torch.Tensor, Any]]:
-    """Storage -> per-leaf canonical: {leaf_idx: (projector, inner_state)}
-    (reshapes and transposes only)."""
+    """Storage -> per-leaf canonical: {leaf_idx: (projector, inner_state)}.
+    The inverse of ``leaf_states_to_bucketed`` (no arithmetic)."""
     out: Dict[int, Tuple[torch.Tensor, Any]] = {}
     for bucket, bst in zip(layout.plan.buckets, bucket_states):
         tm = {e.leaf_idx: layout.templates[e.leaf_idx] for e in bucket.entries}
         projs = _scatter_proj(bucket, bst.projector, {i: t.projector for i, t in tm.items()})
-        likes = {i: _Like(t.m, torch.float32) for i, t in tm.items()}
-        ms = _scatter(bucket, bst.m, likes)
-        vs = _scatter(bucket, bst.v, likes) if bst.v is not None else None
+        ms = _scatter(bucket, bst.m, {i: t.m for i, t in tm.items()})
+        vs = mss = vss = None
+        if layout.inner_name == "adam8bit":
+            vs = _scatter(bucket, bst.v, {i: t.v for i, t in tm.items()})
+            mss = _scatter_proj(bucket, bst.m_scale, {i: t.m_scale for i, t in tm.items()})
+            vss = _scatter_proj(bucket, bst.v_scale, {i: t.v_scale for i, t in tm.items()})
+        elif layout.inner_name == "adam_mini":
+            vs = _scatter_proj(bucket, bst.v, {i: t.v for i, t in tm.items()})
+        elif bst.v is not None:
+            vs = _scatter(bucket, bst.v, {i: t.v for i, t in tm.items()})
         for e in bucket.entries:
             i = e.leaf_idx
             out[i] = (projs[i], inner_lib.fused_state(
-                layout.inner_name, ms[i], vs[i] if vs is not None else None))
+                layout.inner_name, ms[i], *(x[i] if x is not None else None
+                                            for x in (vs, mss, vss))))
     return out
 
 
@@ -264,6 +371,17 @@ def bucketed_update(
                 w, p, r_g, bst.m, lr_alpha, lr_wd, **ik
             )
             new_bst = BucketState(projector=p, m=m_new, v=None)
+        elif cfg.inner == "adam_mini":
+            w_new, m_new, v_new = update_ops.bucketed_adam_mini_update(
+                w, p, r_g, bst.m, bst.v, step, lr_alpha, lr_wd, side=bucket.side, **ik
+            )
+            new_bst = BucketState(projector=p, m=m_new, v=v_new)
+        elif cfg.inner == "adam8bit":
+            w_new, mc, ms, vc, vs = update_ops.bucketed_adam8bit_update(
+                w, p, r_g, bst.m, bst.m_scale, bst.v, bst.v_scale, step,
+                lr_alpha, lr_wd, side=bucket.side, **ik,
+            )
+            new_bst = BucketState(projector=p, m=mc, v=vc, m_scale=ms, v_scale=vs)
         else:
             w_new, m_new, v_new = update_ops.bucketed_adam_update(
                 w, p, r_g, bst.m, bst.v, step, lr_alpha, lr_wd, **ik
@@ -288,7 +406,7 @@ def entry_draws(draws, entry: BucketEntry, template: LeafStateTemplate,
     """One entry's refresh draws from the state's draw source, keyed by its
     global leaf index; a leaf with leading dims draws one per slice."""
     sketch, glen = draw_shapes(bucket.d, bucket.n, pcfg, bucket.rank)
-    return draws.leaf(entry.leaf_idx, tuple(template.projector[:-2]), sketch, glen, device)
+    return draws.leaf(entry.leaf_idx, tuple(template.projector.shape[:-2]), sketch, glen, device)
 
 
 def _cat(parts: List[Optional[torch.Tensor]]) -> Optional[torch.Tensor]:
@@ -320,7 +438,10 @@ def bucketed_refresh(
     same-group entries refresh as one batched chain over their stacked
     (B', d, n) gradients; otherwise (the exact backend) entry by entry with
     ``refresh_fn``.  ``momentum_carry="reproject"`` runs as one batched
-    r x r product per bucket; "reset" zeroes the refreshed slices' moments.
+    r x r product per bucket (not for adam8bit, whose first moment is
+    codes: as in JAX, it is kept); "reset" zeroes the refreshed slices'
+    whole inner state, adam8bit's codes and scales included (scales 0,
+    which dequantize to 0 like the quantized zeros of init).
     Returns (new bucket states, per-leaf overlap diagnostics)."""
     new_states: List[BucketState] = []
     overlaps: List[torch.Tensor] = []
@@ -354,7 +475,7 @@ def bucketed_refresh(
                 new_p = refresh_fn(
                     flat_grads[e.leaf_idx],
                     entry_draws(draws, e, tmpl, bucket, pcfg, device),
-                    old_slice.reshape(tmpl.projector),
+                    old_slice.reshape(tmpl.projector.shape),
                     flat_specs[e.leaf_idx],
                 ).reshape(old_slice.shape).to(bst.projector.dtype)
                 overlaps.append(torch.mean(
@@ -368,19 +489,21 @@ def bucketed_refresh(
             refreshed.append(e.leaf_idx in new_slices)
         new_proj = parts[0] if len(parts) == 1 else torch.cat(parts, dim=0)
 
-        m, v = bst.m, bst.v
+        m, v, ms_, vs_ = bst.m, bst.v, bst.m_scale, bst.v_scale
         if any(refreshed):
             if momentum_carry == "reset":
-                m = _select_slices(bucket, refreshed, torch.zeros_like(m), m)
-                if v is not None:
-                    v = _select_slices(bucket, refreshed, torch.zeros_like(v), v)
-            elif momentum_carry == "reproject":
+                m, v, ms_, vs_ = (
+                    None if x is None
+                    else _select_slices(bucket, refreshed, torch.zeros_like(x), x)
+                    for x in (m, v, ms_, vs_)
+                )
+            elif momentum_carry == "reproject" and layout.inner_name != "adam8bit":
                 # C = P_new^T P_old per slice, then M' = C M; in canonical
                 # orientation one formula covers both sides.
                 c = torch.einsum("bdn,bdo->bno", new_proj, bst.projector)
                 m2 = torch.einsum("bno,bok->bnk", c, m).to(m.dtype)
                 m = _select_slices(bucket, refreshed, m2, m)
-        new_states.append(BucketState(projector=new_proj, m=m, v=v))
+        new_states.append(BucketState(new_proj, m, v, ms_, vs_))
     return tuple(new_states), overlaps
 
 

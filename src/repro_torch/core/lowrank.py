@@ -2,7 +2,8 @@
 ``src/repro/core/lowrank.py``.
 
 Composes a projector-selection method (``projectors.py``: dominant, SARA)
-with an inner stateful optimizer (``inner.py``: Adam, MSGD) over a nested
+with an inner stateful optimizer (``inner.py``: Adam, MSGD, Adam-mini,
+8-bit Adam) over a nested
 dict of parameters, flattened in sorted key order exactly as
 ``jax.tree_util`` flattens the JAX tree, so leaf indices, bucket entries
 and the per-leaf draws line up with the reference.
@@ -25,8 +26,8 @@ int and float); the state's draw source (``TorchDraws``) makes the
 refresh's random sketches and Gumbel noise from a ``torch.Generator``.
 
 Not ported here: ``projected=``/``StackedGrads`` (compressed DP),
-``skip_nonfinite``, ``shard_axes`` and ZeRO, Fira, the quantized inners,
-checkpoint layout converters and rank schedules (ROADMAP queue 1).
+``skip_nonfinite``, ``shard_axes`` and ZeRO, Fira, Adafactor, checkpoint
+layout converters and rank schedules (ROADMAP queue 1).
 """
 from __future__ import annotations
 
@@ -101,10 +102,19 @@ class OptimizerConfig:
         )
 
     def inner_kwargs(self) -> Dict[str, Any]:
-        """The inner optimizer's hyperparameters, shared by both engines."""
+        """The inner optimizer's hyperparameters, field for field as JAX's
+        (``src/repro/core/lowrank.py``), shared by both engines (the
+        per-leaf inner and the fused update), so the two cannot drift:
+        Adam-mini caps b2 at 0.95."""
+        if self.inner in ("adam", "adam8bit"):
+            return dict(b1=self.b1, b2=self.b2, eps=self.eps)
         if self.inner == "msgd":
             return dict(b1=self.b1)
-        return dict(b1=self.b1, b2=self.b2, eps=self.eps)
+        if self.inner == "adam_mini":
+            return dict(b1=self.b1, b2=min(self.b2, 0.95), eps=self.eps)
+        if self.inner == "adafactor":
+            return dict(b1=self.b1)
+        return {}
 
     def make_inner(self) -> inner_lib.InnerOptimizer:
         return inner_lib.make_inner(self.inner, **self.inner_kwargs())
@@ -323,7 +333,12 @@ def make_lowrank_optimizer(
     bucket_plan = None
     state_layout = None
     if cfg.engine == "bucketed":
-        bucket_plan = buckets_lib.build_bucket_plan(specs, flat_like)
+        # adam_mini's per-row v and adam8bit's scales follow the per-leaf
+        # rows, which transpose with the slices: their buckets split by side
+        bucket_plan = buckets_lib.build_bucket_plan(
+            specs, flat_like,
+            split_sides=cfg.inner in buckets_lib.SIDE_HOMOGENEOUS_INNERS,
+        )
         if bucket_plan.buckets and inner.fused_eligible:
             state_layout = buckets_lib.build_state_layout(
                 bucket_plan, specs, flat_like, inner_name=cfg.inner,
@@ -381,7 +396,9 @@ def make_lowrank_optimizer(
         inner_state = st.inner
         if cfg.momentum_carry == "reset":
             inner_state = type(inner_state)(*[torch.zeros_like(x) for x in inner_state])
-        elif cfg.momentum_carry == "reproject":
+        elif cfg.momentum_carry == "reproject" and hasattr(inner_state, "m"):
+            # 8-bit Adam's first moment lives as codes (Adam8bitState has
+            # no ``.m``): no linear reprojection, as in JAX
             m = inner_state.m
             if spec.side == "left":
                 m2 = torch.einsum("...no,...ok->...nk", c, m)

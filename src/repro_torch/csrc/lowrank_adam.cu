@@ -20,10 +20,9 @@
 //
 //   1. adam_moments_kernel, elementwise over (B, r, n): writes M' and V'
 //      (each exactly once) and N into an f32 scratch the wrapper allocates;
-//   2. the tiled product of batched_gemm.cuh with A = P (read d x r) and
-//      B = N, whose epilogue reads W and writes W' = keep * W - lr_alpha *
-//      (P @ N) per element: the full-space direction P @ N never reaches
-//      device memory, and W is read and written once.
+//   2. the back-projection of lowrank_apply.cuh (shared with the MSGD,
+//      Adam-mini and 8-bit Adam updates): the tiled product P @ N, whose
+//      epilogue reads W and writes W' = keep * W - lr_alpha * (P @ N).
 //
 // N costs one extra (B, r, n) f32 write and re-reads that stay mostly in
 // the 50 MB L2 (one n-tile column of N serves all d-tiles of its slice).
@@ -31,7 +30,7 @@
 // Bound on the H100.  2 * B * d * r * n operations for the product, on
 // W (read + write) and five (B, r, n) f32 buffers: ~100 operations per
 // byte at r = 512, above the f32 line (~20), so operations bound it.
-#include "batched_gemm.cuh"
+#include "lowrank_apply.cuh"
 
 namespace repro {
 namespace {
@@ -56,44 +55,6 @@ __global__ void adam_moments_kernel(const float* __restrict__ r,
   }
 }
 
-template <typename TW>
-struct AdamApply {
-  const TW* w;
-  TW* w_out;
-  long long ld, stride;
-  float keep, lr_alpha;
-  __device__ __forceinline__ void operator()(int b, int i, int j,
-                                             float acc) const {
-    const long long o = (long long)b * stride + (long long)i * ld + j;
-    w_out[o] = from_float<TW>(keep * to_float(w[o]) - lr_alpha * acc);
-  }
-};
-
-template <typename TW>
-cudaError_t launch(const void* w, const float* p, const float* r,
-                   const float* m, const float* v, void* w_out, float* m_out,
-                   float* v_out, float* n_scr, int B, int d, int n, int rank,
-                   float b1, float c1, float b2, float c2, float eps,
-                   float bc1, float bc2, float lr_alpha, float keep,
-                   cudaStream_t stream) {
-  const long long total = (long long)B * rank * n;
-  const int threads = 256;
-  const long long want = (total + threads - 1) / threads;
-  const int blocks = static_cast<int>(want < 132 * 32 ? want : 132 * 32);
-  adam_moments_kernel<<<blocks, threads, 0, stream>>>(
-      r, m, v, m_out, v_out, n_scr, total, b1, c1, b2, c2, eps, bc1, bc2);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  // A = P stored (d, r): M = d, K = r.  B = N stored (r, n).
-  batched_gemm_kernel<false, float, float, AdamApply<TW>>
-      <<<gemm_grid(d, n, B), kGemmThreads, 0, stream>>>(
-          p, n_scr, d, n, rank, rank, n, (long long)d * rank,
-          (long long)rank * n,
-          AdamApply<TW>{static_cast<const TW*>(w), static_cast<TW*>(w_out), n,
-                        (long long)d * n, keep, lr_alpha});
-  return cudaGetLastError();
-}
-
 }  // namespace
 }  // namespace repro
 
@@ -106,23 +67,20 @@ extern "C" int repro_lowrank_adam_update_batched(
     int dtype, int B, int d, int n, int rank, float b1, float c1, float b2,
     float c2, float eps, float bc1, float bc2, float lr_alpha, float keep,
     void* stream) {
-  if (B < 1 || d < 1 || n < 1 || rank < 1 || B > 65535)
+  if (repro::bad_update_shape(dtype, B, d, n, rank))
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* pp = static_cast<const float*>(p);
-  const float* rr = static_cast<const float*>(r_g);
-  const float* mm = static_cast<const float*>(m);
-  const float* vv = static_cast<const float*>(v);
-  float* mo = static_cast<float*>(m_out);
-  float* vo = static_cast<float*>(v_out);
   float* ns = static_cast<float*>(n_scr);
-  if (dtype == repro::kFloat32)
-    return static_cast<int>(repro::launch<float>(
-        w, pp, rr, mm, vv, w_out, mo, vo, ns, B, d, n, rank, b1, c1, b2, c2,
-        eps, bc1, bc2, lr_alpha, keep, s));
-  if (dtype == repro::kBFloat16)
-    return static_cast<int>(repro::launch<__nv_bfloat16>(
-        w, pp, rr, mm, vv, w_out, mo, vo, ns, B, d, n, rank, b1, c1, b2, c2,
-        eps, bc1, bc2, lr_alpha, keep, s));
-  return static_cast<int>(cudaErrorInvalidValue);
+  const long long total = (long long)B * rank * n;
+  const int threads = 256;
+  repro::adam_moments_kernel<<<repro::elementwise_blocks(total, threads),
+                               threads, 0, s>>>(
+      static_cast<const float*>(r_g), static_cast<const float*>(m),
+      static_cast<const float*>(v), static_cast<float*>(m_out),
+      static_cast<float*>(v_out), ns, total, b1, c1, b2, c2, eps, bc1, bc2);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(repro::launch_backproject(
+      dtype, w, static_cast<const float*>(p), ns, w_out, B, d, n, rank,
+      lr_alpha, keep, s));
 }

@@ -1,0 +1,73 @@
+// The back-projection shared by the fused low-rank updates
+// (lowrank_adam.cu, lowrank_msgd.cu, lowrank_adam_mini.cu,
+// lowrank_adam8bit.cu).  Each update first runs its own moments pass, which
+// writes the subspace direction N (B, r, n) f32 (MSGD's is M' itself); this
+// header's launch then runs the tiled product of batched_gemm.cuh with
+// A = P (B, d, r) and B = N, whose epilogue writes
+//
+//   W' = keep * W - lr_alpha * (P @ N),   keep = 1 - lr * weight_decay,
+//
+// per element in W's dtype: the full-space direction P @ N never reaches
+// device memory, and W is read and written once.
+#pragma once
+
+#include "batched_gemm.cuh"
+
+namespace repro {
+
+template <typename TW>
+struct WeightApply {
+  const TW* w;
+  TW* w_out;
+  long long ld, stride;
+  float keep, lr_alpha;
+  __device__ __forceinline__ void operator()(int b, int i, int j,
+                                             float acc) const {
+    const long long o = (long long)b * stride + (long long)i * ld + j;
+    w_out[o] = from_float<TW>(keep * to_float(w[o]) - lr_alpha * acc);
+  }
+};
+
+template <typename TW>
+cudaError_t launch_backproject_t(const void* w, const float* p,
+                                 const float* n_dir, void* w_out, int B,
+                                 int d, int n, int rank, float lr_alpha,
+                                 float keep, cudaStream_t stream) {
+  // A = P stored (d, r): M = d, K = r.  B = N stored (r, n).
+  batched_gemm_kernel<false, float, float, WeightApply<TW>>
+      <<<gemm_grid(d, n, B), kGemmThreads, 0, stream>>>(
+          p, n_dir, d, n, rank, rank, n, (long long)d * rank,
+          (long long)rank * n,
+          WeightApply<TW>{static_cast<const TW*>(w), static_cast<TW*>(w_out),
+                          n, (long long)d * n, keep, lr_alpha});
+  return cudaGetLastError();
+}
+
+// W' for W of dtype code ``dtype`` (kFloat32 or kBFloat16).
+inline cudaError_t launch_backproject(int dtype, const void* w, const float* p,
+                                      const float* n_dir, void* w_out, int B,
+                                      int d, int n, int rank, float lr_alpha,
+                                      float keep, cudaStream_t stream) {
+  if (dtype == kFloat32)
+    return launch_backproject_t<float>(w, p, n_dir, w_out, B, d, n, rank,
+                                       lr_alpha, keep, stream);
+  if (dtype == kBFloat16)
+    return launch_backproject_t<__nv_bfloat16>(w, p, n_dir, w_out, B, d, n,
+                                               rank, lr_alpha, keep, stream);
+  return cudaErrorInvalidValue;
+}
+
+// Blocks of ``threads`` for a grid-stride elementwise pass over ``total``
+// elements: enough to fill the card, never more than the work.
+inline int elementwise_blocks(long long total, int threads) {
+  const long long want = (total + threads - 1) / threads;
+  return static_cast<int>(want < 132 * 32 ? want : 132 * 32);
+}
+
+// The shape checks every update's C entry point makes.
+inline bool bad_update_shape(int dtype, int B, int d, int n, int rank) {
+  return B < 1 || d < 1 || n < 1 || rank < 1 || B > 65535 ||
+         (dtype != kFloat32 && dtype != kBFloat16);
+}
+
+}  // namespace repro

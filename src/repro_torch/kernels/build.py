@@ -49,6 +49,18 @@ SIGNATURES = {
         "repro_lowrank_adam_update_batched",
         [_P] * 9 + [_I] * 5 + [_F] * 9 + [_P],
     ),
+    "lowrank_msgd": (
+        "repro_lowrank_msgd_update_batched",
+        [_P] * 6 + [_I] * 5 + [_F] * 4 + [_P],
+    ),
+    "lowrank_adam_mini": (
+        "repro_lowrank_adam_mini_update_batched",
+        [_P] * 8 + [_I] * 6 + [_F] * 5 + [_P],
+    ),
+    "lowrank_adam8bit": (
+        "repro_lowrank_adam8bit_update_batched",
+        [_P] * 13 + [_I] * 6 + [_F] * 9 + [_P],
+    ),
     "power_iter": (
         "repro_power_iter_batched",
         [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],

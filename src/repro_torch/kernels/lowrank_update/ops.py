@@ -60,17 +60,70 @@ def bucketed_msgd_update(
     *,
     b1: float = 0.9,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """MSGD's fused update: the plain version on the CPU.  Its Hopper kernel
-    (``lowrank_msgd_update_batched``) comes with the slice of the other
-    inner optimizers (ROADMAP queue 1 item 7, queue 2 row 6); the card
-    does not fall back to the plain version meanwhile."""
-    if w.device.type != "cpu":
-        raise NotImplementedError(
-            "the bucketed msgd update has no CUDA kernel yet "
-            "(lowrank_msgd_update_batched comes with the remaining-inners "
-            "slice, ROADMAP queue 1 item 7); use inner='adam' or the "
-            "reference engine on the card"
+    """MSGD's fused update: (W', M')."""
+    if w.device.type == "cpu":
+        return ref_lib.lowrank_msgd_update_ref(
+            w, p, r_g, m, b1=b1, lr_alpha=lr_alpha, lr_wd=lr_wd
         )
-    return ref_lib.lowrank_msgd_update_ref(
-        w, p, r_g, m, b1=b1, lr_alpha=lr_alpha, lr_wd=lr_wd
+    return update_kernel.lowrank_msgd_update_batched(
+        w.contiguous(), p.contiguous(), r_g.contiguous(), m.contiguous(),
+        lr_alpha, lr_wd, b1=b1,
+    )
+
+
+def bucketed_adam_mini_update(
+    w: torch.Tensor,  # (B, d, n)
+    p: torch.Tensor,  # (B, d, r)
+    r_g: torch.Tensor,  # (B, r, n)
+    m: torch.Tensor,  # (B, r, n)
+    v: torch.Tensor,  # (B, r) 'left' | (B, n) 'right'
+    step: int,
+    lr_alpha: float,
+    lr_wd: float = 0.0,
+    *,
+    b1: float = 0.9,
+    b2: float = 0.95,
+    eps: float = 1e-8,
+    side: str = "left",
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Adam-mini's fused update with the per-row v: (W', M', v')."""
+    if w.device.type == "cpu":
+        return ref_lib.lowrank_adam_mini_update_ref(
+            w, p, r_g, m, v, step, lr_alpha, lr_wd, b1=b1, b2=b2, eps=eps, side=side
+        )
+    return update_kernel.lowrank_adam_mini_update_batched(
+        w.contiguous(), p.contiguous(), r_g.contiguous(), m.contiguous(),
+        v.contiguous(), step, lr_alpha, lr_wd, b1=b1, b2=b2, eps=eps, side=side,
+    )
+
+
+def bucketed_adam8bit_update(
+    w: torch.Tensor,  # (B, d, n)
+    p: torch.Tensor,  # (B, d, r)
+    r_g: torch.Tensor,  # (B, r, n)
+    m_codes: torch.Tensor,  # (B, r, n) uint8
+    m_scale: torch.Tensor,  # (B, r, nb) 'left' | (B, n, nb_r) 'right'
+    v_codes: torch.Tensor,
+    v_scale: torch.Tensor,
+    step: int,
+    lr_alpha: float,
+    lr_wd: float = 0.0,
+    *,
+    b1: float = 0.9,
+    b2: float = 0.999,
+    eps: float = 1e-8,
+    side: str = "left",
+) -> Tuple[torch.Tensor, ...]:
+    """8-bit Adam's fused update: (W', m codes, m scales, v codes, v
+    scales).  Unlike JAX's dispatch (``adam8bit_kernel_supported``), every
+    shape goes to the kernel on the card: a short final chunk is masked,
+    not sent to the plain version."""
+    if w.device.type == "cpu":
+        return ref_lib.lowrank_adam8bit_update_ref(
+            w, p, r_g, m_codes, m_scale, v_codes, v_scale, step, lr_alpha, lr_wd,
+            b1=b1, b2=b2, eps=eps, side=side,
+        )
+    return update_kernel.lowrank_adam8bit_update_batched(
+        *(t.contiguous() for t in (w, p, r_g, m_codes, m_scale, v_codes, v_scale)),
+        step, lr_alpha, lr_wd, b1=b1, b2=b2, eps=eps, side=side,
     )

@@ -1,0 +1,94 @@
+"""Blockwise 8-bit quantization of the 8-bit Adam state, from
+``src/repro/kernels/lowrank_update/quantize.py`` (DESIGN.md §2.8), in plain
+PyTorch.  The per-leaf inner (core/inner.py), the bucket layout's init
+(core/buckets.py) and the plain version of the fused update (ref.py) use
+it; the CUDA kernel (csrc/lowrank_adam8bit.cu) repeats its arithmetic.
+
+Blocks are 256-element chunks within each row of the last axis; the last
+chunk of a row may be short, and a block never crosses a row or a leading
+dim.  So quantizing an (L, a, b) leaf equals quantizing its L slices, and
+a bucket stack carries exactly the per-leaf codes and scales.
+
+Signed values (the first moment) get linear codes, ``(c - 127) / 127 * s``;
+unsigned values (the second moment) get sqrt-mapped codes,
+``(c / 255)^2 * s``.  An all-zero chunk gets scale 1.0.  Rounding is
+``torch.round``, half to even, as ``jnp.round``.
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+QBLOCK = 256
+
+
+def num_blocks(row: int) -> int:
+    """Blocks per row of length ``row`` (the last one possibly short)."""
+    return -(-row // QBLOCK)
+
+
+def _row_blocks(x: torch.Tensor) -> torch.Tensor:
+    """(..., n) -> (..., nb, QBLOCK), zero-padding the short final chunk."""
+    n = x.shape[-1]
+    nb = num_blocks(n)
+    pad = nb * QBLOCK - n
+    if pad:
+        x = torch.nn.functional.pad(x, (0, pad))
+    return x.reshape(tuple(x.shape[:-1]) + (nb, QBLOCK))
+
+
+def _unblock(xb: torch.Tensor, n: int) -> torch.Tensor:
+    """(..., nb, QBLOCK) -> (..., n), dropping the pad."""
+    return xb.reshape(tuple(xb.shape[:-2]) + (-1,))[..., :n]
+
+
+def quantize_blockwise(x: torch.Tensor, signed: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-row-chunk absmax 8-bit quantization: ``(codes, scales)``, codes
+    uint8 of ``x.shape``, scales f32 of ``x.shape[:-1] + (nb,)``."""
+    n = x.shape[-1]
+    xb = _row_blocks(x.float())
+    absmax = xb.abs().amax(dim=-1)
+    scale = torch.where(absmax > 0, absmax, torch.ones_like(absmax))
+    rel = xb / scale[..., None]
+    if signed:
+        codes = (torch.clamp(torch.round(rel * 127.0), -127, 127) + 127).to(torch.uint8)
+    else:
+        rel = torch.sqrt(torch.clamp(rel, 0.0, 1.0))
+        codes = torch.clamp(torch.round(rel * 255.0), 0, 255).to(torch.uint8)
+    return _unblock(codes, n).contiguous(), scale
+
+
+def dequantize_blockwise(codes: torch.Tensor, scale: torch.Tensor, signed: bool) -> torch.Tensor:
+    """Inverse map: uint8 codes and per-chunk scales -> f32 of codes.shape."""
+    n = codes.shape[-1]
+    cb = _row_blocks(codes.float())
+    if signed:
+        vals = (cb - 127.0) / 127.0 * scale[..., None]
+    else:
+        rel = cb / 255.0
+        vals = rel * rel * scale[..., None]
+    return _unblock(vals, n)
+
+
+# Bucket stacks hold moments in the canonical side='left' orientation
+# (side='right' slices enter transposed), while blocks follow the per-leaf
+# rows: a side='right' stack quantizes through a transpose.  Codes come back
+# element-aligned with the canonical (B, r, n) stack; scales stay indexed by
+# per-leaf row, (B, r, nb) for 'left' buckets and (B, n, nb_r) for 'right'.
+
+
+def quantize_stacked(x: torch.Tensor, side: str, signed: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Canonical (B, r, n) f32 -> (canonical uint8 codes, per-leaf scales)."""
+    if side == "right":
+        codes, scale = quantize_blockwise(x.transpose(-1, -2), signed)
+        return codes.transpose(-1, -2).contiguous(), scale
+    return quantize_blockwise(x, signed)
+
+
+def dequantize_stacked(codes: torch.Tensor, scale: torch.Tensor, side: str,
+                       signed: bool) -> torch.Tensor:
+    """Inverse of ``quantize_stacked``: canonical codes -> canonical f32."""
+    if side == "right":
+        return dequantize_blockwise(codes.transpose(-1, -2), scale, signed).transpose(-1, -2)
+    return dequantize_blockwise(codes, scale, signed)

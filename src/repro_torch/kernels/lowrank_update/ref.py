@@ -10,7 +10,18 @@ Semantics (canonical side='left' stacks, optional leading batch dims):
          W' = (1 - lr_wd) W - lr_alpha * (P @ M')
 
 with bc1 = 1-b1^t, bc2 = 1-b2^t for the 1-indexed step t.  W' keeps W's
-dtype; moments are f32.  ``step``, ``lr_alpha`` and ``lr_wd`` are host
+dtype; moments are f32.
+
+The quantized-layout variants take a ``side``: their per-row state follows
+the PER-LEAF orientation while the stacks are canonical (side='right'
+slices enter transposed):
+
+  Adam-mini:  v is one f32 per per-leaf row, (..., r) for 'left' buckets
+              (reduced over n), (..., n) for 'right' ones (reduced over r);
+              N = (M'/bc1) / (sqrt(v'/bc2) + eps), v' broadcast.
+  8-bit Adam: M and V are uint8 codes element-aligned with the stack, with
+              f32 per-row-chunk scales in per-leaf row order (quantize.py):
+              dequantize, Adam, requantize, W'.  ``step``, ``lr_alpha`` and ``lr_wd`` are host
 numbers here: the port keeps the step count and the schedule on the host.
 """
 from __future__ import annotations
@@ -20,13 +31,17 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from repro_torch.kernels.lowrank_update import quantize as qz
+
+
+def bias_correction(beta: float, step: int) -> float:
+    """1 - beta^t in f32, as the JAX code computes it from an f32 step."""
+    return float(np.float32(1.0) - np.float32(beta) ** np.float32(step))
+
 
 def bias_corrections(b1: float, b2: float, step: int) -> Tuple[float, float]:
-    """(1 - b1^t, 1 - b2^t) in f32, as the JAX code computes them from an
-    f32 step."""
-    t = np.float32(step)
-    one = np.float32(1.0)
-    return float(one - np.float32(b1) ** t), float(one - np.float32(b2) ** t)
+    """(1 - b1^t, 1 - b2^t)."""
+    return bias_correction(b1, step), bias_correction(b2, step)
 
 
 def lowrank_adam_update_ref(
@@ -69,3 +84,88 @@ def lowrank_msgd_update_ref(
         "...dr,...rn->...dn", p.float(), m_new
     )
     return w_new.to(w.dtype), m_new
+
+
+def adam_mini_stats_ref(
+    r_g: torch.Tensor,  # (..., r, n) canonical projected gradient
+    v: torch.Tensor,  # (..., r) side='left' | (..., n) side='right'
+    step: int,
+    *,
+    b2: float,
+    eps: float,
+    side: str = "left",
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Adam-mini's per-row second moment and the direction's denominator:
+    ``(v', den)`` with ``den`` broadcastable against the (..., r, n) stack.
+    Side 'right' reduces in the per-leaf orientation, as JAX does."""
+    r32 = r_g.float()
+    bc2 = bias_correction(b2, step)
+    if side == "left":
+        blk = torch.mean(r32 * r32, dim=-1)  # (..., r)
+        v_new = b2 * v + (1.0 - b2) * blk
+        vb = v_new[..., :, None]
+    else:
+        rt = r32.transpose(-1, -2)
+        blk = torch.mean(rt * rt, dim=-1)  # (..., n)
+        v_new = b2 * v + (1.0 - b2) * blk
+        vb = v_new[..., None, :]
+    return v_new, torch.sqrt(vb / bc2) + eps
+
+
+def lowrank_adam_mini_update_ref(
+    w: torch.Tensor,  # (..., d, n)
+    p: torch.Tensor,  # (..., d, r)
+    r_g: torch.Tensor,  # (..., r, n)
+    m: torch.Tensor,  # (..., r, n)
+    v: torch.Tensor,  # (..., r) 'left' | (..., n) 'right'
+    step: int,
+    lr_alpha: float,
+    lr_wd: float = 0.0,
+    *,
+    b1: float,
+    b2: float,
+    eps: float,
+    side: str = "left",
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    r32 = r_g.float()
+    m_new = b1 * m.float() + (1.0 - b1) * r32
+    v_new, den = adam_mini_stats_ref(r_g, v, step, b2=b2, eps=eps, side=side)
+    n_dir = (m_new / bias_correction(b1, step)) / den
+    w_new = (1.0 - lr_wd) * w.float() - lr_alpha * torch.einsum(
+        "...dr,...rn->...dn", p.float(), n_dir
+    )
+    return w_new.to(w.dtype), m_new, v_new
+
+
+def lowrank_adam8bit_update_ref(
+    w: torch.Tensor,  # (..., d, n)
+    p: torch.Tensor,  # (..., d, r)
+    r_g: torch.Tensor,  # (..., r, n)
+    m_codes: torch.Tensor,  # (..., r, n) uint8, canonical orientation
+    m_scale: torch.Tensor,  # (..., r, nb) 'left' | (..., n, nb_r) 'right'
+    v_codes: torch.Tensor,  # (..., r, n) uint8
+    v_scale: torch.Tensor,
+    step: int,
+    lr_alpha: float,
+    lr_wd: float = 0.0,
+    *,
+    b1: float,
+    b2: float,
+    eps: float,
+    side: str = "left",
+) -> Tuple[torch.Tensor, ...]:
+    """Dequantize, Adam, requantize, W'.  Returns (W', m codes, m scales,
+    v codes, v scales)."""
+    r32 = r_g.float()
+    m = qz.dequantize_stacked(m_codes, m_scale, side, signed=True)
+    v = qz.dequantize_stacked(v_codes, v_scale, side, signed=False)
+    m_new = b1 * m + (1.0 - b1) * r32
+    v_new = b2 * v + (1.0 - b2) * r32 * r32
+    bc1, bc2 = bias_corrections(b1, b2, step)
+    n_dir = (m_new / bc1) / (torch.sqrt(v_new / bc2) + eps)
+    w_new = (1.0 - lr_wd) * w.float() - lr_alpha * torch.einsum(
+        "...dr,...rn->...dn", p.float(), n_dir
+    )
+    mc, ms = qz.quantize_stacked(m_new, side, signed=True)
+    vc, vs = qz.quantize_stacked(v_new, side, signed=False)
+    return w_new.to(w.dtype), mc, ms, vc, vs

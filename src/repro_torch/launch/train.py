@@ -7,6 +7,16 @@ Runs on the card unless ``--device cpu`` is given.
     PYTHONPATH=src python -m repro_torch.launch.train --arch llama3-8b --smoke \\
         --device cpu --steps 4 --tau 2
 
+``--optimizer`` takes the composed names of ``core/api.py``; the ported
+inners are ``adam``, ``msgd``, ``adam-mini`` and ``adam8bit``, so
+``galore-sara-adam``, ``galore-sara-msgd``, ``galore-sara-adam-mini`` and
+``galore-sara-adam8bit`` run on either engine, each with its fused CUDA
+update on the bucketed one:
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch llama3-8b --smoke \
+        --device cpu --optimizer galore-sara-adam8bit --engine bucketed \
+        --svd-backend randomized --steps 4 --tau 2 --rank 8
+
 ``--smoke`` selects the reduced config in f32.  Beyond the reference's
 flags, ``--svd-backend`` picks the refresh's SVD (the reference's default,
 exact, or randomized, whose power iterations run on the CUDA kernel).

@@ -28,8 +28,20 @@ from repro_torch.kernels.flash_attention_decode.kernel import (
 from repro_torch.kernels.flash_attention_decode.ref import paged_decode_attention_ref
 from repro_torch.kernels.galore_project.kernel import galore_project_batched
 from repro_torch.kernels.galore_project.ref import project_ref
-from repro_torch.kernels.lowrank_update.kernel import lowrank_adam_update_batched
-from repro_torch.kernels.lowrank_update.ref import lowrank_adam_update_ref
+from repro_torch.kernels.lowrank_update import ops as update_ops
+from repro_torch.kernels.lowrank_update import quantize as qz
+from repro_torch.kernels.lowrank_update.kernel import (
+    lowrank_adam8bit_update_batched,
+    lowrank_adam_mini_update_batched,
+    lowrank_adam_update_batched,
+    lowrank_msgd_update_batched,
+)
+from repro_torch.kernels.lowrank_update.ref import (
+    lowrank_adam8bit_update_ref,
+    lowrank_adam_mini_update_ref,
+    lowrank_adam_update_ref,
+    lowrank_msgd_update_ref,
+)
 from repro_torch.kernels.power_iter.kernel import power_iter_batched
 from repro_torch.kernels.power_iter.ref import power_iter_ref
 from repro_torch.kernels.rmsnorm.kernel import rmsnorm as rmsnorm_kernel
@@ -222,6 +234,125 @@ def test_optimizer_wrappers_count_launches_and_reject_bad_inputs_on_gpu():
         power_iter_batched(w.transpose(1, 2).contiguous().transpose(1, 2), p)
     with pytest.raises(ValueError, match="mismatched"):
         lowrank_adam_update_batched(w, p, rg[:, :4], m, v, 1, 0.1)
+    assert counters.snapshot() == want
+
+
+# ---------------------------------------------------------------------------
+# on the card: the MSGD, Adam-mini and 8-bit Adam updates (kernels 6-8)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", list(OPT_SHAPES))
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_msgd_update_kernel_matches_plain_on_gpu(shape, dtype):
+    _require_card()
+    w, p, rg, m, _ = _opt_inputs(6, OPT_SHAPES[shape], dtype)
+    got = lowrank_msgd_update_batched(w, p, rg, m, 0.0025, 1e-3)
+    want = lowrank_msgd_update_ref(w, p, rg, m, b1=0.9, lr_alpha=0.0025, lr_wd=1e-3)
+    assert got[0].dtype == w.dtype
+    torch.testing.assert_close(got[0].float(), want[0].float(), **TOL[dtype])
+    torch.testing.assert_close(got[1], want[1], **TOL["float32"])
+
+
+# side, (B, d, n, r): d and n off the 128 grid; a short final chunk along n
+# (left, n % 256 != 0) and along r (right, r = 300), and r = 100 (right):
+# shapes JAX's adam8bit_kernel_supported sends to its jnp version
+LOWRANK_SIDE_SHAPES = {
+    "left_ragged": ("left", (2, 200, 300, 24)),
+    "left_aligned": ("left", (2, 256, 512, 64)),
+    "right_r100": ("right", (2, 136, 200, 100)),
+    "right_r300": ("right", (1, 320, 72, 300)),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(LOWRANK_SIDE_SHAPES))
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("step", [1, 5])
+def test_adam_mini_update_kernel_matches_plain_on_gpu(case, dtype, step):
+    _require_card()
+    side, shape = LOWRANK_SIDE_SHAPES[case]
+    w, p, rg, m, v = _opt_inputs(7, shape, dtype)
+    vrow = (v[:, :, 0] if side == "left" else v[:, 0, :]).contiguous()
+    kw = dict(b1=0.9, b2=0.95, eps=1e-8, side=side)
+    got = lowrank_adam_mini_update_batched(w, p, rg, m, vrow, step, 0.0025, 1e-3, **kw)
+    want = lowrank_adam_mini_update_ref(w, p, rg, m, vrow, step, 0.0025, 1e-3, **kw)
+    torch.testing.assert_close(got[0].float(), want[0].float(), **TOL[dtype])
+    for a, b in zip(got[1:], want[1:]):
+        torch.testing.assert_close(a, b, **TOL["float32"])
+
+
+def _assert_codes_close(got, want):
+    """8-bit codes at most one step apart, on at most 1e-3 of them."""
+    diff = (got.int() - want.int()).abs()
+    assert int(diff.max()) <= 1
+    assert float((diff > 0).float().mean()) <= 1e-3
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(LOWRANK_SIDE_SHAPES))
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("state", ["moments", "fresh", "reset"])
+def test_adam8bit_update_kernel_matches_plain_on_gpu(case, dtype, state):
+    """``moments``: quantized random moments, with one all-zero chunk whose
+    gradient is zero too (its new scale must be 1.0); ``fresh``: the
+    quantized zeros of init (scales 1.0); ``reset``: the refresh's reset
+    carry (codes and scales 0)."""
+    _require_card()
+    side, shape = LOWRANK_SIDE_SHAPES[case]
+    b, d, n, r = shape
+    w, p, rg, m, v = _opt_inputs(8, shape, dtype)
+    if state == "moments":
+        if side == "left":
+            m[0, 0, :256] = v[0, 0, :256] = rg[0, 0, :256] = 0.0
+        else:
+            m[0, :256, 0] = v[0, :256, 0] = rg[0, :256, 0] = 0.0
+    else:
+        m, v = torch.zeros_like(m), torch.zeros_like(v)
+    mc, ms = qz.quantize_stacked(m, side, signed=True)
+    vc, vs = qz.quantize_stacked(v, side, signed=False)
+    if state == "reset":
+        mc, ms, vc, vs = (torch.zeros_like(x) for x in (mc, ms, vc, vs))
+    step = 1 if state != "moments" else 5
+    kw = dict(b1=0.9, b2=0.999, eps=1e-8, side=side)
+    got = lowrank_adam8bit_update_batched(w, p, rg, mc, ms, vc, vs, step, 0.0025, 1e-3, **kw)
+    want = lowrank_adam8bit_update_ref(w, p, rg, mc, ms, vc, vs, step, 0.0025, 1e-3, **kw)
+    assert got[0].dtype == w.dtype and got[1].dtype == got[3].dtype == torch.uint8
+    torch.testing.assert_close(got[0].float(), want[0].float(), **TOL[dtype])
+    for i in (1, 3):
+        _assert_codes_close(got[i], want[i])
+    for i in (2, 4):
+        torch.testing.assert_close(got[i], want[i], rtol=1e-5, atol=0)
+    if state == "moments":
+        assert float(got[2][0, 0, 0]) == float(got[4][0, 0, 0]) == 1.0
+
+
+@pytest.mark.gpu
+def test_inner_dispatch_launches_the_kernels_on_gpu():
+    """The bucketed engine's dispatch sends CUDA tensors to the kernels (one
+    launch each) and the wrappers refuse what the kernels do not take."""
+    _require_card()
+    from repro_torch.kernels import counters
+
+    w, p, rg, m, v = _opt_inputs(9, OPT_SHAPES["ragged"], "float32")
+    b, d, n, r = OPT_SHAPES["ragged"]
+    mc, ms = qz.quantize_stacked(m, "left", signed=True)
+    vc, vs = qz.quantize_stacked(v, "left", signed=False)
+    counters.reset()
+    update_ops.bucketed_msgd_update(w, p, rg, m, 0.1)
+    assert counters.snapshot() == {"lowrank_msgd_update_batched": 1}
+    update_ops.bucketed_adam_mini_update(w, p, rg, m, v[:, :, 0].contiguous(), 1, 0.1)
+    update_ops.bucketed_adam8bit_update(w, p, rg, mc, ms, vc, vs, 1, 0.1)
+    want = {"lowrank_msgd_update_batched": 1, "lowrank_adam_mini_update_batched": 1,
+            "lowrank_adam8bit_update_batched": 1}
+    assert counters.snapshot() == want
+    with pytest.raises(ValueError, match="scales"):
+        lowrank_adam8bit_update_batched(w, p, rg, mc, ms, vc, vs, 1, 0.1, side="right")
+    with pytest.raises(ValueError, match="adam_mini v"):
+        lowrank_adam_mini_update_batched(w, p, rg, m, v[:, 0, :].contiguous(), 1, 0.1)
+    with pytest.raises(ValueError, match="mismatched"):
+        lowrank_msgd_update_batched(w, p, rg[:, :4], m, 0.1)
     assert counters.snapshot() == want
 
 

@@ -11,6 +11,8 @@ the card by tests/test_torch_gpu.py.  Also here: the port's sampling, SVD
 and schedule modules against JAX's, with JAX's own random draws handed in
 (``JaxDraws``).
 """
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -68,15 +70,25 @@ class JaxDraws:
 
     def leaf(self, leaf_idx, batch_shape, sketch, gumbel_len, device=None):
         lkey = jax.random.fold_in(self.subkey, leaf_idx)
-        keys = jax.random.split(lkey, int(np.prod(batch_shape))) if batch_shape else lkey[None]
-        pairs = jax.vmap(jax.random.split)(keys)
-        omega = gumbel = None
-        if sketch is not None:
-            omega = jax.vmap(lambda k: jax.random.normal(k, sketch, jnp.float32))(pairs[:, 0])
-        if gumbel_len is not None:
-            gumbel = jax.vmap(lambda k: jax.random.gumbel(k, (gumbel_len,), jnp.float32))(
-                pairs[:, 1])
+        nb = int(np.prod(batch_shape)) if batch_shape else 0
+        omega, gumbel = _jax_leaf_draws(lkey, nb, sketch, gumbel_len)
         return LeafDraws(_t(omega, device), _t(gumbel, device))
+
+
+@functools.partial(jax.jit, static_argnums=(1, 2, 3))
+def _jax_leaf_draws(lkey, nb, sketch, gumbel_len):
+    """One leaf's draws from its folded key (``JaxDraws.leaf``); ``nb`` 0
+    for a leaf with no leading dims.  Jitted, so that each shape traces
+    once per process: the same numbers as the eager calls."""
+    keys = jax.random.split(lkey, nb) if nb else lkey[None]
+    pairs = jax.vmap(jax.random.split)(keys)
+    omega = gumbel = None
+    if sketch is not None:
+        omega = jax.vmap(lambda k: jax.random.normal(k, sketch, jnp.float32))(pairs[:, 0])
+    if gumbel_len is not None:
+        gumbel = jax.vmap(lambda k: jax.random.gumbel(k, (gumbel_len,), jnp.float32))(
+            pairs[:, 1])
+    return omega, gumbel
 
 
 def _t(a, device=None):
