@@ -9,14 +9,17 @@ Phases; any failure raises and the script exits non-zero:
               from ``src/repro_torch/csrc`` (one nvcc per source, all
               started together) and print the card's name and power limit.
 2. kernels -- each kernel against its plain PyTorch version at its path's
-              shapes (serving: f32 and bf16; training: every bucket of the
-              4-layer llama3-8b plans, f32, and bf16 W for each fused
-              update), within the tolerances in ``TOL``; then its device
-              time per call (torch.profiler) beside its plain version's, a
-              PyTorch yardstick's (``LIBRARY_CALL`` says what it covers),
-              and its bound on the H100 (bytes over 3.35 TB/s or
-              operations over the dtype's peak, whichever is larger).
-              ``call_ms`` adds the host's launch time.
+              shapes (serving: f32 and bf16, plus flash at the training
+              shape; training: every bucket of the 4-layer llama3-8b plans,
+              f32, and bf16 W for each fused update; the 2-D fused
+              projection, which no path runs, at two shapes of its own),
+              within the tolerances in ``TOL``; then its device time per
+              call (torch.profiler) beside its plain version's, a PyTorch
+              yardstick's (``LIBRARY_CALL`` says what it covers), and its
+              bound on the H100 (bytes over 3.35 TB/s or operations over
+              the dtype's peak, whichever is larger).  ``call_ms`` adds the
+              host's launch time; flash cases record which of its two
+              designs ran (bf16 must take the tensor cores).
 3. serve   -- full-width llama3-8b (32 layers, bf16, seeded random weights)
               through ``ContinuousEngine(max_slots=4, page_size=16)``: 8
               requests, prompts of 64..1024 tokens, 32 new tokens each,
@@ -42,10 +45,12 @@ Phases; any failure raises and the script exits non-zero:
               (W' and its state) from the kernels against the plain
               versions on the same stacks, one bucket at a time; then
               profiles one hot step (device busy share, time by kernel).
-5. report  -- one ``{"kernels": [...]}`` line (``launches`` summed over
-              the serve and train runs, each run's own count beside it in
-              ``launches_by_path``), the ``nvidia-smi`` line, and last
-              ``{"ok": true, "device": {...}}``.  Per-case detail goes to
+5. report  -- one ``{"kernel_over_library": [...]}`` line (every case's
+              kernel time over its yardstick's), one ``{"kernels": [...]}``
+              line (``launches`` summed over the serve and train runs, each
+              run's own count beside it in ``launches_by_path``; 0 for the
+              2-D projection, which no path runs), the ``nvidia-smi`` line,
+              and last ``{"ok": true, "device": {...}}``.  Per-case detail goes to
               ``chiprun_out/chip_smoke.json``.
 
 The script imports nothing of JAX or of the JAX package ``repro``.
@@ -82,6 +87,8 @@ TOL = {
     # |plain| output of the case (check_close's rel_atol), rtol 1e-4.  The
     # Adam update's bf16 W' may round one bf16 ulp (2^-7) apart.
     "galore_project_batched": {"float32": (1e-5, 1e-4)},
+    # the 2-D projection: R as the batched one's; M' and V' to the same bar
+    "galore_project": {"float32": (1e-5, 1e-4)},
     "lowrank_adam_update_batched": {"float32": (1e-5, 1e-4), "bfloat16": (1e-5, 2.0**-7)},
     "power_iter_batched": {"float32": (1e-5, 1e-4)},
     # The other fused updates: W' and f32 moments as Adam's.  Their moments
@@ -143,7 +150,15 @@ KERNELS = {
         "source": "src/repro_torch/csrc/lowrank_adam8bit.cu",
         "replaces": "src/repro/kernels/lowrank_update/kernel.py:562",
     },
+    "galore_project": {
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/galore_project.cu",
+        "replaces": "src/repro/kernels/galore_project/kernel.py:73",
+    },
 }
+# Kernels that no path runs: the JAX package calls the 2-D fused projection
+# nowhere, so it is held by its kernel case alone and launches 0 times.
+NO_PATH = ("galore_project",)
 # What each ``library_ms`` times: one PyTorch call where one computes the
 # kernel's whole function, else a call that computes the part of it that
 # takes the time (no PyTorch call computes a fused optimizer update).
@@ -159,6 +174,7 @@ LIBRARY_CALL = {
     "lowrank_msgd_update_batched": "torch.baddbmm (back-projection only)",
     "lowrank_adam_mini_update_batched": "torch.baddbmm (back-projection only)",
     "lowrank_adam8bit_update_batched": "torch.baddbmm (back-projection only)",
+    "galore_project": "torch.mm(P^T, G): the product only, not the moments",
 }
 SERVE_KERNELS = ("rmsnorm", "flash_attention_fwd", "paged_decode_attention")
 _TRAIN_COMMON = ("rmsnorm", "flash_attention_fwd", "galore_project_batched",
@@ -197,6 +213,9 @@ TRAIN_RUNS = {
     "train_adam_mini": ("galore-sara-adam-mini", SPLIT_BUCKETS),
     "train_adam8bit": ("galore-sara-adam8bit", SPLIT_BUCKETS),
 }
+# (d, n, r) of the 2-D fused projection's cases: the JAX benchmark's
+# (benchmarks/kernels_micro.py) and a full-width mlp leaf's
+PROJECT_2D_SHAPES = [(2048, 8192, 512), (4096, 14336, 512)]
 INNER_OF = {"galore-sara-adam": "adam", "galore-sara-msgd": "msgd",
             "galore-sara-adam-mini": "adam_mini", "galore-sara-adam8bit": "adam8bit"}
 PATH_KERNELS = {"serve": SERVE_KERNELS}
@@ -388,6 +407,7 @@ def check_update(inner: str, what: str, got, want, dn: str) -> dict:
 
 def kernel_cases(results):
     from repro_torch.kernels.flash_attention.kernel import flash_attention_fwd
+    from repro_torch.kernels.flash_attention.kernel import last_design as flash_design
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
     from repro_torch.kernels.flash_attention_decode.kernel import (
         paged_decode_attention_kernel,
@@ -465,27 +485,37 @@ def kernel_cases(results):
             kt, vt = kt.repeat_interleave(g, 1), vt.repeat_interleave(g, 1)
             return F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
 
-    flash_cases = [(s, s, 0, 0) for s in (128, 517, 1024)]
-    flash_cases += [(517, 517, 128, 0), (128, 256, 0, 128)]  # window; q_offset
-    for sq, sk, window, q_offset in flash_cases:
-        for dtype in (torch.float32, torch.bfloat16):
+    # (batch, Sq, Sk, window, q_offset, dtypes): serving prefills, a window,
+    # a q_offset, and one training step's attention (B=8, S=512, bf16)
+    both = (torch.float32, torch.bfloat16)
+    flash_cases = [(1, s, s, 0, 0, both) for s in (128, 517, 1024)]
+    flash_cases += [(1, 517, 517, 128, 0, both), (1, 128, 256, 0, 128, both)]
+    flash_cases += [(TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, 0, 0, (torch.bfloat16,))]
+    for nb, sq, sk, window, q_offset, dtypes in flash_cases:
+        for dtype in dtypes:
             dn = str(dtype).split(".")[-1]
-            q = randn(1, sq, 32, 128, dtype=dtype)
-            k = randn(1, sk, 8, 128, dtype=dtype)
-            v = randn(1, sk, 8, 128, dtype=dtype)
+            q = randn(nb, sq, 32, 128, dtype=dtype)
+            k = randn(nb, sk, 8, 128, dtype=dtype)
+            v = randn(nb, sk, 8, 128, dtype=dtype)
             kw = dict(causal=True, window=window, q_offset=q_offset)
             got = flash_attention_fwd(q, k, v, **kw)
+            design = flash_design()
             want = flash_attention_ref(q, k, v, **kw)
             torch.cuda.synchronize()
-            label = f"S={sq} Sk={sk} window={window} q_offset={q_offset}"
+            label = f"B={nb} S={sq} Sk={sk} window={window} q_offset={q_offset}"
             err = check_close(f"flash {label} {dn}", got, want,
                               *TOL["flash_attention_fwd"][dn])
+            expect = "tensor_cores" if dtype == torch.bfloat16 else "cuda_cores"
+            if design != expect:
+                raise AssertionError(f"flash {label} {dn} ran on the {design}, not the {expect}")
+            del got, want
             es = q.element_size()
             nbytes = (2 * q.numel() + k.numel() + v.numel()) * es
-            ops = 4 * 128 * 32 * pairs(sq, sk, True, window, q_offset)
+            ops = 4 * 128 * 32 * nb * pairs(sq, sk, True, window, q_offset)
             b_ms, b_by = bound(nbytes, ops, dn)
             has_library = window == 0 and q_offset == 0 and sq == sk
             timing = {
+                "design": design,
                 "ms": device_ms(lambda: flash_attention_fwd(q, k, v, **kw)),
                 "call_ms": call_ms(lambda: flash_attention_fwd(q, k, v, **kw)),
                 "plain_ms": device_ms(lambda: flash_attention_ref(q, k, v, **kw)),
@@ -494,7 +524,7 @@ def kernel_cases(results):
                 "bound_ms": b_ms, "bound_by": b_by,
             }
             record("flash_attention_fwd", label, dtype, err,
-                   sq == 1024 and dtype == torch.bfloat16, timing)
+                   nb == 1 and sq == 1024 and dtype == torch.bfloat16, timing)
 
     # -- paged decode: llama3-8b heads, ps=16, ragged fills incl. empty ------
     fills = [0, 129, 517, 1056]  # empty slot, ragged, ragged, a full slot
@@ -580,8 +610,8 @@ def optimizer_kernel_cases(results):
     updates: ``update_kernel_cases``).  Inputs on the scale of the real
     ones: unit-normal gradient stacks, orthonormal projectors and sketch
     bases."""
-    from repro_torch.kernels.galore_project.kernel import galore_project_batched
-    from repro_torch.kernels.galore_project.ref import project_ref
+    from repro_torch.kernels.galore_project.kernel import galore_project, galore_project_batched
+    from repro_torch.kernels.galore_project.ref import galore_project_ref, project_ref
     from repro_torch.kernels.power_iter.kernel import power_iter_batched
     from repro_torch.kernels.power_iter.ref import power_iter_ref
 
@@ -634,6 +664,30 @@ def optimizer_kernel_cases(results):
                 lambda: torch.bmm(g, torch.bmm(g.transpose(1, 2), q)), b_ms, b_by, 3))
             del g, q
             torch.cuda.empty_cache()
+
+    # -- kernel 10: the 2-D projection fused with Adam's moments, which no
+    # path runs: the JAX benchmark's shape (main case) and an mlp leaf's
+    for d, n, r in PROJECT_2D_SHAPES:
+        label = f"d={d} n={n} r={r}"
+        g = randn(d, n)
+        p = orthonormal(1, d, r)[0]
+        m = randn(r, n, scale=0.1)
+        v = randn(r, n, scale=0.1) ** 2
+        got = galore_project(g, p, m, v)
+        want = galore_project_ref(g, p, m, v, b1=0.9, b2=0.999)
+        torch.cuda.synchronize()
+        err = max(check_close(f"project_2d {label} {part}", a, c,
+                              *TOL["galore_project"]["float32"], rel_atol=True)
+                  for part, a, c in zip(("R", "M'", "V'"), got, want))
+        del got, want
+        b_ms, b_by = bound(4 * (d * n + d * r + 5 * r * n), 2 * d * r * n + 7 * r * n,
+                           "float32")
+        record("galore_project", label, torch.float32, err, (d, n) == PROJECT_2D_SHAPES[0][:2],
+               timed_case(lambda: galore_project(g, p, m, v),
+                          lambda: galore_project_ref(g, p, m, v, b1=0.9, b2=0.999),
+                          lambda: torch.mm(p.t(), g), b_ms, b_by, 10))
+        del g, p, m, v
+        torch.cuda.empty_cache()
     return cases
 
 
@@ -1211,7 +1265,7 @@ def main() -> int:
         for path, want in PATH_KERNELS.items():
             if name in want and by_path[path] <= 0:
                 raise AssertionError(f"{name} never launched on the {path} path")
-        if r["launches"] <= 0:
+        if r["launches"] <= 0 and name not in NO_PATH:
             raise AssertionError(f"{name} launched on no path")
 
     out_dir = ROOT / "chiprun_out"
@@ -1219,6 +1273,10 @@ def main() -> int:
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         {"card": smi, "kernels": list(results.values()), "cases": cases, **runs},
         indent=1))
+    ratios = [{"kernel": c["kernel"], "case": c["case"], "dtype": c["dtype"],
+               "ms": c["ms"], "library_ms": c["library_ms"],
+               "ratio": c["ms"] / c["library_ms"]} for c in cases if c.get("library_ms")]
+    print(json.dumps({"kernel_over_library": ratios}))
     keys = ("name", "route", "source", "replaces", "launches", "launches_by_path",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in results.values()]}))

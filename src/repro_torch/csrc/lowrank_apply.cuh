@@ -21,10 +21,15 @@ struct WeightApply {
   TW* w_out;
   long long ld, stride;
   float keep, lr_alpha;
+  bool vec;  // rows of W and W' start on 16 bytes (rows_16b_aligned)
   __device__ __forceinline__ void operator()(int b, int i, int j,
-                                             float acc) const {
+                                             const float* acc, int cnt) const {
     const long long o = (long long)b * stride + (long long)i * ld + j;
-    w_out[o] = from_float<TW>(keep * to_float(w[o]) - lr_alpha * acc);
+    float x[4];
+    global4(w + o, vec, cnt, x);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) x[e] = keep * x[e] - lr_alpha * acc[e];
+    store4(w_out + o, vec, cnt, x);
   }
 };
 
@@ -33,14 +38,16 @@ cudaError_t launch_backproject_t(const void* w, const float* p,
                                  const float* n_dir, void* w_out, int B,
                                  int d, int n, int rank, float lr_alpha,
                                  float keep, cudaStream_t stream) {
-  // A = P stored (d, r): M = d, K = r.  B = N stored (r, n).
-  batched_gemm_kernel<false, float, float, WeightApply<TW>>
-      <<<gemm_grid(d, n, B), kGemmThreads, 0, stream>>>(
-          p, n_dir, d, n, rank, rank, n, (long long)d * rank,
-          (long long)rank * n,
-          WeightApply<TW>{static_cast<const TW*>(w), static_cast<TW*>(w_out),
-                          n, (long long)d * n, keep, lr_alpha});
-  return cudaGetLastError();
+  // A = P stored (d, r): m-major with M = d, K = r.  B = N stored (r, n).
+  const long long ws = (long long)d * n;
+  const bool vec = rows_16b_aligned(w, n, ws, sizeof(TW)) &&
+                   rows_16b_aligned(w_out, n, ws, sizeof(TW));
+  return launch_gemm<false>(
+      p, n_dir, d, n, rank, rank, n, (long long)d * rank, (long long)rank * n,
+      B,
+      WeightApply<TW>{static_cast<const TW*>(w), static_cast<TW*>(w_out), n,
+                      ws, keep, lr_alpha, vec},
+      stream);
 }
 
 // W' for W of dtype code ``dtype`` (kFloat32 or kBFloat16).

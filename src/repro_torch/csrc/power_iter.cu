@@ -37,18 +37,16 @@ cudaError_t launch(const void* g, const float* q, float* z, float* y, int B,
   const TG* gg = static_cast<const TG*>(g);
   const long long gs = (long long)m * n;
   // Z = G^T Q: A = G stored (m, n), k-major with M = n, K = m.
-  batched_gemm_kernel<true, TG, float, StoreF32>
-      <<<gemm_grid(n, kp, B), kGemmThreads, 0, stream>>>(
-          gg, q, n, kp, m, n, kp, gs, (long long)m * kp,
-          StoreF32{z, kp, (long long)n * kp});
-  cudaError_t err = cudaGetLastError();
+  const long long zs = (long long)n * kp, ys = (long long)m * kp;
+  cudaError_t err = launch_gemm<true>(
+      gg, q, n, kp, m, n, kp, gs, ys, B,
+      StoreF32{z, kp, zs, rows_16b_aligned(z, kp, zs, 4)}, stream);
   if (err != cudaSuccess) return err;
-  // Y = G Z: A = G stored (m, n) with M = m, K = n.
-  batched_gemm_kernel<false, TG, float, StoreF32>
-      <<<gemm_grid(m, kp, B), kGemmThreads, 0, stream>>>(
-          gg, z, m, kp, n, n, kp, gs, (long long)n * kp,
-          StoreF32{y, kp, (long long)m * kp});
-  return cudaGetLastError();
+  // Y = G Z: A = G stored (m, n), m-major with M = m, K = n.
+  return launch_gemm<false>(gg, static_cast<const float*>(z), m, kp, n, n, kp,
+                            gs, zs, B,
+                            StoreF32{y, kp, ys, rows_16b_aligned(y, kp, ys, 4)},
+                            stream);
 }
 
 }  // namespace

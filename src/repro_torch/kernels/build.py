@@ -30,12 +30,14 @@ NVCC_FLAGS = (
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-# C signatures: every pointer and the stream as c_void_p, or ctypes would
-# pass them as 32-bit ints.
+# C signatures, by entry name: the source ``csrc/<source>.cu``, the C
+# function and its argument types; every pointer and the stream as
+# c_void_p, or ctypes would pass them as 32-bit ints.  An entry's name is
+# its source's unless the source has several.
 SIGNATURES = {
     "flash_attention": (
         "repro_flash_attention_fwd",
-        [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P],
+        [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P, _P],
     ),
     "paged_decode": (
         "repro_paged_decode_attention",
@@ -44,6 +46,11 @@ SIGNATURES = {
     "galore_project": (
         "repro_galore_project_batched",
         [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+    ),
+    "galore_project_2d": (
+        "repro_galore_project",
+        [_P] * 7 + [_I] * 5 + [_F] * 4 + [_P],
+        "galore_project",
     ),
     "lowrank_adam": (
         "repro_lowrank_adam_update_batched",
@@ -68,6 +75,14 @@ SIGNATURES = {
 }
 
 _loaded: Dict[str, ctypes.CDLL] = {}
+
+
+def _source(entry_name: str) -> str:
+    sig = SIGNATURES[entry_name]
+    return sig[2] if len(sig) > 2 else entry_name
+
+
+SOURCES = tuple(dict.fromkeys(_source(e) for e in SIGNATURES))
 
 
 def _nvcc() -> str:
@@ -122,27 +137,29 @@ def build_all() -> Dict[str, str]:
     """Compile every source in parallel; returns name -> nvcc's output
     (register and shared-memory use from ``-Xptxas -v``; empty when the
     library was already built)."""
-    started = {n: _start(n) for n in SIGNATURES}
+    started = {n: _start(n) for n in SOURCES}
     return {n: _finish(n, s) for n, s in started.items()}
 
 
 def library(name: str) -> ctypes.CDLL:
     """The loaded library for ``csrc/<name>.cu``, built on first use, with
-    its entry point's argument and return types declared."""
+    its entry points' argument and return types declared."""
     if name not in _loaded:
         _finish(name, _start(name))
         lib = ctypes.CDLL(str(_lib_path(name)))
-        fn_name, argtypes = SIGNATURES[name]
-        fn = getattr(lib, fn_name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+        for entry_name in SIGNATURES:
+            if _source(entry_name) == name:
+                fn_name, argtypes = SIGNATURES[entry_name][:2]
+                fn = getattr(lib, fn_name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
         _loaded[name] = lib
     return _loaded[name]
 
 
 def entry(name: str):
-    """The C entry point of ``csrc/<name>.cu``."""
-    return getattr(library(name), SIGNATURES[name][0])
+    """The C entry point named ``name`` in ``SIGNATURES``."""
+    return getattr(library(_source(name)), SIGNATURES[name][0])
 
 
 def check(err: int, what: str) -> None:

@@ -1,12 +1,17 @@
 """Wrapper of the CUDA flash-attention forward (``csrc/flash_attention.cu``).
 
 Replaces the TPU kernel ``src/repro/kernels/flash_attention/kernel.py::
-flash_attention_fwd``.  The source's header says how the kernel is laid out
-and what bounds it on the H100 (operations, at the serving shapes).  The
-kernel is the forward; ``flash_attention_autograd`` adds the gradient by
-recomputing the plain version, as the JAX package's ``custom_vjp`` does.
+flash_attention_fwd``.  The source's header says how its two designs are
+laid out (bf16 tensor cores for D % 16 == 0, f32 CUDA cores for f32 and
+other head dims; the C entry point picks one and ``last_design`` names the
+one that ran) and what bounds them on the H100 (operations, at the serving
+shapes).  The kernel is the forward; ``flash_attention_autograd`` adds the
+gradient by recomputing the plain version, as the JAX package's
+``custom_vjp`` does.
 """
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -15,6 +20,14 @@ from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
 NAME = "flash_attention_fwd"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+DESIGNS = ("cuda_cores", "tensor_cores")  # csrc/flash_attention.cu FlashDesign
+_last_design = None
+
+
+def last_design():
+    """The design of the most recent launch (one of ``DESIGNS``), or None
+    before the first."""
+    return _last_design
 
 
 def flash_attention_fwd(
@@ -49,14 +62,17 @@ def flash_attention_fwd(
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
+    design = ctypes.c_int(-1)
     with torch.cuda.device(q.device):
         err = build.entry("flash_attention")(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             _DTYPES[q.dtype], b, sq, sk, h, kvh, d, int(bool(causal)),
             int(window), int(q_offset), 1.0 / d**0.5,
-            torch.cuda.current_stream().cuda_stream,
+            torch.cuda.current_stream().cuda_stream, ctypes.addressof(design),
         )
     build.check(err, NAME)
+    global _last_design
+    _last_design = DESIGNS[design.value]
     counters.LAUNCHES[NAME] += 1
     return out
 

@@ -10,8 +10,6 @@ They replace the TPU kernels of the same names in
 how its kernel is laid out (a moments pass, then the back-projection
 product of ``csrc/lowrank_apply.cuh`` with W' in its epilogue) and what
 bounds it on the H100 (operations).  The plain versions are in ``ref.py``.
-Kernel 10 of PERF.md's table, the 2-D ``galore_project`` fused with Adam's
-moments, is not ported (no path of the JAX package calls it).
 """
 from __future__ import annotations
 

@@ -26,8 +26,9 @@ from repro_torch.kernels.flash_attention_decode.kernel import (
     paged_decode_attention_kernel,
 )
 from repro_torch.kernels.flash_attention_decode.ref import paged_decode_attention_ref
-from repro_torch.kernels.galore_project.kernel import galore_project_batched
-from repro_torch.kernels.galore_project.ref import project_ref
+from repro_torch.kernels.flash_attention.kernel import last_design as flash_design
+from repro_torch.kernels.galore_project.kernel import galore_project, galore_project_batched
+from repro_torch.kernels.galore_project.ref import galore_project_ref, project_ref
 from repro_torch.kernels.lowrank_update import ops as update_ops
 from repro_torch.kernels.lowrank_update import quantize as qz
 from repro_torch.kernels.lowrank_update.kernel import (
@@ -60,6 +61,13 @@ FLASH_CASES = {
     "q_offset": (1, 32, 64, 4, 2, 32, True, 0, 32),
     "ragged": (1, 37, 37, 4, 2, 16, True, 0, 0),
     "not_causal": (1, 16, 24, 2, 2, 16, False, 0, 0),
+    # bf16 takes the tensor-core design for D % 16 == 0 (64, 128 here) and
+    # the CUDA-core design for D = 72; f32 always the CUDA-core design
+    "b8_d128_ragged": (8, 37, 37, 4, 2, 128, True, 0, 0),
+    "d64_window_ragged": (2, 150, 150, 4, 2, 64, True, 40, 0),
+    "d128_q_offset_ragged": (1, 70, 200, 4, 1, 128, True, 0, 130),
+    "d128_long": (1, 260, 260, 2, 1, 128, True, 0, 0),
+    "d72_window_q_offset": (2, 70, 100, 4, 2, 72, True, 24, 30),
 }
 
 
@@ -121,6 +129,29 @@ def test_flash_kernel_matches_plain_on_gpu(case, dtype):
     torch.testing.assert_close(
         got.float(), flash_attention_ref(q, k, v, **kw).float(), **TOL[dtype]
     )
+    tensor_cores = dtype == "bfloat16" and d % 16 == 0
+    assert flash_design() == ("tensor_cores" if tensor_cores else "cuda_cores")
+
+
+@pytest.mark.gpu
+def test_flash_wrapper_reports_its_design_on_gpu():
+    """bf16 with D % 16 == 0 runs on the tensor cores; f32, and bf16 with
+    another head dim, on the CUDA cores: two hand-written kernels, chosen
+    by the C entry point, never the plain version."""
+    _require_card()
+    from repro_torch.kernels import counters
+
+    counters.reset()
+    for dtype, d, want in (("bfloat16", 128, "tensor_cores"), ("bfloat16", 16, "tensor_cores"),
+                           ("bfloat16", 256, "tensor_cores"), ("bfloat16", 72, "cuda_cores"),
+                           ("float32", 128, "cuda_cores")):
+        q = torch.randn(1, 20, 4, d, device="cuda").to(TORCH[dtype])
+        k = torch.randn(1, 20, 2, d, device="cuda").to(TORCH[dtype])
+        out = flash_attention_fwd(q, k, k)
+        assert flash_design() == want, (dtype, d)
+        torch.testing.assert_close(out.float(), flash_attention_ref(q, k, k).float(),
+                                   **TOL[dtype])
+    assert counters.snapshot() == {"flash_attention_fwd": 5}
 
 
 @pytest.mark.gpu
@@ -235,6 +266,56 @@ def test_optimizer_wrappers_count_launches_and_reject_bad_inputs_on_gpu():
     with pytest.raises(ValueError, match="mismatched"):
         lowrank_adam_update_batched(w, p, rg[:, :4], m, v, 1, 0.1)
     assert counters.snapshot() == want
+
+
+# (d, n, r): d and n off the 128 grid, r = 100; and an aligned one
+PROJECT_2D_SHAPES = {"ragged": (300, 130, 100), "wide": (200, 520, 100),
+                     "aligned": (256, 384, 64)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", list(PROJECT_2D_SHAPES))
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("mdtype", ["float32", "bfloat16"])
+def test_project_2d_kernel_matches_plain_on_gpu(shape, dtype, mdtype):
+    """Kernel 10, the 2-D projection fused with Adam's moments: R to the
+    projection's tolerance, and M', V' equal to the plain moments of the
+    kernel's own R (each operation rounded on its own)."""
+    _require_card()
+    d, n, r = PROJECT_2D_SHAPES[shape]
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    g = (0.1 * torch.randn(d, n, generator=gen, device="cuda")).to(TORCH[dtype])
+    p = torch.linalg.qr(torch.randn(d, r, generator=gen, device="cuda"))[0].contiguous()
+    m = (0.01 * torch.randn(r, n, generator=gen, device="cuda")).to(TORCH[mdtype])
+    v = (1e-4 * torch.randn(r, n, generator=gen, device="cuda").abs()).to(TORCH[mdtype])
+    got = galore_project(g, p, m, v, b1=0.9, b2=0.999)
+    want = galore_project_ref(g, p, m, v, b1=0.9, b2=0.999)
+    assert all(t.dtype == torch.float32 and t.shape == (r, n) for t in got)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, **TOL["float32"])
+    m_same = 0.9 * m.float() + (1.0 - 0.9) * got[0]
+    v_same = 0.999 * v.float() + (1.0 - 0.999) * got[0] * got[0]
+    assert torch.equal(got[1], m_same) and torch.equal(got[2], v_same)
+
+
+@pytest.mark.gpu
+def test_project_2d_wrapper_counts_launches_and_rejects_bad_inputs_on_gpu():
+    _require_card()
+    from repro_torch.kernels import counters
+
+    g = torch.randn(40, 72, device="cuda")
+    p = torch.randn(40, 8, device="cuda")
+    m = torch.zeros(8, 72, device="cuda")
+    counters.reset()
+    galore_project(g, p, m, m)
+    assert counters.snapshot() == {"galore_project": 1}
+    with pytest.raises(TypeError):
+        galore_project(g, p, m, m.bfloat16())
+    with pytest.raises(ValueError, match="want"):
+        galore_project(g, p, m[:4], m[:4])
+    with pytest.raises(ValueError, match="contiguous"):
+        galore_project(g.t().contiguous().t(), p, m, m)
+    assert counters.snapshot() == {"galore_project": 1}
 
 
 # ---------------------------------------------------------------------------
