@@ -13,7 +13,11 @@ Phases; any failure raises and the script exits non-zero:
               shape; training: every bucket of the 4-layer llama3-8b plans,
               f32, and bf16 W for each fused update; the 2-D fused
               projection, which no path runs, at two shapes of its own),
-              within the tolerances in ``TOL``; then its device time per
+              within the tolerances in ``TOL``; paged decode also on a
+              bandwidth case of 32 slots of 1024 + 64 i tokens on shuffled
+              pages (264 MB of K/V, more than L2), each paged case
+              recording the design and cluster size it took (bf16 must
+              take the tensor cores); then its device time per
               call (torch.profiler) beside its plain version's, a PyTorch
               yardstick's (``LIBRARY_CALL`` says what it covers), and its
               bound on the H100 (bytes over 3.35 TB/s or operations over
@@ -191,6 +195,12 @@ NEW_TOKENS = 32
 PROMPT_LENS = [1024, 128, 517, 1000, 255, 777, 64, 333]
 ARRIVALS = [0, 0, 1, 2, 4, 8, 12, 20]
 POOL_PAGES = 160  # usable pages: fewer than four 1024-token requests need
+# paged-decode kernel cases: the serving case (an empty slot, two ragged
+# slots, a full one) and the bandwidth case: 32 slots of 1024 + 64 i tokens
+# (64,512 live tokens, 264 MB of bf16 K/V, more than the 50 MB L2), as a
+# server decoding 32 concurrent 1-3K-token conversations holds
+PAGED_FILLS = [0, 129, 517, 1056]
+PAGED_BANDWIDTH_FILLS = [1024 + 64 * i for i in range(32)]
 
 # train phase: llama3-8b at full width, 4 layers, the launcher's defaults
 TRAIN_LAYERS = 4
@@ -417,7 +427,6 @@ def kernel_cases(results):
     )
     from repro_torch.kernels.rmsnorm.kernel import rmsnorm
     from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
-    from repro_torch.serve.kv_cache import pages_needed
 
     F = torch.nn.functional
     dev = torch.device("cuda")
@@ -526,53 +535,108 @@ def kernel_cases(results):
             record("flash_attention_fwd", label, dtype, err,
                    nb == 1 and sq == 1024 and dtype == torch.bfloat16, timing)
 
-    # -- paged decode: llama3-8b heads, ps=16, ragged fills incl. empty ------
-    fills = [0, 129, 517, 1056]  # empty slot, ragged, ragged, a full slot
-    mp = pages_needed(max(fills), PAGE_SIZE)
-    for window in (0, 128):
-        for dtype in (torch.float32, torch.bfloat16):
-            dn = str(dtype).split(".")[-1]
-            table = torch.full((4, mp), -1, dtype=torch.int32)
-            nxt = 1
-            for i, n in enumerate(fills):
-                for j in range(pages_needed(n, PAGE_SIZE)):
-                    table[i, j] = nxt
-                    nxt += 1
-            n_pages = nxt + 3  # a few never-referenced pages of garbage
-            pk = randn(n_pages, PAGE_SIZE, 8, 128, scale=50.0)
-            pv = randn(n_pages, PAGE_SIZE, 8, 128, scale=50.0)
-            used = table[table >= 0].long().to(dev)
-            pk[used] = randn(used.numel(), PAGE_SIZE, 8, 128)
-            pv[used] = randn(used.numel(), PAGE_SIZE, 8, 128)
-            pk, pv = pk.to(dtype), pv.to(dtype)
-            table = table.to(dev)
-            lens = torch.tensor(fills, dtype=torch.int32, device=dev)
-            q = randn(4, 1, 32, 128, dtype=dtype)
-            got = paged_decode_attention_kernel(q, pk, pv, table, lens, window=window)
-            want = paged_decode_attention_ref(q, pk, pv, table, lens, window=window)
-            torch.cuda.synchronize()
-            label = f"fills={fills} ps={PAGE_SIZE} window={window}"
-            err = check_close(f"paged {label} {dn}", got, want,
-                              *TOL["paged_decode_attention"][dn])
-            if not bool((got[0] == 0).all()):
-                raise AssertionError(f"paged {label} {dn}: empty slot is not exactly 0")
-            live = sum(n - (max(0, n - window) if window else 0) for n in fills)
-            es = q.element_size()
-            nbytes = 2 * q.numel() * es + 2 * live * 8 * 128 * es + table.numel() * 4 + 16
-            b_ms, b_by = bound(nbytes, 4 * 32 * 128 * live, dn)
-            timing = {
-                "ms": device_ms(lambda: paged_decode_attention_kernel(
-                    q, pk, pv, table, lens, window=window)),
-                "call_ms": call_ms(lambda: paged_decode_attention_kernel(
-                    q, pk, pv, table, lens, window=window)),
-                "plain_ms": device_ms(lambda: paged_decode_attention_ref(
-                    q, pk, pv, table, lens, window=window)),
-                "library_ms": None,  # no single PyTorch call reads a page table
-                "bound_ms": b_ms, "bound_by": b_by,
-            }
-            record("paged_decode_attention", label, dtype, err,
-                   window == 0 and dtype == torch.bfloat16, timing)
+    # -- paged decode: the serving case (ragged fills incl. an empty slot),
+    # and the bandwidth case (more K/V than L2 holds, pages out of order) --
+    paged = [(PAGED_FILLS, window, dtype, False)
+             for window in (0, 128) for dtype in (torch.float32, torch.bfloat16)]
+    paged.append((PAGED_BANDWIDTH_FILLS, 0, torch.bfloat16, True))
+    for fills, window, dtype, shuffle in paged:
+        dn = str(dtype).split(".")[-1]
+        q, pk, pv, table, lens = paged_inputs(randn, fills, dtype, shuffle, gen)
+        got = paged_decode_attention_kernel(q, pk, pv, table, lens, window=window)
+        want = paged_decode_attention_ref(q, pk, pv, table, lens, window=window)
+        torch.cuda.synchronize()
+        label = paged_label(fills, window, shuffle)
+        err = check_close(f"paged {label} {dn}", got, want,
+                          *TOL["paged_decode_attention"][dn])
+        del want
+        empty = [i for i, n in enumerate(fills) if n == 0]
+        if not bool((got[empty] == 0).all()):
+            raise AssertionError(f"paged {label} {dn}: empty slot is not exactly 0")
+        b_ms, b_by = paged_bound(q, table, fills, window)
+        timing = {
+            **paged_plan(q, pk, table),
+            "ms": device_ms(lambda: paged_decode_attention_kernel(
+                q, pk, pv, table, lens, window=window)),
+            "call_ms": call_ms(lambda: paged_decode_attention_kernel(
+                q, pk, pv, table, lens, window=window)),
+            "plain_ms": device_ms(lambda: paged_decode_attention_ref(
+                q, pk, pv, table, lens, window=window)),
+            "library_ms": None,  # no single PyTorch call reads a page table
+            "bound_ms": b_ms, "bound_by": b_by,
+        }
+        want_design = "tensor_cores" if dtype == torch.bfloat16 else "cuda_cores"
+        if timing["design"] != want_design:
+            raise AssertionError(f"paged {label} {dn} ran on the {timing['design']}")
+        record("paged_decode_attention", label, dtype, err,
+               fills == PAGED_FILLS and window == 0 and dtype == torch.bfloat16, timing)
+        del q, pk, pv, table, lens, got
     return cases
+
+
+def paged_inputs(randn, fills, dtype, shuffle, gen, dev: str = "cuda"):
+    """q, pools, page table and lengths of one paged-decode case at
+    llama3-8b's heads (H 32, KVH 8, D 128) and ``PAGE_SIZE``.  Pages follow
+    the slots in order, or (``shuffle``) a permutation drawn from ``gen``,
+    so that no slot's pages are contiguous; a few pages that no table
+    references hold garbage at 50 times the data's scale."""
+    from repro_torch.serve.kv_cache import pages_needed
+
+    mp = pages_needed(max(fills), PAGE_SIZE)
+    counts = [pages_needed(n, PAGE_SIZE) for n in fills]
+    n_used = sum(counts)
+    ids = torch.arange(1, n_used + 1)
+    if shuffle:
+        ids = ids[torch.randperm(n_used, generator=gen, device=gen.device).cpu()]
+    table = torch.full((len(fills), mp), -1, dtype=torch.int32)
+    nxt = 0
+    for i, c in enumerate(counts):
+        table[i, :c] = ids[nxt:nxt + c]
+        nxt += c
+    n_pages = n_used + 4  # the trash page 0 and 3 never-referenced pages
+    pk = randn(n_pages, PAGE_SIZE, 8, 128, scale=50.0)
+    pv = randn(n_pages, PAGE_SIZE, 8, 128, scale=50.0)
+    used = table[table >= 0].long().to(dev)
+    pk[used] = randn(used.numel(), PAGE_SIZE, 8, 128)
+    pv[used] = randn(used.numel(), PAGE_SIZE, 8, 128)
+    pk, pv = pk.to(dtype), pv.to(dtype)
+    lens = torch.tensor(fills, dtype=torch.int32, device=dev)
+    q = randn(len(fills), 1, 32, 128, dtype=dtype)
+    return q, pk, pv, table.to(dev), lens
+
+
+def paged_label(fills, window, shuffle) -> str:
+    if fills == PAGED_BANDWIDTH_FILLS:
+        what = f"{len(fills)} slots of 1024+64i"
+    else:
+        what = f"fills={fills}"
+    return f"{what} ps={PAGE_SIZE} window={window}" + (" shuffled pages" if shuffle else "")
+
+
+def paged_bound(q, table, fills, window):
+    """Bytes bound of one paged-decode call: q read and out written once,
+    each visible token's K and V rows read once, the table and lengths;
+    4 operations per (head, element) of each visible token."""
+    live = sum(n - (max(0, n - window) if window else 0) for n in fills)
+    es = q.element_size()
+    _, _, h, d = q.shape
+    nbytes = 2 * q.numel() * es + 2 * live * 8 * d * es + table.numel() * 4 + 4 * len(fills)
+    return bound(nbytes, 4 * h * d * live, str(q.dtype).split(".")[-1])
+
+
+def paged_plan(q, pk, table) -> dict:
+    """The design and cluster size the wrapper picks for these inputs, and
+    the card's cluster occupancy it picks from (empty for a wrapper that
+    has none of them)."""
+    from repro_torch.kernels.flash_attention_decode import kernel as pk_mod
+
+    if not hasattr(pk_mod, "card_clusters"):
+        return {}
+    _, _, h, d = q.shape
+    how = pk_mod.design(q.dtype, d, h // 8, True, pk.shape[0] * PAGE_SIZE)
+    room = pk_mod.card_clusters(q.dtype, h, 8, d, how, q.device.index)
+    return {"design": how, "max_clusters": room,
+            "cluster": pk_mod.cluster_size(q.shape[0], 8, table.shape[1] * PAGE_SIZE, room)}
 
 
 def record_case(cases, results, name, label, dtype, err, main, timing):

@@ -41,7 +41,12 @@ SIGNATURES = {
     ),
     "paged_decode": (
         "repro_paged_decode_attention",
-        [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P],
+        [_P] * 6 + [_I] * 10 + [_F, _P],
+    ),
+    "paged_decode_max_clusters": (
+        "repro_paged_decode_max_clusters",
+        [_I] * 6 + [_P],
+        "paged_decode",
     ),
     "galore_project": (
         "repro_galore_project_batched",

@@ -168,6 +168,105 @@ def test_paged_decode_kernel_matches_plain_on_gpu(ps, window):
     assert bool((got[3] == 0).all())
 
 
+def _ragged(b, top):
+    """b deterministic ragged fills in [0, top), slot 0 empty."""
+    return [(37 * i * i + 5 * i) % top for i in range(b)]
+
+
+# name: (b, kvh, g, d, ps, fills, window, holes); holes are (slot, page)
+# table entries set to -1 inside seq_len.  Between them the cases take
+# every cluster size on each design (the test after them checks it).
+PAGED_CLUSTER_CASES = {
+    "d128_g4": (4, 2, 4, 128, 16, [0, 77, 517, 1056], 0, ()),
+    "b10_d64_g4": (10, 2, 4, 64, 16, _ragged(10, 700), 0, ()),
+    "b20_d64_g4": (20, 2, 4, 64, 16, _ragged(20, 700), 0, ()),
+    "b40_d64_g1": (40, 2, 1, 64, 16, _ragged(40, 700), 0, ()),
+    "b40_d128_g4": (40, 2, 4, 128, 16, _ragged(40, 700), 0, ()),
+    "b72_d128_g8": (72, 2, 8, 128, 16, _ragged(72, 300), 0, ()),
+    "short_slots": (4, 2, 4, 128, 16, [0, 1, 17, 31], 0, ()),
+    "ps1_long": (3, 2, 4, 64, 1, [45, 1100, 0], 0, ()),
+    "ps24_d256": (4, 2, 4, 256, 24, [500, 24 * 7 + 5, 0, 1], 0, ()),
+    "g16_d128": (2, 2, 16, 128, 16, [0, 611], 0, ()),
+    "g32_d256": (2, 1, 32, 256, 16, [333, 0], 0, ()),
+    "g32_d128_window": (3, 1, 32, 128, 16, [0, 700, 290], 100, ()),
+    "window_inside_share": (4, 2, 4, 128, 16, [0, 77, 517, 1056], 100, ()),
+    "window_longer_than_slot": (4, 2, 8, 128, 16, [0, 77, 517, 1056], 5000, ()),
+    "holes_inside_seq_len": (4, 2, 4, 128, 16, [0, 77, 517, 1056], 0,
+                             ((1, 2), (2, 0), (3, 40), (3, 65))),
+    "d72_ps8": (3, 2, 4, 72, 8, [0, 301, 95], 0, ((1, 5),)),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(PAGED_CLUSTER_CASES))
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_paged_decode_cluster_kernel_matches_plain_on_gpu(case, dtype):
+    """The one-launch cluster kernel where its split and merge can go wrong,
+    on both designs (bf16 with D % 16 == 0 and G <= 16 takes the tensor
+    cores): every cluster size, ragged lengths off the tiles and the page,
+    ps 1 (more pages than one table staging holds), 24; D 64, 72, 128, 256;
+    G 1, 4, 8, 16, 32; windows; -1 entries inside seq_len; empty slots."""
+    _require_card()
+    from repro_torch.kernels import counters
+
+    b, kvh, g, d, ps, fills, window, holes = PAGED_CLUSTER_CASES[case]
+    mp = -(-max(fills) // ps)
+    arrays = paged_inputs(7, b, mp, ps, g * kvh, kvh, d, fills)
+    q, pk, pv, table, lens = (torch.from_numpy(a).cuda() for a in arrays)
+    for slot, page in holes:
+        assert page * ps < fills[slot]
+        table[slot, page] = -1
+    q, pk, pv = (t.to(TORCH[dtype]) for t in (q, pk, pv))
+    counters.reset()
+    got = paged_decode_attention_kernel(q, pk, pv, table, lens, window=window)
+    assert counters.snapshot() == {"paged_decode_attention": 1}
+    ref = paged_decode_attention_ref(q, pk, pv, table, lens, window=window)
+    torch.testing.assert_close(got.float(), ref.float(), **TOL[dtype])
+    empty = [i for i, n in enumerate(fills) if n == 0]
+    assert bool((got[empty] == 0).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_paged_decode_pools_off_16_bytes_on_gpu(dtype):
+    """Pools that do not start on 16 bytes (a contiguous view at an odd
+    offset) take the CUDA-core design's element-wise copies."""
+    _require_card()
+    fills = [0, 77, 517, 1056]
+    arrays = paged_inputs(3, 4, 66, 16, 8, 2, 128, fills)
+    q, pk, pv, table, lens = (torch.from_numpy(a).cuda().to(TORCH[dtype])
+                              if a.dtype == np.float32 else torch.from_numpy(a).cuda()
+                              for a in arrays)
+    pools = []
+    for t in (pk, pv):
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device="cuda")
+        view = buf[1:].view(t.shape)
+        view.copy_(t)
+        assert view.data_ptr() % 16 != 0 and view.is_contiguous()
+        pools.append(view)
+    got = paged_decode_attention_kernel(q, *pools, table, lens)
+    ref = paged_decode_attention_ref(q, pk, pv, table, lens)
+    torch.testing.assert_close(got.float(), ref.float(), **TOL[dtype])
+    assert bool((got[0] == 0).all())
+
+
+@pytest.mark.gpu
+def test_paged_decode_cluster_cases_take_every_cluster_size_on_gpu():
+    """On this card's cluster occupancy, the cases above take every cluster
+    size on each design."""
+    _require_card()
+    from repro_torch.kernels.flash_attention_decode import kernel as km
+
+    seen = {}
+    for b, kvh, g, d, ps, fills, _, _ in PAGED_CLUSTER_CASES.values():
+        mp = -(-max(fills) // ps)
+        for dtype in (torch.float32, torch.bfloat16):
+            how = km.design(dtype, d, g)
+            room = km.card_clusters(dtype, g * kvh, kvh, d, how, torch.cuda.current_device())
+            seen.setdefault(how, set()).add(km.cluster_size(b, kvh, mp * ps, room))
+    assert seen == {"cuda_cores": {1, 2, 4, 8}, "tensor_cores": {1, 2, 4, 8}}, seen
+
+
 @pytest.mark.gpu
 def test_wrappers_count_launches_and_reject_bad_inputs_on_gpu():
     _require_card()

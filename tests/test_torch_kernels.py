@@ -26,8 +26,11 @@ from repro_torch.kernels.flash_attention.kernel import flash_attention_fwd
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 from repro_torch.kernels.flash_attention_decode import ops as fad_ops
 from repro_torch.kernels.flash_attention_decode.kernel import (
+    CLUSTER_SIZES,
+    cluster_size,
     paged_decode_attention_kernel,
 )
+from repro_torch.kernels.flash_attention_decode.kernel import design as paged_design
 from repro_torch.kernels.flash_attention_decode.ref import paged_decode_attention_ref
 from repro_torch.kernels.rmsnorm import ops as rms_ops
 from repro_torch.kernels.rmsnorm.kernel import rmsnorm as rmsnorm_kernel
@@ -146,3 +149,41 @@ def test_paged_decode_dispatch_takes_plain_version_on_cpu():
     assert counters.snapshot() == {}
     with pytest.raises(ValueError, match="CUDA"):
         paged_decode_attention_kernel(q, pk, pv, table, lens)
+
+
+# The H100's cluster occupancy for llama3-8b's paged kernel at two blocks
+# per SM (cudaOccupancyMaxActiveClusters: clusters may not straddle a GPC)
+H100_CLUSTERS = {1: 264, 2: 132, 4: 62, 8: 30}
+
+
+# (B, KVH, capacity MP * ps, cluster size): the serve trace's 32 (slot, KV
+# head) pairs, the bandwidth case's 256, the steps between, and slots too
+# short to share
+@pytest.mark.parametrize("b,kvh,capacity,want", [
+    (4, 8, 1056, 4), (32, 8, 3008, 1), (3, 8, 4096, 8), (5, 8, 4096, 4),
+    (8, 8, 4096, 2), (16, 8, 4096, 2), (17, 8, 4096, 1), (4, 8, 32, 1),
+    (4, 8, 64, 2), (1, 1, 1, 1), (1, 1, 10**6, 8),
+])
+def test_paged_decode_cluster_size(b, kvh, capacity, want):
+    """The wrapper's grid is (CS, KVH, B) in clusters of (CS, 1, 1): CS is a
+    portable cluster size, all B * KVH clusters run at once unless CS is 1,
+    and each rank has at least one 32-token tile of the capacity."""
+    cs = cluster_size(b, kvh, capacity, H100_CLUSTERS)
+    assert cs == want
+    assert cs in CLUSTER_SIZES
+    assert cs == 1 or b * kvh <= H100_CLUSTERS[cs]
+    assert cs == 1 or cs * 32 <= capacity
+
+
+@pytest.mark.parametrize("dtype,d,g,aligned,rows,want", [
+    (torch.bfloat16, 128, 4, True, 10**6, "tensor_cores"),
+    (torch.bfloat16, 64, 16, True, 10**6, "tensor_cores"),
+    (torch.bfloat16, 256, 1, True, 10**6, "tensor_cores"),
+    (torch.bfloat16, 128, 32, True, 10**6, "cuda_cores"),
+    (torch.bfloat16, 72, 4, True, 10**6, "cuda_cores"),
+    (torch.bfloat16, 128, 4, False, 10**6, "cuda_cores"),
+    (torch.bfloat16, 128, 4, True, 2**31, "cuda_cores"),
+    (torch.float32, 128, 4, True, 10**6, "cuda_cores"),
+])
+def test_paged_decode_design(dtype, d, g, aligned, rows, want):
+    assert paged_design(dtype, d, g, aligned, rows) == want
