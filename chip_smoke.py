@@ -49,12 +49,33 @@ Phases; any failure raises and the script exits non-zero:
               (W' and its state) from the kernels against the plain
               versions on the same stacks, one bucket at a time; then
               profiles one hot step (device busy share, time by kernel).
-5. report  -- one ``{"kernel_over_library": [...]}`` line (every case's
+5. resume  -- train -> checkpoint -> resume -> serve, on the same 4-layer
+              model with ``galore-sara-adam`` at tau 2 (refreshes at steps
+              0, 2 and 4) on the zipf corpus, seq 512, batch 8, each run in
+              new objects and freeing the card before the next: C trains 5
+              steps uninterrupted, prints each low-rank leaf's adjacent
+              subspace overlap at refreshes 2 and 4 (``track_subspace``),
+              saves a blocking checkpoint at step 3 under ``build/`` (after
+              checking that twice its size is free on the disk) and keeps a
+              host copy of its step-3 state; B resumes from that checkpoint
+              to step 5 (path ``resume``).  Fails unless B's restored state
+              equals C's host copy bit for bit, B's batches and step-4 draws
+              equal C's bit for bit, and B's losses equal C's within
+              ``RESUME_LOSS_RTOL``.  Then ``load_params_latest`` fills a
+              bf16 serving skeleton from the checkpoint, which must equal
+              ``serving_params`` of C's step-3 f32 params bit for bit, and
+              a ``ContinuousEngine`` serves 4
+              requests from it (path ``serve_ckpt``) with the same tokens as
+              on the in-memory params.  Prints the checkpoint's bytes, save
+              and load seconds and GB/s, peak host RSS and each run's
+              ``max_memory_allocated``, with the card's name and power limit.
+6. report  -- one ``{"kernel_over_library": [...]}`` line (every case's
               kernel time over its yardstick's), one ``{"kernels": [...]}``
-              line (``launches`` summed over the serve and train runs, each
-              run's own count beside it in ``launches_by_path``; 0 for the
-              2-D projection, which no path runs), the ``nvidia-smi`` line,
-              and last ``{"ok": true, "device": {...}}``.  Per-case detail goes to
+              line (``launches`` summed over the serve, train, resume and
+              serve_ckpt runs, each run's own count beside it in
+              ``launches_by_path``; 0 for the 2-D projection, which no path
+              runs), the ``nvidia-smi`` line, and last
+              ``{"ok": true, "device": {...}}``.  Per-case detail goes to
               ``chiprun_out/chip_smoke.json``.
 
 The script imports nothing of JAX or of the JAX package ``repro``.
@@ -62,6 +83,8 @@ The script imports nothing of JAX or of the JAX package ``repro``.
 from __future__ import annotations
 
 import json
+import resource
+import shutil
 import subprocess
 import sys
 import time
@@ -228,13 +251,35 @@ TRAIN_RUNS = {
 PROJECT_2D_SHAPES = [(2048, 8192, 512), (4096, 14336, 512)]
 INNER_OF = {"galore-sara-adam": "adam", "galore-sara-msgd": "msgd",
             "galore-sara-adam-mini": "adam_mini", "galore-sara-adam8bit": "adam8bit"}
+# resume phase: galore-sara-adam with tau 2 (refreshes at steps 0, 2, 4) on
+# the zipf corpus; run C goes through uninterrupted and saves at RESUME_STOP,
+# run B resumes from that checkpoint to RESUME_STEPS
+RESUME_STEPS, RESUME_STOP = 5, 3
+RESUME_OPT = dict(TRAIN_OPT, tau=2)
+# B's losses against C's: a relative bar, because CUDA's embedding backward
+# accumulates with atomics, so B's step 3 and C's need not agree bitwise
+RESUME_LOSS_RTOL = 1e-4
+# serve_ckpt: 4 requests of 64-517 prompt tokens, 16 new tokens each
+SERVE_CKPT_PROMPTS = [64, 200, 333, 517]
+SERVE_CKPT_NEW_TOKENS = 16
 PATH_KERNELS = {"serve": SERVE_KERNELS}
 PATH_KERNELS.update({path: _TRAIN_COMMON + (UPDATE_KERNEL[INNER_OF[opt]],)
                      for path, (opt, _) in TRAIN_RUNS.items()})
+PATH_KERNELS["resume"] = _TRAIN_COMMON + (UPDATE_KERNEL["adam"],)
+PATH_KERNELS["serve_ckpt"] = SERVE_KERNELS
 
 
 def log(msg: str) -> None:
     print(f"[smoke] {msg}", flush=True)
+
+
+def fresh_dir(name: str) -> Path:
+    """An empty directory under ``build/`` (gitignored) for a phase's
+    checkpoints; the phase removes it when it ends."""
+    d = ROOT / "build" / name
+    shutil.rmtree(d, ignore_errors=True)
+    d.parent.mkdir(parents=True, exist_ok=True)
+    return d
 
 
 # ---------------------------------------------------------------------------
@@ -1081,7 +1126,11 @@ def train(cfg, optimizer: str = "galore-sara-adam", expect_buckets=TRAIN_BUCKETS
     opt_kw = dict(TRAIN_OPT, **(opt_kw or {}))
     model = build_model(cfg, device=dev)
     t0 = time.perf_counter()
-    tc = TrainConfig(total_steps=steps, seed=SEED)
+    # a directory of the phase's own (train_loop resumes from any that holds
+    # checkpoints); 3 steps write none
+    ckpt_dir = fresh_dir(f"train_ckpt_{optimizer}")
+    tc = TrainConfig(total_steps=steps, seed=SEED, checkpoint_every=0,
+                     checkpoint_dir=str(ckpt_dir))
     params = model.init(torch.Generator(device=dev).manual_seed(tc.seed))
     n_params = sum(p.numel() for p in tree_leaves(params))
     opt = make_optimizer(
@@ -1210,6 +1259,7 @@ def train(cfg, optimizer: str = "galore-sara-adam", expect_buckets=TRAIN_BUCKETS
     del flat_g, flat_p
     profile = (profile_train_step(make_train_step(model, opt, train_cfg=tc), state,
                                   data.batch_at(steps)) if dev == "cuda" else None)
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
     return {
         "optimizer": optimizer, "layers": nl, "params": n_params, "buckets": plan,
         "steps": steps,
@@ -1274,6 +1324,323 @@ def profile_train_step(fns, state, batch):
 
 
 # ---------------------------------------------------------------------------
+# phase 5: train -> checkpoint -> resume -> serve from the checkpoint
+# ---------------------------------------------------------------------------
+
+
+def _draw_sample(opt, draws):
+    """The sketch and Gumbel noise the next refresh draws for the first
+    bucket's first leaf (on the host)."""
+    from repro_torch.core.projectors import draw_shapes
+
+    bk = opt.bucket_plan.buckets[0]
+    e = bk.entries[0]
+    sketch, glen = draw_shapes(bk.d, bk.n, opt.config.projector_config(), bk.rank)
+    got = draws.split().leaf(e.leaf_idx, (e.batch,), sketch, glen)
+    return [None if x is None else x.cpu() for x in got]
+
+
+def _host_items(state):
+    """(path, host copy) of every leaf of a state, through the checkpoint's
+    walk: the step and the draw key come as numpy arrays."""
+    from repro_torch.train import checkpoint as ckpt_lib
+
+    return [(path, x.detach().to("cpu", copy=True) if isinstance(x, torch.Tensor)
+             else np.array(x)) for path, x in ckpt_lib.tree_items(state)]
+
+
+def _state_equals(state, host_items) -> int:
+    """Raises unless ``state`` equals the host copy bit for bit, leaf by
+    leaf; returns the number of leaves compared."""
+    from repro_torch.train import checkpoint as ckpt_lib
+
+    items = ckpt_lib.tree_items(state)
+    if [p for p, _ in items] != [p for p, _ in host_items]:
+        raise AssertionError("restored state's leaves differ from the saved state's")
+    for (path, x), (_, h) in zip(items, host_items):
+        if isinstance(x, torch.Tensor):
+            same = x.dtype == h.dtype and x.shape == h.shape and torch.equal(x, h.to(x.device))
+        else:
+            same = np.array_equal(np.asarray(x), h) and np.asarray(x).dtype == h.dtype
+        if not same:
+            raise AssertionError(f"restored leaf {path} differs from the saved one")
+    return len(items)
+
+
+def resume(cfg, smi: str, dev: str = "cuda", seq: int = TRAIN_SEQ, batch: int = TRAIN_BATCH,
+           opt_kw=None, expect_buckets=TRAIN_BUCKETS):
+    """Phase 5 (see the module docstring).  Returns the ``resume`` and
+    ``serve_ckpt`` runs.  ``dev="cpu"`` with a smoke config rehearses it."""
+    import math
+
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.core import make_optimizer
+    from repro_torch.core.lowrank import flatten_with_path
+    from repro_torch.core.schedules import cosine_with_warmup
+    from repro_torch.data.synthetic import SyntheticDataConfig, SyntheticDataset
+    from repro_torch.kernels import counters
+    from repro_torch.models import build_model
+    from repro_torch.models import transformer as tfm
+    from repro_torch.serve.engine import ContinuousEngine
+    from repro_torch.train import checkpoint as ckpt_lib
+    from repro_torch.train.loop import train_loop
+    from repro_torch.train.state import checkpoint_converters
+    from repro_torch.train.step import make_train_step
+
+    def sync():
+        if dev == "cuda":
+            torch.cuda.synchronize()
+
+    def peak_and_reset():
+        if dev != "cuda":
+            return 0
+        peak = torch.cuda.max_memory_allocated()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        return peak
+
+    def gib(b):
+        return round(b / 2**30, 2)
+
+    opt_kw = dict(RESUME_OPT, **(opt_kw or {}))
+    data = SyntheticDataset(SyntheticDataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
+                                                global_batch=batch, dist="zipf"), device=dev)
+    ckpt_dir = fresh_dir("resume_ckpt")
+
+    def build(total: int):
+        """New model, optimizer, step functions and config: nothing shared
+        between the runs but the seed and the directory."""
+        model = build_model(cfg, device=dev)
+        tc = TrainConfig(total_steps=total, seed=SEED, checkpoint_every=RESUME_STOP,
+                         checkpoint_dir=str(ckpt_dir), async_checkpoint=False)
+        params = model.init(torch.Generator(device=dev).manual_seed(tc.seed))
+        opt = make_optimizer(
+            "galore-sara-adam", params,
+            lr_schedule=cosine_with_warmup(opt_kw["lr"], TRAIN_WARMUP, RESUME_STEPS), **opt_kw)
+        del params  # train_loop makes the same params from tc.seed and owns them
+        plan = [(bk.d, bk.n, bk.rank, bk.batch, bk.side) for bk in opt.bucket_plan.buckets]
+        if plan != list(expect_buckets):
+            raise AssertionError(f"bucket plan {plan} != {expect_buckets}")
+        return model, opt, tc, make_train_step(model, opt, train_cfg=tc)
+
+    def recording(fns, opt, batches, draws, first_step, at):
+        """Step functions and a batch hook that keep each step's batch and,
+        at each refresh, the draws it takes; ``at[s]`` runs on step s's
+        input state (the loop's steps run from ``first_step``)."""
+        nxt = [first_step]
+
+        def before(state):
+            if nxt[0] in at:
+                at[nxt[0]](state)
+            nxt[0] += 1
+
+        def step(state, b):
+            before(state)
+            return fns["step"](state, b)
+
+        def refresh_step(state, b, group=0):
+            before(state)
+            draws.append(((state.opt_state.draws.seed, state.opt_state.draws.refreshes + 1),
+                          _draw_sample(opt, state.opt_state.draws)))
+            return fns["refresh_step"](state, b, group=group)
+
+        def hook(b):
+            batches.append({k: v.cpu() for k, v in b.items()})
+            return b
+
+        return dict(fns, step=step, refresh_step=refresh_step), hook
+
+    try:
+        # ---- C: uninterrupted, with the subspace tracker; saves at RESUME_STOP ----
+        peak_and_reset()
+        t0 = time.perf_counter()
+        model, opt, tc, fns = build(RESUME_STEPS)
+        can, _ = checkpoint_converters(opt)
+        c_batches, c_draws, sizes, host_c = [], [], [], []
+
+        def check_disk(state):
+            """Twice the checkpoint free on the disk before the save, or stop."""
+            items = ckpt_lib.tree_items(can(state))
+            sizes.append(sum(x.numel() * x.element_size() if isinstance(x, torch.Tensor)
+                             else np.asarray(x).nbytes for _, x in items))
+            del items
+            free = shutil.disk_usage(ckpt_dir.parent).free
+            log(f"checkpoint of {sizes[0]} bytes ({sizes[0] / 1e9:.2f} GB); "
+                f"{free / 1e9:.1f} GB free under {ckpt_dir.parent}")
+            if free < 2 * sizes[0]:
+                raise AssertionError(f"{free} bytes free, under twice the checkpoint's {sizes[0]}")
+
+        loop_fns, hook = recording(fns, opt, c_batches, c_draws, 0, {
+            0: check_disk, RESUME_STOP: lambda st: host_c.extend(_host_items(st))})
+        res_c = train_loop(model, opt, data, tc, loop_fns, log_every=1, track_subspace=True,
+                           batch_hook=hook)
+        sync()
+        saved = res_c.checkpoints.last_save
+        ckpt_bytes = sizes[0]
+        overlaps = {name: ov for name, ov in res_c.subspace.adjacent.items()}
+        c_losses = res_c.losses
+        del res_c, model, opt, fns, loop_fns, can
+        c_peak = peak_and_reset()
+        rss = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
+        log(f"resume C (uninterrupted, {RESUME_STEPS} steps, refreshes at 0, 2, 4, blocking save "
+            f"at step {RESUME_STOP}): losses {c_losses}; {time.perf_counter() - t0:.1f} s; save "
+            f"{saved['write_s']:.2f} s for {saved['bytes']} bytes "
+            f"({saved['bytes'] / saved['write_s'] / 1e9:.2f} GB/s: device -> host, np.save, "
+            f"sha256, commit); max_memory_allocated {gib(c_peak)} GiB; peak host RSS "
+            f"{rss / 1e9:.2f} GB (C's host copy of its step-{RESUME_STOP} state included); "
+            f"card {smi}")
+        for name, ov in overlaps.items():
+            log(f"  adjacent subspace overlap {name} at refreshes 2, 4: {ov}")
+        if len(c_losses) != RESUME_STEPS or not all(math.isfinite(x) for x in c_losses):
+            raise AssertionError(f"C's losses {c_losses}")
+        if ckpt_lib.checkpoint_dirs(str(ckpt_dir)) != [RESUME_STOP] or saved["step"] != RESUME_STOP:
+            raise AssertionError(f"C saved {ckpt_lib.checkpoint_dirs(str(ckpt_dir))}")
+        if saved["bytes"] != ckpt_bytes or not host_c:
+            raise AssertionError(f"C saved {saved['bytes']} bytes, the state has {ckpt_bytes}")
+
+        # ---- B: resumed in new objects from the same directory ----
+        t0 = time.perf_counter()
+        model, opt, tc, fns = build(RESUME_STEPS)
+        b_batches, b_draws, restored = [], [], []
+
+        def check_restored(state):
+            restored.append(_state_equals(state, host_c))
+
+        loop_fns, hook = recording(fns, opt, b_batches, b_draws, RESUME_STOP,
+                                   {RESUME_STOP: check_restored})
+        sync()
+        counters.reset()
+        res_b = train_loop(model, opt, data, tc, loop_fns, log_every=1, batch_hook=hook)
+        sync()
+        launches = counters.snapshot()
+        loaded = res_b.checkpoints.last_load
+        b_losses = res_b.losses
+        nb = len(opt.bucket_plan.buckets)
+        kp_lt_d = sum(1 for bk in opt.bucket_plan.buckets
+                      if min(4 * bk.rank + opt_kw.get("svd_oversample", 8), bk.d) < bk.d)
+        del res_b, model, opt, fns, loop_fns
+        b_peak = peak_and_reset()
+        rss = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
+        log(f"resume B (from step {loaded['step']} to {RESUME_STEPS}): losses {b_losses}; "
+            f"{time.perf_counter() - t0:.1f} s; load {loaded['seconds']:.2f} s for "
+            f"{loaded['bytes']} bytes ({loaded['bytes'] / loaded['seconds'] / 1e9:.2f} GB/s: "
+            f"read, verify, host -> device); max_memory_allocated {gib(b_peak)} GiB; "
+            f"peak host RSS {rss / 1e9:.2f} GB; card {smi}")
+        log(f"resume launches {launches}")
+        if loaded["step"] != RESUME_STOP or not restored:
+            raise AssertionError(f"B restored step {loaded['step']}, compared {restored}")
+        log(f"B's restored state equals C's step-{RESUME_STOP} host copy bit for bit "
+            f"({restored[0]} leaves)")
+        for i, (bb, cb) in enumerate(zip(b_batches, c_batches[RESUME_STOP:])):
+            if any(not torch.equal(bb[k], cb[k]) for k in cb):
+                raise AssertionError(f"B's batch of step {RESUME_STOP + i} differs from C's")
+        if len(b_batches) != RESUME_STEPS - RESUME_STOP:
+            raise AssertionError(f"B ran {len(b_batches)} steps")
+        (b_src, b_sample), (c_src, c_sample) = b_draws[0], c_draws[-1]
+        if b_src != c_src or any(
+                (x is None) != (y is None) or (x is not None and not torch.equal(x, y))
+                for x, y in zip(b_sample, c_sample)):
+            raise AssertionError(f"B's step-4 draws {b_src} differ from C's {c_src}")
+        gaps = [abs(b - c) / abs(c) for b, c in zip(b_losses, c_losses[RESUME_STOP:])]
+        log(f"B's losses against C's at steps {RESUME_STOP}-{RESUME_STEPS - 1}: relative gaps "
+            f"{gaps} (bar {RESUME_LOSS_RTOL}); batches and step-4 draws (seed, refreshes) "
+            f"{b_src} bit-equal")
+        if len(gaps) != RESUME_STEPS - RESUME_STOP or max(gaps) > RESUME_LOSS_RTOL:
+            raise AssertionError(f"B's losses {b_losses} against C's {c_losses[RESUME_STOP:]}")
+        nl = cfg.n_layers
+        steps = RESUME_STEPS - RESUME_STOP  # a hot step and a refresh
+        expect = {
+            "rmsnorm": steps * (4 * nl + 1),
+            "flash_attention_fwd": steps * 2 * nl,
+            "galore_project_batched": steps * nb,
+            UPDATE_KERNEL["adam"]: steps * nb,
+            "power_iter_batched": 2 * kp_lt_d,  # one refresh, 2 iterations
+        }
+        if launches != expect:
+            raise AssertionError(f"resume launch counts {launches} != expected {expect}")
+        resume_run = {
+            "steps": RESUME_STEPS, "stop": RESUME_STOP, "card": smi,
+            "losses_uninterrupted": c_losses, "losses_resumed": b_losses, "loss_rel_gaps": gaps, "loss_rtol": RESUME_LOSS_RTOL,
+            "adjacent_overlap": overlaps, "checkpoint_bytes": ckpt_bytes,
+            "save": saved, "load": loaded, "restored_leaves": restored[0],
+            "max_memory_allocated": {"C": c_peak, "B": b_peak},
+            "peak_host_rss": rss, "launches": launches, "expected": expect,
+        }
+        del c_batches, b_batches
+
+        # ---- serve the checkpoint's params ----
+        t0 = time.perf_counter()
+        model = build_model(cfg, device=dev)
+        skeleton = tfm.serving_params(model.init(torch.Generator(device=dev).manual_seed(1)), cfg)
+        served_params, step = ckpt_lib.load_params_latest(str(ckpt_dir), skeleton)
+        sync()
+        load_s = time.perf_counter() - t0
+        del skeleton
+        c_params = dict((p[len(".params"):], h) for p, h in host_c if p.startswith(".params"))
+        del host_c
+        in_memory = tfm.serving_params(_unflatten_like(served_params, c_params, dev), cfg)
+        del c_params
+        for (path, x), (_, y) in zip(flatten_with_path(served_params),
+                                     flatten_with_path(in_memory)):
+            if x.dtype != y.dtype or not torch.equal(x, y):
+                raise AssertionError(f"served param {path} differs from serving_params(C's)")
+        log(f"serve_ckpt: load_params_latest step {step} into the bf16 serving skeleton in "
+            f"{load_s:.2f} s; every leaf equals serving_params(C's step-{RESUME_STOP} f32 params) "
+            f"bit for bit")
+        rng = np.random.default_rng(SEED + 2)
+        prompts = [rng.integers(0, cfg.vocab_size, (n,)) for n in SERVE_CKPT_PROMPTS]
+
+        def serve_tokens(params):
+            eng = ContinuousEngine(model, params, max_slots=MAX_SLOTS, page_size=PAGE_SIZE,
+                                   max_seq_len=max(SERVE_CKPT_PROMPTS) + SERVE_CKPT_NEW_TOKENS)
+            for i, p in enumerate(prompts):
+                eng.submit(p, SERVE_CKPT_NEW_TOKENS, arrival=i)
+            out = eng.run()
+            sync()
+            return {rid: r.tokens.tolist() for rid, r in out.items()}, eng.decode_steps
+
+        counters.reset()
+        tokens, ticks = serve_tokens(served_params)
+        serve_launches = counters.snapshot()
+        want_tokens, _ = serve_tokens(in_memory)
+        serve_peak = peak_and_reset()
+        n_req = len(SERVE_CKPT_PROMPTS)
+        log(f"serve_ckpt: {n_req} requests, {ticks} decode steps, launches {serve_launches}; "
+            f"tokens of request 0 {tokens[0]}; max_memory_allocated {gib(serve_peak)} GiB")
+        if tokens != want_tokens:
+            raise AssertionError(f"checkpoint-served tokens {tokens} != in-memory {want_tokens}")
+        if sorted(tokens) != list(range(n_req)) or any(
+                len(t) != SERVE_CKPT_NEW_TOKENS for t in tokens.values()):
+            raise AssertionError(f"served {tokens}")
+        serve_expect = {
+            "rmsnorm": (2 * nl + 1) * (ticks + n_req),
+            "paged_decode_attention": nl * ticks,
+            "flash_attention_fwd": nl * n_req,
+        }
+        if serve_launches != serve_expect:
+            raise AssertionError(f"serve_ckpt launch counts {serve_launches} != {serve_expect}")
+        serve_run = {
+            "checkpoint_step": step, "load_s": load_s, "requests": n_req,
+            "decode_steps": ticks, "tokens": tokens, "tokens_equal_in_memory": True,
+            "max_memory_allocated": serve_peak, "launches": serve_launches,
+            "expected": serve_expect,
+        }
+        del model, served_params, in_memory
+        peak_and_reset()
+        return resume_run, serve_run
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+
+
+def _unflatten_like(like, flat_by_path, dev):
+    """A params dict shaped like ``like`` from {keystr path: host tensor},
+    on ``dev``."""
+    from repro_torch.core.lowrank import flatten_with_path, tree_unflatten
+
+    return tree_unflatten(like, [flat_by_path[p].to(dev) for p, _ in flatten_with_path(like)])
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -1321,6 +1688,10 @@ def main() -> int:
         t0 = time.perf_counter()
         runs[path] = train(cfg_train, optimizer, plan)
         log(f"{path} phase ({optimizer}): {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    runs["resume"], runs["serve_ckpt"] = resume(cfg_train, smi)
+    log(f"resume and serve_ckpt phase: {time.perf_counter() - t0:.1f} s")
     for name, r in results.items():
         r["library_call"] = LIBRARY_CALL[name]
         by_path = {path: run["launches"].get(name, 0) for path, run in runs.items()}

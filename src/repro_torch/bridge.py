@@ -72,9 +72,11 @@ def opt_state_from_numpy(
     low-rank leaves on the reference engine); each bucket's stacked
     ``BucketState``.  Inner states keep their dtypes: f32 moments,
     adam_mini's per-row v, adam8bit's uint8 codes and f32 scales.  The JAX
-    state's ``key`` cannot be carried (the port draws with torch): the new
-    state gets a fresh ``TorchDraws`` from the config's seed, which a
-    caller may replace."""
+    state's ``key`` does not drive the port's draws (the port draws with
+    torch): the new state gets a fresh ``TorchDraws`` from the config's
+    seed, which a caller may replace.  A checkpoint carries the draw
+    source by one rule instead (``TorchDraws.key`` / ``from_key``, ROADMAP
+    queue 3)."""
     dev = resolve_device(device)
     cfg = optimizer.config
 

@@ -57,9 +57,13 @@ class TrainConfig:
     """The fields of ``src/repro/configs/base.py::TrainConfig`` that the
     port's train step and loop read, with the JAX defaults.  The refresh
     cadence (``tau``, ``refresh_groups``) and gradient clipping are read
-    from the optimizer's ``OptimizerConfig``.  Checkpoint, recovery,
-    spectrum-logging and rank-schedule fields come with their slices
-    (ROADMAP queue 1)."""
+    from the optimizer's ``OptimizerConfig``.  Recovery, spectrum-logging,
+    sharded-checkpoint and rank-schedule fields come with their slices
+    (ROADMAP queue 1).
+
+    ``train_loop`` restores from ``checkpoint_dir`` whenever it holds
+    checkpoints, so a caller that must start fresh passes a directory of
+    its own: the default is shared by every run on the machine."""
 
     total_steps: int = 10000
     seed: int = 0
@@ -68,3 +72,10 @@ class TrainConfig:
     # sums lose low-order bits across microbatches.  The accumulated
     # gradient is cast back to the param dtype either way.
     accum_dtype: Any = torch.float32
+    # checkpoints: a save every ``checkpoint_every`` steps (0: none), the
+    # newest ``keep_checkpoints`` kept, written on a background thread
+    # after a host snapshot when ``async_checkpoint`` (train/checkpoint.py)
+    checkpoint_every: int = 500
+    keep_checkpoints: int = 3
+    checkpoint_dir: str = "/tmp/repro_ckpt"
+    async_checkpoint: bool = True

@@ -337,6 +337,20 @@ def bucketed_to_leaf_states(
     return out
 
 
+def leaf_projectors(
+    layout: StateLayout, bucket_states: Sequence[BucketState]
+) -> Dict[int, torch.Tensor]:
+    """Per-leaf projector views sliced out of the stacks (no transpose:
+    projectors are canonical (d, r) for both sides)."""
+    out: Dict[int, torch.Tensor] = {}
+    for bucket, bst in zip(layout.plan.buckets, bucket_states):
+        out.update(_scatter_proj(
+            bucket, bst.projector,
+            {e.leaf_idx: layout.templates[e.leaf_idx].projector for e in bucket.entries},
+        ))
+    return out
+
+
 # ---------------------------------------------------------------------------
 # the fused hot-path update (bucket-native state)
 # ---------------------------------------------------------------------------

@@ -25,15 +25,20 @@ The step count and the learning-rate schedule live on the host (a Python
 int and float); the state's draw source (``TorchDraws``) makes the
 refresh's random sketches and Gumbel noise from a ``torch.Generator``.
 
+``canonical_opt_state`` / ``storage_opt_state`` convert between the
+bucket-native storage layout and the canonical per-leaf layout that
+checkpoints hold, as the reference's do.
+
 Not ported here: ``projected=``/``StackedGrads`` (compressed DP),
-``skip_nonfinite``, ``shard_axes`` and ZeRO, Fira, Adafactor, checkpoint
-layout converters and rank schedules (ROADMAP queue 1).
+``skip_nonfinite``, ``shard_axes`` and ZeRO, Fira, Adafactor and rank
+schedules (ROADMAP queue 1).
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Any, Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.core import buckets as buckets_lib
@@ -143,12 +148,38 @@ class TorchDraws:
     in the global leaf index, ``lowrank.py:673, 800``), each leaf's draws
     depend only on (seed, refresh count, leaf index), so the reference and
     bucketed engines draw the same numbers.  The numbers are not JAX's:
-    the parity tests swap in a source that recomputes JAX's draws."""
+    the parity tests swap in a source that recomputes JAX's draws.
+
+    In a checkpoint the source stands where JAX keeps its PRNG key,
+    ``.opt_state.key``, with the key's shape and dtype: ``key()`` writes the
+    uint32 words ``[refreshes, seed]`` and ``from_key`` reads any key back
+    by the same rule (ROADMAP queue 3).  JAX's fresh key for a seed below
+    2**32, ``PRNGKey(seed) = [0, seed]``, thus reads as the port's fresh
+    source for that seed, and the port's fresh source writes that key; a
+    key after refreshes reads as some other (seed, refreshes), so the two
+    packages' draws part there."""
 
     def __init__(self, seed: int, device, refreshes: int = 0):
         self.seed = int(seed)
         self.device = torch.device(device)
         self.refreshes = refreshes
+
+    def key(self) -> np.ndarray:
+        """The checkpoint's ``.opt_state.key``: uint32 ``[refreshes, seed]``."""
+        if not (0 <= self.seed < 2**32 and 0 <= self.refreshes < 2**32):
+            raise ValueError(
+                f"draw source (seed {self.seed}, refreshes {self.refreshes}) does "
+                "not fit a uint32[2] key"
+            )
+        return np.array([self.refreshes, self.seed], dtype=np.uint32)
+
+    @classmethod
+    def from_key(cls, key, device) -> "TorchDraws":
+        """The source that ``key()`` wrote, from any uint32[2] key."""
+        words = np.asarray(key)
+        if words.shape != (2,):
+            raise ValueError(f"a draw key has shape (2,), got {words.shape}")
+        return cls(int(words[1]), device, refreshes=int(words[0]))
 
     def split(self) -> "TorchDraws":
         """The source of the next refresh (JAX: ``key, subkey = split(key)``)."""
@@ -518,3 +549,38 @@ def make_lowrank_optimizer(
         bucket_plan=bucket_plan, state_layout=state_layout,
     )
 
+
+# ---------------------------------------------------------------------------
+# state-layout conversion: storage <-> canonical per-leaf (the checkpoint's)
+# ---------------------------------------------------------------------------
+
+
+def canonical_opt_state(optimizer: LowRankOptimizer, state: LowRankOptState) -> LowRankOptState:
+    """Storage layout -> the canonical per-leaf layout, the one checkpoints
+    hold (``src/repro/core/lowrank.py:1070``): each bucketed leaf gets its
+    projector and inner state back, and ``buckets`` is empty, as a
+    reference-engine state is.  A re-layout only (views, transposes and
+    copies; codes and per-row v carried bit for bit), so a checkpoint from
+    either engine resumes on the other.  The port has no ZeRO padding to
+    drop.  No-op for a state that is already canonical."""
+    layout = optimizer.state_layout
+    if layout is None or not state.buckets:
+        return state
+    per_leaf = buckets_lib.bucketed_to_leaf_states(layout, state.buckets)
+    leaves = [LeafState(*per_leaf[i]) if i in per_leaf else st
+              for i, st in enumerate(state.leaves)]
+    return LowRankOptState(step=state.step, draws=state.draws, leaves=leaves, buckets=())
+
+
+def storage_opt_state(optimizer: LowRankOptimizer, state: LowRankOptState) -> LowRankOptState:
+    """The inverse of ``canonical_opt_state`` (``lowrank.py:1106``): stacks
+    the bucketed leaves' state and leaves their per-leaf slots as ()
+    placeholders.  No-op for per-leaf optimizers and bucket-native states."""
+    layout = optimizer.state_layout
+    if layout is None or state.buckets:
+        return state
+    bucket_states = buckets_lib.leaf_states_to_bucketed(layout, state.leaves)
+    leaves = [_placeholder(st.projector.device) if i in layout.plan.bucketed else st
+              for i, st in enumerate(state.leaves)]
+    return LowRankOptState(step=state.step, draws=state.draws, leaves=leaves,
+                           buckets=bucket_states)

@@ -1,12 +1,16 @@
-"""Serving launcher: static-batch or continuous-batching generation with
-seeded random weights, from ``src/repro/launch/serve.py``.  Runs on the
-card unless ``--device cpu`` is given.
+"""Serving launcher: static-batch or continuous-batching generation,
+from ``src/repro/launch/serve.py``, with seeded random weights or trained
+ones restored from a checkpoint.  Runs on the card unless ``--device cpu``
+is given.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-8b --continuous
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-8b --smoke --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-8b --smoke --device cpu \
+        --continuous --ckpt /path/to/checkpoint_dir     # newest verified step
 
-Restoring a checkpoint goes through ``repro_torch.bridge`` and comes with
-the training slice.
+``--ckpt`` reads the params of the newest checkpoint whose param leaves
+verify (``train/checkpoint.load_params_latest``), written by the port's
+trainer or the JAX package's alike.
 """
 from __future__ import annotations
 
@@ -20,6 +24,8 @@ def main(argv=None) -> None:
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--ckpt", default="",
+                    help="checkpoint dir: restore newest verified params")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--new-tokens", type=int, default=16)
@@ -43,6 +49,11 @@ def main(argv=None) -> None:
     model = build_model(cfg, device=args.device)
     gen = torch.Generator(device=model.device).manual_seed(args.seed)
     params = model.init(gen)
+    if args.ckpt:
+        from repro_torch.train.checkpoint import load_params_latest
+
+        params, step = load_params_latest(args.ckpt, params)
+        print(f"[serve] restored params from {args.ckpt} step {step}")
     rng = np.random.default_rng(args.seed + 1)
 
     if args.continuous:

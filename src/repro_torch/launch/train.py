@@ -17,10 +17,18 @@ update on the bucketed one:
         --device cpu --optimizer galore-sara-adam8bit --engine bucketed \
         --svd-backend randomized --steps 4 --tau 2 --rank 8
 
-``--smoke`` selects the reduced config in f32.  Beyond the reference's
-flags, ``--svd-backend`` picks the refresh's SVD (the reference's default,
-exact, or randomized, whose power iterations run on the CUDA kernel).
-Mesh, ZeRO, recovery, checkpoint and rank-schedule flags come with their
+``--smoke`` selects the reduced config in f32.  Checkpoints go to
+``--ckpt-dir`` every ``--ckpt-every`` steps (and on SIGTERM or SIGINT);
+run the launcher again with the same ``--ckpt-dir`` and it resumes from
+the newest checkpoint that verifies:
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch llama3-8b --smoke \
+        --device cpu --steps 8 --tau 2 --rank 8 --ckpt-dir /path/to/ckpt --ckpt-every 4
+
+Beyond the reference's flags, ``--svd-backend`` picks the refresh's SVD
+(the reference's default, exact, or randomized, whose power iterations
+run on the CUDA kernel), and ``--dist`` the synthetic corpus (bigram or
+zipf).  Mesh, ZeRO, recovery and rank-schedule flags come with their
 slices.
 """
 from __future__ import annotations
@@ -46,6 +54,10 @@ def main(argv=None) -> None:
                     help="optimizer engine override: reference | bucketed")
     ap.add_argument("--svd-backend", default="",
                     help="refresh SVD override: exact | randomized")
+    ap.add_argument("--dist", default="bigram", choices=("bigram", "zipf"),
+                    help="synthetic corpus")
+    ap.add_argument("--ckpt-dir", default="/tmp/repro_train")
+    ap.add_argument("--ckpt-every", type=int, default=200)
     ap.add_argument("--refresh-groups", type=int, default=1)
     ap.add_argument("--microbatch", type=int, default=0)
     args = ap.parse_args(argv)
@@ -66,7 +78,8 @@ def main(argv=None) -> None:
     if args.smoke:
         cfg = cfg.with_(dtype=torch.float32)
     model = build_model(cfg, device=args.device)
-    tc = TrainConfig(total_steps=args.steps, microbatch=args.microbatch)
+    tc = TrainConfig(total_steps=args.steps, microbatch=args.microbatch,
+                     checkpoint_every=args.ckpt_every, checkpoint_dir=args.ckpt_dir)
     params = model.init(torch.Generator(device=model.device).manual_seed(tc.seed))
     n_params = sum(p.numel() for p in tree_leaves(params))
     print(f"[train] {args.arch} {n_params / 1e6:.1f}M params on {model.device}")
@@ -92,11 +105,15 @@ def main(argv=None) -> None:
     seq = args.seq or (64 if args.smoke else 512)
     batch = args.batch or (8 if args.smoke else 512)
     data = SyntheticDataset(
-        SyntheticDataConfig(vocab_size=cfg.vocab_size, seq_len=seq, global_batch=batch),
+        SyntheticDataConfig(vocab_size=cfg.vocab_size, seq_len=seq, global_batch=batch,
+                            dist=args.dist),
         device=model.device,
     )
     fns = make_train_step(model, opt, train_cfg=tc)
     res = train_loop(model, opt, data, tc, fns, log_every=max(args.steps // 20, 1))
+    if not res.losses:
+        print(f"[train] done: step {res.final_step}, no steps left to run")
+        return
     print(f"[train] done: step {res.final_step}, "
           f"loss {res.losses[0]:.4f} -> {res.losses[-1]:.4f}")
 

@@ -1,9 +1,18 @@
-"""Train state, from ``src/repro/train/state.py``.  The checkpoint layout
-converters come with the checkpoint slice (ROADMAP queue 1)."""
+"""Train state and its layout conversion at the checkpoint boundary, from
+``src/repro/train/state.py``.
+
+Checkpoints hold the canonical per-leaf optimizer-state layout: a run whose
+state is bucket-native (``engine="bucketed"`` with a fused inner) converts
+on save and load, so a checkpoint written under one engine resumes under
+the other, and under the JAX package.  The conversion moves data only
+(8-bit codes and scales, Adam-mini's per-row v included), so nothing is
+requantized.
+"""
 from __future__ import annotations
 
 from typing import Any, NamedTuple
 
+from repro_torch.core import lowrank as lowrank_lib
 from repro_torch.core.lowrank import LowRankOptState
 
 
@@ -14,3 +23,26 @@ class TrainState(NamedTuple):
     @property
     def step(self) -> int:
         return self.opt_state.step
+
+
+def canonical_train_state(optimizer: lowrank_lib.LowRankOptimizer,
+                          state: TrainState) -> TrainState:
+    """Storage layout -> the per-leaf layout checkpoints hold."""
+    return TrainState(state.params, lowrank_lib.canonical_opt_state(optimizer, state.opt_state))
+
+
+def storage_train_state(optimizer: lowrank_lib.LowRankOptimizer,
+                        state: TrainState) -> TrainState:
+    """Per-leaf checkpoint layout -> the optimizer's storage layout."""
+    return TrainState(state.params, lowrank_lib.storage_opt_state(optimizer, state.opt_state))
+
+
+def checkpoint_converters(optimizer: lowrank_lib.LowRankOptimizer):
+    """(canonicalize, localize) for ``CheckpointManager``, or (None, None)
+    when the optimizer already stores the canonical per-leaf layout."""
+    if optimizer.state_layout is None:
+        return None, None
+    return (
+        lambda ts: canonical_train_state(optimizer, ts),
+        lambda ts: storage_train_state(optimizer, ts),
+    )

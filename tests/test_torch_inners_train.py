@@ -72,7 +72,7 @@ def test_three_step_train_loop_matches_jax(pair, inner_name, tmp_path):
 
     jres = jax_train_loop(pair["jmodel"], jopt, _JaxData(), jtc, jfns, state=jstate,
                           log_every=1, handle_signals=False)
-    tc = TrainConfig(total_steps=steps)
+    tc = TrainConfig(total_steps=steps, checkpoint_dir=str(tmp_path / "port_ckpt"))
     tstate = TrainState(pair["tparams"], topt.init(pair["tparams"])._replace(
         draws=JaxDraws(jstate.opt_state.key)))
     tres = train_loop(pair["tmodel"], topt, _SharedData(pair["batches"]), tc,
@@ -92,13 +92,14 @@ def test_three_step_train_loop_matches_jax(pair, inner_name, tmp_path):
         assert diff.max() <= 0.25 * 0.01 * 0.25, what
 
 
-def test_launch_train_takes_the_new_optimizers_on_cpu(capsys):
+def test_launch_train_takes_the_new_optimizers_on_cpu(capsys, tmp_path):
     from repro_torch.launch import train as launch_train
 
     counters.reset()
     launch_train.main(["--smoke", "--device", "cpu", "--optimizer", "galore-sara-adam8bit",
                        "--engine", "bucketed", "--svd-backend", "randomized", "--steps", "3",
-                       "--tau", "2", "--rank", "8", "--seq", "16", "--batch", "4"])
+                       "--tau", "2", "--rank", "8", "--seq", "16", "--batch", "4",
+                       "--ckpt-dir", str(tmp_path / "ckpt")])
     assert "[train] done: step 3" in capsys.readouterr().out
     assert counters.snapshot() == {}  # the CPU runs the plain versions
 

@@ -281,7 +281,7 @@ def test_three_step_train_loop_matches_jax(pair, tmp_path):
 
     jres = jax_train_loop(pair["jmodel"], jopt, _JaxData(), jtc, jfns, state=jstate,
                           log_every=1, handle_signals=False)
-    tc = TrainConfig(total_steps=steps)
+    tc = TrainConfig(total_steps=steps, checkpoint_dir=str(tmp_path / "port_ckpt"))
     tstate = TrainState(pair["tparams"], topt.init(pair["tparams"])._replace(
         draws=JaxDraws(jstate.opt_state.key)))
     tres = train_loop(pair["tmodel"], topt, _SharedData(pair["batches"]), tc,
@@ -340,12 +340,13 @@ def test_train_configs_share_the_jax_defaults():
 # ---------------------------------------------------------------------------
 
 
-def test_launch_train_smoke_on_cpu_runs(capsys):
+def test_launch_train_smoke_on_cpu_runs(capsys, tmp_path):
     from repro_torch.launch import train as launch_train
 
     launch_train.main(["--smoke", "--device", "cpu", "--steps", "3", "--tau", "2",
                        "--rank", "8", "--engine", "bucketed",
-                       "--svd-backend", "randomized", "--seq", "16", "--batch", "4"])
+                       "--svd-backend", "randomized", "--seq", "16", "--batch", "4",
+                       "--ckpt-dir", str(tmp_path / "ckpt")])
     out = capsys.readouterr().out
     assert "[train] done: step 3" in out
 
