@@ -11,7 +11,8 @@ Phases; any failure raises and the script exits non-zero:
 2. kernels -- each kernel against its plain PyTorch version at its path's
               shapes (serving: f32 and bf16, plus flash at the training
               shape; training: every bucket of the 4-layer llama3-8b plans,
-              f32, and bf16 W for each fused update; the 2-D fused
+              f32, and bf16 W for each fused update; the power iteration
+              also at online_pca's k' = rank on every bucket; the 2-D fused
               projection, which no path runs, at two shapes of its own),
               within the tolerances in ``TOL``; paged decode also on a
               bandwidth case of 32 slots of 1024 + 64 i tokens on shuffled
@@ -42,10 +43,17 @@ Phases; any failure raises and the script exits non-zero:
               step 0, then 2 hot steps.  Once per optimizer of
               ``TRAIN_RUNS``: ``galore-sara-adam`` (path ``train``),
               ``-msgd``, ``-adam-mini`` and ``-adam8bit`` (paths
-              ``train_msgd``, ``train_adam_mini``, ``train_adam8bit``).
-              Checks the bucket plan (sides included), finite losses (the
-              first near ln(vocab)), each kernel's exact launch count, and
-              on one more hot step each bucket's R and the inner's update
+              ``train_msgd``, ``train_adam_mini``, ``train_adam8bit``);
+              the paper's baselines ``golore-adam``, ``grass-adam`` and
+              ``online-pca-adam`` on the same buckets (``train_golore``,
+              ``train_grass``, ``train_online_pca``), and ``fira-sara-adam``
+              and ``galore-sara-adafactor`` on per-leaf state (``train_fira``,
+              ``train_adafactor``) beside ``galore-sara-adam`` on the
+              reference engine (``train_adam_reference``), the same per-leaf
+              loop.  Checks the bucket plan (sides included) or the per-leaf
+              state, finite losses (the first near ln(vocab)), each
+              kernel's exact launch count, and on the bucket-native paths,
+              on one more hot step, each bucket's R and the inner's update
               (W' and its state) from the kernels against the plain
               versions on the same stacks, one bucket at a time; then
               profiles one hot step (device busy share, time by kernel).
@@ -71,7 +79,7 @@ Phases; any failure raises and the script exits non-zero:
               ``max_memory_allocated``, with the card's name and power limit.
 6. report  -- one ``{"kernel_over_library": [...]}`` line (every case's
               kernel time over its yardstick's), one ``{"kernels": [...]}``
-              line (``launches`` summed over the serve, train, resume and
+              line (``launches`` summed over the serve, train_*, resume and
               serve_ckpt runs, each run's own count beside it in
               ``launches_by_path``; 0 for the 2-D projection, which no path
               runs), the ``nvidia-smi`` line, and last
@@ -206,6 +214,7 @@ LIBRARY_CALL = {
 SERVE_KERNELS = ("rmsnorm", "flash_attention_fwd", "paged_decode_attention")
 _TRAIN_COMMON = ("rmsnorm", "flash_attention_fwd", "galore_project_batched",
                  "power_iter_batched")
+_MODEL_KERNELS = ("rmsnorm", "flash_attention_fwd")
 # The inner's fused update kernel, per inner optimizer.
 UPDATE_KERNEL = {"adam": "lowrank_adam_update_batched", "msgd": "lowrank_msgd_update_batched",
                  "adam_mini": "lowrank_adam_mini_update_batched",
@@ -239,18 +248,37 @@ TRAIN_BUCKETS = [(1024, 4096, 512, 8, "any"), (4096, 4096, 512, 8, "any"),
                  (4096, 14336, 512, 12, "any")]
 SPLIT_BUCKETS = [(1024, 4096, 512, 8, "right"), (4096, 4096, 512, 8, "left"),
                  (4096, 14336, 512, 8, "left"), (4096, 14336, 512, 4, "right")]
-# The train phases: path name -> (optimizer, its plan at 4 layers)
+# The train phases: path name -> (optimizer, its plan at 4 layers or None
+# for per-leaf state, the kernels the path launches, TRAIN_OPT overrides).
+# The paper's baselines: golore, grass and online_pca on Adam keep
+# bucket-native state and the fused hot step (online_pca's refresh is one
+# power-iteration product per bucket at k' = rank); Fira and Adafactor have
+# no fused update in either package and run the per-leaf loop on per-leaf
+# state, plain products in the hot step and a randomized SVD per leaf in
+# the refresh, beside Adam on the reference engine, the same loop, timed
+# once for comparison.
+_PER_LEAF_KERNELS = _MODEL_KERNELS + ("power_iter_batched",)
+_ADAM_BUCKETED = _MODEL_KERNELS + ("galore_project_batched", "lowrank_adam_update_batched")
 TRAIN_RUNS = {
-    "train": ("galore-sara-adam", TRAIN_BUCKETS),
-    "train_msgd": ("galore-sara-msgd", TRAIN_BUCKETS),
-    "train_adam_mini": ("galore-sara-adam-mini", SPLIT_BUCKETS),
-    "train_adam8bit": ("galore-sara-adam8bit", SPLIT_BUCKETS),
+    "train": ("galore-sara-adam", TRAIN_BUCKETS, _TRAIN_COMMON + (UPDATE_KERNEL["adam"],), {}),
+    "train_msgd": ("galore-sara-msgd", TRAIN_BUCKETS,
+                   _TRAIN_COMMON + (UPDATE_KERNEL["msgd"],), {}),
+    "train_adam_mini": ("galore-sara-adam-mini", SPLIT_BUCKETS,
+                        _TRAIN_COMMON + (UPDATE_KERNEL["adam_mini"],), {}),
+    "train_adam8bit": ("galore-sara-adam8bit", SPLIT_BUCKETS,
+                       _TRAIN_COMMON + (UPDATE_KERNEL["adam8bit"],), {}),
+    "train_golore": ("golore-adam", TRAIN_BUCKETS, _ADAM_BUCKETED, {}),
+    "train_grass": ("grass-adam", TRAIN_BUCKETS, _ADAM_BUCKETED, {}),
+    "train_online_pca": ("online-pca-adam", TRAIN_BUCKETS,
+                         _ADAM_BUCKETED + ("power_iter_batched",), {}),
+    "train_fira": ("fira-sara-adam", None, _PER_LEAF_KERNELS, {}),
+    "train_adafactor": ("galore-sara-adafactor", None, _PER_LEAF_KERNELS, {}),
+    "train_adam_reference": ("galore-sara-adam", None, _PER_LEAF_KERNELS,
+                             {"engine": "reference"}),
 }
 # (d, n, r) of the 2-D fused projection's cases: the JAX benchmark's
 # (benchmarks/kernels_micro.py) and a full-width mlp leaf's
 PROJECT_2D_SHAPES = [(2048, 8192, 512), (4096, 14336, 512)]
-INNER_OF = {"galore-sara-adam": "adam", "galore-sara-msgd": "msgd",
-            "galore-sara-adam-mini": "adam_mini", "galore-sara-adam8bit": "adam8bit"}
 # resume phase: galore-sara-adam with tau 2 (refreshes at steps 0, 2, 4) on
 # the zipf corpus; run C goes through uninterrupted and saves at RESUME_STOP,
 # run B resumes from that checkpoint to RESUME_STEPS
@@ -263,8 +291,7 @@ RESUME_LOSS_RTOL = 1e-4
 SERVE_CKPT_PROMPTS = [64, 200, 333, 517]
 SERVE_CKPT_NEW_TOKENS = 16
 PATH_KERNELS = {"serve": SERVE_KERNELS}
-PATH_KERNELS.update({path: _TRAIN_COMMON + (UPDATE_KERNEL[INNER_OF[opt]],)
-                     for path, (opt, _) in TRAIN_RUNS.items()})
+PATH_KERNELS.update({path: run[2] for path, run in TRAIN_RUNS.items()})
 PATH_KERNELS["resume"] = _TRAIN_COMMON + (UPDATE_KERNEL["adam"],)
 PATH_KERNELS["serve_ckpt"] = SERVE_KERNELS
 
@@ -774,6 +801,25 @@ def optimizer_kernel_cases(results):
             del g, q
             torch.cuda.empty_cache()
 
+    # -- kernel 9 at online_pca's shape: its refresh takes one product
+    # G (G^T P) per bucket at k' = rank (train_online_pca), on every bucket
+    for d, n, r, b, _ in TRAIN_BUCKETS:
+        label = f"B={b} d={d} n={n} r={r} k'={r} (online_pca)"
+        g = randn(b, d, n)
+        q = orthonormal(b, d, r)
+        got = power_iter_batched(g, q)
+        want = power_iter_ref(g, q)
+        torch.cuda.synchronize()
+        err = check_close(f"power_iter {label}", got, want,
+                          *TOL["power_iter_batched"]["float32"], rel_atol=True)
+        del got, want
+        b_ms, b_by = bound(4 * (b * d * n + 2 * b * d * r), 4 * b * d * n * r, "float32")
+        record("power_iter_batched", label, torch.float32, err, False, timed_case(
+            lambda: power_iter_batched(g, q), lambda: power_iter_ref(g, q),
+            lambda: torch.bmm(g, torch.bmm(g.transpose(1, 2), q)), b_ms, b_by, 5))
+        del g, q
+        torch.cuda.empty_cache()
+
     # -- kernel 10: the 2-D projection fused with Adam's moments, which no
     # path runs: the JAX benchmark's shape (main case) and an mlp leaf's
     for d, n, r in PROJECT_2D_SHAPES:
@@ -1102,8 +1148,11 @@ def train(cfg, optimizer: str = "galore-sara-adam", expect_buckets=TRAIN_BUCKETS
           dev: str = "cuda", steps: int = TRAIN_STEPS, seq: int = TRAIN_SEQ,
           batch: int = TRAIN_BATCH, opt_kw=None):
     """Phase 4 (see the module docstring) with one optimizer, whose bucket
-    plan must be ``expect_buckets`` ((d, n, rank, B, side) per bucket);
-    ``dev="cpu"`` with a smoke config rehearses it without a card."""
+    plan must be ``expect_buckets`` ((d, n, rank, B, side) per bucket), or
+    whose state must be per leaf where ``expect_buckets`` is None (Fira,
+    Adafactor and the reference engine: no bucket-native state, and no
+    plan beyond the bucketed engine's accounting); ``dev="cpu"`` with a
+    smoke config rehearses it without a card."""
     import math
 
     from repro_torch.configs.base import TrainConfig
@@ -1136,11 +1185,17 @@ def train(cfg, optimizer: str = "galore-sara-adam", expect_buckets=TRAIN_BUCKETS
     opt = make_optimizer(
         optimizer, params,
         lr_schedule=cosine_with_warmup(opt_kw["lr"], TRAIN_WARMUP, steps), **opt_kw)
+    shapes = [tuple(p.shape) for p in tree_leaves(params)]
     del params  # train_loop makes the same params from tc.seed and owns them
     inner = opt.config.inner
-    plan = [(bk.d, bk.n, bk.rank, bk.batch, bk.side) for bk in opt.bucket_plan.buckets]
-    if plan != list(expect_buckets):
-        raise AssertionError(f"bucket plan {plan} != {expect_buckets}")
+    if expect_buckets is None:
+        if opt.state_layout is not None:
+            raise AssertionError(f"{optimizer}: bucket-native state where per-leaf is expected")
+        plan = None
+    else:
+        plan = [(bk.d, bk.n, bk.rank, bk.batch, bk.side) for bk in opt.bucket_plan.buckets]
+        if plan != list(expect_buckets) or opt.state_layout is None:
+            raise AssertionError(f"bucket plan {plan} != {expect_buckets}")
     data = SyntheticDataset(
         SyntheticDataConfig(vocab_size=cfg.vocab_size, seq_len=seq, global_batch=batch),
         device=dev)
@@ -1203,60 +1258,65 @@ def train(cfg, optimizer: str = "galore-sara-adam", expect_buckets=TRAIN_BUCKETS
         raise AssertionError(
             f"first loss {res.losses[0]:.3f} is not near ln(vocab) = "
             f"{math.log(cfg.vocab_size):.3f} for random weights")
-    nl, nb = cfg.n_layers, len(plan)
-    kp_lt_d = sum(1 for d, n, r, _, _ in plan
-                  if min(4 * r + opt_kw.get("svd_oversample", 8), d) < d)
+    nl = cfg.n_layers
     expect = {
         # per step: 2 per layer + the final norm forward, 2 per layer again
         # in the remat recompute of each block
         "rmsnorm": steps * (4 * nl + 1),
         "flash_attention_fwd": steps * 2 * nl,  # forward + remat recompute
-        "galore_project_batched": steps * nb,
-        UPDATE_KERNEL[inner]: steps * nb,  # the inner's fused update
-        "power_iter_batched": 2 * kp_lt_d,  # one refresh, 2 iterations
+        # one refresh (step 0): a power-iteration product per bucket, or
+        # per low-rank leaf on per-leaf state
+        "power_iter_batched": power_iter_calls(opt, shapes),
     }
+    if plan is not None:
+        nb = len(plan)
+        expect["galore_project_batched"] = steps * nb
+        expect[UPDATE_KERNEL[inner]] = steps * nb  # the inner's fused update
+    expect = {k: v for k, v in expect.items() if v}
     if launches != expect:
         raise AssertionError(f"train launch counts {launches} != expected {expect}")
 
     # One more hot step's stacks, bucket by bucket: R, then the inner's
     # update (W' and its state) from the kernels against the plain versions
-    # on the same inputs.
-    step = state.opt_state.step + 1
-    lr = opt.config.lr_schedule(state.opt_state.step)
-    lr_alpha, lr_wd = lr * opt.config.alpha, lr * opt.config.weight_decay
-    ikw = opt.config.inner_kwargs()
-    kernel_update = fused_update(inner, dev == "cuda")
-    plain_update = fused_update(inner, False)
-    flat_p = tree_leaves(state.params)
-    leaves = [p.detach().requires_grad_(True) for p in flat_p]
-    loss, _ = model.loss(tree_unflatten(state.params, leaves), data.batch_at(steps))
-    flat_g = list(torch.autograd.grad(loss, leaves))
-    del leaves, loss
+    # on the same inputs (bucket-native paths; the per-leaf paths' hot step
+    # is plain products).
     parity = []
-    for bk, bst in zip(opt.bucket_plan.buckets, state.opt_state.buckets):
-        w = buckets_lib._gather(bk, flat_p)
-        g = buckets_lib._gather(bk, flat_g)
-        if dev == "cuda":
-            r_k = project_kernel.galore_project_batched(g, bst.projector)
-        else:
-            r_k = project_ref(g, bst.projector)
-        r_p = project_ref(g, bst.projector)
-        del g
-        label = f"bucket d={bk.d} n={bk.n} B={bk.batch} side={bk.side}"
-        errs = {"R": check_close(f"train {label} R", r_k, r_p,
-                                 *TOL["galore_project_batched"]["float32"], rel_atol=True)}
-        del r_k
-        args = (w, bst.projector, r_p, bucket_state(inner, bst), step, lr_alpha, lr_wd,
-                bk.side, ikw)
-        got = kernel_update(*args)
-        want = plain_update(*args)
-        errs.update(check_update(inner, f"train {label}", got, want, "float32"))
-        del got, want, w, r_p, args
-        if dev == "cuda":
-            torch.cuda.empty_cache()
-        log(f"train hot-step {label}: kernel vs plain max abs err {errs}")
-        parity.append({"bucket": label, "max_abs_err": errs})
-    del flat_g, flat_p
+    if plan is not None:
+        step = state.opt_state.step + 1
+        lr = opt.config.lr_schedule(state.opt_state.step)
+        lr_alpha, lr_wd = lr * opt.config.alpha, lr * opt.config.weight_decay
+        ikw = opt.config.inner_kwargs()
+        kernel_update = fused_update(inner, dev == "cuda")
+        plain_update = fused_update(inner, False)
+        flat_p = tree_leaves(state.params)
+        leaves = [p.detach().requires_grad_(True) for p in flat_p]
+        loss, _ = model.loss(tree_unflatten(state.params, leaves), data.batch_at(steps))
+        flat_g = list(torch.autograd.grad(loss, leaves))
+        del leaves, loss
+        for bk, bst in zip(opt.bucket_plan.buckets, state.opt_state.buckets):
+            w = buckets_lib._gather(bk, flat_p)
+            g = buckets_lib._gather(bk, flat_g)
+            if dev == "cuda":
+                r_k = project_kernel.galore_project_batched(g, bst.projector)
+            else:
+                r_k = project_ref(g, bst.projector)
+            r_p = project_ref(g, bst.projector)
+            del g
+            label = f"bucket d={bk.d} n={bk.n} B={bk.batch} side={bk.side}"
+            errs = {"R": check_close(f"train {label} R", r_k, r_p,
+                                     *TOL["galore_project_batched"]["float32"], rel_atol=True)}
+            del r_k
+            args = (w, bst.projector, r_p, bucket_state(inner, bst), step, lr_alpha, lr_wd,
+                    bk.side, ikw)
+            got = kernel_update(*args)
+            want = plain_update(*args)
+            errs.update(check_update(inner, f"train {label}", got, want, "float32"))
+            del got, want, w, r_p, args
+            if dev == "cuda":
+                torch.cuda.empty_cache()
+            log(f"train hot-step {label}: kernel vs plain max abs err {errs}")
+            parity.append({"bucket": label, "max_abs_err": errs})
+        del flat_g, flat_p
     profile = (profile_train_step(make_train_step(model, opt, train_cfg=tc), state,
                                   data.batch_at(steps)) if dev == "cuda" else None)
     shutil.rmtree(ckpt_dir, ignore_errors=True)
@@ -1271,6 +1331,33 @@ def train(cfg, optimizer: str = "galore-sara-adam", expect_buckets=TRAIN_BUCKETS
         "launches": launches, "expected": expect,
         "hot_step_parity": parity, "profile": profile,
     }
+
+
+def power_iter_calls(opt, shapes) -> int:
+    """Power-iteration launches of one refresh: per bucket on bucket-native
+    state, per low-rank leaf (all its stacked slices in one call) on
+    per-leaf state.  The randomized SVD (dominant, sara) iterates
+    ``svd_power_iters`` times where its sketch k' is narrower than d;
+    online_pca takes one product G (G^T P) at k' = rank, on every unit.
+    ``shapes``: the params' shapes in flat order (read on per-leaf state
+    only)."""
+    from repro_torch.core import svd as svd_lib
+
+    cfg = opt.config
+    if cfg.method == "online_pca":
+        per_unit = lambda d, n, r: 1  # noqa: E731
+    elif cfg.method in ("dominant", "sara") and cfg.svd_backend == "randomized":
+        def per_unit(d, n, r):
+            k = r if cfg.method == "dominant" else min(d, cfg.sara_pool_factor * r)
+            _, kp, iters = svd_lib.clamp_sketch(d, n, k, cfg.svd_oversample,
+                                                cfg.svd_power_iters)
+            return iters if kp < d else 0
+    else:
+        return 0
+    if opt.state_layout is not None:
+        return sum(per_unit(bk.d, bk.n, bk.rank) for bk in opt.bucket_plan.buckets)
+    return sum(per_unit(min(shape[-2:]), max(shape[-2:]), spec.rank)
+               for spec, shape in zip(opt.specs, shapes) if spec.lowrank)
 
 
 def profile_train_step(fns, state, batch):
@@ -1335,8 +1422,8 @@ def _draw_sample(opt, draws):
 
     bk = opt.bucket_plan.buckets[0]
     e = bk.entries[0]
-    sketch, glen = draw_shapes(bk.d, bk.n, opt.config.projector_config(), bk.rank)
-    got = draws.split().leaf(e.leaf_idx, (e.batch,), sketch, glen)
+    got = draws.split().leaf(e.leaf_idx, (e.batch,),
+                             draw_shapes(bk.d, bk.n, opt.config.projector_config(), bk.rank))
     return [None if x is None else x.cpu() for x in got]
 
 
@@ -1516,8 +1603,7 @@ def resume(cfg, smi: str, dev: str = "cuda", seq: int = TRAIN_SEQ, batch: int = 
         loaded = res_b.checkpoints.last_load
         b_losses = res_b.losses
         nb = len(opt.bucket_plan.buckets)
-        kp_lt_d = sum(1 for bk in opt.bucket_plan.buckets
-                      if min(4 * bk.rank + opt_kw.get("svd_oversample", 8), bk.d) < bk.d)
+        power_iters = power_iter_calls(opt, None)  # one refresh, on the buckets
         del res_b, model, opt, fns, loop_fns
         b_peak = peak_and_reset()
         rss = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
@@ -1554,7 +1640,7 @@ def resume(cfg, smi: str, dev: str = "cuda", seq: int = TRAIN_SEQ, batch: int = 
             "flash_attention_fwd": steps * 2 * nl,
             "galore_project_batched": steps * nb,
             UPDATE_KERNEL["adam"]: steps * nb,
-            "power_iter_batched": 2 * kp_lt_d,  # one refresh, 2 iterations
+            "power_iter_batched": power_iters,
         }
         if launches != expect:
             raise AssertionError(f"resume launch counts {launches} != expected {expect}")
@@ -1683,10 +1769,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     runs = {"serve": served}
     cfg_train = get_config("llama3-8b").with_(n_layers=TRAIN_LAYERS)
-    for path, (optimizer, plan) in TRAIN_RUNS.items():
+    for path, (optimizer, plan, _, opt_kw) in TRAIN_RUNS.items():
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
-        runs[path] = train(cfg_train, optimizer, plan)
+        runs[path] = train(cfg_train, optimizer, plan, opt_kw=opt_kw)
         log(f"{path} phase ({optimizer}): {time.perf_counter() - t0:.1f} s")
     torch.cuda.empty_cache()
     t0 = time.perf_counter()

@@ -54,7 +54,11 @@ def params_to_numpy(params: Dict[str, Any]) -> Tree:
 
 def _inner_from(name: str, jinner, t):
     """A per-leaf inner state of the port from one with the same field
-    names (a JAX state read out as numpy, or ``opt_state_to_numpy``'s)."""
+    names (a JAX state read out as numpy, or ``opt_state_to_numpy``'s).
+    An inner with no fused layout (Adafactor) is carried field for field."""
+    if name == "adafactor":
+        return inner_lib.AdafactorState(*(t(getattr(jinner, f))
+                                          for f in inner_lib.AdafactorState._fields))
     fm = inner_lib.fused_moments(name, jinner)
     return inner_lib.fused_state(name, *(None if x is None else t(x) for x in fm))
 

@@ -5,12 +5,22 @@
     state = opt.init(params)
     new_params, state, aux = opt.update(grads, state, params, refresh=True, apply=True)
 
-Names compose  <projector>[-sara]? - <inner>  as in the reference
-(``galore-sara-adam`` is the paper's method; ``-msgd``, ``-adam-mini``
-and ``-adam8bit`` select the other ported inners).  Names that resolve to
-a projector or inner not yet ported (adafactor, Fira, golore, grass,
-online_pca, identity) raise ``NotImplementedError`` when the optimizer is
-built.
+Names compose  <projector>[-sara]? - <inner>  as in the reference:
+
+    adam / full-adam            -> full-rank inner optimizer everywhere
+    galore-adam                 -> dominant projector + Adam
+    galore-sara-adam            -> SARA projector + Adam        (the paper)
+    golore-adam                 -> random projector + Adam
+    grass-adam                  -> row-sampling projector + Adam
+    online-pca-adam             -> online subspace descent + Adam
+    identity-adam               -> P = I, for tests
+    fira-adam / fira-sara-adam  -> Fira residual path (dominant / SARA)
+    *-adafactor, *-adam-mini, *-adam8bit, *-msgd variants likewise.
+
+Every name builds.  The options still to be ported raise
+``NotImplementedError``, naming their ROADMAP item: rank schedules and
+``group_ranks`` (item 10), ``state_sharding`` (item 11), and in ``update``
+``skip_nonfinite`` (item 9) and ``projected`` (item 11).
 """
 from __future__ import annotations
 

@@ -12,11 +12,12 @@
     Adam-mini or 8-bit Adam) that writes W' (``kernels/lowrank_update/
     ops.py``: the CUDA kernels on the card, the plain versions on the CPU);
   * ``bucketed_refresh`` refreshes all same-group entries of a bucket as
-    one batched chain (randomized SVD), or leaf by leaf (exact SVD).
+    one batched chain (the SVD-free methods, and the randomized SVD), or
+    leaf by leaf (exact SVD).
 
 Draws are inputs: each refreshed leaf asks the state's draw source for its
-sketch and Gumbel noise by its global leaf index, as the JAX key chain
-folds the leaf index (``buckets.py:850-861``).  ZeRO padding and the
+sketch, Gumbel noise or basis by its global leaf index, as the JAX key
+chain folds the leaf index (``buckets.py:850-861``).  ZeRO padding and the
 modeled accounting are not ported (ROADMAP queue 1 items 11 and 12).
 """
 from __future__ import annotations
@@ -419,8 +420,8 @@ def entry_draws(draws, entry: BucketEntry, template: LeafStateTemplate,
                 bucket: Bucket, pcfg, device) -> LeafDraws:
     """One entry's refresh draws from the state's draw source, keyed by its
     global leaf index; a leaf with leading dims draws one per slice."""
-    sketch, glen = draw_shapes(bucket.d, bucket.n, pcfg, bucket.rank)
-    return draws.leaf(entry.leaf_idx, tuple(template.projector.shape[:-2]), sketch, glen, device)
+    return draws.leaf(entry.leaf_idx, tuple(template.projector.shape[:-2]),
+                      draw_shapes(bucket.d, bucket.n, pcfg, bucket.rank), device)
 
 
 def _cat(parts: List[Optional[torch.Tensor]]) -> Optional[torch.Tensor]:
@@ -448,7 +449,8 @@ def bucketed_refresh(
 ) -> Tuple[Tuple[BucketState, ...], List[torch.Tensor]]:
     """Refresh the projectors of one refresh ``group`` in the bucket stacks.
 
-    With ``stacked_refresh_fn`` (the randomized backend) all of a bucket's
+    With ``stacked_refresh_fn`` (``projectors.batched_refresh_supported``:
+    the SVD-free methods, and the randomized backend) all of a bucket's
     same-group entries refresh as one batched chain over their stacked
     (B', d, n) gradients; otherwise (the exact backend) entry by entry with
     ``refresh_fn``.  ``momentum_carry="reproject"`` runs as one batched
@@ -468,7 +470,7 @@ def bucketed_refresh(
             old_stack = _slice_entries(bucket, bst.projector, hot)
             per = [entry_draws(draws, e, layout.templates[e.leaf_idx], bucket, pcfg, device)
                    for e in hot]
-            stacked = LeafDraws(_cat([x.omega for x in per]), _cat([x.gumbel for x in per]))
+            stacked = LeafDraws(*(_cat(list(parts)) for parts in zip(*per)))
             new_stack = stacked_refresh_fn(g_stack, stacked, old_stack, bucket.rank)
             new_stack = new_stack.to(bst.projector.dtype)
             del g_stack

@@ -1,12 +1,12 @@
 """The low-rank optimization wrapper (Algorithm 1), from
 ``src/repro/core/lowrank.py``.
 
-Composes a projector-selection method (``projectors.py``: dominant, SARA)
-with an inner stateful optimizer (``inner.py``: Adam, MSGD, Adam-mini,
-8-bit Adam) over a nested
-dict of parameters, flattened in sorted key order exactly as
-``jax.tree_util`` flattens the JAX tree, so leaf indices, bucket entries
-and the per-leaf draws line up with the reference.
+Composes a projector-selection method (``projectors.py``: dominant, SARA,
+GoLore, Grass, online PCA, identity) with an inner stateful optimizer
+(``inner.py``: Adam, MSGD, Adafactor, Adam-mini, 8-bit Adam), plus Fira's
+residual path, over a nested dict of parameters, flattened in sorted key
+order exactly as ``jax.tree_util`` flattens the JAX tree, so leaf indices,
+bucket entries and the per-leaf draws line up with the reference.
 
 As in the reference:
 
@@ -17,21 +17,26 @@ As in the reference:
     loop; ``engine="bucketed"`` groups the low-rank leaves into buckets
     whose moments and projectors live stacked (``LowRankOptState.buckets``)
     and runs one batched projection and one fused update per bucket
-    (the CUDA kernels on the card).  Under ``svd_backend="randomized"``
-    the bucketed refresh is one batched chain per bucket.
+    (the CUDA kernels on the card).  The bucketed refresh is one batched
+    chain per bucket for the SVD-free methods, and for dominant and sara
+    under ``svd_backend="randomized"``.  Fira and Adafactor have no fused
+    update in either package: with ``engine="bucketed"`` they keep the
+    bucket plan for accounting only and run the per-leaf loop on
+    per-leaf state, as JAX's do.
   * ``update(..., apply=True)`` returns new params instead of updates.
 
 The step count and the learning-rate schedule live on the host (a Python
 int and float); the state's draw source (``TorchDraws``) makes the
-refresh's random sketches and Gumbel noise from a ``torch.Generator``.
+refresh's random sketches, Gumbel noise and bases from a
+``torch.Generator``.
 
 ``canonical_opt_state`` / ``storage_opt_state`` convert between the
 bucket-native storage layout and the canonical per-leaf layout that
 checkpoints hold, as the reference's do.
 
-Not ported here: ``projected=``/``StackedGrads`` (compressed DP),
-``skip_nonfinite``, ``shard_axes`` and ZeRO, Fira, Adafactor and rank
-schedules (ROADMAP queue 1).
+Not ported here: ``skip_nonfinite`` (ROADMAP queue 1 item 9), rank
+schedules and ``group_ranks`` (item 10), ``projected=``/``StackedGrads``,
+``shard_axes`` and ZeRO (item 11).
 """
 from __future__ import annotations
 
@@ -70,7 +75,7 @@ class OptimizerConfig:
     """Everything needed to build Algorithm 1, with the JAX field names and
     defaults.  ``lr_schedule`` maps the int step to a float."""
 
-    method: str = "sara"  # full | dominant | sara (others: a later slice)
+    method: str = "sara"  # full|dominant|sara|golore|grass|online_pca|identity
     inner: str = "adam"
     rank: int = 128
     rank_schedule: str = ""  # not ported: raises
@@ -81,7 +86,8 @@ class OptimizerConfig:
     lr_schedule: Optional[Callable[[int], float]] = None
     weight_decay: float = 0.0
     grad_clip_norm: float = 0.0  # 0 disables
-    fira: bool = False  # not ported: raises
+    fira: bool = False
+    fira_limiter: float = 1.0  # cap on the residual scaling ratio
     momentum_carry: str = "keep"  # keep | reset | reproject
     refresh_groups: int = 1
     engine: str = "reference"  # reference | bucketed
@@ -93,6 +99,7 @@ class OptimizerConfig:
     svd_oversample: int = 8
     svd_power_iters: int = 2
     sara_pool_factor: int = 4
+    online_pca_lr: float = 0.1
     projector_dtype: Any = torch.float32
     b1: float = 0.9
     b2: float = 0.999
@@ -103,7 +110,8 @@ class OptimizerConfig:
             method=self.method, rank=self.rank, svd_backend=self.svd_backend,
             svd_oversample=self.svd_oversample,
             svd_power_iters=self.svd_power_iters,
-            sara_pool_factor=self.sara_pool_factor, dtype=self.projector_dtype,
+            sara_pool_factor=self.sara_pool_factor,
+            online_pca_lr=self.online_pca_lr, dtype=self.projector_dtype,
         )
 
     def inner_kwargs(self) -> Dict[str, Any]:
@@ -141,8 +149,9 @@ class LeafState(NamedTuple):
 
 
 class TorchDraws:
-    """The refresh's draw source: Gaussian sketches and Gumbel noise from a
-    ``torch.Generator`` on the params' device.
+    """The refresh's draw source: Gaussian sketches, Gumbel noise and
+    golore's Gaussian bases from a ``torch.Generator`` on the params'
+    device.
 
     Like the JAX key chain (split the state key once per refresh, then fold
     in the global leaf index, ``lowrank.py:673, 800``), each leaf's draws
@@ -186,8 +195,9 @@ class TorchDraws:
         return TorchDraws(self.seed, self.device, self.refreshes + 1)
 
     def leaf(self, leaf_idx: int, batch_shape: Tuple[int, ...],
-             sketch: Optional[Tuple[int, int]], gumbel_len: Optional[int],
-             device=None) -> proj_lib.LeafDraws:
+             shapes: proj_lib.DrawShapes, device=None) -> proj_lib.LeafDraws:
+        """One leaf's draws, one per slice: ``shapes`` from
+        ``projectors.draw_shapes``."""
         nb = 1
         for s in batch_shape:
             nb *= s
@@ -195,11 +205,13 @@ class TorchDraws:
                + (leaf_idx + 1) * 0xC2B2AE3D) % (2**63 - 1)
         dev = torch.device(device) if device is not None else self.device
         gen = torch.Generator(device=dev).manual_seed(mix)
-        omega = (torch.randn((nb,) + tuple(sketch), generator=gen, device=dev)
-                 if sketch is not None else None)
-        gumbel = (gumbel_noise((nb, gumbel_len), gen, dev)
-                  if gumbel_len is not None else None)
-        return proj_lib.LeafDraws(omega, gumbel)
+        omega = (torch.randn((nb,) + tuple(shapes.sketch), generator=gen, device=dev)
+                 if shapes.sketch is not None else None)
+        gumbel = (gumbel_noise((nb, shapes.gumbel), gen, dev)
+                  if shapes.gumbel is not None else None)
+        basis = (torch.randn((nb,) + tuple(shapes.basis), generator=gen, device=dev)
+                 if shapes.basis is not None else None)
+        return proj_lib.LeafDraws(omega, gumbel, basis)
 
 
 class LowRankOptState(NamedTuple):
@@ -324,16 +336,19 @@ def _global_norm(leaves: Sequence[torch.Tensor]) -> torch.Tensor:
     return torch.sqrt(sum(torch.sum(torch.square(x.float())) for x in leaves))
 
 
+def _safe_ratio(num: torch.Tensor, den: torch.Tensor) -> torch.Tensor:
+    """||num|| / (||den|| + 1e-12), one scalar over the whole leaf (all its
+    stacked slices), as ``src/repro/core/lowrank.py:941``."""
+    nn = torch.linalg.vector_norm(num.float().reshape(-1))
+    dd = torch.linalg.vector_norm(den.float().reshape(-1))
+    return nn / (dd + 1e-12)
+
+
 def _unsupported(cfg: OptimizerConfig) -> None:
     if cfg.method not in ("full",) + proj_lib.METHODS:
         raise ValueError(f"unknown method {cfg.method!r}")
-    if cfg.method not in ("full",) + proj_lib.PORTED_METHODS:
-        raise NotImplementedError(
-            f"projector method {cfg.method!r} is not yet ported to repro_torch "
-            f"(remaining projectors, {_LATER} item 7)"
-        )
     for flag, what, item in (
-        (cfg.fira, "Fira", 7), (cfg.state_sharding, "ZeRO state sharding", 11),
+        (cfg.state_sharding, "ZeRO state sharding", 11),
         (cfg.rank_schedule, "rank schedules", 10), (cfg.group_ranks, "group_ranks", 10),
     ):
         if flag:
@@ -370,7 +385,11 @@ def make_lowrank_optimizer(
             specs, flat_like,
             split_sides=cfg.inner in buckets_lib.SIDE_HOMOGENEOUS_INNERS,
         )
-        if bucket_plan.buckets and inner.fused_eligible:
+        # bucket-native storage only where the fused engine covers every hot
+        # step of every low-rank leaf: Adafactor (no fused update) and Fira
+        # (the residual needs the full gradient per leaf) keep the plan for
+        # accounting and run the per-leaf loop, as in JAX
+        if bucket_plan.buckets and inner.fused_eligible and not cfg.fira:
             state_layout = buckets_lib.build_state_layout(
                 bucket_plan, specs, flat_like, inner_name=cfg.inner,
                 projector_dtype=cfg.projector_dtype,
@@ -417,8 +436,8 @@ def make_lowrank_optimizer(
         shape = tuple(g.shape)
         d = min(shape[-2], shape[-1])
         n = max(shape[-2], shape[-1])
-        sketch, glen = proj_lib.draw_shapes(d, n, pcfg, spec.rank)
-        return draws.leaf(i, shape[:-2], sketch, glen, g.device)
+        return draws.leaf(i, shape[:-2], proj_lib.draw_shapes(d, n, pcfg, spec.rank),
+                          g.device)
 
     def _carry(spec: LeafSpec, st: LeafState, new_p: torch.Tensor) -> Tuple[LeafState, torch.Tensor]:
         old_p = st.projector
@@ -452,11 +471,15 @@ def make_lowrank_optimizer(
     ) -> Tuple[PyTree, LowRankOptState, AuxInfo]:
         """Returns (updates, or new params with ``apply=True``, new state,
         aux).  ``state`` is not modified."""
-        if projected or skip_nonfinite or shard_axes is not None:
-            raise NotImplementedError(
-                "projected gradients, the skip-step gate and sharded state are "
-                f"not yet ported to repro_torch ({_LATER} items 9 and 11)"
-            )
+        for flag, what, item in (
+            (skip_nonfinite, "the skip-step gate (skip_nonfinite)", 9),
+            (projected, "projected gradients", 11),
+            (shard_axes is not None, "sharded state (shard_axes)", 11),
+        ):
+            if flag:
+                raise NotImplementedError(
+                    f"{what} is not yet ported to repro_torch ({_LATER} item {item})"
+                )
         if state_layout is not None and not state.buckets:
             raise ValueError("bucket-native optimizer got a per-leaf state")
         step = state.step + 1  # 1-indexed for bias correction
@@ -528,6 +551,14 @@ def make_lowrank_optimizer(
             direction, inner_state = inner.update(r_g, st.inner, step)
             full_dir = proj_lib.backproject(direction.to(proj.dtype), proj, spec.side)
             upd = -lr * cfg.alpha * full_dir.float()
+            if cfg.fira:
+                # Fira: add the projection residual, scaled by the ratio of
+                # the adapted direction's norm to the projected gradient's,
+                # capped by the limiter (spike protection)
+                s_res = g.float() - proj_lib.backproject(r_g, proj, spec.side).float()
+                ratio = torch.clamp(_safe_ratio(direction, r_g), max=cfg.fira_limiter)
+                upd = upd - lr * cfg.alpha * ratio * s_res
+                del s_res
             if cfg.weight_decay:
                 upd = upd - lr * cfg.weight_decay * p.float()
             upd = upd.to(p.dtype)

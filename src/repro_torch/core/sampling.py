@@ -10,12 +10,14 @@ The Gumbel noise is an input here, never drawn inside (the JAX function
 draws it from its key at ``sampling.py:56``): the port's refresh draws it
 from a ``torch.Generator`` (``gumbel_noise``), and the parity tests hand in
 JAX's own draws.  Every function works on one weight vector (m,) or a
-stack (B, m) alike.
+stack (B, m) alike: Grass's row sampling draws over the d rows of each
+slice, SARA's over the k singular values.
 """
 from __future__ import annotations
 
 from typing import Sequence, Tuple
 
+import numpy as np
 import torch
 
 _NEG_INF = -1e30
@@ -71,7 +73,52 @@ def sara_select(
     return torch.gather(u, -1, cols), idx
 
 
-# The batched forms of the JAX module are the same functions on (B, ...)
-# stacks: one batched top-k and one batched gather.
-gumbel_topk_indices_batched = gumbel_topk_indices
+def gumbel_topk_indices_batched(
+    weights: torch.Tensor,  # (B, m)
+    r: int,
+    gumbel: torch.Tensor,  # (B, m)
+    *,
+    sort_indices: bool = True,
+) -> torch.Tensor:
+    """``gumbel_topk_indices`` over a (B, m) weight stack with one noise row
+    per slice: slice ``b`` equals ``gumbel_topk_indices(weights[b], r,
+    gumbel[b])``.  Returns (B, r) indices."""
+    if weights.dim() != 2 or tuple(gumbel.shape) != tuple(weights.shape):
+        raise ValueError(
+            f"want (B, m) weights and noise, got {tuple(weights.shape)}, "
+            f"{tuple(gumbel.shape)}"
+        )
+    return gumbel_topk_indices(weights, r, gumbel, sort_indices=sort_indices)
+
+
+# The batched SARA selection is the same function on (B, d, k) stacks: one
+# batched top-k and one batched gather.
 sara_select_batched = sara_select
+
+
+def inclusion_probabilities_mc(
+    weights: torch.Tensor,  # (m,)
+    r: int,
+    gumbel: torch.Tensor,  # (n_samples, m) standard Gumbel noise
+) -> torch.Tensor:
+    """Monte-Carlo estimate of each index's inclusion probability P[i in I]
+    under the sampler, one sample per row of ``gumbel`` (a test helper, to
+    be compared with ``sequential_sample_reference``)."""
+    n_samples, m = gumbel.shape
+    idx = gumbel_topk_indices(weights.expand(n_samples, m), r, gumbel, sort_indices=False)
+    hits = torch.zeros((n_samples, m), dtype=torch.float32, device=idx.device)
+    hits.scatter_(1, idx, 1.0)
+    return hits.mean(dim=0)
+
+
+def sequential_sample_reference(weights, r: int, rng: np.random.Generator):
+    """NumPy reference of the paper's sequential sampling law (test oracle):
+    r draws without replacement, each with probability proportional to the
+    remaining weights; returns the sorted indices."""
+    w = np.asarray(weights, dtype=np.float64).copy()
+    idx = []
+    for _ in range(r):
+        i = rng.choice(len(w), p=w / w.sum())
+        idx.append(int(i))
+        w[i] = 0.0
+    return sorted(idx)

@@ -7,14 +7,20 @@ Runs on the card unless ``--device cpu`` is given.
     PYTHONPATH=src python -m repro_torch.launch.train --arch llama3-8b --smoke \\
         --device cpu --steps 4 --tau 2
 
-``--optimizer`` takes the composed names of ``core/api.py``; the ported
-inners are ``adam``, ``msgd``, ``adam-mini`` and ``adam8bit``, so
-``galore-sara-adam``, ``galore-sara-msgd``, ``galore-sara-adam-mini`` and
-``galore-sara-adam8bit`` run on either engine, each with its fused CUDA
-update on the bucketed one:
+``--optimizer`` takes every composed name of ``core/api.py``, as the
+reference's launcher does: the paper's ``galore-sara-adam``, the other
+inners (``galore-sara-msgd``, ``-adam-mini``, ``-adam8bit``, ``-adafactor``)
+and the baselines (``galore-adam``, ``golore-adam``, ``grass-adam``,
+``online-pca-adam``, ``identity-adam``, ``fira-adam``, ``fira-sara-adam``).
+They run on either engine.  On the bucketed one every fused inner (Adam,
+MSGD, Adam-mini, 8-bit Adam) takes its CUDA update, with any projector;
+Fira and Adafactor run its per-leaf loop, as in the reference:
 
-    PYTHONPATH=src python -m repro_torch.launch.train --arch llama3-8b --smoke \
-        --device cpu --optimizer galore-sara-adam8bit --engine bucketed \
+    PYTHONPATH=src python -m repro_torch.launch.train --arch llama3-8b --smoke \\
+        --device cpu --optimizer galore-sara-adam8bit --engine bucketed \\
+        --svd-backend randomized --steps 4 --tau 2 --rank 8
+    PYTHONPATH=src python -m repro_torch.launch.train --arch llama3-8b --smoke \\
+        --device cpu --optimizer online-pca-adam --engine bucketed \\
         --svd-backend randomized --steps 4 --tau 2 --rank 8
 
 ``--smoke`` selects the reduced config in f32.  Checkpoints go to
@@ -22,14 +28,15 @@ update on the bucketed one:
 run the launcher again with the same ``--ckpt-dir`` and it resumes from
 the newest checkpoint that verifies:
 
-    PYTHONPATH=src python -m repro_torch.launch.train --arch llama3-8b --smoke \
+    PYTHONPATH=src python -m repro_torch.launch.train --arch llama3-8b --smoke \\
         --device cpu --steps 8 --tau 2 --rank 8 --ckpt-dir /path/to/ckpt --ckpt-every 4
 
 Beyond the reference's flags, ``--svd-backend`` picks the refresh's SVD
 (the reference's default, exact, or randomized, whose power iterations
 run on the CUDA kernel), and ``--dist`` the synthetic corpus (bigram or
 zipf).  Mesh, ZeRO, recovery and rank-schedule flags come with their
-slices.
+slices (ROADMAP queue 1 items 9-12); Fira's limiter keeps its default,
+as the reference's launcher has no flag for it either.
 """
 from __future__ import annotations
 

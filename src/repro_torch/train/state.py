@@ -2,8 +2,8 @@
 ``src/repro/train/state.py``.
 
 Checkpoints hold the canonical per-leaf optimizer-state layout: a run whose
-state is bucket-native (``engine="bucketed"`` with a fused inner) converts
-on save and load, so a checkpoint written under one engine resumes under
+state is bucket-native (``engine="bucketed"`` with a fused inner and no
+Fira) converts on save and load, so a checkpoint written under one engine resumes under
 the other, and under the JAX package.  The conversion moves data only
 (8-bit codes and scales, Adam-mini's per-row v included), so nothing is
 requantized.

@@ -639,3 +639,143 @@ def test_checkpoint_round_trip_on_gpu(inner, tmp_path):
         loaded, step = mgr.load_latest(skeleton)
         assert step == 1 and mgr.last_save["bytes"] == mgr.last_load["bytes"]
         assert_equal(loaded, state)
+
+
+# ---------------------------------------------------------------------------
+# on the card: the paper's baselines against the CPU's plain path
+# ---------------------------------------------------------------------------
+
+BASELINE_KERNELS = {
+    # the bucketed hot step: projection and fused Adam update per bucket;
+    # online_pca's refresh is one power-iteration product per bucket
+    "golore-adam": {"galore_project_batched", "lowrank_adam_update_batched"},
+    "grass-adam": {"galore_project_batched", "lowrank_adam_update_batched"},
+    "online-pca-adam": {"galore_project_batched", "lowrank_adam_update_batched",
+                        "power_iter_batched"},
+    # the per-leaf loop: plain products; the randomized SVD's power
+    # iterations go through the kernel where k' < d
+    "fira-sara-adam": {"power_iter_batched"},
+    "galore-sara-adafactor": {"power_iter_batched"},
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", list(BASELINE_KERNELS))
+def test_baseline_optimizer_on_gpu_matches_cpu(name):
+    """Three updates (a refresh, two hot steps) of the smoke llama3-8b's
+    params at rank 8, fed the same gradients, with the same draws (made on
+    the CPU, moved over).  The refresh on the card gives finite params and
+    orthonormal projectors.  The SVD-free projectors equal the CPU's:
+    grass's selections exactly, golore's and online_pca's QR factors
+    sign-aligned to 1e-5.  The sara-based refreshes' W' is not held to the
+    CPU's, because sara's sampled small singular vectors differ between
+    cuSOLVER and LAPACK and Adam's first step r / (|r| + eps) magnifies
+    that (1e-6 of noise in the power iteration moves ``galore-sara-adam``'s
+    W' by 4.6e-4 on the CPU).  The hot steps then run on the card (the
+    kernels) and the CPU (the plain path) from the CPU's refreshed state,
+    to 1e-5, and the path's kernels are launched."""
+    _require_card()
+    from repro_torch import bridge
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core import make_optimizer
+    from repro_torch.core.lowrank import TorchDraws, tree_leaves, tree_unflatten
+    from repro_torch.kernels import counters
+    from repro_torch.models import build_model
+
+    class CpuDraws(TorchDraws):
+        def split(self):
+            return CpuDraws(self.seed, self.device, self.refreshes + 1)
+
+        def leaf(self, leaf_idx, batch_shape, shapes, device=None):
+            got = super().leaf(leaf_idx, batch_shape, shapes, "cpu")
+            return type(got)(*(None if x is None else x.to(device) for x in got))
+
+    def on(tree, dev):
+        return tree_unflatten(tree, [x.to(dev) for x in tree_leaves(tree)])
+
+    cfg = get_config("llama3-8b", smoke=True)
+    params0 = build_model(cfg, device="cpu").init(torch.Generator().manual_seed(0))
+    gen = torch.Generator().manual_seed(1)
+    grads = [tree_unflatten(params0, [0.01 * torch.randn(p.shape, generator=gen)
+                                      for p in tree_leaves(params0)]) for _ in range(3)]
+    kw = dict(rank=8, engine="bucketed", svd_backend="randomized", grad_clip_norm=1.0)
+    opts = {dev: make_optimizer(name, on(params0, dev), **kw) for dev in ("cpu", "cuda")}
+    refreshed = {}
+    counters.reset()
+    for dev, opt in opts.items():
+        state = opt.init(on(params0, dev))._replace(draws=CpuDraws(0, dev))
+        refreshed[dev] = opt.update(on(grads[0], dev), state, on(params0, dev),
+                                    refresh=True, apply=True)[:2]
+    torch.cuda.synchronize()
+    params, state = refreshed["cuda"]
+    assert all(torch.isfinite(x).all() for x in tree_leaves(params))
+    method = opts["cuda"].config.method
+    for proj, want in zip(_projectors(opts["cuda"], state),
+                          _projectors(opts["cpu"], refreshed["cpu"][1])):
+        eye = torch.eye(proj.shape[-1], device="cuda").expand(proj.shape[:-2] + (-1, -1))
+        torch.testing.assert_close(proj.transpose(-1, -2) @ proj, eye, atol=1e-4, rtol=0)
+        got = proj.cpu()
+        if method == "grass":
+            assert torch.equal(got, want)
+        elif method in ("golore", "online_pca"):  # a QR: align its column signs
+            signs = torch.sign(torch.sum(got * want, dim=-2, keepdim=True))
+            torch.testing.assert_close(got * signs, want, atol=1e-5, rtol=0)
+    out = {}
+    for dev, opt in opts.items():
+        params, state = refreshed["cpu"]
+        params = on(params, dev)
+        state = bridge.opt_state_from_numpy(opt, bridge.opt_state_to_numpy(state), dev)
+        for g in grads[1:]:
+            params, state, _ = opt.update(on(g, dev), state, params, refresh=False, apply=True)
+        out[dev] = params
+    torch.cuda.synchronize()
+    launches = counters.snapshot()
+    assert {k for k, v in launches.items() if v > 0} == BASELINE_KERNELS[name]
+    for a, b in zip(tree_leaves(out["cuda"]), tree_leaves(out["cpu"])):
+        assert torch.isfinite(a).all()
+        torch.testing.assert_close(a.cpu(), b, atol=1e-5, rtol=0)
+
+
+def _projectors(opt, state):
+    """Every low-rank leaf's projector stack: from the buckets, or per leaf."""
+    if state.buckets:
+        return [b.projector for b in state.buckets]
+    return [st.projector for spec, st in zip(opt.specs, state.leaves) if spec.lowrank]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("scale", [1e-10, 0.0])
+def test_adafactor_keeps_the_subnormals_on_gpu(scale):
+    """On the card Adafactor's 1e-38 guards and the subnormal product
+    vr * vc are not flushed either: a tiny gradient's direction is finite,
+    and equal to the CPU's to 1e-6."""
+    _require_card()
+    from repro_torch.core.inner import adafactor
+
+    opt = adafactor()
+    g = torch.randn((3, 5), generator=torch.Generator().manual_seed(0)) * scale
+    d_cpu, _ = opt.update(g, opt.init(g), 1)
+    d_gpu, _ = opt.update(g.cuda(), opt.init(g.cuda()), 1)
+    assert torch.isfinite(d_gpu).all()
+    torch.testing.assert_close(d_gpu.cpu(), d_cpu, atol=1e-6, rtol=0)
+
+
+@pytest.mark.gpu
+def test_quantizer_square_root_is_correctly_rounded_on_gpu():
+    """The 8-bit quantizer takes CUDA's f32 square root as it is (on the
+    CPU it rounds an f64 one): it must be IEEE-rounded, on every half-code
+    boundary +-8 ulps and on 2^24 values of the unit interval, so that the
+    card's codes equal the CPU's bit for bit."""
+    _require_card()
+    gen = torch.Generator().manual_seed(0)
+    k = torch.arange(255, dtype=torch.float64)
+    b = (((k + 0.5) / 255.0) ** 2).float()
+    near = torch.stack([(b.view(torch.int32) + d).view(torch.float32) for d in range(-8, 9)])
+    x = torch.cat([near.reshape(-1).clamp(0, 1), torch.rand(2**24, generator=gen)])
+    exact = x.double().sqrt().float()
+    assert torch.equal(torch.sqrt(x.cuda()).cpu(), exact)
+    rows = torch.cat([torch.ones(1), x[: 255 * 17]]).reshape(1, -1)[:, :4096].reshape(16, 256)
+    for signed in (True, False):
+        c_cpu, s_cpu = qz.quantize_blockwise(rows, signed)
+        c_gpu, s_gpu = qz.quantize_blockwise(rows.cuda(), signed)
+        assert torch.equal(c_gpu.cpu(), c_cpu) and torch.equal(s_gpu.cpu(), s_cpu)

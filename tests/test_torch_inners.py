@@ -12,6 +12,9 @@ shared ``pair`` fixture of tests/test_torch_train.py); inputs are
 numpy-seeded.  The CUDA kernels are held against these plain versions on
 the card by tests/test_torch_gpu.py.
 """
+import sys
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -39,6 +42,9 @@ from repro_torch.core.lowrank import flatten_with_path
 from repro_torch.kernels.lowrank_update import ops as update_ops
 from repro_torch.kernels.lowrank_update import quantize as qz
 from test_torch_optim_kernels import JaxDraws
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "tools"))
+import quantizer_parity  # noqa: E402  (the correctly rounded encoding)
 from test_torch_train import (  # noqa: F401  (pair is a fixture)
     HOT_TOL,
     OPT_KW,
@@ -109,6 +115,31 @@ def test_quantizer_matches_jax(side, signed):
         ci, si = qz.quantize_blockwise(_t(x[i]), signed)
         torch.testing.assert_close(c[i], ci, rtol=0, atol=0)
         torch.testing.assert_close(s[i], si, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("values", ["test", "boundaries"])
+@pytest.mark.parametrize("side", ["left", "right"])
+@pytest.mark.parametrize("signed", [True, False])
+def test_quantizer_codes_are_correctly_rounded(side, signed, values):
+    """The port's codes bit for bit against the correctly rounded encoding,
+    on ``test_quantizer_matches_jax``'s values and on every half-code
+    boundary +-8 ulps, so they depend on no backend: ``torch.sqrt`` on the
+    CPU is 1 ulp off on ~0.7% of the unit interval's values, which moves 3
+    of the 4335 unsigned boundary codes (ROADMAP queue 3), and the port's
+    square root runs in f64."""
+    if values == "test":
+        rng = np.random.default_rng(1 + signed)
+        shape = (3, 7, 300) if side == "left" else (3, 300, 7)
+        x = (rng.standard_normal(shape) * 0.01).astype(np.float32)
+        if not signed:
+            x = x * x
+    else:
+        x = quantizer_parity.code_boundaries(signed)
+        if side == "right":
+            x = np.swapaxes(x, -1, -2).copy()
+    codes, _ = qz.quantize_stacked(_t(x), side, signed)
+    np.testing.assert_array_equal(codes.numpy(),
+                                  quantizer_parity.rounded_codes(x, side, signed))
 
 
 # ---------------------------------------------------------------------------
@@ -469,5 +500,12 @@ def test_state_bridge_round_trips_bit_for_bit(pair, inner_name):
 
 
 def test_unported_inner_still_raises(pair):
-    with pytest.raises(NotImplementedError, match="adafactor"):
-        make_optimizer("galore-sara-adafactor", pair["tparams"], **OPT_KW)
+    """Every inner is ported now: Adafactor builds on both engines, on its
+    per-leaf state (no fused layout, in either package)."""
+    for engine in ("reference", "bucketed"):
+        opt = make_optimizer("galore-sara-adafactor", pair["tparams"], engine=engine, **OPT_KW)
+        assert opt.state_layout is None and opt.config.inner == "adafactor"
+        state = opt.init(pair["tparams"])
+        assert all(type(st.inner) is inner.AdafactorState for st in state.leaves)
+    with pytest.raises(ValueError, match="unknown inner"):
+        inner.make_inner("adagrad")

@@ -56,39 +56,59 @@ class JaxDraws:
     answered with JAX's own draws, recomputed along the reference's key
     chain: ``key, subkey = split(key)`` per refresh (lowrank.py:673), then
     ``fold_in(subkey, leaf_idx)`` (lowrank.py:800, buckets.py:858), split
-    over the leaf's leading dims (buckets.py:859-861), per slice
-    ``key_svd, key_sample = split`` (projectors.py:253-254, 174), the
-    sketch ``normal(key_svd, (n, k'))`` (svd.py:122-124) and the Gumbel
-    noise ``gumbel(key_sample, (k,))`` (sampling.py:56)."""
+    over the leaf's leading dims (buckets.py:859-861; a leaf without them
+    uses the folded key whole).  From each slice key ``k``:
 
-    def __init__(self, key, subkey=None):
-        self.key, self.subkey = key, subkey
+      * dominant and sara (the SVD methods) split it once more,
+        ``key_svd, key_sample = split(k)`` (projectors.py:174, 253-254):
+        the sketch ``normal(key_svd, (n, k'))`` (svd.py:122-124) and sara's
+        Gumbel noise ``gumbel(key_sample, (k,))`` (sampling.py:56);
+      * golore draws its basis ``normal(k, (d, rank))`` from the slice key
+        itself (projectors.py:144, 221);
+      * grass draws its Gumbel noise ``gumbel(k, (d,))`` over the rows from
+        the slice key itself (projectors.py:148-149, sampling.py:56);
+      * identity and online_pca draw nothing.
+
+    ``method`` picks the chain; the default is the SVD methods'."""
+
+    def __init__(self, key, subkey=None, method="sara"):
+        self.key, self.subkey, self.method = key, subkey, method
 
     def split(self):
         key, sub = jax.random.split(self.key)
-        return JaxDraws(key, sub)
+        return JaxDraws(key, sub, self.method)
 
-    def leaf(self, leaf_idx, batch_shape, sketch, gumbel_len, device=None):
+    def leaf(self, leaf_idx, batch_shape, shapes, device=None):
         lkey = jax.random.fold_in(self.subkey, leaf_idx)
         nb = int(np.prod(batch_shape)) if batch_shape else 0
-        omega, gumbel = _jax_leaf_draws(lkey, nb, sketch, gumbel_len)
-        return LeafDraws(_t(omega, device), _t(gumbel, device))
+        whole = self.method in ("golore", "grass")
+        omega, gumbel, basis = _jax_leaf_draws(lkey, nb, shapes.sketch, shapes.gumbel,
+                                               shapes.basis, whole)
+        return LeafDraws(_t(omega, device), _t(gumbel, device), _t(basis, device))
 
 
-@functools.partial(jax.jit, static_argnums=(1, 2, 3))
-def _jax_leaf_draws(lkey, nb, sketch, gumbel_len):
+@functools.partial(jax.jit, static_argnums=(1, 2, 3, 4, 5))
+def _jax_leaf_draws(lkey, nb, sketch, gumbel_len, basis, whole):
     """One leaf's draws from its folded key (``JaxDraws.leaf``); ``nb`` 0
-    for a leaf with no leading dims.  Jitted, so that each shape traces
-    once per process: the same numbers as the eager calls."""
+    for a leaf with no leading dims; ``whole``: draw from the slice key
+    itself (golore, grass), else from the halves of its split.  Jitted, so
+    that each shape traces once per process: the same numbers as the eager
+    calls."""
     keys = jax.random.split(lkey, nb) if nb else lkey[None]
-    pairs = jax.vmap(jax.random.split)(keys)
-    omega = gumbel = None
+    if whole:
+        svd_keys = sample_keys = keys
+    else:
+        pairs = jax.vmap(jax.random.split)(keys)
+        svd_keys, sample_keys = pairs[:, 0], pairs[:, 1]
+    omega = gumbel = out_basis = None
     if sketch is not None:
-        omega = jax.vmap(lambda k: jax.random.normal(k, sketch, jnp.float32))(pairs[:, 0])
+        omega = jax.vmap(lambda k: jax.random.normal(k, sketch, jnp.float32))(svd_keys)
     if gumbel_len is not None:
         gumbel = jax.vmap(lambda k: jax.random.gumbel(k, (gumbel_len,), jnp.float32))(
-            pairs[:, 1])
-    return omega, gumbel
+            sample_keys)
+    if basis is not None:
+        out_basis = jax.vmap(lambda k: jax.random.normal(k, basis, jnp.float32))(keys)
+    return omega, gumbel, out_basis
 
 
 def _t(a, device=None):

@@ -366,12 +366,17 @@ def test_training_entry_points_need_a_card_unless_cpu_is_asked(monkeypatch):
 
 
 def test_unported_optimizer_options_raise(pair):
+    """What is still to be ported raises and names its ROADMAP item; the
+    baselines (golore, Adafactor, Fira) build."""
+    for kw, item in (({"state_sharding": "zero"}, 11), ({"rank_schedule": "cosine:8:4"}, 10),
+                     ({"group_ranks": (8,)}, 10)):
+        with pytest.raises(NotImplementedError, match=f"not yet ported.*item {item}"):
+            make_optimizer("galore-sara-adam", pair["tparams"], **kw)
     for name, kw in (("golore-adam", {}), ("galore-sara-adafactor", {}),
-                     ("galore-sara-adam", {"fira": True}),
-                     ("galore-sara-adam", {"state_sharding": "zero"})):
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            make_optimizer(name, pair["tparams"], **kw)
+                     ("galore-sara-adam", {"fira": True})):
+        make_optimizer(name, pair["tparams"], **kw)
     opt = make_optimizer("galore-sara-adam", pair["tparams"], **OPT_KW)
     state = opt.init(pair["tparams"])
-    with pytest.raises(NotImplementedError):
-        opt.update(pair["tparams"], state, pair["tparams"], refresh=False, projected=True)
+    for kw, item in (({"projected": True}, 11), ({"skip_nonfinite": True}, 9)):
+        with pytest.raises(NotImplementedError, match=f"item {item}"):
+            opt.update(pair["tparams"], state, pair["tparams"], refresh=False, **kw)
