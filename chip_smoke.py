@@ -57,6 +57,29 @@ Phases; any failure raises and the script exits non-zero:
               (W' and its state) from the kernels against the plain
               versions on the same stacks, one bucket at a time; then
               profiles one hot step (device busy share, time by kernel).
+4b. train_recovery -- ``galore-sara-adam`` as in 4 under the launcher's
+              default ``RecoveryPolicy`` (no backoff) with heartbeats and a
+              ``FaultPlan``, 8 steps: steps 0-2 as in 4 (the gate's cost
+              beside ``train``'s hot steps), the pinned step-0 save, a NaN
+              gradient at step 3 (skipped: per-leaf bit-pattern checksums
+              of params and state equal before and after, ``skipped`` 1),
+              NaN losses at steps 5-7 (a rollback to the pin with resample:
+              the replayed refresh's sara projectors overlap the first's
+              by < 1 per bucket), the replay to step 8 (finite losses, one
+              skip and one rollback counted, exact launch counts); then
+              gated and ungated hot steps in turns from the final state,
+              and the check's own device time.
+4c. train_rank_schedule -- ``galore-sara-adam`` at tau 2 with the schedule
+              ``step:512:256@0.5`` over 6 steps: the refresh at step 2
+              re-buckets from rank 512 to 256 (one ``rebucket`` record),
+              steps 3-5 run at 256; checks the plan at both ranks, the
+              launch counts of each geometry, and on one more hot step at
+              256 each bucket's R and W', M', V' from kernels 4 and 5
+              against the plain versions; prints the hot-step ms at each
+              rank and the re-bucket event's ms.  The kernel phase also
+              holds kernels 4, 5 and 9 at ranks 256 and 264 (k' 1032 and
+              1064; 264 = 8 mod 16 leaves the f32 tile engine a ragged
+              last K tile) on the mlp bucket's shape.
 5. resume  -- train -> checkpoint -> resume -> serve, on the same 4-layer
               model with ``galore-sara-adam`` at tau 2 (refreshes at steps
               0, 2 and 4) on the zipf corpus, seq 512, batch 8, each run in
@@ -79,8 +102,9 @@ Phases; any failure raises and the script exits non-zero:
               ``max_memory_allocated``, with the card's name and power limit.
 6. report  -- one ``{"kernel_over_library": [...]}`` line (every case's
               kernel time over its yardstick's), one ``{"kernels": [...]}``
-              line (``launches`` summed over the serve, train_*, resume and
-              serve_ckpt runs, each run's own count beside it in
+              line (``launches`` summed over the serve, train_* (4b and 4c
+              included), resume and serve_ckpt runs, each run's own count
+              beside it in
               ``launches_by_path``; 0 for the 2-D projection, which no path
               runs), the ``nvidia-smi`` line, and last
               ``{"ok": true, "device": {...}}``.  Per-case detail goes to
@@ -294,6 +318,31 @@ PATH_KERNELS = {"serve": SERVE_KERNELS}
 PATH_KERNELS.update({path: run[2] for path, run in TRAIN_RUNS.items()})
 PATH_KERNELS["resume"] = _TRAIN_COMMON + (UPDATE_KERNEL["adam"],)
 PATH_KERNELS["serve_ckpt"] = SERVE_KERNELS
+# train_recovery: galore-sara-adam under the launcher's default recovery
+# policy (no backoff) with heartbeats; steps 0-2 as in ``train``, then a
+# NaN gradient at step 3 (skipped), a good step 4, and NaN losses at 5-7,
+# whose streak rolls back to the pinned step-0 checkpoint with resample;
+# the run then replays steps 0-7.
+RECOVERY_STEPS = 8
+RECOVERY_SKIP_AT = 3
+RECOVERY_NAN_LOSS = (5, 6, 7)
+# the gate's cost within the phase: this many gated and ungated hot steps
+# each, in turns (ABBA), from the run's final state
+GATE_AB_STEPS = 4
+# train_rank_schedule: tau 2 (refreshes at 0, 2, 4) over 6 steps with
+# "step:512:256@0.5": the halving ladder [512, 256] over the first half of
+# the run, so the refresh at step 2 re-buckets to rank 256, and the refresh
+# at step 4 and the hot steps 3 and 5 run at 256 (over 4 steps,
+# "step:512:256" would re-bucket at step 2 too, but leave no refresh at 256)
+RANK_SCHEDULE = "step:512:256@0.5"
+SCHEDULE_STEPS = 6
+SCHEDULE_OPT = dict(TRAIN_OPT, tau=2, rank_schedule=RANK_SCHEDULE)
+SCHEDULE_RANKS = (512, 256)
+# kernels 4, 5 and 9 at the new rank and at a rank of 8 mod 16 (a ragged
+# last K tile of the f32 tile engine), on the mlp bucket's shape
+RANK_CASES = (256, 264)
+PATH_KERNELS["train_recovery"] = _TRAIN_COMMON + (UPDATE_KERNEL["adam"],)
+PATH_KERNELS["train_rank_schedule"] = _TRAIN_COMMON + (UPDATE_KERNEL["adam"],)
 
 
 def log(msg: str) -> None:
@@ -1156,14 +1205,11 @@ def train(cfg, optimizer: str = "galore-sara-adam", expect_buckets=TRAIN_BUCKETS
     import math
 
     from repro_torch.configs.base import TrainConfig
-    from repro_torch.core import buckets as buckets_lib
     from repro_torch.core import make_optimizer
-    from repro_torch.core.lowrank import tree_leaves, tree_unflatten
+    from repro_torch.core.lowrank import tree_leaves
     from repro_torch.core.schedules import cosine_with_warmup
     from repro_torch.data.synthetic import SyntheticDataConfig, SyntheticDataset
     from repro_torch.kernels import counters
-    from repro_torch.kernels.galore_project import kernel as project_kernel
-    from repro_torch.kernels.galore_project.ref import project_ref
     from repro_torch.models import build_model
     from repro_torch.train.loop import train_loop
     from repro_torch.train.step import make_train_step
@@ -1280,43 +1326,8 @@ def train(cfg, optimizer: str = "galore-sara-adam", expect_buckets=TRAIN_BUCKETS
     # update (W' and its state) from the kernels against the plain versions
     # on the same inputs (bucket-native paths; the per-leaf paths' hot step
     # is plain products).
-    parity = []
-    if plan is not None:
-        step = state.opt_state.step + 1
-        lr = opt.config.lr_schedule(state.opt_state.step)
-        lr_alpha, lr_wd = lr * opt.config.alpha, lr * opt.config.weight_decay
-        ikw = opt.config.inner_kwargs()
-        kernel_update = fused_update(inner, dev == "cuda")
-        plain_update = fused_update(inner, False)
-        flat_p = tree_leaves(state.params)
-        leaves = [p.detach().requires_grad_(True) for p in flat_p]
-        loss, _ = model.loss(tree_unflatten(state.params, leaves), data.batch_at(steps))
-        flat_g = list(torch.autograd.grad(loss, leaves))
-        del leaves, loss
-        for bk, bst in zip(opt.bucket_plan.buckets, state.opt_state.buckets):
-            w = buckets_lib._gather(bk, flat_p)
-            g = buckets_lib._gather(bk, flat_g)
-            if dev == "cuda":
-                r_k = project_kernel.galore_project_batched(g, bst.projector)
-            else:
-                r_k = project_ref(g, bst.projector)
-            r_p = project_ref(g, bst.projector)
-            del g
-            label = f"bucket d={bk.d} n={bk.n} B={bk.batch} side={bk.side}"
-            errs = {"R": check_close(f"train {label} R", r_k, r_p,
-                                     *TOL["galore_project_batched"]["float32"], rel_atol=True)}
-            del r_k
-            args = (w, bst.projector, r_p, bucket_state(inner, bst), step, lr_alpha, lr_wd,
-                    bk.side, ikw)
-            got = kernel_update(*args)
-            want = plain_update(*args)
-            errs.update(check_update(inner, f"train {label}", got, want, "float32"))
-            del got, want, w, r_p, args
-            if dev == "cuda":
-                torch.cuda.empty_cache()
-            log(f"train hot-step {label}: kernel vs plain max abs err {errs}")
-            parity.append({"bucket": label, "max_abs_err": errs})
-        del flat_g, flat_p
+    parity = (hot_step_parity("train", model, opt, state, data.batch_at(steps), dev)
+              if plan is not None else [])
     profile = (profile_train_step(make_train_step(model, opt, train_cfg=tc), state,
                                   data.batch_at(steps)) if dev == "cuda" else None)
     shutil.rmtree(ckpt_dir, ignore_errors=True)
@@ -1331,6 +1342,55 @@ def train(cfg, optimizer: str = "galore-sara-adam", expect_buckets=TRAIN_BUCKETS
         "launches": launches, "expected": expect,
         "hot_step_parity": parity, "profile": profile,
     }
+
+
+def hot_step_parity(path: str, model, opt, state, batch, dev: str = "cuda"):
+    """One more hot step's stacks from ``state`` (bucket-native), bucket by
+    bucket: R from the projection kernel, then the inner's fused update (W'
+    and its state) from its kernel, each against its plain version on the
+    same inputs.  Returns one record per bucket."""
+    from repro_torch.core import buckets as buckets_lib
+    from repro_torch.core.lowrank import tree_leaves, tree_unflatten
+    from repro_torch.kernels.galore_project import kernel as project_kernel
+    from repro_torch.kernels.galore_project.ref import project_ref
+
+    inner = opt.config.inner
+    step = state.opt_state.step + 1
+    lr = opt.config.lr_schedule(state.opt_state.step)
+    lr_alpha, lr_wd = lr * opt.config.alpha, lr * opt.config.weight_decay
+    ikw = opt.config.inner_kwargs()
+    kernel_update = fused_update(inner, dev == "cuda")
+    plain_update = fused_update(inner, False)
+    flat_p = tree_leaves(state.params)
+    leaves = [p.detach().requires_grad_(True) for p in flat_p]
+    loss, _ = model.loss(tree_unflatten(state.params, leaves), batch)
+    flat_g = list(torch.autograd.grad(loss, leaves))
+    del leaves, loss
+    parity = []
+    for bk, bst in zip(opt.bucket_plan.buckets, state.opt_state.buckets):
+        w = buckets_lib._gather(bk, flat_p)
+        g = buckets_lib._gather(bk, flat_g)
+        if dev == "cuda":
+            r_k = project_kernel.galore_project_batched(g, bst.projector)
+        else:
+            r_k = project_ref(g, bst.projector)
+        r_p = project_ref(g, bst.projector)
+        del g
+        label = f"bucket d={bk.d} n={bk.n} r={bk.rank} B={bk.batch} side={bk.side}"
+        errs = {"R": check_close(f"{path} {label} R", r_k, r_p,
+                                 *TOL["galore_project_batched"]["float32"], rel_atol=True)}
+        del r_k
+        args = (w, bst.projector, r_p, bucket_state(inner, bst), step, lr_alpha, lr_wd,
+                bk.side, ikw)
+        got = kernel_update(*args)
+        want = plain_update(*args)
+        errs.update(check_update(inner, f"{path} {label}", got, want, "float32"))
+        del got, want, w, r_p, args
+        if dev == "cuda":
+            torch.cuda.empty_cache()
+        log(f"{path} hot-step {label}: kernel vs plain max abs err {errs}")
+        parity.append({"bucket": label, "max_abs_err": errs})
+    return parity
 
 
 def power_iter_calls(opt, shapes) -> int:
@@ -1408,6 +1468,405 @@ def profile_train_step(fns, state, batch):
             "device_busy_share": busy / wall_ms if wall_ms else None,
             "ms_by_group": groups,
             "top_kernels": [{"ms": t, "count": c, "name": n} for t, c, n in kernels[:15]]}
+
+
+# ---------------------------------------------------------------------------
+# phase 4b: recovery and rank schedules
+# ---------------------------------------------------------------------------
+
+
+def state_checksums(state):
+    """(path, value) per leaf of a train state: for a tensor the int64 sum
+    of its bit patterns (f32 read as int32, other dtypes widened), summed on
+    the device and fetched at once; the host step and draw key as they
+    are."""
+    from repro_torch.train import checkpoint as ckpt_lib
+
+    items = ckpt_lib.tree_items(state)
+    sums = [(x.contiguous().view(torch.int32) if x.dtype == torch.float32 else x).sum(
+        dtype=torch.int64) for _, x in items if isinstance(x, torch.Tensor)]
+    host = iter(torch.stack(sums).tolist()) if sums else iter(())
+    return [(path, next(host) if isinstance(x, torch.Tensor) else np.asarray(x).tolist())
+            for path, x in items]
+
+
+def train_recovery(cfg, smi: str, train_hot_ms=None, dev: str = "cuda", seq: int = TRAIN_SEQ,
+                   batch: int = TRAIN_BATCH, opt_kw=None, expect_buckets=TRAIN_BUCKETS):
+    """Phase 4b (path ``train_recovery``): ``galore-sara-adam`` as in
+    ``train`` under the launcher's default ``RecoveryPolicy`` (backoff 0)
+    and a ``HeartbeatRegistry``, through ``RECOVERY_STEPS`` steps with a
+    ``FaultPlan``: the gate's cost (hot steps 1-2 beside ``train``'s
+    ``train_hot_ms`` from the same run), the pinned step-0 save, a skipped
+    step (params and state bit-equal before and after it, by per-leaf
+    checksums on the device, and ``skipped`` 1), then a NaN-loss streak
+    that rolls back to the pin with resample: the replayed step-0 refresh
+    must draw other sara projectors (each bucket's mean subspace overlap
+    with the first refresh's < 1), every final loss is finite, and the
+    counters read one skip and one rollback.  Then the gate's own cost:
+    ``GATE_AB_STEPS`` gated and ungated hot steps each, in turns, from the
+    final state, and the device time of the check alone on tensors of the
+    gradients' shapes.  ``dev="cpu"`` with a smoke config rehearses it."""
+    import math
+
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.core import buckets as buckets_lib
+    from repro_torch.core import make_optimizer
+    from repro_torch.core import metrics as metrics_lib
+    from repro_torch.core.lowrank import tree_leaves
+    from repro_torch.core.schedules import cosine_with_warmup
+    from repro_torch.data.synthetic import SyntheticDataConfig, SyntheticDataset
+    from repro_torch.kernels import counters
+    from repro_torch.models import build_model
+    from repro_torch.train.faults import FaultPlan, FaultSpec
+    from repro_torch.train.loop import train_loop
+    from repro_torch.train.monitor import HeartbeatRegistry
+    from repro_torch.train.recovery import RecoveryPolicy
+    from repro_torch.train.step import make_train_step
+
+    def sync():
+        if dev == "cuda":
+            torch.cuda.synchronize()
+
+    opt_kw = dict(TRAIN_OPT, **(opt_kw or {}))
+    ckpt_dir = fresh_dir("recovery_ckpt")
+    try:
+        model = build_model(cfg, device=dev)
+        tc = TrainConfig(total_steps=RECOVERY_STEPS, seed=SEED, checkpoint_every=0,
+                         checkpoint_dir=str(ckpt_dir), async_checkpoint=False)
+        params = model.init(torch.Generator(device=dev).manual_seed(tc.seed))
+        # the launcher's schedule: lr is lr * step / warmup over these steps,
+        # as in ``train``, so steps 0-2 are train's
+        opt = make_optimizer("galore-sara-adam", params,
+                             lr_schedule=cosine_with_warmup(opt_kw["lr"], TRAIN_WARMUP,
+                                                            TRAIN_STEPS), **opt_kw)
+        del params
+        plan = [(bk.d, bk.n, bk.rank, bk.batch, bk.side) for bk in opt.bucket_plan.buckets]
+        if plan != list(expect_buckets):
+            raise AssertionError(f"bucket plan {plan} != {expect_buckets}")
+        data = SyntheticDataset(
+            SyntheticDataConfig(vocab_size=cfg.vocab_size, seq_len=seq, global_batch=batch),
+            device=dev)
+        # the launcher's defaults (launch/train.py) but the backoff sleep; the
+        # heartbeat registry runs the loop's per-step beat and check
+        policy = RecoveryPolicy(max_bad_steps=3, loss_spike_factor=0.0, max_rollbacks=3,
+                                rollback_backoff_s=0.0, stale_worker_action="log")
+        heartbeats = HeartbeatRegistry(timeout_s=60.0)
+        faults = FaultPlan([FaultSpec("nan_grads", step=RECOVERY_SKIP_AT)]
+                           + [FaultSpec("nan_loss", step=s) for s in RECOVERY_NAN_LOSS])
+        fns = make_train_step(model, opt, train_cfg=tc, recovery=policy)
+        free = shutil.disk_usage(ckpt_dir.parent).free
+        log(f"train_recovery: {free / 1e9:.1f} GB free under {ckpt_dir.parent} for the pinned "
+            "checkpoint")
+        if dev == "cuda" and free < 20e9:
+            raise AssertionError(f"{free} bytes free: the pinned checkpoint needs ~17.3 GB")
+
+        calls, refreshes, skip = [], [], {}
+
+        def timed(fn, is_refresh):
+            def run(state, b, **k):
+                sync()
+                poisoned = "grad_scale" in b
+                if poisoned:
+                    skip["before"] = state_checksums(state)
+                t = time.perf_counter()
+                out = fn(state, b, **k)
+                sync()
+                calls.append({"refresh": is_refresh, "ms": (time.perf_counter() - t) * 1e3,
+                              "start": t, "poisoned": poisoned})
+                if poisoned:
+                    skip["after"] = state_checksums(out[0])
+                    skip["skipped"] = float(out[1]["skipped"])
+                if is_refresh:  # each refresh's projectors, copied
+                    refreshes.append([bst.projector.clone() for bst in out[0].opt_state.buckets])
+                return out
+            return run
+
+        loop_fns = dict(fns, step=timed(fns["step"], False),
+                        refresh_step=timed(fns["refresh_step"], True))
+        counters.reset()
+        t0 = time.perf_counter()
+        res = train_loop(model, opt, data, tc, loop_fns, log_every=1, recovery=policy,
+                         fault_plan=faults, heartbeats=heartbeats)
+        sync()
+        wall_s = time.perf_counter() - t0
+        launches = counters.snapshot()
+        last = [r for r in res.history if "skip_steps" in r][-1]
+        events = [r for r in res.history if "event" in r]
+        saved, loaded = res.checkpoints.last_save, res.checkpoints.last_load
+        hot_ms = [c["ms"] for c in calls[1:3]]
+        gate_ms = (sum(hot_ms) / len(hot_ms) - sum(train_hot_ms) / len(train_hot_ms)
+                   if train_hot_ms else None)
+        log(f"train_recovery: losses {res.losses}; fired {faults.fired}; events {events}; "
+            f"counters skip_steps {last['skip_steps']} rollbacks {last['rollbacks']}; "
+            f"{len(calls)} step calls in {wall_s:.1f} s")
+        log(f"train_recovery gate: hot steps 1-2 {[round(t, 2) for t in hot_ms]} ms under the "
+            f"gate beside train's {[round(t, 2) for t in train_hot_ms or []]} ms (same run): "
+            f"{gate_ms if gate_ms is None else round(gate_ms, 2)} ms a hot step; card {smi}")
+        log(f"train_recovery: pinned step-0 save {saved['write_s']:.2f} s for {saved['bytes']} "
+            f"bytes ({saved['bytes'] / saved['write_s'] / 1e9:.2f} GB/s); rollback load "
+            f"{loaded['seconds']:.2f} s for {loaded['bytes']} bytes "
+            f"({loaded['bytes'] / loaded['seconds'] / 1e9:.2f} GB/s)")
+        if not res.losses or len(res.losses) != RECOVERY_STEPS or not all(
+                math.isfinite(x) for x in res.losses):
+            raise AssertionError(f"train_recovery losses {res.losses}")
+        if (last["skip_steps"], last["rollbacks"]) != (1.0, 1.0):
+            raise AssertionError(f"counters {last}: one skip and one rollback expected")
+        rollbacks = [(r["step"], r["from_step"], r["attempt"]) for r in events
+                     if r["event"] == "rollback"]
+        if rollbacks != [(0.0, float(RECOVERY_NAN_LOSS[-1]), 1.0)] or loaded["step"] != 0:
+            raise AssertionError(f"rollbacks {rollbacks}, load of step {loaded['step']}")
+        if skip.get("skipped") != 1.0 or skip["before"] != skip["after"]:
+            raise AssertionError(f"the skipped step changed the state (skipped "
+                                 f"{skip.get('skipped')})")
+        log(f"train_recovery skip at step {RECOVERY_SKIP_AT}: skipped 1, {len(skip['before'])} "
+            "leaf checksums (bit patterns summed on the device) equal before and after")
+        if len(refreshes) != 2:
+            raise AssertionError(f"{len(refreshes)} refreshes, 2 expected (step 0 and its replay)")
+        overlaps = [float(torch.mean(metrics_lib.subspace_overlap(a, b)))
+                    for a, b in zip(*refreshes)]
+        log(f"train_recovery: the replayed step-0 refresh (resampled draws) against the first, "
+            f"mean subspace overlap per bucket {overlaps}")
+        if not all(ov < 1.0 - 1e-6 for ov in overlaps):
+            raise AssertionError(f"the resampled refresh drew the same subspace: {overlaps}")
+        nl, nb = cfg.n_layers, len(plan)
+        n_calls = len(calls)  # 8 + the 8 replayed
+        expect = {"rmsnorm": n_calls * (4 * nl + 1), "flash_attention_fwd": n_calls * 2 * nl,
+                  "galore_project_batched": (n_calls - 1) * nb,  # no update on the skip
+                  UPDATE_KERNEL["adam"]: (n_calls - 1) * nb,
+                  "power_iter_batched": 2 * power_iter_calls(opt, None)}
+        expect = {k: v for k, v in expect.items() if v}
+        if n_calls != 2 * RECOVERY_STEPS or launches != expect:
+            raise AssertionError(f"train_recovery: {n_calls} calls, launches {launches} != "
+                                 f"{expect}")
+        # the gate's cost: gated and ungated hot steps in turns (ABBA) from
+        # the final state, each output dropped before the next step
+        plain_fns = make_train_step(model, opt, train_cfg=tc)
+        ab = {"gated": [], "ungated": []}
+        hot_batch = data.batch_at(RECOVERY_STEPS)
+        for i in range(2 * GATE_AB_STEPS):
+            kind = "gated" if i % 4 in (0, 3) else "ungated"
+            sync()
+            t = time.perf_counter()
+            out = (fns if kind == "gated" else plain_fns)["step"](res.state, hot_batch)
+            sync()
+            ab[kind].append((time.perf_counter() - t) * 1e3)
+            del out
+        gate_ab_ms = sum(ab["gated"]) / len(ab["gated"]) - sum(ab["ungated"]) / len(ab["ungated"])
+        leaves = tree_leaves(res.state.params)  # the gradients' shapes and dtype
+        check_ms = device_ms(lambda: buckets_lib.all_finite(leaves), iters=5) \
+            if dev == "cuda" else None
+        check_bound = bound(sum(x.numel() * x.element_size() for x in leaves), 0, "float32")[0]
+        log(f"train_recovery gate, in turns: gated hot steps {[round(t, 2) for t in ab['gated']]}"
+            f" ms, ungated {[round(t, 2) for t in ab['ungated']]} ms: {gate_ab_ms:.2f} ms a hot "
+            f"step; the check alone {check_ms} ms of device time (bound {check_bound:.3f} ms, "
+            f"one read of {sum(x.numel() for x in leaves)} f32 gradients); card {smi}")
+        del leaves, plain_fns
+        profile = (profile_train_step(fns, res.state, hot_batch) if dev == "cuda" else None)
+        out = {
+            "optimizer": "galore-sara-adam", "layers": nl, "buckets": plan,
+            "steps": RECOVERY_STEPS, "calls": calls, "losses": res.losses,
+            "history": res.history, "fired": faults.fired,
+            "refresh_step_ms": calls[0]["ms"], "hot_step_ms": hot_ms,
+            "train_hot_step_ms": train_hot_ms, "gate_ms_per_hot_step": gate_ms,
+            "gate_ab_ms": ab, "gate_ab_ms_per_hot_step": gate_ab_ms,
+            "gate_check_ms": check_ms, "gate_check_bound_ms": check_bound,
+            "pinned_save": saved, "rollback_load": loaded,
+            "skip_checksums_equal": True, "resample_overlap": overlaps,
+            "launches": launches, "expected": expect, "profile": profile, "card": smi,
+        }
+        del res, fns, loop_fns, refreshes, model, opt
+        return out
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+
+
+def train_rank_schedule(cfg, smi: str, dev: str = "cuda", seq: int = TRAIN_SEQ,
+                        batch: int = TRAIN_BATCH, opt_kw=None, expect_buckets=TRAIN_BUCKETS,
+                        ranks=SCHEDULE_RANKS):
+    """Phase 4c (path ``train_rank_schedule``): ``galore-sara-adam`` with
+    ``RANK_SCHEDULE`` at tau 2 over ``SCHEDULE_STEPS`` steps (module
+    constants).  Checks the bucket plan at both ranks, the launch counts of
+    each geometry, the one ``rebucket`` record, and on one more hot step at
+    the new rank each bucket's R and W', M', V' from kernels 4 and 5
+    against the plain versions; prints the hot-step ms at each rank and the
+    re-bucket event's ms (from the end of the step-2 refresh to the start
+    of step 3: the metric flush, the rebuild at the new rank and the state
+    migration)."""
+    import math
+
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.core import make_optimizer
+    from repro_torch.core.schedules import cosine_with_warmup
+    from repro_torch.data.synthetic import SyntheticDataConfig, SyntheticDataset
+    from repro_torch.kernels import counters
+    from repro_torch.models import build_model
+    from repro_torch.train.loop import train_loop
+    from repro_torch.train.step import make_train_step
+
+    def sync():
+        if dev == "cuda":
+            torch.cuda.synchronize()
+
+    opt_kw = dict(SCHEDULE_OPT, **(opt_kw or {}))
+    model = build_model(cfg, device=dev)
+    ckpt_dir = fresh_dir("rank_schedule_ckpt")
+    tc = TrainConfig(total_steps=SCHEDULE_STEPS, seed=SEED, checkpoint_every=0,
+                     checkpoint_dir=str(ckpt_dir))
+    params = model.init(torch.Generator(device=dev).manual_seed(tc.seed))
+    opt = make_optimizer("galore-sara-adam", params,
+                         lr_schedule=cosine_with_warmup(opt_kw["lr"], TRAIN_WARMUP,
+                                                        SCHEDULE_STEPS), **opt_kw)
+    del params
+
+    def plan_of(o):
+        return [(bk.d, bk.n, bk.rank, bk.batch, bk.side) for bk in o.bucket_plan.buckets]
+
+    want = {r: [(d, n, r, b, side) for d, n, _, b, side in expect_buckets] for r in ranks}
+    if plan_of(opt) != want[ranks[0]]:
+        raise AssertionError(f"bucket plan {plan_of(opt)} != {want[ranks[0]]}")
+    data = SyntheticDataset(
+        SyntheticDataConfig(vocab_size=cfg.vocab_size, seq_len=seq, global_batch=batch),
+        device=dev)
+    calls, at_rebuild, opts = [], {}, [opt]
+
+    def timed_fns(fns, rank):
+        def timed(fn, is_refresh):
+            def run(*a, **k):
+                sync()
+                t = time.perf_counter()
+                out = fn(*a, **k)
+                sync()
+                calls.append({"rank": rank, "refresh": is_refresh, "start": t,
+                              "end": time.perf_counter(),
+                              "ms": (time.perf_counter() - t) * 1e3})
+                return out
+            return run
+
+        def rebuild(new_opt):
+            # called by the loop's re-bucket event, after the migration
+            sync()
+            at_rebuild.update(counters.snapshot())
+            opts.append(new_opt)
+            return timed_fns(fns["rebuild"](new_opt), new_opt.config.rank)
+
+        return dict(fns, step=timed(fns["step"], False),
+                    refresh_step=timed(fns["refresh_step"], True), rebuild=rebuild)
+
+    loop_fns = timed_fns(make_train_step(model, opt, train_cfg=tc), opt.config.rank)
+    counters.reset()
+    res = train_loop(model, opt, data, tc, loop_fns, log_every=1)
+    sync()
+    launches = counters.snapshot()
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    rebuckets = [(r["step"], r["rank_from"], r["rank_to"]) for r in res.history
+                 if r.get("event") == "rebucket"]
+    by_rank = {r: [c for c in calls if c["rank"] == r] for r in ranks}
+    hot = {r: [c["ms"] for c in by_rank[r] if not c["refresh"]] for r in ranks}
+    event_ms = (by_rank[ranks[1]][0]["start"] - by_rank[ranks[0]][-1]["end"]) * 1e3 \
+        if by_rank[ranks[1]] else None
+    log(f"train_rank_schedule ({opt_kw['rank_schedule']}, tau {opt_kw['tau']}): losses "
+        f"{res.losses}; rebucket records {rebuckets}; hot steps at rank {ranks[0]} {hot[ranks[0]]} "
+        f"ms, at rank {ranks[1]} {hot[ranks[1]]} ms; refresh steps "
+        f"{[(c['rank'], round(c['ms'], 1)) for c in calls if c['refresh']]} ms; re-bucket event "
+        f"{event_ms if event_ms is None else round(event_ms, 2)} ms; card {smi}")
+    if rebuckets != [(2.0, float(ranks[0]), float(ranks[1]))] or len(opts) != 2:
+        raise AssertionError(f"rebucket records {rebuckets}")
+    if plan_of(res.optimizer) != want[ranks[1]]:
+        raise AssertionError(f"bucket plan at the new rank {plan_of(res.optimizer)} != "
+                             f"{want[ranks[1]]}")
+    if len(res.losses) != SCHEDULE_STEPS or not all(math.isfinite(x) for x in res.losses):
+        raise AssertionError(f"train_rank_schedule losses {res.losses}")
+    nl, nb = cfg.n_layers, len(expect_buckets)
+    after = {k: launches.get(k, 0) - at_rebuild.get(k, 0) for k in launches}
+    got = {ranks[0]: dict(at_rebuild), ranks[1]: {k: v for k, v in after.items() if v}}
+    expect = {}
+    for r, o in zip(ranks, opts):
+        n = len(by_rank[r])
+        expect[r] = {k: v for k, v in {
+            "rmsnorm": n * (4 * nl + 1), "flash_attention_fwd": n * 2 * nl,
+            "galore_project_batched": n * nb, UPDATE_KERNEL["adam"]: n * nb,
+            "power_iter_batched": sum(c["refresh"] for c in by_rank[r]) * power_iter_calls(o, None),
+        }.items() if v}
+    log(f"train_rank_schedule launches by rank {got}")
+    if got != expect or [len(by_rank[r]) for r in ranks] != [3, 3]:
+        raise AssertionError(f"launches by rank {got} != {expect}")
+    parity = hot_step_parity("train_rank_schedule", model, res.optimizer, res.state,
+                             data.batch_at(SCHEDULE_STEPS), dev)
+    out = {
+        "optimizer": "galore-sara-adam", "schedule": opt_kw["rank_schedule"],
+        "tau": opt_kw["tau"], "steps": SCHEDULE_STEPS, "layers": nl,
+        "buckets": {str(r): want[r] for r in ranks}, "losses": res.losses,
+        "history": res.history, "calls": calls, "hot_step_ms": {str(r): hot[r] for r in ranks},
+        "rebucket_event_ms": event_ms, "launches": launches,
+        "launches_by_rank": {str(r): got[r] for r in ranks}, "hot_step_parity": parity,
+        "card": smi,
+    }
+    del res, loop_fns, opts, opt, model
+    return out
+
+
+def rank_kernel_cases(results, ranks=RANK_CASES, shape=None):
+    """Kernels 4, 5 and 9 at the ranks of ``ranks`` (the schedule's new
+    rank, and one of 8 mod 16: a ragged last K tile of the f32 tile
+    engine, which steps K by 16) on the mlp bucket's (B, d, n), against
+    their plain versions at ``TOL``, timed beside their bound and library
+    call.  Kernel 9 runs at the sara sketch's k' = min(4 r + 8, d)."""
+    from repro_torch.kernels.galore_project.kernel import galore_project_batched
+    from repro_torch.kernels.galore_project.ref import project_ref
+    from repro_torch.kernels.power_iter.kernel import power_iter_batched
+    from repro_torch.kernels.power_iter.ref import power_iter_ref
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 4)
+    cases = []
+    d, n, _, b, _ = shape or TRAIN_BUCKETS[-1]
+    kernel, plain = fused_update("adam", True), fused_update("adam", False)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=dev) * scale
+
+    def orthonormal(bb, dd, k):
+        return torch.linalg.qr(randn(bb, dd, k))[0].contiguous()
+
+    for r in ranks:
+        label = f"B={b} d={d} n={n} r={r}"
+        g = randn(b, d, n)
+        p = orthonormal(b, d, r)
+        err = check_close(f"project {label}", galore_project_batched(g, p), project_ref(g, p),
+                          *TOL["galore_project_batched"]["float32"], rel_atol=True)
+        b_ms, b_by = bound(4 * (b * d * n + b * d * r + b * r * n), 2 * b * r * d * n, "float32")
+        record_case(cases, results, "galore_project_batched", label, torch.float32, err, False,
+                    timed_case(lambda: galore_project_batched(g, p), lambda: project_ref(g, p),
+                               lambda: torch.bmm(p.transpose(1, 2), g), b_ms, b_by, 5))
+        del g
+        w = randn(b, d, n, scale=0.02)
+        rg = randn(b, r, n)
+        state = (randn(b, r, n, scale=0.1), randn(b, r, n, scale=0.1) ** 2)
+        args = (w, p, rg, state, 3, 0.01 * 0.25, 0.0, "any", INNER_KW["adam"])
+        errs = check_update("adam", f"adam {label}", kernel(*args), plain(*args), "float32")
+        b_ms, b_by = bound(2 * b * d * n * 4 + 4 * (b * d * r + b * r * n) + 4 * 4 * b * r * n,
+                           2 * b * d * r * n + 12 * b * r * n, "float32")
+        record_case(cases, results, UPDATE_KERNEL["adam"], label, torch.float32,
+                    max(errs.values()), False,
+                    timed_case(lambda: kernel(*args), lambda: plain(*args),
+                               lambda: torch.baddbmm(w, p, rg, beta=1.0, alpha=-0.01 * 0.25),
+                               b_ms, b_by, 5))
+        del w, rg, state, args, p
+        kp = min(4 * r + 8, d)
+        g = randn(b, d, n)
+        q = orthonormal(b, d, kp)
+        err = check_close(f"power_iter {label} k'={kp}", power_iter_batched(g, q),
+                          power_iter_ref(g, q), *TOL["power_iter_batched"]["float32"],
+                          rel_atol=True)
+        b_ms, b_by = bound(4 * (b * d * n + 2 * b * d * kp), 4 * b * d * n * kp, "float32")
+        record_case(cases, results, "power_iter_batched", f"{label} k'={kp}", torch.float32, err,
+                    False, timed_case(lambda: power_iter_batched(g, q),
+                                      lambda: power_iter_ref(g, q),
+                                      lambda: torch.bmm(g, torch.bmm(g.transpose(1, 2), q)),
+                                      b_ms, b_by, 3))
+        del g, q
+        torch.cuda.empty_cache()
+    return cases
 
 
 # ---------------------------------------------------------------------------
@@ -1757,7 +2216,7 @@ def main() -> int:
     results = {name: dict(name=name, **meta) for name, meta in KERNELS.items()}
     t0 = time.perf_counter()
     cases = (kernel_cases(results) + optimizer_kernel_cases(results)
-             + update_kernel_cases(results))
+             + update_kernel_cases(results) + rank_kernel_cases(results))
     log(f"kernels vs plain versions: {len(cases)} cases passed in "
         f"{time.perf_counter() - t0:.1f} s")
 
@@ -1774,6 +2233,14 @@ def main() -> int:
         t0 = time.perf_counter()
         runs[path] = train(cfg_train, optimizer, plan, opt_kw=opt_kw)
         log(f"{path} phase ({optimizer}): {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    runs["train_recovery"] = train_recovery(cfg_train, smi, runs["train"]["hot_step_ms"])
+    log(f"train_recovery phase: {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    runs["train_rank_schedule"] = train_rank_schedule(cfg_train, smi)
+    log(f"train_rank_schedule phase: {time.perf_counter() - t0:.1f} s")
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     runs["resume"], runs["serve_ckpt"] = resume(cfg_train, smi)

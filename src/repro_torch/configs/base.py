@@ -2,8 +2,10 @@
 
 ``ModelConfig`` has the fields the dense families use, with the JAX
 config's names and defaults, so a config compares field by field with its
-reference; only the dtypes are torch's.  The other families' fields come
-with their slices; shape, mesh and rank-schedule configs with theirs.
+reference; only the dtypes are torch's.  ``RankSchedule`` is the
+reference's rank schedule, field for field (its evaluation lives in
+``core/rank_schedule.py``).  The other families' fields come with their
+slices; shape and mesh configs with theirs.
 """
 from __future__ import annotations
 
@@ -53,13 +55,95 @@ class ModelConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class RankSchedule:
+    """Rank as a schedule, from ``src/repro/configs/base.py``: ranks move
+    only at refresh boundaries, where the train loop re-buckets.
+
+    Kinds: ``constant`` (stays at ``start``), ``step`` (halves from
+    ``start`` toward ``floor`` in equal segments of the decay window),
+    ``linear`` and ``cosine`` (interpolate start -> floor), ``adaptive``
+    (per group: ``margin`` times the measured effective rank of the
+    refresh step's update, clamped to [floor, start]).  ``decay_fraction``
+    is the share of the run the decay spans; ``total_steps=0`` takes the
+    horizon at evaluation.  Ranks snap to multiples of ``granularity``, and
+    a change smaller than ``hysteresis`` (0: the granularity) is ignored.
+
+    Spec strings (``parse`` / ``spec``): ``kind:start[:floor][@fraction]``,
+    e.g. ``"cosine:128:32@0.5"``."""
+
+    kind: str = "constant"
+    start: int = 128
+    floor: int = 0  # 0 -> start (no decay)
+    decay_fraction: float = 1.0
+    total_steps: int = 0
+    granularity: int = 8
+    hysteresis: int = 0
+    margin: float = 1.25
+
+    KINDS = ("constant", "step", "linear", "cosine", "adaptive")
+
+    def __post_init__(self):
+        if self.kind not in self.KINDS:
+            raise ValueError(f"unknown rank-schedule kind {self.kind!r}; have {self.KINDS}")
+        if self.start < 1:
+            raise ValueError(f"rank schedule start must be >= 1: {self.start}")
+        if self.floor < 0 or self.floor > self.start:
+            raise ValueError(f"rank schedule floor must be in [0, start]: "
+                             f"floor={self.floor} start={self.start}")
+        if not (0.0 < self.decay_fraction <= 1.0):
+            raise ValueError(f"decay_fraction must be in (0, 1]: {self.decay_fraction}")
+        if self.granularity < 1:
+            raise ValueError(f"granularity must be >= 1: {self.granularity}")
+
+    @property
+    def effective_floor(self) -> int:
+        return self.floor if self.floor > 0 else self.start
+
+    @property
+    def effective_hysteresis(self) -> int:
+        return self.hysteresis if self.hysteresis > 0 else self.granularity
+
+    @classmethod
+    def parse(cls, spec: str, **overrides: Any) -> "RankSchedule":
+        """``"cosine:128:32@0.5"`` -> RankSchedule; floor and fraction are
+        optional (``"constant:64"``, ``"linear:128:32"``)."""
+        s = spec.strip()
+        if not s:
+            raise ValueError("empty rank-schedule spec")
+        frac = 1.0
+        if "@" in s:
+            s, frac_s = s.rsplit("@", 1)
+            try:
+                frac = float(frac_s)
+            except ValueError:
+                raise ValueError(
+                    f"bad decay fraction {frac_s!r} in rank schedule {spec!r}") from None
+        parts = s.split(":")
+        try:
+            start = int(parts[1]) if len(parts) > 1 else 128
+            floor = int(parts[2]) if len(parts) > 2 else 0
+        except ValueError:
+            raise ValueError(f"bad rank-schedule spec {spec!r}") from None
+        if len(parts) > 3:
+            raise ValueError(f"bad rank-schedule spec {spec!r}")
+        kw = dict(kind=parts[0], start=start, floor=floor, decay_fraction=frac)
+        kw.update(overrides)
+        return cls(**kw)
+
+    def spec(self) -> str:
+        """The inverse of ``parse`` (the positional fields)."""
+        return f"{self.kind}:{self.start}:{self.floor}@{self.decay_fraction:g}"
+
+
+@dataclasses.dataclass(frozen=True)
 class TrainConfig:
     """The fields of ``src/repro/configs/base.py::TrainConfig`` that the
     port's train step and loop read, with the JAX defaults.  The refresh
     cadence (``tau``, ``refresh_groups``) and gradient clipping are read
-    from the optimizer's ``OptimizerConfig``.  Recovery, spectrum-logging,
-    sharded-checkpoint and rank-schedule fields come with their slices
-    (ROADMAP queue 1).
+    from the optimizer's ``OptimizerConfig``, and so is the rank schedule
+    the loop evaluates (``OptimizerConfig.rank_schedule``).  The
+    sharded-checkpoint field comes with the distributed slice (ROADMAP
+    queue 1 item 11).
 
     ``train_loop`` restores from ``checkpoint_dir`` whenever it holds
     checkpoints, so a caller that must start fresh passes a directory of
@@ -72,6 +156,9 @@ class TrainConfig:
     # sums lose low-order bits across microbatches.  The accumulated
     # gradient is cast back to the param dtype either way.
     accum_dtype: Any = torch.float32
+    # the refresh-cadence spectrum probe (train/monitor.SpectrumLogger):
+    # one SVD of a probe leaf's update per refresh, logged to the history
+    log_spectrum: bool = False
     # checkpoints: a save every ``checkpoint_every`` steps (0: none), the
     # newest ``keep_checkpoints`` kept, written on a background thread
     # after a host snapshot when ``async_checkpoint`` (train/checkpoint.py)

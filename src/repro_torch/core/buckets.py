@@ -352,6 +352,25 @@ def leaf_projectors(
     return out
 
 
+def all_finite(leaves: Sequence[torch.Tensor]) -> torch.Tensor:
+    """One device bool: every element of every tensor finite.  Each tensor
+    is read once, by one min/max reduction (NaN propagates into both,
+    +-inf into one), without an element-sized temporary."""
+    return torch.isfinite(torch.stack([torch.stack(torch.aminmax(x)) for x in leaves])).all()
+
+
+def bucketed_all_finite(plan: BucketPlan, flat_grads: Sequence[torch.Tensor]
+                        ) -> List[torch.Tensor]:
+    """Per-bucket device bool ``all(isfinite(stack))``, JAX's skip-step
+    check (``src/repro/core/buckets.py:709``), reading the bucket's leaves
+    where they lie, so no stack is built for it.  The port's gate does
+    not split its check by bucket: ``all_finite`` over every gradient
+    gives the same verdict.  (JAX's ``stacked_grads`` form serves the
+    compressed step, ROADMAP queue 1 item 11.)"""
+    return [all_finite([flat_grads[e.leaf_idx] for e in bucket.entries])
+            for bucket in plan.buckets]
+
+
 # ---------------------------------------------------------------------------
 # the fused hot-path update (bucket-native state)
 # ---------------------------------------------------------------------------

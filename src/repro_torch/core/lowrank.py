@@ -34,9 +34,11 @@ refresh's random sketches, Gumbel noise and bases from a
 bucket-native storage layout and the canonical per-leaf layout that
 checkpoints hold, as the reference's do.
 
-Not ported here: ``skip_nonfinite`` (ROADMAP queue 1 item 9), rank
-schedules and ``group_ranks`` (item 10), ``projected=``/``StackedGrads``,
-``shard_axes`` and ZeRO (item 11).
+``update(..., skip_nonfinite=True)`` is the recovery's skip-step gate, and
+``rebuild_at_rank`` / ``current_ranks`` the re-bucketing half of the rank
+schedules (``core/rank_schedule.py`` evaluates them and migrates state).
+Not ported here: ``projected=``/``StackedGrads``, ``shard_axes`` and ZeRO
+(ROADMAP queue 1 item 11).
 """
 from __future__ import annotations
 
@@ -46,6 +48,7 @@ from typing import Any, Callable, Dict, List, NamedTuple, Optional, Sequence, Tu
 import numpy as np
 import torch
 
+from repro_torch.configs.base import RankSchedule
 from repro_torch.core import buckets as buckets_lib
 from repro_torch.core import inner as inner_lib
 from repro_torch.core import projectors as proj_lib
@@ -78,8 +81,12 @@ class OptimizerConfig:
     method: str = "sara"  # full|dominant|sara|golore|grass|online_pca|identity
     inner: str = "adam"
     rank: int = 128
-    rank_schedule: str = ""  # not ported: raises
-    group_ranks: Tuple[int, ...] = ()  # not ported: raises
+    # a RankSchedule spec ("cosine:128:32@0.5"), evaluated by the train
+    # loop at refresh boundaries, where it re-buckets; "" keeps rank static
+    rank_schedule: str = ""
+    # per-group ranks (the adaptive schedule's): leaf rank =
+    # min(group_ranks[group], d); one entry per refresh group
+    group_ranks: Tuple[int, ...] = ()
     tau: int = 200
     alpha: float = 0.25  # GaLore scale factor applied to the low-rank update
     lr: float = 0.01
@@ -194,6 +201,17 @@ class TorchDraws:
         """The source of the next refresh (JAX: ``key, subkey = split(key)``)."""
         return TorchDraws(self.seed, self.device, self.refreshes + 1)
 
+    def resample(self, attempt: int) -> "TorchDraws":
+        """The source after rollback ``attempt`` (JAX folds ``0x5EED +
+        attempt`` into its key, ``src/repro/train/recovery.py:195``): the
+        seed word XORed with ``(0x5EED + attempt) * 0x9E3779B1 mod 2**32``,
+        the refresh count kept.  The multiplier is odd, so the map is one
+        to one: distinct attempts give distinct seeds, none of them the
+        seed itself, all in uint32, so the two-word key (and a checkpoint)
+        carries the resampled source like any other."""
+        mix = ((_RESAMPLE_SALT + int(attempt)) * 0x9E3779B1) % 2**32
+        return TorchDraws(self.seed ^ mix, self.device, self.refreshes)
+
     def leaf(self, leaf_idx: int, batch_shape: Tuple[int, ...],
              shapes: proj_lib.DrawShapes, device=None) -> proj_lib.LeafDraws:
         """One leaf's draws, one per slice: ``shapes`` from
@@ -214,6 +232,11 @@ class TorchDraws:
         return proj_lib.LeafDraws(omega, gumbel, basis)
 
 
+# Salt of the resample rule, as the reference's ``_RESAMPLE_SALT``: a
+# resampled source never replays an ordinary refresh's stream.
+_RESAMPLE_SALT = 0x5EED
+
+
 class LowRankOptState(NamedTuple):
     step: int  # updates applied so far (host int)
     draws: Any  # the refresh's draw source (TorchDraws)
@@ -225,6 +248,9 @@ class AuxInfo(NamedTuple):
     grad_norm: torch.Tensor
     update_norm: torch.Tensor
     mean_refresh_overlap: torch.Tensor  # ||P_new^T P_old||_F^2 / r, mean
+    # 1.0 when the skip-step gate held the update back (non-finite grads),
+    # else 0.0 (always 0.0 with the gate off)
+    skipped: Any = None
 
 
 # ---------------------------------------------------------------------------
@@ -344,17 +370,24 @@ def _safe_ratio(num: torch.Tensor, den: torch.Tensor) -> torch.Tensor:
     return nn / (dd + 1e-12)
 
 
-def _unsupported(cfg: OptimizerConfig) -> None:
+def _validate(cfg: OptimizerConfig) -> None:
     if cfg.method not in ("full",) + proj_lib.METHODS:
         raise ValueError(f"unknown method {cfg.method!r}")
-    for flag, what, item in (
-        (cfg.state_sharding, "ZeRO state sharding", 11),
-        (cfg.rank_schedule, "rank schedules", 10), (cfg.group_ranks, "group_ranks", 10),
-    ):
-        if flag:
-            raise NotImplementedError(
-                f"{what} is not yet ported to repro_torch ({_LATER} item {item})"
+    if cfg.state_sharding:
+        raise NotImplementedError(
+            f"ZeRO state sharding is not yet ported to repro_torch ({_LATER} item 11)"
+        )
+    if cfg.group_ranks:
+        if len(cfg.group_ranks) != max(cfg.refresh_groups, 1):
+            raise ValueError(
+                f"group_ranks has {len(cfg.group_ranks)} entries for "
+                f"{max(cfg.refresh_groups, 1)} refresh groups"
             )
+        if any(r < 1 for r in cfg.group_ranks):
+            raise ValueError(f"group_ranks must all be >= 1: {cfg.group_ranks}")
+    if cfg.rank_schedule:
+        # fail at build time, not at the first refresh boundary
+        RankSchedule.parse(cfg.rank_schedule)
 
 
 def make_lowrank_optimizer(
@@ -363,7 +396,7 @@ def make_lowrank_optimizer(
     lowrank_filter: Optional[Callable[[str, Tuple[int, ...]], bool]] = None,
 ) -> LowRankOptimizer:
     """Build the optimizer for a concrete parameter structure."""
-    _unsupported(cfg)
+    _validate(cfg)
     if cfg.momentum_carry not in ("keep", "reset", "reproject"):
         raise ValueError(f"unknown momentum_carry {cfg.momentum_carry!r}")
     if cfg.engine not in ("reference", "bucketed"):
@@ -470,15 +503,31 @@ def make_lowrank_optimizer(
         shard_axes=None,
     ) -> Tuple[PyTree, LowRankOptState, AuxInfo]:
         """Returns (updates, or new params with ``apply=True``, new state,
-        aux).  ``state`` is not modified."""
-        for flag, what, item in (
-            (skip_nonfinite, "the skip-step gate (skip_nonfinite)", 9),
-            (projected, "projected gradients", 11),
-            (shard_axes is not None, "sharded state (shard_axes)", 11),
+        aux).  ``state`` is not modified.
+
+        ``skip_nonfinite=True`` is the skip-step gate
+        (``src/repro/core/lowrank.py:525-534, 848-867``): a non-finite
+        element in any raw (pre-clip) gradient returns ``params`` (zero
+        updates without ``apply``) and ``state`` themselves -- step, draw
+        source, moments and projectors unchanged -- with ``aux.skipped =
+        1``; otherwise the step is the ungated one, bit for bit.  JAX
+        selects with ``jnp.where`` over the whole transition; here the
+        verdict is fetched to the host once, after the backward and before
+        any update kernel, and a bad step launches none of them: the new
+        state is never made, so nothing is read twice to select it.  The
+        verdict reads no gradient of its own on a good step: the raw
+        gradients' global norm, which the step computes anyway, is finite
+        unless an element is not or their squares overflow, and only a
+        non-finite norm reads the gradients again (``all_finite``: JAX's
+        per-bucket check, which reads the same elements) to tell the two
+        apart."""
+        for flag, what in (
+            (projected, "projected gradients"),
+            (shard_axes is not None, "sharded state (shard_axes)"),
         ):
             if flag:
                 raise NotImplementedError(
-                    f"{what} is not yet ported to repro_torch ({_LATER} item {item})"
+                    f"{what} is not yet ported to repro_torch ({_LATER} item 11)"
                 )
         if state_layout is not None and not state.buckets:
             raise ValueError("bucket-native optimizer got a per-leaf state")
@@ -487,6 +536,19 @@ def make_lowrank_optimizer(
         flat_g = tree_leaves(grads)
         flat_p = tree_leaves(params)
         gnorm = _global_norm(flat_g)
+        skipped = None
+        if skip_nonfinite:
+            # on the raw (pre-clip) gradients: a NaN norm would make the clip
+            # scale poison every leaf; ``bool`` is the gate's one host sync
+            if not bool(torch.isfinite(gnorm)) and not bool(buckets_lib.all_finite(flat_g)):
+                nan = torch.full((), float("nan"), device=gnorm.device)
+                out = params if apply else tree_unflatten(
+                    params, [torch.zeros_like(p) for p in flat_p])
+                return out, state, AuxInfo(
+                    grad_norm=gnorm, update_norm=nan,
+                    mean_refresh_overlap=nan if refresh else torch.zeros_like(nan),
+                    skipped=torch.ones_like(nan))
+            skipped = torch.zeros((), dtype=torch.float32, device=gnorm.device)
         if cfg.grad_clip_norm and cfg.grad_clip_norm > 0:
             scale = torch.clamp(cfg.grad_clip_norm / (gnorm + 1e-12), max=1.0)
             flat_g = [g * scale.to(g.dtype) for g in flat_g]
@@ -572,13 +634,50 @@ def make_lowrank_optimizer(
         new_state = LowRankOptState(
             step=step, draws=draws, leaves=new_leaves, buckets=new_buckets
         )
-        aux = AuxInfo(grad_norm=gnorm, update_norm=unorm, mean_refresh_overlap=mean_overlap)
+        aux = AuxInfo(grad_norm=gnorm, update_norm=unorm, mean_refresh_overlap=mean_overlap,
+                      skipped=zero if skipped is None else skipped)
         return tree_unflatten(params, flat_out), new_state, aux
 
     return LowRankOptimizer(
         init=init, update=update, specs=specs, config=cfg,
         bucket_plan=bucket_plan, state_layout=state_layout,
     )
+
+
+def rebuild_at_rank(
+    optimizer: LowRankOptimizer,
+    params_like: PyTree,
+    *,
+    rank: Optional[int] = None,
+    group_ranks: Optional[Tuple[int, ...]] = None,
+    lowrank_filter: Optional[Callable] = None,
+) -> LowRankOptimizer:
+    """The same optimizer at a new global or per-group rank
+    (``src/repro/core/lowrank.py:902``): fresh specs, bucket plan and
+    state layout.  Live state does not carry over by itself: migrate it
+    with ``core.rank_schedule.migrate_opt_state``.  ``lowrank_filter``
+    must be the one the optimizer was built with (None: the default)."""
+    kw: Dict[str, Any] = {}
+    if rank is not None:
+        kw["rank"] = rank
+        kw["group_ranks"] = ()
+    if group_ranks is not None:
+        kw["group_ranks"] = tuple(group_ranks)
+    if not kw:
+        raise ValueError("rebuild_at_rank needs rank or group_ranks")
+    cfg = dataclasses.replace(optimizer.config, **kw)
+    return make_lowrank_optimizer(cfg, params_like, lowrank_filter)
+
+
+def current_ranks(optimizer: LowRankOptimizer) -> Tuple[int, Tuple[int, ...]]:
+    """(global rank, per-group ranks) the optimizer was built at: what a
+    checkpoint's manifest meta carries, so a resume rebuilds the same
+    bucket geometry before it loads."""
+    cfg = optimizer.config
+    groups = max(cfg.refresh_groups, 1)
+    if cfg.group_ranks:
+        return max(cfg.group_ranks), tuple(cfg.group_ranks)
+    return cfg.rank, (cfg.rank,) * groups
 
 
 # ---------------------------------------------------------------------------

@@ -31,12 +31,32 @@ the newest checkpoint that verifies:
     PYTHONPATH=src python -m repro_torch.launch.train --arch llama3-8b --smoke \\
         --device cpu --steps 8 --tau 2 --rank 8 --ckpt-dir /path/to/ckpt --ckpt-every 4
 
+Recovery is on unless ``--no-recovery`` is given, as in the reference:
+the skip-step gate on every step, a pinned checkpoint before the first
+step of a fresh run, rollback-and-resample after ``--max-bad-steps``
+consecutive bad steps (``--loss-spike-factor`` > 0 makes a loss spike a
+bad step too), at most ``--max-rollbacks`` times, each after a backoff of
+0.5 s doubled per attempt.  ``--collective-timeout`` > 0 arms the
+watchdog, which waits for every step on the card.  ``--rank-schedule
+kind:start[:floor][@fraction]`` (e.g. ``step:512:256``) starts at the
+schedule's rank and re-buckets at refresh boundaries; ``--log-spectrum``
+adds the refresh update's spectrum to the history.  The run ends with a
+``[train] recovery: ...`` line of its counters:
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch llama3-8b --smoke \\
+        --device cpu --steps 8 --tau 2 --engine bucketed --svd-backend randomized \\
+        --rank-schedule step:16:8 --ckpt-dir /path/to/ckpt
+
 Beyond the reference's flags, ``--svd-backend`` picks the refresh's SVD
 (the reference's default, exact, or randomized, whose power iterations
 run on the CUDA kernel), and ``--dist`` the synthetic corpus (bigram or
-zipf).  Mesh, ZeRO, recovery and rank-schedule flags come with their
-slices (ROADMAP queue 1 items 9-12); Fira's limiter keeps its default,
-as the reference's launcher has no flag for it either.
+zipf).  Mesh, ZeRO and multi-process flags (``--mesh``, ``--coordinator``,
+``--num-processes``, ``--process-id``) come with the distributed slice
+(ROADMAP queue 1 item 11), and so do the heartbeat flags
+(``--heartbeat-timeout``, ``--stale-action``): this launcher runs one
+process, which beats just before it checks, so no worker can go stale
+and the run's closing line has no stale-worker count; Fira's limiter keeps its default, as the
+reference's launcher has no flag for it either.
 """
 from __future__ import annotations
 
@@ -53,6 +73,11 @@ def main(argv=None) -> None:
     ap.add_argument("--lr", type=float, default=0.01)
     ap.add_argument("--warmup", type=int, default=100)
     ap.add_argument("--rank", type=int, default=0)
+    ap.add_argument("--rank-schedule", default="",
+                    help="rank schedule 'kind:start[:floor][@decay_fraction]' "
+                         "(e.g. cosine:128:32@0.5): the loop re-buckets at refresh boundaries")
+    ap.add_argument("--log-spectrum", action="store_true",
+                    help="log the refresh-step update spectrum (effective rank) into the history")
     ap.add_argument("--tau", type=int, default=200)
     ap.add_argument("--alpha", type=float, default=0.25)
     ap.add_argument("--seq", type=int, default=0)
@@ -67,6 +92,15 @@ def main(argv=None) -> None:
     ap.add_argument("--ckpt-every", type=int, default=200)
     ap.add_argument("--refresh-groups", type=int, default=1)
     ap.add_argument("--microbatch", type=int, default=0)
+    ap.add_argument("--no-recovery", action="store_true",
+                    help="abort on the first fault (no skip-step, no rollback)")
+    ap.add_argument("--max-rollbacks", type=int, default=3)
+    ap.add_argument("--max-bad-steps", type=int, default=3,
+                    help="consecutive bad steps before a rollback")
+    ap.add_argument("--loss-spike-factor", type=float, default=0.0,
+                    help=">0: loss > factor x windowed median is a bad step")
+    ap.add_argument("--collective-timeout", type=float, default=0.0,
+                    help=">0: arm the step watchdog (a sync per step)")
     args = ap.parse_args(argv)
 
     import torch
@@ -78,7 +112,10 @@ def main(argv=None) -> None:
     from repro_torch.core.schedules import cosine_with_warmup
     from repro_torch.data.synthetic import SyntheticDataConfig, SyntheticDataset
     from repro_torch.models import build_model
+    from repro_torch.core.rank_schedule import parse_rank_schedule
     from repro_torch.train.loop import train_loop
+    from repro_torch.train.monitor import CollectiveWatchdog
+    from repro_torch.train.recovery import RecoveryPolicy
     from repro_torch.train.step import make_train_step
 
     cfg = get_config(args.arch, smoke=args.smoke)
@@ -86,12 +123,16 @@ def main(argv=None) -> None:
         cfg = cfg.with_(dtype=torch.float32)
     model = build_model(cfg, device=args.device)
     tc = TrainConfig(total_steps=args.steps, microbatch=args.microbatch,
-                     checkpoint_every=args.ckpt_every, checkpoint_dir=args.ckpt_dir)
+                     checkpoint_every=args.ckpt_every, checkpoint_dir=args.ckpt_dir,
+                     log_spectrum=args.log_spectrum)
     params = model.init(torch.Generator(device=model.device).manual_seed(tc.seed))
     n_params = sum(p.numel() for p in tree_leaves(params))
     print(f"[train] {args.arch} {n_params / 1e6:.1f}M params on {model.device}")
 
     rank = args.rank or min(512, max(8, cfg.d_model // 4))
+    if args.rank_schedule and not args.rank:
+        # start at the schedule's step-0 rank; the loop re-buckets from there
+        rank = parse_rank_schedule(args.rank_schedule).start
     kw = dict(
         lr=args.lr,
         lr_schedule=cosine_with_warmup(args.lr, args.warmup, args.steps),
@@ -104,6 +145,8 @@ def main(argv=None) -> None:
     if args.optimizer != "adam":
         kw.update(rank=rank, tau=args.tau, alpha=args.alpha,
                   refresh_groups=args.refresh_groups)
+        if args.rank_schedule:
+            kw["rank_schedule"] = args.rank_schedule
     opt = make_optimizer(args.optimizer, params, **kw)
     # train_loop makes the same params from tc.seed and owns them; a copy
     # held here would stay alive for the whole run
@@ -116,13 +159,36 @@ def main(argv=None) -> None:
                             dist=args.dist),
         device=model.device,
     )
-    fns = make_train_step(model, opt, train_cfg=tc)
-    res = train_loop(model, opt, data, tc, fns, log_every=max(args.steps // 20, 1))
+    recovery = None
+    if not args.no_recovery:
+        recovery = RecoveryPolicy(
+            max_bad_steps=args.max_bad_steps, loss_spike_factor=args.loss_spike_factor,
+            max_rollbacks=args.max_rollbacks, rollback_backoff_s=0.5,
+        )
+    watchdog = None
+    if args.collective_timeout > 0:
+        watchdog = CollectiveWatchdog(
+            timeout_s=args.collective_timeout,
+            on_timeout=lambda s, dt: print(
+                f"[train] WATCHDOG: step call {s} exceeded {dt:.1f}s", flush=True),
+        )
+    fns = make_train_step(model, opt, train_cfg=tc, recovery=recovery, watchdog=watchdog)
+    res = train_loop(model, opt, data, tc, fns, log_every=max(args.steps // 20, 1),
+                     recovery=recovery)
     if not res.losses:
         print(f"[train] done: step {res.final_step}, no steps left to run")
         return
     print(f"[train] done: step {res.final_step}, "
           f"loss {res.losses[0]:.4f} -> {res.losses[-1]:.4f}")
+    recs = [r for r in res.history if "skip_steps" in r]
+    if recs:
+        last = recs[-1]
+        events = [r for r in res.history if "event" in r]
+        print(f"[train] recovery: {int(last['skip_steps'])} skipped, "
+              f"{int(last['rollbacks'])} rollbacks, "
+              f"{int(last['save_retries'])} save retries, "
+              f"{int(last['save_failures'])} save failures, "
+              f"{len(events)} recovery events")
 
 
 if __name__ == "__main__":

@@ -24,7 +24,12 @@ loads into the other.
     background thread (the whole state in host memory: ~17 GB for 4-layer
     llama3-8b).  Failed writes are retried with backoff; a failure past the
     budget surfaces on the next ``wait`` or ``save``.
-  * **I/O seam** -- every byte written goes through a ``CheckpointIO``.
+  * **I/O seam** -- every byte written goes through a ``CheckpointIO``
+    (``train/faults.FaultyCheckpointIO`` injects faults through it).
+  * **schedule state** -- ``save(..., meta=)`` writes the manifest's
+    ``meta`` (the rank(s) a scheduled run's bucket geometry was built at),
+    ``checkpoint_meta`` reads it back, and ``CheckpointManager.rebind``
+    re-targets a manager at an optimizer re-bucketed at a new rank.
 
 Dtypes are kept, with one refusal: numpy has no bf16, so a bf16 leaf is
 not saved (a widening on the way would come back as f32); train states
@@ -46,7 +51,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core.lowrank import LowRankOptState, TorchDraws, flatten_with_path
+from repro_torch.core.lowrank import LowRankOptState, flatten_with_path
 from repro_torch.train.state import TrainState
 
 _MANIFEST = "manifest.json"
@@ -118,17 +123,21 @@ def _map(node, path: str, fn: Callable[[str, Any], Any]):
 def _map_opt_state(st: LowRankOptState, path: str, fn, param_paths):
     """JAX's ``LowRankOptState(step, key, leaves, buckets)``: the host step
     as an int32 leaf, the draw source as the key, the flat per-leaf list
-    keyed by the params' paths (by index for a bare optimizer state)."""
-    if not isinstance(st.draws, TorchDraws):
-        raise TypeError(f"a checkpoint holds a TorchDraws draw source, not {type(st.draws)}")
+    keyed by the params' paths (by index for a bare optimizer state).  The
+    draw source writes its key with ``key()`` and is rebuilt by its class's
+    ``from_key`` (``TorchDraws``, or a source with the same two methods)."""
+    draws = st.draws
+    if not (callable(getattr(draws, "key", None)) and hasattr(type(draws), "from_key")):
+        raise TypeError(f"a checkpoint needs a draw source with key() and from_key, not "
+                        f"{type(draws)}")
     step = fn(path + ".step", np.asarray(st.step, dtype=np.int32))
-    key = fn(path + ".key", st.draws.key())
+    key = fn(path + ".key", draws.key())
     if param_paths is None:
         param_paths = [f"[{i}]" for i in range(len(st.leaves))]
     leaves = [_map(leaf, f"{path}.leaves{pp}", fn) for pp, leaf in zip(param_paths, st.leaves)]
     buckets = tuple(_map(b, f"{path}.buckets[{i}]", fn) for i, b in enumerate(st.buckets))
     return LowRankOptState(step=int(np.asarray(step)),
-                           draws=TorchDraws.from_key(np.asarray(key), st.draws.device),
+                           draws=type(draws).from_key(np.asarray(key), draws.device),
                            leaves=leaves, buckets=buckets)
 
 
@@ -219,7 +228,18 @@ def verify_checkpoint(base: str, step: int) -> bool:
     return True
 
 
-def _write_checkpoint(base: str, step: int, items, keep: int, io: CheckpointIO) -> int:
+def checkpoint_meta(base: str, step: int) -> Dict[str, Any]:
+    """The manifest's ``meta`` (``{"rank": r, "group_ranks": [...]}`` for a
+    scheduled run; ``{}`` for a checkpoint without one).  Raises
+    ``OSError``/``ValueError`` for a missing or torn manifest, as ``load``
+    does."""
+    with open(os.path.join(_step_dir(base, step), _MANIFEST)) as f:
+        manifest = json.load(f)
+    return dict(manifest.get("meta", {}))
+
+
+def _write_checkpoint(base: str, step: int, items, keep: int, io: CheckpointIO,
+                      meta: Optional[Dict[str, Any]] = None) -> int:
     """Write ``items`` ((path, leaf) pairs; a device leaf is copied to the
     host just before its file is written) and commit.  Returns the bytes
     of leaf data."""
@@ -230,6 +250,8 @@ def _write_checkpoint(base: str, step: int, items, keep: int, io: CheckpointIO) 
         shutil.rmtree(tmp)
     os.makedirs(tmp)
     manifest: Dict[str, Any] = {"step": step, "leaves": {}}
+    if meta:
+        manifest["meta"] = meta
     nbytes = 0
     for path, leaf in items:
         arr = _host(leaf)
@@ -352,9 +374,20 @@ class CheckpointManager:
         self._thread: Optional[threading.Thread] = None
         self._error: Optional[BaseException] = None
 
+    def rebind(self, canonicalize=None, localize=None) -> None:
+        """Re-target the manager at an optimizer re-bucketed at a new rank:
+        new layout converters, the same manager (its save in flight is
+        drained first; retry counts and retention carry on)."""
+        self.wait()  # converters must not change under a background write
+        self.canonicalize = canonicalize
+        self.localize = localize
+
     # ---- save ----
 
-    def save(self, state, step: int, blocking: bool = True) -> None:
+    def save(self, state, step: int, blocking: bool = True,
+             meta: Optional[Dict[str, Any]] = None) -> None:
+        """Save ``state`` as the checkpoint of ``step``; ``meta`` goes into
+        the manifest (``checkpoint_meta``)."""
         # a dead background write surfaces before any new work (retention
         # in particular) can mask it
         self._raise_if_failed()
@@ -378,7 +411,8 @@ class CheckpointManager:
             for attempt in range(self.save_retries + 1):
                 try:
                     self.io.begin(ordinal, attempt)
-                    nbytes = _write_checkpoint(self.base_dir, step, items, self.keep, self.io)
+                    nbytes = _write_checkpoint(self.base_dir, step, items, self.keep, self.io,
+                                               meta)
                     self.last_save = {"step": step, "bytes": nbytes, "snapshot_s": snapshot_s,
                                       "write_s": time.perf_counter() - t1}
                     return

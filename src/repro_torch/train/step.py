@@ -8,8 +8,12 @@ microbatches in ``TrainConfig.accum_dtype``), then calls
 ``optimizer.update(..., apply=True)``: with ``engine="bucketed"`` the fused
 update writes W' itself and no separate apply pass runs.
 
-The distributed flavours (compressed DP, ZeRO), the recovery gate and the
-collective watchdog come with their slices (ROADMAP queue 1 items 9, 11).
+``recovery=`` (a ``RecoveryPolicy`` with ``skip_nonfinite_updates``) turns
+on the skip-step gate of both steps; ``watchdog=`` (a
+``CollectiveWatchdog``) guards each call; ``fns["rebuild"](new_optimizer)``
+makes the same steps around an optimizer re-bucketed at a new rank.  The
+distributed flavours (compressed DP, ZeRO) come with their slice (ROADMAP
+queue 1 item 11).
 """
 from __future__ import annotations
 
@@ -76,36 +80,89 @@ def _value_and_grad(model, microbatch: int, accum_dtype=torch.float32):
     return accumulated
 
 
+def _split_grad_scale(batch):
+    """(batch, scale): pops the ``grad_scale`` scalar that
+    ``train/faults.py`` adds to a dict batch to inject non-finite gradients
+    (token batches are integers, so they cannot carry a NaN); None when
+    absent, and the gradients are then left as they are."""
+    if isinstance(batch, dict) and "grad_scale" in batch:
+        batch = dict(batch)
+        return batch, batch.pop("grad_scale")
+    return batch, None
+
+
 def make_train_step(
     model,
     optimizer: lowrank_lib.LowRankOptimizer,
     *,
     train_cfg: Optional[TrainConfig] = None,
+    recovery=None,  # Optional[repro_torch.train.recovery.RecoveryPolicy]
+    watchdog=None,  # Optional[repro_torch.train.monitor.CollectiveWatchdog]
 ) -> Dict[str, Callable]:
     """Returns {'step': f(state, batch), 'refresh_step': f(state, batch,
-    group=0)}.
+    group=0), 'rebuild': f(new_optimizer) -> the same dict}.
     The model's device decides where the step runs (``build_model``
-    defaults to the card and raises without one unless asked for the CPU)."""
+    defaults to the card and raises without one unless asked for the CPU).
+
+    With ``recovery.skip_nonfinite_updates`` both steps gate the update
+    (``optimizer.update(skip_nonfinite=True)``) and report
+    ``metrics["skipped"]``; ``metrics["bad_step"]`` is 1 for a non-finite
+    loss or a skipped update.  ``watchdog`` waits for each call's result
+    and records calls past its timeout (keyed by the call's ordinal)."""
     micro = train_cfg.microbatch if train_cfg else 0
     accum_dtype = (train_cfg.accum_dtype if train_cfg else None) or torch.float32
     vg = _value_and_grad(model, micro, accum_dtype)
+    skip_nonfinite = bool(recovery is not None and recovery.skip_nonfinite_updates)
 
     def step_fn(state: TrainState, batch, *, refresh: bool, group: int = 0):
+        batch, gscale = _split_grad_scale(batch)
         (loss, metrics), grads = vg(state.params, batch)
+        if gscale is not None:
+            grads = lowrank_lib.tree_unflatten(grads, [
+                g * torch.as_tensor(gscale, dtype=g.dtype, device=g.device)
+                for g in lowrank_lib.tree_leaves(grads)])
         params, opt_state, aux = optimizer.update(
             grads, state.opt_state, state.params, refresh=refresh,
-            group=group, apply=True,
+            group=group, apply=True, skip_nonfinite=skip_nonfinite,
         )
+        del grads
         out_metrics = {
             **metrics,
             "grad_norm": aux.grad_norm,
             "update_norm": aux.update_norm,
             "refresh_overlap": aux.mean_refresh_overlap,
-            "bad_step": (~torch.isfinite(loss)).float(),
         }
+        bad = (~torch.isfinite(loss)).float()
+        if skip_nonfinite:
+            out_metrics["skipped"] = aux.skipped
+            bad = torch.maximum(bad, aux.skipped)
+        out_metrics["bad_step"] = bad
         return TrainState(params, opt_state), out_metrics
 
-    return {
+    fns: Dict[str, Callable] = {
         "step": functools.partial(step_fn, refresh=False),
         "refresh_step": functools.partial(step_fn, refresh=True),
     }
+    if watchdog is not None:
+        def guarded(fn):
+            calls = [0]  # each step counts its own calls, as the reference's
+
+            @functools.wraps(fn)
+            def run(*a, **k):
+                out = fn(*a, **k)
+                watchdog.guard(calls[0], out)
+                calls[0] += 1
+                return out
+            return run
+
+        fns = {k: guarded(f) for k, f in fns.items()}
+    fns["watchdog"] = watchdog
+
+    def rebuild(new_optimizer: lowrank_lib.LowRankOptimizer) -> Dict[str, Callable]:
+        """The same steps (config, recovery, watchdog) around an optimizer
+        re-bucketed at a new rank."""
+        return make_train_step(model, new_optimizer, train_cfg=train_cfg,
+                               recovery=recovery, watchdog=watchdog)
+
+    fns["rebuild"] = rebuild
+    return fns

@@ -284,6 +284,9 @@ def test_launch_train_takes_the_baselines_on_cpu(name, capsys, tmp_path):
                            "--engine", engine, "--svd-backend", "randomized", "--steps", "3",
                            "--tau", "2", "--rank", "8", "--seq", "16", "--batch", "4",
                            "--ckpt-dir", str(tmp_path / engine)])
-        outs.append(capsys.readouterr().out.strip().splitlines()[-1])
+        lines = capsys.readouterr().out.strip().splitlines()
+        # the run's last lines: "done", then the recovery counters
+        assert lines[-1].startswith("[train] recovery: 0 skipped, 0 rollbacks")
+        outs.append(lines[-2])
     assert outs[0].startswith("[train] done: step 3, loss ")
     assert outs[0] == outs[1]

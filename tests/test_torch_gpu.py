@@ -779,3 +779,129 @@ def test_quantizer_square_root_is_correctly_rounded_on_gpu():
         c_cpu, s_cpu = qz.quantize_blockwise(rows, signed)
         c_gpu, s_gpu = qz.quantize_blockwise(rows.cuda(), signed)
         assert torch.equal(c_gpu.cpu(), c_cpu) and torch.equal(s_gpu.cpu(), s_cpu)
+
+
+# ---------------------------------------------------------------------------
+# on the card: the skip-step gate, rank migration, kernels at a ragged rank
+# ---------------------------------------------------------------------------
+
+
+def _smoke_opt_state(name, rank=8, steps=0, **kw):
+    """The smoke llama3-8b's params, a bucketed optimizer and its state on
+    the CPU after ``steps`` updates (refresh on even steps), and one more
+    gradient."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core import make_optimizer
+    from repro_torch.core.lowrank import tree_leaves, tree_unflatten
+    from repro_torch.models import build_model
+
+    params = build_model(get_config("llama3-8b", smoke=True), device="cpu").init(
+        torch.Generator().manual_seed(0))
+    gen = torch.Generator().manual_seed(1)
+    grads = [tree_unflatten(params, [0.01 * torch.randn(p.shape, generator=gen)
+                                     for p in tree_leaves(params)]) for _ in range(steps + 1)]
+    opt = make_optimizer(name, params, rank=rank, engine="bucketed", svd_backend="randomized",
+                         grad_clip_norm=1.0, **kw)
+    state = opt.init(params)
+    for s in range(steps):
+        params, state, _ = opt.update(grads[s], state, params, refresh=s % 2 == 0, apply=True)
+    return opt, params, state, grads[-1]
+
+
+@pytest.mark.gpu
+def test_skip_gate_on_gpu():
+    """The gate on the card: a good hot step gated equals the ungated one
+    bit for bit (params and every state leaf), and so does one whose
+    gradient holds a finite 1e20 (the global norm overflows, the check says
+    finite); a NaN, +Inf or -Inf in one gradient leaf hands back the very
+    inputs with ``skipped`` 1 (the check's min/max reduction must carry each
+    of them on the card)."""
+    _require_card()
+    from repro_torch import bridge
+    from repro_torch.core.lowrank import tree_leaves, tree_unflatten
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train.state import TrainState
+
+    opt, params, state, g = _smoke_opt_state("galore-sara-adam", steps=2)
+    params = tree_unflatten(params, [x.cuda() for x in tree_leaves(params)])
+    state = bridge.opt_state_from_numpy(opt, bridge.opt_state_to_numpy(state), "cuda")
+    g = tree_unflatten(g, [x.cuda() for x in tree_leaves(g)])
+    gated = opt.update(g, state, params, refresh=False, apply=True, skip_nonfinite=True)
+    plain = opt.update(g, state, params, refresh=False, apply=True)
+    assert float(gated[2].skipped) == 0.0
+    for (path, a), (_, b) in zip(ckpt.tree_items(TrainState(*gated[:2])),
+                                 ckpt.tree_items(TrainState(*plain[:2]))):
+        assert (torch.equal(a, b) if isinstance(a, torch.Tensor)
+                else np.array_equal(np.asarray(a), np.asarray(b))), path
+    leaves = tree_leaves(g)
+    # finite, but its square overflows the global norm: applied, as ungated
+    big = [x.clone() for x in leaves]
+    big[3].view(-1)[0] = 1e20
+    big = tree_unflatten(g, big)
+    gated = opt.update(big, state, params, refresh=False, apply=True, skip_nonfinite=True)
+    plain = opt.update(big, state, params, refresh=False, apply=True)
+    assert float(gated[2].skipped) == 0.0
+    for (path, a), (_, b) in zip(ckpt.tree_items(TrainState(*gated[:2])),
+                                 ckpt.tree_items(TrainState(*plain[:2]))):
+        assert (torch.equal(a, b) if isinstance(a, torch.Tensor)
+                else np.array_equal(np.asarray(a), np.asarray(b))), path
+    del gated, plain, big
+    for i, value in ((3, float("nan")), (len(leaves) - 1, float("inf")), (0, float("-inf"))):
+        bad = [x.clone() for x in leaves]
+        bad[i].view(-1)[bad[i].numel() // 2] = value
+        out, st, aux = opt.update(tree_unflatten(g, bad), state, params, refresh=False,
+                                  apply=True, skip_nonfinite=True)
+        assert out is params and st is state and float(aux.skipped) == 1.0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("inner", ["adam", "adam8bit"])
+def test_rank_migration_on_gpu_matches_cpu(inner):
+    """``migrate_opt_state`` on the card equals the CPU's bit for bit, 8-bit
+    codes and scales included, shrinking and growing."""
+    _require_card()
+    from repro_torch import bridge
+    from repro_torch.core import lowrank as lowrank_lib
+    from repro_torch.core import rank_schedule as rs_lib
+    from repro_torch.train import checkpoint as ckpt
+
+    name = {"adam": "galore-sara-adam", "adam8bit": "galore-sara-adam8bit"}[inner]
+    opt, params, state, _ = _smoke_opt_state(name, steps=3)
+    states = {"cpu": state,
+              "cuda": bridge.opt_state_from_numpy(opt, bridge.opt_state_to_numpy(state), "cuda")}
+    for r_from, r_to in ((8, 4), (4, 8)):
+        src = opt if r_from == 8 else lowrank_lib.rebuild_at_rank(opt, params, rank=r_from)
+        dst = lowrank_lib.rebuild_at_rank(opt, params, rank=r_to)
+        out = {dev: rs_lib.migrate_opt_state(src, dst, st) for dev, st in states.items()}
+        a = ckpt.tree_items(lowrank_lib.canonical_opt_state(dst, out["cuda"]))
+        b = ckpt.tree_items(lowrank_lib.canonical_opt_state(dst, out["cpu"]))
+        for (path, x), (_, y) in zip(a, b):
+            if isinstance(x, torch.Tensor):
+                assert x.is_cuda and x.dtype == y.dtype and torch.equal(x.cpu(), y), path
+        states = out
+
+
+RAGGED_RANK = (2, 640, 1536, 264)  # (B, d, n, r): r = 8 mod 16, a ragged last K tile
+
+
+@pytest.mark.gpu
+def test_optimizer_kernels_at_a_ragged_rank_on_gpu():
+    """Kernels 4, 5 and 9 at rank 264 (k' = 4 r + 8 = 1064 for the power
+    iteration) against their plain versions."""
+    _require_card()
+    b, d, n, r = RAGGED_RANK
+    w, p, rg, m, v = _opt_inputs(5, RAGGED_RANK, "float32")
+    g = w * 10
+    torch.testing.assert_close(galore_project_batched(g, p), project_ref(g, p), **TOL["float32"])
+    got = lowrank_adam_update_batched(w, p, rg, m, v, 3, 0.0025, 0.0)
+    want = lowrank_adam_update_ref(w, p, rg, m, v, b1=0.9, b2=0.999, eps=1e-8, step=3,
+                                   lr_alpha=0.0025, lr_wd=0.0)
+    for a, c in zip(got, want):
+        torch.testing.assert_close(a, c, **TOL["float32"])
+    kp = 4 * r + 8
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    gm = 0.1 * torch.randn(b, 1100, n, generator=gen, device="cuda")
+    q = torch.linalg.qr(torch.randn(b, 1100, kp, generator=gen, device="cuda"))[0].contiguous()
+    want = power_iter_ref(gm, q)
+    torch.testing.assert_close(power_iter_batched(gm, q), want, rtol=1e-5,
+                               atol=1e-5 * float(want.abs().max()))

@@ -69,14 +69,34 @@ class JaxDraws:
         the slice key itself (projectors.py:148-149, sampling.py:56);
       * identity and online_pca draw nothing.
 
-    ``method`` picks the chain; the default is the SVD methods'."""
+    ``method`` picks the chain; the default is the SVD methods'.
 
-    def __init__(self, key, subkey=None, method="sara"):
-        self.key, self.subkey, self.method = key, subkey, method
+    Like ``TorchDraws`` it writes its key to a checkpoint (``key()``: the
+    carried key, JAX's ``.opt_state.key``), reads one back (``from_key``)
+    and moves to a rollback's stream with JAX's rule (``resample``:
+    ``fold_in(key, 0x5EED + attempt)``, ``src/repro/train/recovery.py:195``),
+    so the port's loop draws JAX's numbers through a rollback."""
+
+    device = "cpu"
+    default_method = "sara"  # the chain of a source read back by ``from_key``
+
+    def __init__(self, key, subkey=None, method=None):
+        self.jkey, self.subkey = key, subkey
+        self.method = method or self.default_method
 
     def split(self):
-        key, sub = jax.random.split(self.key)
-        return JaxDraws(key, sub, self.method)
+        key, sub = jax.random.split(self.jkey)
+        return type(self)(key, sub, self.method)
+
+    def key(self):
+        return np.asarray(self.jkey, dtype=np.uint32)
+
+    @classmethod
+    def from_key(cls, key, device=None):
+        return cls(jnp.asarray(np.asarray(key, dtype=np.uint32)))
+
+    def resample(self, attempt):
+        return type(self)(jax.random.fold_in(self.jkey, 0x5EED + attempt), method=self.method)
 
     def leaf(self, leaf_idx, batch_shape, shapes, device=None):
         lkey = jax.random.fold_in(self.subkey, leaf_idx)

@@ -124,7 +124,7 @@ def _with_jax_draws(fns):
         key = jnp.asarray(state.opt_state.draws.key())
         st = state._replace(opt_state=state.opt_state._replace(draws=JaxDraws(key)))
         new, m = fns["refresh_step"](st, batch, group=group)
-        draws = TorchDraws.from_key(np.asarray(new.opt_state.draws.key), "cpu")
+        draws = TorchDraws.from_key(new.opt_state.draws.key(), "cpu")
         return new._replace(opt_state=new.opt_state._replace(draws=draws)), m
 
     return dict(fns, refresh_step=refresh_step)

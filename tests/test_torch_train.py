@@ -366,17 +366,24 @@ def test_training_entry_points_need_a_card_unless_cpu_is_asked(monkeypatch):
 
 
 def test_unported_optimizer_options_raise(pair):
-    """What is still to be ported raises and names its ROADMAP item; the
-    baselines (golore, Adafactor, Fira) build."""
-    for kw, item in (({"state_sharding": "zero"}, 11), ({"rank_schedule": "cosine:8:4"}, 10),
-                     ({"group_ranks": (8,)}, 10)):
-        with pytest.raises(NotImplementedError, match=f"not yet ported.*item {item}"):
-            make_optimizer("galore-sara-adam", pair["tparams"], **kw)
+    """What is still to be ported (ZeRO, projected gradients: item 11)
+    raises and names its ROADMAP item; the baselines (golore, Adafactor,
+    Fira), rank schedules and group ranks build, with JAX's validation, and
+    the skip-step gate runs."""
+    with pytest.raises(NotImplementedError, match="not yet ported.*item 11"):
+        make_optimizer("galore-sara-adam", pair["tparams"], state_sharding="zero")
     for name, kw in (("golore-adam", {}), ("galore-sara-adafactor", {}),
-                     ("galore-sara-adam", {"fira": True})):
+                     ("galore-sara-adam", {"fira": True}),
+                     ("galore-sara-adam", {"rank_schedule": "cosine:8:4"}),
+                     ("galore-sara-adam", {"group_ranks": (8,)})):
         make_optimizer(name, pair["tparams"], **kw)
+    for kw in ({"rank_schedule": "warp:8"}, {"group_ranks": (8, 4)}, {"group_ranks": (0,)}):
+        with pytest.raises(ValueError):
+            make_optimizer("galore-sara-adam", pair["tparams"], **kw)
     opt = make_optimizer("galore-sara-adam", pair["tparams"], **OPT_KW)
     state = opt.init(pair["tparams"])
-    for kw, item in (({"projected": True}, 11), ({"skip_nonfinite": True}, 9)):
-        with pytest.raises(NotImplementedError, match=f"item {item}"):
-            opt.update(pair["tparams"], state, pair["tparams"], refresh=False, **kw)
+    with pytest.raises(NotImplementedError, match="item 11"):
+        opt.update(pair["tparams"], state, pair["tparams"], refresh=False, projected=True)
+    _, new, aux = opt.update(pair["tparams"], state, pair["tparams"], refresh=True,
+                             skip_nonfinite=True)
+    assert float(aux.skipped) == 0.0 and new.step == 1
