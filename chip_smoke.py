@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py          # from the repository root, one CUDA card
 
-Phases; any failure raises and the script exits non-zero:
+Phases (``--only a,b`` runs a subset, named as in ``PHASES``); any
+failure raises and the script exits non-zero:
 
 1. build   -- compile every CUDA kernel of the serving and training paths
               from ``src/repro_torch/csrc`` (one nvcc per source, all
@@ -100,7 +101,25 @@ Phases; any failure raises and the script exits non-zero:
               on the in-memory params.  Prints the checkpoint's bytes, save
               and load seconds and GB/s, peak host RSS and each run's
               ``max_memory_allocated``, with the card's name and power limit.
-6. report  -- one ``{"kernel_over_library": [...]}`` line (every case's
+6. families -- the MoE, SSM and hybrid families at full width:
+              ``family_kernels`` (flash at hymba's GQA 25/5, D 64, window
+              1024, S 2048 and deepseek's MHA 16/16; paged decode at MHA
+              16/16; RMSNorm at widths 1600, 2048 and 3200; kernels 4, 5
+              and 9 on deepseek-moe-16b's 768-slice expert bucket at rank
+              256), ``serve_moe`` (deepseek-moe-16b, 28 layers, bf16 made
+              leaf by leaf, through the paged engine on phase 3's trace;
+              request 0's logits against the static exact path, the bar
+              from the f32 model at the deepest depth that fits; host syncs
+              per step), ``train_moe`` (4 layers, rank 256: kernel 9 runs),
+              ``train_ssm`` and ``serve_ssm`` (mamba2-370m, 48 layers; rank
+              512: kernel 9 launches 0 times), ``train_hybrid`` and
+              ``serve_hybrid`` (hymba-1.5b, 32 layers; seq 2048; prompts of
+              1500 and 1100 tokens past its 1024 window).  The train paths
+              run as phase 4 (galore-sara-adam, 3 steps) and first check
+              every step-0 gradient finite; the slot-engine paths hold every
+              request's tokens to the static engine's, a parting token only
+              at a near-tie (``TIE_BAR_SIGMAS``).
+7. report  -- one ``{"kernel_over_library": [...]}`` line (every case's
               kernel time over its yardstick's), one ``{"kernels": [...]}``
               line (``launches`` summed over the serve, train_* (4b and 4c
               included), resume and serve_ckpt runs, each run's own count
@@ -115,6 +134,7 @@ The script imports nothing of JAX or of the JAX package ``repro``.
 from __future__ import annotations
 
 import json
+import os
 import resource
 import shutil
 import subprocess
@@ -122,8 +142,14 @@ import sys
 import time
 from pathlib import Path
 
-import numpy as np
-import torch
+# deepseek-moe-16b's 8.9 GB expert stacks, made and freed step after step,
+# fragment the caching allocator's fixed segments; expandable segments let
+# freed blocks merge (read when the allocator starts, so before any tensor
+# is made on the card)
+os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
 
 ROOT = Path(__file__).resolve().parent
 
@@ -344,9 +370,56 @@ RANK_CASES = (256, 264)
 PATH_KERNELS["train_recovery"] = _TRAIN_COMMON + (UPDATE_KERNEL["adam"],)
 PATH_KERNELS["train_rank_schedule"] = _TRAIN_COMMON + (UPDATE_KERNEL["adam"],)
 
+# phase 6: the MoE, SSM and hybrid families at full width.  RMSNorm and
+# flash launches per layer of one forward, per family: the block's norms
+# (hybrid: attn_norm, mlp_norm and its mixer's norm; ssm: ssm_norm and
+# the mixer's) and its flash attentions (none in the SSM).
+LAYER_LAUNCHES = {"dense": (2, 1), "moe": (2, 1), "ssm": (2, 0), "hybrid": (3, 1)}
+MOE_ARCH, SSM_ARCH, HYBRID_ARCH = "deepseek-moe-16b", "mamba2-370m", "hymba-1.5b"
+# hymba's serving trace: two prompts past its 1024-token window, so prefill
+# keeps the window's tail and the ring wraps in decode
+HYBRID_PROMPT_LENS = [1500, 128, 517, 1100, 255, 777, 64, 333]
+# A continuous-engine token may part from the static engine's only at a
+# near-tie.  The two engines run the same bf16 model but batch it
+# differently (4 slots against 1 row: other GEMM kernels, other roundings),
+# so the static logits' gap between the two tokens at the parting step
+# must be within TIE_BAR_SIGMAS times bf16's own per-logit error there:
+# the RMS distance between the bf16 and f32 models' logits on the same
+# tokens (the prompt and the tokens before the parting step).
+TIE_BAR_SIGMAS = 4
+# rank 256 for moe and hybrid: SARA's pool (4 r) then leaves k' 1032 below
+# the narrow side of their leaves, so kernel 9 runs; at the launcher's 512
+# it spans every leaf's narrow side and the power iterations drop (as
+# JAX's clamp_sketch); mamba2 keeps 512, where kernel 9 must launch 0 times
+FAMILY_TRAIN_RUNS = {
+    # path: (arch, layers (None: full depth), seq, batch, rank, bucket plan)
+    "train_moe": (MOE_ARCH, 4, TRAIN_SEQ, TRAIN_BATCH, 256,
+                  [(1408, 2048, 256, 768, "any"), (2048, 2048, 256, 16, "any"),
+                   (2048, 2816, 256, 12, "any")]),
+    "train_ssm": (SSM_ARCH, None, TRAIN_SEQ, TRAIN_BATCH, 512,
+                  [(32, 48, 32, 1, "any"), (1024, 2048, 512, 48, "any"),
+                   (1024, 4384, 512, 48, "any")]),
+    # seq 2048 so attention reaches past the 1024 window (the same 4096 tokens)
+    "train_hybrid": (HYBRID_ARCH, None, 2048, 2, 256,
+                     [(32, 50, 32, 1, "any"), (320, 1600, 256, 64, "any"),
+                      (1600, 1600, 256, 64, "any"), (1600, 3200, 256, 32, "any"),
+                      (1600, 5504, 256, 96, "any"), (1600, 6482, 256, 32, "any")]),
+}
+PATH_KERNELS["serve_moe"] = SERVE_KERNELS
+PATH_KERNELS["train_moe"] = _TRAIN_COMMON + (UPDATE_KERNEL["adam"],)
+PATH_KERNELS["serve_ssm"] = ("rmsnorm",)
+PATH_KERNELS["train_ssm"] = ("rmsnorm", "galore_project_batched", UPDATE_KERNEL["adam"])
+PATH_KERNELS["serve_hybrid"] = ("rmsnorm", "flash_attention_fwd")
+PATH_KERNELS["train_hybrid"] = _TRAIN_COMMON + (UPDATE_KERNEL["adam"],)
+# paths that must not launch a kernel: the SSM's power iterations at rank 512
+PATH_NEVER = {"train_ssm": ("power_iter_batched", "flash_attention_fwd")}
+
+
+_T0 = time.perf_counter()
+
 
 def log(msg: str) -> None:
-    print(f"[smoke] {msg}", flush=True)
+    print(f"[smoke {time.perf_counter() - _T0:7.1f}s] {msg}", flush=True)
 
 
 def fresh_dir(name: str) -> Path:
@@ -695,9 +768,9 @@ def kernel_cases(results):
     return cases
 
 
-def paged_inputs(randn, fills, dtype, shuffle, gen, dev: str = "cuda"):
+def paged_inputs(randn, fills, dtype, shuffle, gen, dev: str = "cuda", heads=(32, 8)):
     """q, pools, page table and lengths of one paged-decode case at
-    llama3-8b's heads (H 32, KVH 8, D 128) and ``PAGE_SIZE``.  Pages follow
+    ``heads`` (H, KVH; llama3-8b's 32/8 by default), D 128 and ``PAGE_SIZE``.  Pages follow
     the slots in order, or (``shuffle``) a permutation drawn from ``gen``,
     so that no slot's pages are contiguous; a few pages that no table
     references hold garbage at 50 times the data's scale."""
@@ -714,15 +787,16 @@ def paged_inputs(randn, fills, dtype, shuffle, gen, dev: str = "cuda"):
     for i, c in enumerate(counts):
         table[i, :c] = ids[nxt:nxt + c]
         nxt += c
+    h, kvh = heads
     n_pages = n_used + 4  # the trash page 0 and 3 never-referenced pages
-    pk = randn(n_pages, PAGE_SIZE, 8, 128, scale=50.0)
-    pv = randn(n_pages, PAGE_SIZE, 8, 128, scale=50.0)
+    pk = randn(n_pages, PAGE_SIZE, kvh, 128, scale=50.0)
+    pv = randn(n_pages, PAGE_SIZE, kvh, 128, scale=50.0)
     used = table[table >= 0].long().to(dev)
-    pk[used] = randn(used.numel(), PAGE_SIZE, 8, 128)
-    pv[used] = randn(used.numel(), PAGE_SIZE, 8, 128)
+    pk[used] = randn(used.numel(), PAGE_SIZE, kvh, 128)
+    pv[used] = randn(used.numel(), PAGE_SIZE, kvh, 128)
     pk, pv = pk.to(dtype), pv.to(dtype)
     lens = torch.tensor(fills, dtype=torch.int32, device=dev)
-    q = randn(len(fills), 1, 32, 128, dtype=dtype)
+    q = randn(len(fills), 1, h, 128, dtype=dtype)
     return q, pk, pv, table.to(dev), lens
 
 
@@ -734,14 +808,14 @@ def paged_label(fills, window, shuffle) -> str:
     return f"{what} ps={PAGE_SIZE} window={window}" + (" shuffled pages" if shuffle else "")
 
 
-def paged_bound(q, table, fills, window):
+def paged_bound(q, table, fills, window, kvh: int = 8):
     """Bytes bound of one paged-decode call: q read and out written once,
     each visible token's K and V rows read once, the table and lengths;
     4 operations per (head, element) of each visible token."""
     live = sum(n - (max(0, n - window) if window else 0) for n in fills)
     es = q.element_size()
     _, _, h, d = q.shape
-    nbytes = 2 * q.numel() * es + 2 * live * 8 * d * es + table.numel() * 4 + 4 * len(fills)
+    nbytes = 2 * q.numel() * es + 2 * live * kvh * d * es + table.numel() * 4 + 4 * len(fills)
     return bound(nbytes, 4 * h * d * live, str(q.dtype).split(".")[-1])
 
 
@@ -754,19 +828,22 @@ def paged_plan(q, pk, table) -> dict:
     if not hasattr(pk_mod, "card_clusters"):
         return {}
     _, _, h, d = q.shape
-    how = pk_mod.design(q.dtype, d, h // 8, True, pk.shape[0] * PAGE_SIZE)
-    room = pk_mod.card_clusters(q.dtype, h, 8, d, how, q.device.index)
+    kvh = pk.shape[2]
+    how = pk_mod.design(q.dtype, d, h // kvh, True, pk.shape[0] * PAGE_SIZE)
+    room = pk_mod.card_clusters(q.dtype, h, kvh, d, how, q.device.index)
     return {"design": how, "max_clusters": room,
-            "cluster": pk_mod.cluster_size(q.shape[0], 8, table.shape[1] * PAGE_SIZE, room)}
+            "cluster": pk_mod.cluster_size(q.shape[0], kvh, table.shape[1] * PAGE_SIZE, room)}
 
 
-def record_case(cases, results, name, label, dtype, err, main, timing):
-    """Log one optimizer kernel case, append it to ``cases``, and keep the
-    kernel's largest error (and, for its main case, its times) in
-    ``results``."""
+def record_case(cases, results, name, label, dtype, err, main, timing,
+                relative: bool = True):
+    """Log one kernel case, append it to ``cases``, and keep the kernel's
+    largest error (and, for its main case, its times) in ``results``.
+    ``relative``: the case's atol was relative to its largest |plain|
+    output (the optimizer kernels')."""
     dn = str(dtype).split(".")[-1]
     case = {"kernel": name, "case": label, "dtype": dn, "max_abs_err": err,
-            "tolerance": TOL[name][dn], "tolerance_atol_relative": True}
+            "tolerance": TOL[name][dn], "tolerance_atol_relative": relative}
     case.update(timing)
     cases.append(case)
     log(f"{name} {label} {dn}: max_abs_err {err:.3e} "
@@ -996,12 +1073,16 @@ def rel_l2(a, b) -> float:
     return float(torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b))
 
 
-def serve(cfg, dev: str = "cuda"):
-    """Phase 3 (see the module docstring); ``dev="cpu"`` rehearses it at a
-    small size without a card."""
+def serve(cfg, dev: str = "cuda", profile_ticks: int = 24):
+    """Phase 3 (see the module docstring), or ``serve_moe`` with an MoE
+    config; ``dev="cpu"`` rehearses it at a small size without a card.
+    The serving weights are made leaf by leaf in bf16 (``init(...,
+    serving=True)``): deepseek-moe-16b's f32 tree (65.6 GB) and its bf16
+    copy would not fit the card together."""
+    from repro_torch.core.lowrank import tree_leaves
     from repro_torch.kernels import counters
     from repro_torch.models import build_model
-    from repro_torch.models import transformer as tfm
+    from repro_torch.models import moe as moe_lib
     from repro_torch.serve import kv_cache as kvc
     from repro_torch.serve import paged_decode as pgd
     from repro_torch.serve.engine import ContinuousEngine
@@ -1012,12 +1093,15 @@ def serve(cfg, dev: str = "cuda"):
 
     model = build_model(cfg, device=dev)
     t0 = time.perf_counter()
-    params = tfm.serving_params(
-        model.init(torch.Generator(device=dev).manual_seed(SEED)), cfg
-    )
+    if dev == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    params = model.init(torch.Generator(device=dev).manual_seed(SEED), serving=True)
     sync()
+    init_peak = torch.cuda.max_memory_allocated() if dev == "cuda" else 0
+    n_params = sum(p.numel() for p in tree_leaves(params))
     log(f"{cfg.arch_id}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
-        f"params made and cast in {time.perf_counter() - t0:.1f} s")
+        f"{n_params / 1e9:.3f} B params made in bf16 in {time.perf_counter() - t0:.1f} s, "
+        f"peak {init_peak / 2**30:.2f} GiB")
     rng = np.random.default_rng(SEED)
     prompts = [rng.integers(0, cfg.vocab_size, (n,)) for n in PROMPT_LENS]
 
@@ -1031,18 +1115,21 @@ def serve(cfg, dev: str = "cuda"):
     if dev == "cuda":
         torch.cuda.reset_peak_memory_stats()
     counters.reset()
+    moe_lib.HOST_SYNCS[0] = 0
     t0 = time.perf_counter()
     results = eng.run()
     sync()
     wall = time.perf_counter() - t0
     launches = counters.snapshot()
+    syncs = moe_lib.HOST_SYNCS[0]
     peak = torch.cuda.max_memory_allocated() if dev == "cuda" else 0
 
     n_req, ticks, nl = len(PROMPT_LENS), eng.decode_steps, cfg.n_layers
     emitted = sum(len(r.tokens) for r in results.values())
     log(f"served {len(results)} requests, {emitted} tokens, {eng.total_ticks} "
         f"ticks ({ticks} decode steps) in {wall:.3f} s: {emitted / wall:.1f} tokens/s; "
-        f"max_memory_allocated {peak / 2**30:.2f} GiB")
+        f"max_memory_allocated {peak / 2**30:.2f} GiB; MoE group-size host syncs {syncs} "
+        f"({syncs / (ticks + n_req):.1f} per prefill or decode step)")
     log(f"launches {launches}")
     if sorted(results) != list(range(n_req)):
         raise AssertionError(f"finished requests {sorted(results)}")
@@ -1053,23 +1140,27 @@ def serve(cfg, dev: str = "cuda"):
         raise AssertionError(f"pool not drained: {eng.kv.allocator.used_pages} pages in use")
     total_ticks = eng.total_ticks
     del eng  # frees the pool; the serving params stay in ``params``
-    profile = profile_serving(model, params) if dev == "cuda" else None
+    profile = profile_serving(model, params, profile_ticks) if dev == "cuda" else None
     waited = [r.admit_tick - r.arrival for r in results.values()]
     reserved = sum(kvc.pages_needed(n + NEW_TOKENS, PAGE_SIZE) for n in PROMPT_LENS)
     if max(waited) <= 0 or reserved <= POOL_PAGES:
         raise AssertionError("scenario did not make admission wait and pages recycle")
     expect = {
-        "rmsnorm": (2 * nl + 1) * (ticks + n_req),
+        "rmsnorm": (LAYER_LAUNCHES[cfg.family][0] * nl + 1) * (ticks + n_req),
         "paged_decode_attention": nl * ticks,
         "flash_attention_fwd": nl * n_req,
     }
     if launches != expect:
         raise AssertionError(f"launch counts {launches} != expected {expect}")
+    if syncs != (nl * (ticks + n_req) if cfg.family == "moe" else 0):
+        raise AssertionError(f"{syncs} MoE host syncs for {ticks + n_req} steps of {nl} layers")
 
     # Request 0: paged kernel path vs the static engine's path (ring cache,
     # plain exact attention), both bf16, feeding both the same first token.
     # The bar is the bf16 noise floor: the static path's distance to the
-    # same model in f32.
+    # same model in f32, at full depth where the f32 params fit the card
+    # beside the run's own state, else at the deepest depth that does (the
+    # bf16 static path then again at that depth, from the same seed).
     p0 = torch.as_tensor(prompts[0], device=dev)[None]
     n0 = kvc.pages_needed(p0.shape[1] + 1, PAGE_SIZE)
     kv = kvc.PagedKVCache.build(cfg, 1, PAGE_SIZE, 1 + n0, n0, device=dev)
@@ -1087,20 +1178,43 @@ def serve(cfg, dev: str = "cuda"):
     exact = build_model(cfg.with_(attn_impl="exact"), device=dev)
     prefill_s, cache_s = exact.prefill(params, {"tokens": p0}, p0.shape[1] + 1)
     decode_s, _ = exact.decode(params, cache_s, {"token": tok0[:, None]})
+    layer_numel = sum(p.numel() for p in tree_leaves(params["blocks"])) // cfg.n_layers
     del cache_s, params
     if dev == "cuda":
         torch.cuda.empty_cache()
-    cfg32 = cfg.with_(attn_impl="exact", dtype=torch.float32)
+    depth = cfg.n_layers
+    if dev == "cuda":
+        room = torch.cuda.mem_get_info()[0] - 8 * 2**30 - 4 * (n_params - layer_numel * depth)
+        depth = max(1, min(depth, room // (4 * layer_numel)))
+    noise_s = (prefill_s, decode_s)
+    if depth < cfg.n_layers:  # the bf16 static path again at the f32 model's depth
+        cut = build_model(cfg.with_(attn_impl="exact", n_layers=depth), device=dev)
+        params_c = cut.init(torch.Generator(device=dev).manual_seed(SEED), serving=True)
+        pc, cache_c = cut.prefill(params_c, {"tokens": p0}, p0.shape[1] + 1)
+        noise_s = (pc, cut.decode(params_c, cache_c, {"token": tok0[:, None]})[0])
+        del params_c, cache_c
+    if dev == "cuda":
+        log(f"before the f32 model: {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
+            f"allocated, {torch.cuda.mem_get_info()[0] / 2**30:.2f} GiB free")
+    log(f"bf16 noise floor from the f32 model at depth {depth} of {cfg.n_layers}")
+    cfg32 = cfg.with_(attn_impl="exact", dtype=torch.float32, n_layers=depth)
     exact32 = build_model(cfg32, device=dev)
     params32 = exact32.init(torch.Generator(device=dev).manual_seed(SEED))
     prefill_f, cache_f = exact32.prefill(params32, {"tokens": p0}, p0.shape[1] + 1)
     decode_f, _ = exact32.decode(params32, cache_f, {"token": tok0[:, None]})
     del params32, cache_f
-    parity = {}
-    for what, k_, s_, f_ in (("prefill", prefill_k, prefill_s, prefill_f),
-                             ("decode1", decode_k, decode_s, decode_f)):
-        err, noise = rel_l2(k_, s_), rel_l2(s_, f_)
-        tol = max(2.0 * noise, 1e-3)
+    # The serving bar: twice the static path's distance to the f32 model.  An
+    # MoE model's two bf16 paths also route some tokens to other experts
+    # than the f32 model does, each path its own tokens, so they lie ~sqrt(2)
+    # times that distance apart (1.08 and 1.56 times on deepseek-moe-16b's
+    # prefill in two runs on the H100, as the atomics' order moves the
+    # near-ties): the same factor of two over that expected distance
+    bar_factor = 2.0 * (2.0**0.5 if cfg.family == "moe" else 1.0)
+    parity = {"noise_depth": depth, "bar_factor": bar_factor}
+    for what, k_, s_, n_, f_ in (("prefill", prefill_k, prefill_s, noise_s[0], prefill_f),
+                                 ("decode1", decode_k, decode_s, noise_s[1], decode_f)):
+        err, noise = rel_l2(k_, s_), rel_l2(n_, f_)
+        tol = max(bar_factor * noise, 1e-3)
         parity[what] = {
             "rel_l2_kernel_vs_static": err, "rel_l2_static_bf16_vs_f32": noise,
             "tolerance": tol, "max_abs_kernel_vs_static": float((k_ - s_).abs().max()),
@@ -1113,28 +1227,32 @@ def serve(cfg, dev: str = "cuda"):
     if results[0].tokens[0] != int(tok0[0]):
         log("note: the engine's first token for request 0 differs from the lone run")
     return {
+        "arch": cfg.arch_id, "params": n_params, "init_peak_bytes": init_peak,
         "requests": n_req, "tokens": emitted, "ticks": total_ticks,
         "decode_steps": ticks, "wall_s": wall, "tokens_per_s": emitted / wall,
+        "moe_host_syncs": syncs,
         "max_memory_allocated": peak, "launches": launches, "expected": expect,
         "admission_waits": waited, "pages_reserved": reserved,
         "pool_pages": POOL_PAGES, "request0_parity": parity, "profile": profile,
     }
 
 
-def profile_serving(model, params):
+def profile_serving(model, params, new_tokens: int = 24):
     """Device time by kernel over a short continuous run under
-    torch.profiler: 4 requests of 512 tokens admitted together, then 23
-    decode ticks.  Device busy share = summed kernel time / host wall time
-    (one stream, so kernels do not overlap)."""
+    torch.profiler: 4 requests of 512 tokens admitted together, then
+    ``new_tokens`` - 1 decode ticks (23; 8 for the MoE model, whose ticks
+    hold ~10x the events for the profiler to sum up).  Device busy share =
+    summed kernel time / host wall time (one stream, so kernels do not
+    overlap)."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.serve.engine import ContinuousEngine
 
     eng = ContinuousEngine(model, params, max_slots=4, page_size=PAGE_SIZE,
-                           max_seq_len=512 + 24)
+                           max_seq_len=512 + new_tokens)
     rng = np.random.default_rng(SEED + 1)
     for _ in range(4):
-        eng.submit(rng.integers(0, model.cfg.vocab_size, (512,)), 24)
+        eng.submit(rng.integers(0, model.cfg.vocab_size, (512,)), new_tokens)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -1195,13 +1313,17 @@ def profile_serving(model, params):
 
 def train(cfg, optimizer: str = "galore-sara-adam", expect_buckets=TRAIN_BUCKETS,
           dev: str = "cuda", steps: int = TRAIN_STEPS, seq: int = TRAIN_SEQ,
-          batch: int = TRAIN_BATCH, opt_kw=None):
+          batch: int = TRAIN_BATCH, opt_kw=None, check_grads: bool = False,
+          profile: bool = True):
     """Phase 4 (see the module docstring) with one optimizer, whose bucket
     plan must be ``expect_buckets`` ((d, n, rank, B, side) per bucket), or
     whose state must be per leaf where ``expect_buckets`` is None (Fira,
     Adafactor and the reference engine: no bucket-native state, and no
     plan beyond the bucketed engine's accounting); ``dev="cpu"`` with a
-    smoke config rehearses it without a card."""
+    smoke config rehearses it without a card.  Any family: the launch
+    counts follow ``LAYER_LAUNCHES``; an MoE model's router aux loss must
+    be finite at every step, and ``check_grads`` first takes the step-0
+    gradient and requires every element finite."""
     import math
 
     from repro_torch.configs.base import TrainConfig
@@ -1245,6 +1367,7 @@ def train(cfg, optimizer: str = "galore-sara-adam", expect_buckets=TRAIN_BUCKETS
     data = SyntheticDataset(
         SyntheticDataConfig(vocab_size=cfg.vocab_size, seq_len=seq, global_batch=batch),
         device=dev)
+    grads_finite = finite_grads(model, tc.seed, data.batch_at(0)) if check_grads else None
     # Memory by phase of each step (``timed`` below opens and closes it):
     # allocated at its start, the peak of forward and backward, the peak of
     # the optimizer update.
@@ -1262,7 +1385,7 @@ def train(cfg, optimizer: str = "galore-sara-adam", expect_buckets=TRAIN_BUCKETS
         f"{n_params / 1e9:.3f} B params f32, buckets {plan}, set up in "
         f"{time.perf_counter() - t0:.1f} s")
 
-    step_ms, step_peak = [], []
+    step_ms, step_peak, aux = [], [], []
 
     def timed(fn):
         def run(*a, **k):
@@ -1279,6 +1402,8 @@ def train(cfg, optimizer: str = "galore-sara-adam", expect_buckets=TRAIN_BUCKETS
                 step_peak.append(max(phase_mem[-1][1:]))
             else:
                 step_peak.append(0)
+            if "aux" in out[1]:
+                aux.append(float(out[1]["aux"]))
             return out
         return run
 
@@ -1304,12 +1429,15 @@ def train(cfg, optimizer: str = "galore-sara-adam", expect_buckets=TRAIN_BUCKETS
         raise AssertionError(
             f"first loss {res.losses[0]:.3f} is not near ln(vocab) = "
             f"{math.log(cfg.vocab_size):.3f} for random weights")
+    if cfg.family == "moe" and not (len(aux) == steps and all(map(math.isfinite, aux))):
+        raise AssertionError(f"router aux loss not finite at every step: {aux}")
     nl = cfg.n_layers
+    norms, attns = LAYER_LAUNCHES[cfg.family]
     expect = {
-        # per step: 2 per layer + the final norm forward, 2 per layer again
-        # in the remat recompute of each block
-        "rmsnorm": steps * (4 * nl + 1),
-        "flash_attention_fwd": steps * 2 * nl,  # forward + remat recompute
+        # per step: the block's norms per layer + the final norm forward,
+        # the block's again in the remat recompute of each block
+        "rmsnorm": steps * (2 * norms * nl + 1),
+        "flash_attention_fwd": steps * 2 * attns * nl,  # forward + remat recompute
         # one refresh (step 0): a power-iteration product per bucket, or
         # per low-rank leaf on per-leaf state
         "power_iter_batched": power_iter_calls(opt, shapes),
@@ -1329,11 +1457,12 @@ def train(cfg, optimizer: str = "galore-sara-adam", expect_buckets=TRAIN_BUCKETS
     parity = (hot_step_parity("train", model, opt, state, data.batch_at(steps), dev)
               if plan is not None else [])
     profile = (profile_train_step(make_train_step(model, opt, train_cfg=tc), state,
-                                  data.batch_at(steps)) if dev == "cuda" else None)
+                                  data.batch_at(steps)) if dev == "cuda" and profile else None)
     shutil.rmtree(ckpt_dir, ignore_errors=True)
     return {
-        "optimizer": optimizer, "layers": nl, "params": n_params, "buckets": plan,
-        "steps": steps,
+        "arch": cfg.arch_id, "optimizer": optimizer, "layers": nl, "params": n_params,
+        "buckets": plan, "steps": steps, "seq": seq, "batch": batch,
+        "aux_losses": aux, "step0_grads": grads_finite,
         "tokens_per_step": tokens, "losses": res.losses, "history": res.history,
         "refresh_step_ms": step_ms[0], "hot_step_ms": step_ms[1:],
         "hot_tokens_per_s": tokens / hot_ms * 1e3,
@@ -1342,6 +1471,9 @@ def train(cfg, optimizer: str = "galore-sara-adam", expect_buckets=TRAIN_BUCKETS
         "launches": launches, "expected": expect,
         "hot_step_parity": parity, "profile": profile,
     }
+
+
+PARITY_CHUNK = 64  # slices per plain-version call in hot_step_parity
 
 
 def hot_step_parity(path: str, model, opt, state, batch, dev: str = "cuda"):
@@ -1382,10 +1514,21 @@ def hot_step_parity(path: str, model, opt, state, batch, dev: str = "cuda"):
         del r_k
         args = (w, bst.projector, r_p, bucket_state(inner, bst), step, lr_alpha, lr_wd,
                 bk.side, ikw)
-        got = kernel_update(*args)
-        want = plain_update(*args)
-        errs.update(check_update(inner, f"{path} {label}", got, want, "float32"))
-        del got, want, w, r_p, args
+        got = kernel_update(*args)  # on the whole stack
+        # the plain version in chunks of slices (each slice's update is its
+        # own): its f32 temporaries for all 768 slices of an expert bucket
+        # would not fit beside the kernel's output
+        for lo in range(0, bk.batch, PARITY_CHUNK):
+            cut = lambda x: x[lo:lo + PARITY_CHUNK] if torch.is_tensor(x) else x  # noqa: E731
+            want = plain_update(*(tuple(map(cut, a)) if isinstance(a, tuple) else cut(a)
+                                  for a in args))
+            for k, e in check_update(inner, f"{path} {label} [{lo}:]", tuple(map(cut, got)),
+                                     want, "float32").items():
+                # codes' (largest step, share apart) merge part by part
+                errs[k] = e if k not in errs else (
+                    tuple(map(max, errs[k], e)) if isinstance(e, tuple) else max(errs[k], e))
+            del want
+        del got, w, r_p, args
         if dev == "cuda":
             torch.cuda.empty_cache()
         log(f"{path} hot-step {label}: kernel vs plain max abs err {errs}")
@@ -1401,6 +1544,7 @@ def power_iter_calls(opt, shapes) -> int:
     online_pca takes one product G (G^T P) at k' = rank, on every unit.
     ``shapes``: the params' shapes in flat order (read on per-leaf state
     only)."""
+    from repro_torch.core import projectors as proj_lib
     from repro_torch.core import svd as svd_lib
 
     cfg = opt.config
@@ -1415,7 +1559,15 @@ def power_iter_calls(opt, shapes) -> int:
     else:
         return 0
     if opt.state_layout is not None:
-        return sum(per_unit(bk.d, bk.n, bk.rank) for bk in opt.bucket_plan.buckets)
+        # a stack too large for one refresh chain runs in chunks, each
+        # with its own power iterations (projectors.refresh_chunk)
+        def chunks(bk):
+            if cfg.method not in ("dominant", "sara") or cfg.svd_backend != "randomized":
+                return 1
+            k = bk.rank if cfg.method == "dominant" else min(bk.d, cfg.sara_pool_factor * bk.rank)
+            _, kp, _ = svd_lib.clamp_sketch(bk.d, bk.n, k, cfg.svd_oversample, 0)
+            return -(-bk.batch // proj_lib.refresh_chunk(bk.batch, bk.d, bk.n, kp))
+        return sum(per_unit(bk.d, bk.n, bk.rank) * chunks(bk) for bk in opt.bucket_plan.buckets)
     return sum(per_unit(min(shape[-2:]), max(shape[-2:]), spec.rank)
                for spec, shape in zip(opt.specs, shapes) if spec.lowrank)
 
@@ -2177,6 +2329,260 @@ def resume(cfg, smi: str, dev: str = "cuda", seq: int = TRAIN_SEQ, batch: int = 
         shutil.rmtree(ckpt_dir, ignore_errors=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 6: the MoE, SSM and hybrid families at full width
+# ---------------------------------------------------------------------------
+
+
+def finite_grads(model, seed: int, batch) -> dict:
+    """Every gradient of the model's loss at its seed's params on ``batch``
+    must be finite (the SSD scan's, on the SSM families); returns the
+    count of elements checked."""
+    from repro_torch.core.lowrank import flatten_with_path, tree_unflatten
+
+    params = model.init(torch.Generator(device=model.device).manual_seed(seed))
+    flat = flatten_with_path(params)
+    leaves = [p.requires_grad_(True) for _, p in flat]
+    loss, _ = model.loss(tree_unflatten(params, leaves), batch)
+    grads = torch.autograd.grad(loss, leaves)
+    bad = {path: int((~torch.isfinite(g)).sum()) for (path, _), g in zip(flat, grads)}
+    bad = {k: v for k, v in bad.items() if v}
+    n = sum(g.numel() for g in grads)
+    del params, leaves, grads, loss
+    log(f"step-0 gradients of {model.cfg.arch_id}: {n} elements, non-finite {bad or 0}")
+    if bad:
+        raise AssertionError(f"non-finite step-0 gradients: {bad}")
+    return {"elements": n, "non_finite": 0}
+
+
+def serve_slots(cfg, prompt_lens, dev: str = "cuda", new_tokens: int = NEW_TOKENS):
+    """``serve_ssm`` / ``serve_hybrid``: the slot-cache continuous engine
+    on the serving trace (``prompt_lens``, ``ARRIVALS``, ``MAX_SLOTS``
+    slots), bf16 weights made leaf by leaf; exact launch counts; then each
+    request's tokens against the static engine's, one request at a time,
+    where a parting token must be a near-tie (``TIE_BAR_SIGMAS``)."""
+    from repro_torch.core.lowrank import tree_leaves
+    from repro_torch.kernels import counters
+    from repro_torch.models import build_model
+    from repro_torch.serve.engine import ContinuousEngine, ServeEngine
+
+    def sync():
+        if dev == "cuda":
+            torch.cuda.synchronize()
+
+    model = build_model(cfg, device=dev)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=dev).manual_seed(SEED), serving=True)
+    sync()
+    n_params = sum(p.numel() for p in tree_leaves(params))
+    log(f"{cfg.arch_id}: {cfg.n_layers} layers, d_model {cfg.d_model}, {n_params / 1e9:.3f} B "
+        f"params made in bf16 in {time.perf_counter() - t0:.1f} s")
+    rng = np.random.default_rng(SEED)
+    prompts = [rng.integers(0, cfg.vocab_size, (n,)) for n in prompt_lens]
+    eng = ContinuousEngine(model, params, max_slots=MAX_SLOTS,
+                           max_seq_len=max(prompt_lens) + new_tokens)
+    if eng.paged:
+        raise AssertionError(f"{cfg.family} took the paged engine")
+    for p, a in zip(prompts, ARRIVALS):
+        eng.submit(p, new_tokens, arrival=a)
+    sync()
+    if dev == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    counters.reset()
+    t0 = time.perf_counter()
+    results = eng.run()
+    sync()
+    wall = time.perf_counter() - t0
+    launches = counters.snapshot()
+    peak = torch.cuda.max_memory_allocated() if dev == "cuda" else 0
+    n_req, ticks, nl = len(prompt_lens), eng.decode_steps, cfg.n_layers
+    emitted = sum(len(r.tokens) for r in results.values())
+    log(f"{cfg.arch_id} slot engine: {len(results)} requests, {emitted} tokens, "
+        f"{eng.total_ticks} ticks ({ticks} decode steps) in {wall:.3f} s: "
+        f"{emitted / wall:.1f} tokens/s; max_memory_allocated {peak / 2**30:.2f} GiB")
+    log(f"launches {launches}")
+    if sorted(results) != list(range(n_req)):
+        raise AssertionError(f"finished requests {sorted(results)}")
+    for rid, r in results.items():
+        if len(r.tokens) != new_tokens or r.finish_reason != "length":
+            raise AssertionError(f"request {rid}: {len(r.tokens)} tokens, {r.finish_reason}")
+    norms, attns = LAYER_LAUNCHES[cfg.family]
+    expect = {"rmsnorm": (norms * nl + 1) * (ticks + n_req),
+              "flash_attention_fwd": attns * nl * n_req}  # prefill only
+    expect = {k: v for k, v in expect.items() if v}
+    if launches != expect:
+        raise AssertionError(f"launch counts {launches} != expected {expect}")
+    del eng
+
+    static = ServeEngine(model, params)
+    parted, f32 = [], None
+    t0 = time.perf_counter()
+    for rid, p in enumerate(prompts):
+        tok = torch.as_tensor(p, device=dev)[None]
+        want = static.generate({"tokens": tok}, new_tokens).tokens[0].cpu().numpy()
+        got = results[rid].tokens
+        if (want == got).all():
+            continue
+        j = int(np.argmax(want != got))
+        if j == 0:
+            logits = model.prefill(static.params, {"tokens": tok})[0][0]
+        else:
+            logits = static.generate({"tokens": tok}, j).logits_last[0]
+        gap = float(logits[int(want[j])] - logits[int(got[j])])
+        if f32 is None:  # the same model in f32, from the same seed
+            m32 = build_model(cfg.with_(dtype=torch.float32), device=dev)
+            f32 = (m32, m32.init(torch.Generator(device=dev).manual_seed(SEED)))
+        seq = torch.cat([tok, torch.as_tensor(want[:j], device=dev)[None].to(tok.dtype)], 1)
+        l16 = model.prefill(static.params, {"tokens": seq})[0][0]
+        l32 = f32[0].prefill(f32[1], {"tokens": seq})[0][0]
+        sigma = float(torch.sqrt(torch.mean((l16 - l32) ** 2)))
+        bar = TIE_BAR_SIGMAS * sigma
+        parted.append({"request": rid, "step": j, "gap": gap, "bf16_sigma": sigma, "bar": bar})
+        log(f"request {rid} parts from the static engine at token {j}: top-two gap "
+            f"{gap:.4g}, bar {bar:.4g} ({TIE_BAR_SIGMAS} x bf16's per-logit RMS error "
+            f"{sigma:.4g})")
+        if gap > bar:
+            raise AssertionError(f"request {rid} parts at token {j} with a gap {gap} > {bar}")
+    del f32
+    log(f"{n_req - len(parted)} of {n_req} requests equal the static engine's tokens; "
+        f"static engine {time.perf_counter() - t0:.1f} s")
+    return {
+        "arch": cfg.arch_id, "params": n_params, "requests": n_req,
+        "prompt_lens": list(prompt_lens), "tokens": emitted, "ticks": ticks,
+        "wall_s": wall, "tokens_per_s": emitted / wall, "max_memory_allocated": peak,
+        "launches": launches, "expected": expect, "parted": parted,
+    }
+
+
+def family_kernel_cases(results):
+    """Kernels 1-5 and 9 at the shapes the new paths give them, each
+    against its plain version, timed beside its bound and library call:
+    flash at hymba's D 64, GQA 25/5, window 1024, S 2048 (training, B 2)
+    and deepseek's MHA 16/16 at D 128 (serving prefill); paged decode at
+    MHA 16/16; RMSNorm at widths 1600, 2048 and 3200; kernels 4, 5 and 9
+    on deepseek's 768-slice expert bucket (d 1408, n 2048) at rank 256
+    (k' 1032)."""
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_fwd
+    from repro_torch.kernels.flash_attention.kernel import last_design as flash_design
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    from repro_torch.kernels.flash_attention_decode.kernel import (
+        paged_decode_attention_kernel,
+    )
+    from repro_torch.kernels.flash_attention_decode.ref import paged_decode_attention_ref
+    from repro_torch.kernels.rmsnorm.kernel import rmsnorm
+    from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
+
+    F = torch.nn.functional
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 6)
+    cases = []
+    bf16 = torch.bfloat16
+
+    def randn(*shape, dtype=torch.float32, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=dev) * scale).to(dtype)
+
+    def record(name, label, dtype, err, timing):
+        record_case(cases, results, name, label, dtype, err, False, timing, relative=False)
+
+    for rows, width in ((4, 1600), (4096, 1600), (4, 2048), (4, 3200), (4096, 3200)):
+        x = randn(rows, width, dtype=bf16)
+        scale = 1.0 + randn(width, scale=0.1)
+        err = check_close(f"rmsnorm ({rows},{width})", rmsnorm(x, scale, 1e-5),
+                          rmsnorm_ref(x, scale, 1e-5), *TOL["rmsnorm"]["bfloat16"])
+        b_ms, b_by = bound(2 * rows * width * 2 + width * 4, 4 * rows * width, "bfloat16")
+        scale_lib = scale.to(bf16)
+        record("rmsnorm", f"({rows},{width})", bf16, err, {
+            "ms": device_ms(lambda: rmsnorm(x, scale, 1e-5)),
+            "call_ms": call_ms(lambda: rmsnorm(x, scale, 1e-5)),
+            "plain_ms": device_ms(lambda: rmsnorm_ref(x, scale, 1e-5)),
+            "library_ms": device_ms(lambda: F.rms_norm(x, (width,), scale_lib, 1e-5)),
+            "bound_ms": b_ms, "bound_by": b_by})
+
+    # (label, B, S, H, KVH, D, window): SDPA with the window as a boolean
+    # mask is the library call that computes the same function
+    for label, nb, sq, h, kvh, d, window in (
+            ("hymba B=2 S=2048 GQA 25/5 D=64 window=1024", 2, 2048, 25, 5, 64, 1024),
+            ("deepseek B=1 S=1024 MHA 16/16 D=128", 1, 1024, 16, 16, 128, 0)):
+        q, k, v = (randn(nb, sq, n, d, dtype=bf16) for n in (h, kvh, kvh))
+        got = flash_attention_fwd(q, k, v, causal=True, window=window)
+        if flash_design() != "tensor_cores":
+            raise AssertionError(f"flash {label} ran on the {flash_design()}")
+        err = check_close(f"flash {label}", got, flash_attention_ref(
+            q, k, v, causal=True, window=window), *TOL["flash_attention_fwd"]["bfloat16"])
+        i = torch.arange(sq, device=dev)
+        allow = i[None, :] <= i[:, None]
+        if window:
+            allow &= i[None, :] > i[:, None] - window
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        live = int(allow.sum())
+        b_ms, b_by = bound((2 * q.numel() + k.numel() + v.numel()) * 2, 4 * d * h * nb * live,
+                           "bfloat16")
+        record("flash_attention_fwd", label, bf16, err, {
+            "design": "tensor_cores",
+            "ms": device_ms(lambda: flash_attention_fwd(q, k, v, causal=True, window=window)),
+            "call_ms": call_ms(lambda: flash_attention_fwd(q, k, v, causal=True,
+                                                           window=window)),
+            "plain_ms": device_ms(lambda: flash_attention_ref(q, k, v, causal=True,
+                                                              window=window)),
+            "library_ms": device_ms(lambda: sdpa_masked(qt, kt, vt, allow)),
+            "bound_ms": b_ms, "bound_by": b_by})
+        del q, k, v, got, qt, kt, vt
+
+    q, pk, pv, table, lens = paged_inputs(randn, PAGED_FILLS, bf16, False, gen,
+                                          heads=(16, 16))
+    got = paged_decode_attention_kernel(q, pk, pv, table, lens)
+    err = check_close("paged MHA 16/16", got, paged_decode_attention_ref(q, pk, pv, table, lens),
+                      *TOL["paged_decode_attention"]["bfloat16"])
+    b_ms, b_by = paged_bound(q, table, PAGED_FILLS, 0, kvh=16)
+    timing = {**paged_plan(q, pk, table),
+              "ms": device_ms(lambda: paged_decode_attention_kernel(q, pk, pv, table, lens)),
+              "call_ms": call_ms(lambda: paged_decode_attention_kernel(q, pk, pv, table, lens)),
+              "plain_ms": device_ms(lambda: paged_decode_attention_ref(q, pk, pv, table, lens)),
+              "library_ms": None, "bound_ms": b_ms, "bound_by": b_by}
+    if timing.get("design", "tensor_cores") != "tensor_cores":
+        raise AssertionError(f"paged MHA 16/16 ran on the {timing['design']}")
+    record("paged_decode_attention", f"MHA 16/16 {paged_label(PAGED_FILLS, 0, False)}", bf16,
+           err, timing)
+    del q, pk, pv, table, lens, got
+    torch.cuda.empty_cache()
+    # kernels 4, 5 and 9 on the 768-slice expert bucket (8.9 GB per f32 stack)
+    return cases + rank_kernel_cases(results, ranks=(256,),
+                                     shape=FAMILY_TRAIN_RUNS["train_moe"][5][0])
+
+
+def sdpa_masked(qt, kt, vt, allow):
+    """``scaled_dot_product_attention`` over (B, H, S, D) with a boolean
+    allow-mask and GQA (K/V heads repeated where this torch has no
+    ``enable_gqa``)."""
+    F = torch.nn.functional
+    try:
+        return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=allow, enable_gqa=True)
+    except TypeError:
+        g = qt.shape[1] // kt.shape[1]
+        return F.scaled_dot_product_attention(
+            qt, kt.repeat_interleave(g, 1), vt.repeat_interleave(g, 1), attn_mask=allow)
+
+
+def family_train(path: str, smi: str, dev: str = "cuda"):
+    """One of ``FAMILY_TRAIN_RUNS`` through ``train`` (galore-sara-adam,
+    bucketed, randomized SVD, 3 steps), with the step-0 gradients checked
+    finite."""
+    from repro_torch.configs.registry import get_config
+
+    arch, layers, seq, batch, rank, plan = FAMILY_TRAIN_RUNS[path]
+    cfg = get_config(arch)
+    if layers:
+        cfg = cfg.with_(n_layers=layers)
+    # the SSM's hot step runs ~1e5 small kernels (the chunk loop), whose
+    # profile alone took minutes to sum up: profiled on the MoE path only
+    out = train(cfg, "galore-sara-adam", plan, dev=dev, seq=seq, batch=batch,
+                opt_kw=dict(rank=rank), check_grads=True, profile=path == "train_moe")
+    log(f"{path} ({smi}): {arch} {cfg.n_layers} layers, seq {seq}, batch {batch}, rank "
+        f"{rank}: refresh {out['refresh_step_ms']:.1f} ms, hot {out['hot_step_ms']} ms, "
+        f"peak {out['max_memory_allocated'] / 2**30:.2f} GiB")
+    return out
+
+
 def _unflatten_like(like, flat_by_path, dev):
     """A params dict shaped like ``like`` from {keystr path: host tensor},
     on ``dev``."""
@@ -2188,7 +2594,22 @@ def _unflatten_like(like, flat_by_path, dev):
 # ---------------------------------------------------------------------------
 
 
-def main() -> int:
+# every phase in order; ``--only a,b`` runs a subset (a quick check of a
+# few paths on the card), no argument runs them all
+PHASES = ("kernels", "serve", "train", "train_recovery", "train_rank_schedule", "resume",
+          "family_kernels", "serve_moe", "train_moe", "serve_ssm", "train_ssm",
+          "serve_hybrid", "train_hybrid")
+
+
+def main(argv=None) -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description="on-card smoke test of the port")
+    ap.add_argument("--only", default="", help=f"comma-separated subset of {PHASES}")
+    args = ap.parse_args(argv)
+    only = [p for p in args.only.split(",") if p] or list(PHASES)
+    if set(only) - set(PHASES):
+        ap.error(f"unknown phases {sorted(set(only) - set(PHASES))}")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
               file=sys.stderr)
@@ -2201,6 +2622,7 @@ def main() -> int:
     log(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
         f"cuda {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
 
+    t_start = time.perf_counter()
     t0 = time.perf_counter()
     logs = build.build_all()
     log(f"built {list(logs)} in {time.perf_counter() - t0:.1f} s")
@@ -2212,62 +2634,80 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
-
-    results = {name: dict(name=name, **meta) for name, meta in KERNELS.items()}
-    t0 = time.perf_counter()
-    cases = (kernel_cases(results) + optimizer_kernel_cases(results)
-             + update_kernel_cases(results) + rank_kernel_cases(results))
-    log(f"kernels vs plain versions: {len(cases)} cases passed in "
-        f"{time.perf_counter() - t0:.1f} s")
+    log(f"card: {smi}")
 
     from repro_torch.configs.registry import get_config
 
-    t0 = time.perf_counter()
-    served = serve(get_config("llama3-8b"))  # full width and depth, bf16
-    log(f"serve phase: {time.perf_counter() - t0:.1f} s")
-    torch.cuda.empty_cache()
-    runs = {"serve": served}
-    cfg_train = get_config("llama3-8b").with_(n_layers=TRAIN_LAYERS)
-    for path, (optimizer, plan, _, opt_kw) in TRAIN_RUNS.items():
+    results = {name: dict(name=name, **meta) for name, meta in KERNELS.items()}
+    cases, runs, phase_s = [], {}, {}
+
+    def phase(name, fn):
         torch.cuda.empty_cache()
-        t0 = time.perf_counter()
-        runs[path] = train(cfg_train, optimizer, plan, opt_kw=opt_kw)
-        log(f"{path} phase ({optimizer}): {time.perf_counter() - t0:.1f} s")
-    torch.cuda.empty_cache()
-    t0 = time.perf_counter()
-    runs["train_recovery"] = train_recovery(cfg_train, smi, runs["train"]["hot_step_ms"])
-    log(f"train_recovery phase: {time.perf_counter() - t0:.1f} s")
-    torch.cuda.empty_cache()
-    t0 = time.perf_counter()
-    runs["train_rank_schedule"] = train_rank_schedule(cfg_train, smi)
-    log(f"train_rank_schedule phase: {time.perf_counter() - t0:.1f} s")
-    torch.cuda.empty_cache()
-    t0 = time.perf_counter()
-    runs["resume"], runs["serve_ckpt"] = resume(cfg_train, smi)
-    log(f"resume and serve_ckpt phase: {time.perf_counter() - t0:.1f} s")
+        t = time.perf_counter()
+        out = fn()
+        phase_s[name] = time.perf_counter() - t
+        log(f"{name} phase: {phase_s[name]:.1f} s")
+        return out
+
+    if "kernels" in only:
+        cases += phase("kernels", lambda: kernel_cases(results) + optimizer_kernel_cases(results)
+                       + update_kernel_cases(results) + rank_kernel_cases(results))
+    if "serve" in only:  # full width and depth, bf16
+        runs["serve"] = phase("serve", lambda: serve(get_config("llama3-8b")))
+    cfg_train = get_config("llama3-8b").with_(n_layers=TRAIN_LAYERS)
+    if "train" in only:
+        for path, (optimizer, plan, _, opt_kw) in TRAIN_RUNS.items():
+            runs[path] = phase(path, lambda: train(cfg_train, optimizer, plan, opt_kw=opt_kw))
+    if "train_recovery" in only:
+        hot = runs["train"]["hot_step_ms"] if "train" in runs else None
+        runs["train_recovery"] = phase("train_recovery",
+                                       lambda: train_recovery(cfg_train, smi, hot))
+    if "train_rank_schedule" in only:
+        runs["train_rank_schedule"] = phase("train_rank_schedule",
+                                            lambda: train_rank_schedule(cfg_train, smi))
+    if "resume" in only:
+        runs["resume"], runs["serve_ckpt"] = phase("resume", lambda: resume(cfg_train, smi))
+    if "family_kernels" in only:
+        cases += phase("family_kernels", lambda: family_kernel_cases(results))
+    if "serve_moe" in only:  # deepseek-moe-16b at full width and depth
+        runs["serve_moe"] = phase("serve_moe", lambda: serve(get_config(MOE_ARCH),
+                                                             profile_ticks=9))
+    for path in ("train_moe", "train_ssm", "train_hybrid"):
+        if path in only:
+            runs[path] = phase(path, lambda: family_train(path, smi))
+        serve_path = path.replace("train", "serve")
+        if path == "train_moe" or serve_path not in only:
+            continue
+        arch, lens = (SSM_ARCH, PROMPT_LENS) if path == "train_ssm" else \
+            (HYBRID_ARCH, HYBRID_PROMPT_LENS)
+        runs[serve_path] = phase(serve_path, lambda: serve_slots(get_config(arch), lens))
+    log(f"phase seconds {phase_s}; all {time.perf_counter() - t_start:.1f} s ({smi})")
+
     for name, r in results.items():
         r["library_call"] = LIBRARY_CALL[name]
         by_path = {path: run["launches"].get(name, 0) for path, run in runs.items()}
         r["launches_by_path"] = by_path
         r["launches"] = sum(by_path.values())
-        for path, want in PATH_KERNELS.items():
-            if name in want and by_path[path] <= 0:
+        for path in runs:
+            if name in PATH_KERNELS[path] and by_path[path] <= 0:
                 raise AssertionError(f"{name} never launched on the {path} path")
-        if r["launches"] <= 0 and name not in NO_PATH:
+            if name in PATH_NEVER.get(path, ()) and by_path[path] != 0:
+                raise AssertionError(f"{name} launched {by_path[path]} times on {path}")
+        if only == list(PHASES) and r["launches"] <= 0 and name not in NO_PATH:
             raise AssertionError(f"{name} launched on no path")
 
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(
-        {"card": smi, "kernels": list(results.values()), "cases": cases, **runs},
-        indent=1))
+        {"card": smi, "phase_seconds": phase_s, "kernels": list(results.values()),
+         "cases": cases, **runs}, indent=1, default=str))
     ratios = [{"kernel": c["kernel"], "case": c["case"], "dtype": c["dtype"],
                "ms": c["ms"], "library_ms": c["library_ms"],
                "ratio": c["ms"] / c["library_ms"]} for c in cases if c.get("library_ms")]
     print(json.dumps({"kernel_over_library": ratios}))
     keys = ("name", "route", "source", "replaces", "launches", "launches_by_path",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in results.values()]}))
+    print(json.dumps({"kernels": [{k: r.get(k) for k in keys} for r in results.values()]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

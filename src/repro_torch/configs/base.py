@@ -1,11 +1,11 @@
 """Model and training configuration, from ``src/repro/configs/base.py``.
 
-``ModelConfig`` has the fields the dense families use, with the JAX
-config's names and defaults, so a config compares field by field with its
-reference; only the dtypes are torch's.  ``RankSchedule`` is the
+``ModelConfig`` has the fields of the dense, MoE, SSM and hybrid
+families, with the JAX config's names and defaults, so a config compares
+field by field with its reference; only the dtypes are torch's.  ``RankSchedule`` is the
 reference's rank schedule, field for field (its evaluation lives in
-``core/rank_schedule.py``).  The other families' fields come with their
-slices; shape and mesh configs with theirs.
+``core/rank_schedule.py``).  The enc-dec and VLM fields come with their
+families (ROADMAP queue 1 item 8); shape and mesh configs with theirs.
 """
 from __future__ import annotations
 
@@ -26,11 +26,26 @@ class ModelConfig:
     d_ff: int
     vocab_size: int
     head_dim: int = 128
-    mlp_kind: str = "swiglu"  # swiglu | squared_relu
+    mlp_kind: str = "swiglu"  # swiglu | squared_relu | none
     qkv_bias: bool = False
     rope_theta: float = 10000.0
     rms_eps: float = 1e-5
     tie_embeddings: bool = False
+
+    # --- MoE ---
+    n_experts: int = 0
+    n_shared_experts: int = 0
+    moe_top_k: int = 0
+    router_aux_weight: float = 0.01
+    moe_capacity_factor: float = 1.25  # EP dispatch capacity (local path is dropless)
+
+    # --- SSM (mamba2 / hymba) ---
+    ssm_state: int = 0
+    ssm_expand: int = 2
+    ssm_head_dim: int = 64
+    ssm_chunk: int = 64
+
+    # --- hybrid (hymba) ---
     attn_window: int = 0  # 0 = global attention; >0 = sliding window
 
     # --- numerics / impl ---

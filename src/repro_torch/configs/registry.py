@@ -1,7 +1,8 @@
 """Architecture registry, from ``src/repro/configs/registry.py``.
 
-Only the dense architectures are ported so far; the others raise a clear
-error until their family's slice lands.
+The dense, MoE, SSM and hybrid architectures are ported; the enc-dec and
+VLM ones raise a clear error until their families land (ROADMAP queue 1
+item 8).
 """
 from __future__ import annotations
 
@@ -11,21 +12,21 @@ from typing import List
 from repro_torch.configs.base import ModelConfig
 
 _MODULES = {
+    "deepseek-moe-16b": "deepseek_moe_16b",
+    "olmoe-1b-7b": "olmoe_1b_7b",
     "qwen2-1.5b": "qwen2_1_5b",
     "nemotron-4-15b": "nemotron_4_15b",
     "granite-8b": "granite_8b",
     "llama3-8b": "llama3_8b",
+    "hymba-1.5b": "hymba_1_5b",
+    "mamba2-370m": "mamba2_370m",
 }
 
-# In the JAX registry, not yet ported: their families (moe, vlm, audio,
-# hybrid, ssm) have no model code in this package yet.
+# In the JAX registry, not yet ported: their families (vlm, audio) have no
+# model code in this package yet.
 NOT_YET_PORTED = (
-    "deepseek-moe-16b",
-    "olmoe-1b-7b",
     "llava-next-34b",
     "whisper-medium",
-    "hymba-1.5b",
-    "mamba2-370m",
 )
 
 
@@ -36,8 +37,8 @@ def list_archs() -> List[str]:
 def get_config(arch_id: str, smoke: bool = False) -> ModelConfig:
     if arch_id in NOT_YET_PORTED:
         raise NotImplementedError(
-            f"arch {arch_id!r} is not yet ported to repro_torch; "
-            f"ported: {list(_MODULES)}"
+            f"arch {arch_id!r} is not yet ported to repro_torch (its family "
+            f"comes with ROADMAP queue 1 item 8); ported: {list(_MODULES)}"
         )
     if arch_id not in _MODULES:
         raise ValueError(f"unknown arch {arch_id!r}; have {list(_MODULES)}")

@@ -422,7 +422,11 @@ def bucketed_update(
             )
             new_bst = BucketState(projector=p, m=m_new, v=v_new)
         del r_g
-        norm_sq.append(torch.sum(torch.square(w_new.float() - w.float())))
+        # |W' - W|^2 over slices of 64: a stack-wide difference would be one
+        # more full-size f32 transient (8.9 GB for deepseek's expert bucket)
+        norm_sq.append(torch.stack([
+            torch.sum((a.float() - b.float()).square_())
+            for a, b in zip(w_new.split(64), w.split(64))]).sum())
         out = w_new if apply else w_new - w
         del w, w_new
         out_leaves.update(_scatter(bucket, out, flat_params))

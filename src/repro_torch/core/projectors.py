@@ -183,7 +183,41 @@ def refresh_projector_stacked(
         raise ValueError(
             f"stacked {cfg.method!r} refresh requires svd_backend='randomized'"
         )
-    return _refresh_stack(g, draws, prev_p, cfg, rank)
+    bsz, d, n = g.shape
+    step = bsz
+    if cfg.method in ("dominant", "sara"):
+        _, kp, _ = svd_lib.clamp_sketch(d, n, _pool_size(d, cfg, min(rank, d)),
+                                        cfg.svd_oversample, cfg.svd_power_iters)
+        step = refresh_chunk(bsz, d, n, kp)
+    if step >= bsz:
+        return _refresh_stack(g, draws, prev_p, cfg, rank)
+    return torch.cat([
+        _refresh_stack(g[i:i + step], LeafDraws(*(None if x is None else x[i:i + step]
+                                                  for x in draws)),
+                       None if prev_p is None else prev_p[i:i + step], cfg, rank)
+        for i in range(0, bsz, step)
+    ])
+
+
+# A stacked randomized-SVD refresh holds a few (B, max(d, n), k') f32
+# products at once (the sketch product and its QR, the power iteration's
+# G^T Q, the small SVD's input and factors).  A stack whose such product
+# would pass this many bytes refreshes in equal chunks of slices: each
+# slice's chain is its own, so chunking changes no slice's math, only the
+# launches (kernel 9 runs once per chunk and power iteration).  It keeps
+# the refresh of deepseek-moe-16b's 768-slice expert bucket (6.5 GB per
+# such product) beside a full-width training state on one card; the JAX
+# package runs the whole stack as one chain and leaves memory to XLA.
+STACK_REFRESH_BYTES = 2**31
+
+
+def refresh_chunk(bsz: int, d: int, n: int, kp: int) -> int:
+    """Slices per chunk of a stacked randomized-SVD refresh (see
+    ``STACK_REFRESH_BYTES``): the whole stack when it fits, else equal
+    chunks."""
+    fit = max(1, STACK_REFRESH_BYTES // (4 * max(d, n) * kp))
+    chunks = -(-bsz // fit)
+    return -(-bsz // chunks)
 
 
 def _qr_q(y: torch.Tensor) -> torch.Tensor:

@@ -5,6 +5,8 @@ is given.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-8b --continuous
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-8b --smoke --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-370m --smoke --device cpu \
+        --continuous     # moe: the paged engine; ssm and hybrid: the slot-cache engine
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-8b --smoke --device cpu \
         --continuous --ckpt /path/to/checkpoint_dir     # newest verified step
 
@@ -48,7 +50,9 @@ def main(argv=None) -> None:
         cfg = cfg.with_(dtype=torch.float32)
     model = build_model(cfg, device=args.device)
     gen = torch.Generator(device=model.device).manual_seed(args.seed)
-    params = model.init(gen)
+    # each leaf in its serving dtype as it is drawn: deepseek-moe-16b's f32
+    # tree and its bf16 copy would not fit one card together
+    params = model.init(gen, serving=True)
     if args.ckpt:
         from repro_torch.train.checkpoint import load_params_latest
 

@@ -7,6 +7,10 @@ Runs on the card unless ``--device cpu`` is given.
     PYTHONPATH=src python -m repro_torch.launch.train --arch llama3-8b --smoke \\
         --device cpu --steps 4 --tau 2
 
+``--arch`` takes every ported config: the dense ones, deepseek-moe-16b and
+olmoe-1b-7b (MoE: the loss carries the router's aux loss), mamba2-370m and
+hymba-1.5b.
+
 ``--optimizer`` takes every composed name of ``core/api.py``, as the
 reference's launcher does: the paper's ``galore-sara-adam``, the other
 inners (``galore-sara-msgd``, ``-adam-mini``, ``-adam8bit``, ``-adafactor``)

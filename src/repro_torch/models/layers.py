@@ -84,11 +84,12 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
 
 def init_mlp(
     gen: torch.Generator, cfg: ModelConfig, lead: Sequence[int] = (),
-    device=None,
+    device=None, d_ff: Optional[int] = None,
 ) -> Params:
     """MLP params with leading dims ``lead`` ((n_layers,) for the stacked
-    block leaves)."""
-    d, ff = cfg.d_model, cfg.d_ff
+    block leaves), ``d_ff`` wide (default ``cfg.d_ff``; MoE's fused shared
+    experts are ``n_shared_experts * d_ff``)."""
+    d, ff = cfg.d_model, d_ff or cfg.d_ff
     dt = cfg.param_dtype
     lead = tuple(lead)
     out_scale = 1.0 / math.sqrt(ff * 2 * cfg.n_layers)

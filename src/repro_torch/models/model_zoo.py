@@ -5,8 +5,12 @@
     logits, cache = model.prefill(params, {"tokens": ...})
     logits, cache = model.decode(params, cache, {"token": ...})
     loss, metrics = model.loss(params, {"tokens": ..., "labels": ...})
+    cache = model.init_cache(batch, capacity)     # the family's decode cache
 
-Only ``family="dense"`` is ported.
+``model.init(gen, serving=True)`` makes each leaf in its serving dtype as
+it is drawn (``transformer.leaf_maker``), so a model whose f32 params do
+not fit the card can still be served.  The dense, moe, ssm and hybrid
+families are ported; audio and vlm raise (ROADMAP queue 1 item 8).
 """
 from __future__ import annotations
 
@@ -16,6 +20,9 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.models import hybrid as hybrid_lib
+from repro_torch.models import moe as moe_lib
+from repro_torch.models import ssm as ssm_lib
 from repro_torch.models import transformer as tfm
 
 FAMILIES = ("dense", "moe", "vlm", "audio", "hybrid", "ssm")
@@ -24,27 +31,60 @@ FAMILIES = ("dense", "moe", "vlm", "audio", "hybrid", "ssm")
 class Model(NamedTuple):
     cfg: ModelConfig
     device: torch.device
-    init: Callable[[torch.Generator], Any]
+    init: Callable[..., Any]  # (gen, serving=False)
     prefill: Callable[..., Any]  # (params, batch, capacity=None)
     decode: Callable[..., Any]  # (params, cache, batch)
     loss: Callable[..., Any]  # (params, batch) -> (loss, metrics)
+    init_cache: Callable[[int, int], Any]  # (batch, capacity)
 
 
 def build_model(cfg: ModelConfig, device: DeviceLike = "cuda") -> Model:
-    if cfg.family not in FAMILIES:
-        raise ValueError(f"unknown family {cfg.family!r}")
-    if cfg.family != "dense":
+    fam = cfg.family
+    if fam not in FAMILIES:
+        raise ValueError(f"unknown family {fam!r}")
+    if fam in ("audio", "vlm"):
         raise NotImplementedError(
-            f"family {cfg.family!r} is not yet ported to repro_torch (dense only)"
+            f"family {fam!r} is not yet ported to repro_torch (ROADMAP queue 1 "
+            f"item 8); ported: dense, moe, ssm, hybrid"
         )
     dev = resolve_device(device)
-    return Model(
-        cfg=cfg,
-        device=dev,
-        init=lambda gen: tfm.init_params(gen, cfg, dev),
-        prefill=lambda p, b, capacity=None: tfm.prefill(
-            p, cfg, b["tokens"], capacity=capacity or b["tokens"].shape[1]
-        ),
-        decode=lambda p, c, b: tfm.decode_step(p, cfg, c, b["token"]),
-        loss=lambda p, b: tfm.loss_fn(p, cfg, b),
+    kv_cache = lambda batch, cap: tfm.init_kv_cache(cfg, batch, cap, device=dev)  # noqa: E731
+    if fam == "dense":
+        return Model(
+            cfg=cfg, device=dev,
+            init=lambda gen, serving=False: tfm.init_params(gen, cfg, dev, serving=serving),
+            prefill=lambda p, b, capacity=None: tfm.prefill(
+                p, cfg, b["tokens"], capacity=capacity or b["tokens"].shape[1]),
+            decode=lambda p, c, b: tfm.decode_step(p, cfg, c, b["token"]),
+            loss=lambda p, b: tfm.loss_fn(p, cfg, b),
+            init_cache=kv_cache,
+        )
+    if fam == "moe":
+        return Model(
+            cfg=cfg, device=dev,
+            init=lambda gen, serving=False: moe_lib.init_params(gen, cfg, dev, serving=serving),
+            prefill=lambda p, b, capacity=None: moe_lib.prefill(
+                p, cfg, b["tokens"], capacity=capacity or b["tokens"].shape[1]),
+            decode=lambda p, c, b: moe_lib.decode_step(p, cfg, c, b["token"]),
+            loss=lambda p, b: moe_lib.loss_fn(p, cfg, b),
+            init_cache=kv_cache,
+        )
+    if fam == "hybrid":
+        return Model(
+            cfg=cfg, device=dev,
+            init=lambda gen, serving=False: hybrid_lib.init_params(gen, cfg, dev,
+                                                                   serving=serving),
+            prefill=lambda p, b, capacity=None: hybrid_lib.prefill(
+                p, cfg, b["tokens"], capacity=capacity or b["tokens"].shape[1]),
+            decode=lambda p, c, b: hybrid_lib.decode_step(p, cfg, c, b["token"]),
+            loss=lambda p, b: hybrid_lib.loss_fn(p, cfg, b),
+            init_cache=lambda batch, cap: hybrid_lib.init_cache(cfg, batch, cap, device=dev),
+        )
+    return Model(  # ssm
+        cfg=cfg, device=dev,
+        init=lambda gen, serving=False: ssm_lib.init_params(gen, cfg, dev, serving=serving),
+        prefill=lambda p, b, capacity=None: ssm_lib.prefill(p, cfg, b["tokens"]),
+        decode=lambda p, c, b: ssm_lib.decode_step(p, cfg, c, b["token"]),
+        loss=lambda p, b: ssm_lib.loss_fn(p, cfg, b),
+        init_cache=lambda batch, cap: ssm_lib.init_cache(cfg, batch, cap, device=dev),
     )

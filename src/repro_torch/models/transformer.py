@@ -1,5 +1,8 @@
 """Decoder-only transformer LM for the dense families (llama3, qwen2,
-granite, nemotron), from ``src/repro/models/transformer.py``.
+granite, nemotron), from ``src/repro/models/transformer.py``, and the
+scaffolding the MoE and hybrid families reuse: the attention block's
+init, ``attn_sublayer`` (windowed for hymba), and the ``mlp_fn`` hook of
+the forward, loss, prefill and decode (MoE's routed experts).
 
 Parameters are plain dicts with the JAX tree's names and shapes; block
 leaves carry a leading (L,) axis, and the layers run as a Python loop over
@@ -56,36 +59,80 @@ def init_kv_cache(cfg: ModelConfig, batch: int, capacity: int, *, device) -> KVC
 # ---------------------------------------------------------------------------
 
 
-def init_params(
-    gen: torch.Generator, cfg: ModelConfig, device: DeviceLike = "cuda"
-) -> Params:
-    """Random params in ``cfg.param_dtype`` with the JAX tree's layout.
-    ``gen`` must live on ``device``."""
-    dev = resolve_device(device)
+_ATTN_BIASES = ("q_bias", "k_bias", "v_bias")
+
+
+def serving_leaf(name: str, leaf: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """The serving dtype of one leaf, by name: ``*_proj`` weights (expert
+    stacks included), the attention biases and ``embed`` in ``cfg.dtype``;
+    norm scales, the MoE router and the SSM's conv, decay, step
+    (``dt_bias``) and skip parameters stay as they are (JAX reads them in
+    f32 or casts them per use), and so does ``lm_head`` (or ``embed`` for
+    tied configs), which the logits product reads in f32."""
+    if name.endswith("_proj") or name in _ATTN_BIASES or (
+            name == "embed" and not cfg.tie_embeddings):
+        return leaf.to(cfg.dtype)
+    return leaf
+
+
+def leaf_maker(cfg: ModelConfig, serving: bool):
+    """``put(name, leaf)``: the leaf as made, or already in its serving
+    dtype (``serving_leaf``) when ``serving`` -- each leaf is cast as soon
+    as it is drawn, so the f32 model never lives whole on the card."""
+    if not serving:
+        return lambda name, leaf: leaf
+    return lambda name, leaf: serving_leaf(name, leaf, cfg)
+
+
+def init_attn_block(gen: torch.Generator, cfg: ModelConfig, dev: torch.device, put) -> Params:
+    """The stacked (L, ...) attention half of a block, as the JAX
+    ``init_block`` makes it: both norms and the q/k/v/o projections (and
+    biases)."""
     nl, d, qd, kvd = cfg.n_layers, cfg.d_model, cfg.q_dim, cfg.kv_dim
     dt = cfg.param_dtype
     o_scale = 1.0 / ((qd * 2 * nl) ** 0.5)
 
-    def ones(*shape):
-        return torch.ones(shape, dtype=dt, device=dev)
+    def proj(name, shape, scale=None):
+        return put(name, L.dense_init(gen, shape, scale=scale, dtype=dt, device=dev))
 
     blocks = {
-        "attn_norm": ones(nl, d),
-        "q_proj": L.dense_init(gen, (nl, d, qd), dtype=dt, device=dev),
-        "k_proj": L.dense_init(gen, (nl, d, kvd), dtype=dt, device=dev),
-        "v_proj": L.dense_init(gen, (nl, d, kvd), dtype=dt, device=dev),
-        "o_proj": L.dense_init(gen, (nl, qd, d), scale=o_scale, dtype=dt, device=dev),
-        "mlp_norm": ones(nl, d),
-        "mlp": L.init_mlp(gen, cfg, (nl,), device=dev),
+        "attn_norm": torch.ones((nl, d), dtype=dt, device=dev),
+        "q_proj": proj("q_proj", (nl, d, qd)),
+        "k_proj": proj("k_proj", (nl, d, kvd)),
+        "v_proj": proj("v_proj", (nl, d, kvd)),
+        "o_proj": proj("o_proj", (nl, qd, d), o_scale),
+        "mlp_norm": torch.ones((nl, d), dtype=dt, device=dev),
     }
     if cfg.qkv_bias:
-        blocks["q_bias"] = torch.zeros((nl, qd), dtype=dt, device=dev)
-        blocks["k_bias"] = torch.zeros((nl, kvd), dtype=dt, device=dev)
-        blocks["v_bias"] = torch.zeros((nl, kvd), dtype=dt, device=dev)
+        for name, width in (("q_bias", qd), ("k_bias", kvd), ("v_bias", kvd)):
+            blocks[name] = put(name, torch.zeros((nl, width), dtype=dt, device=dev))
+    return blocks
+
+
+def init_dense_blocks(gen: torch.Generator, cfg: ModelConfig, dev: torch.device, put) -> Params:
+    blocks = init_attn_block(gen, cfg, dev, put)
+    mlp = L.init_mlp(gen, cfg, (cfg.n_layers,), device=dev)
+    blocks["mlp"] = {k: put(k, v) for k, v in mlp.items()}
+    return blocks
+
+
+def init_params(
+    gen: torch.Generator, cfg: ModelConfig, device: DeviceLike = "cuda", *,
+    serving: bool = False, init_blocks=init_dense_blocks,
+) -> Params:
+    """Random params in ``cfg.param_dtype`` with the JAX tree's layout.
+    ``gen`` must live on ``device``.  ``serving`` casts each leaf to its
+    serving dtype as it is made (``leaf_maker``).  ``init_blocks(gen, cfg,
+    dev, put)`` makes the stacked block leaves (the family's: dense, MoE,
+    SSM or hybrid)."""
+    dev = resolve_device(device)
+    put = leaf_maker(cfg, serving)
+    blocks = init_blocks(gen, cfg, dev, put)
+    d, dt = cfg.d_model, cfg.param_dtype
     params = {
-        "embed": L.embed_init(gen, cfg.vocab_size, d, dt, device=dev),
+        "embed": put("embed", L.embed_init(gen, cfg.vocab_size, d, dt, device=dev)),
         "blocks": blocks,
-        "final_norm": ones(d),
+        "final_norm": torch.ones((d,), dtype=dt, device=dev),
     }
     if not cfg.tie_embeddings:
         params["lm_head"] = L.dense_init(
@@ -95,28 +142,19 @@ def init_params(
 
 
 def serving_params(params: Params, cfg: ModelConfig) -> Params:
-    """Cast the ``*_proj`` weights, the biases and ``embed`` to
-    ``cfg.dtype`` once, where the JAX code casts ``p.astype(dt)`` before
-    every product (transformer.py:135-144): the operands are the same,
-    without re-casting every weight on every tick.  Norm scales stay f32
-    (rmsnorm reads them as f32), and so does ``lm_head`` (or ``embed`` for
-    tied configs), which the logits product reads in f32."""
+    """Every leaf in its serving dtype (``serving_leaf``), cast once where
+    the JAX code casts ``p.astype(dt)`` before every product
+    (transformer.py:135-144): the operands are the same, without re-casting
+    every weight on every tick.  Params made with ``serving=True`` pass
+    through."""
 
     def cast(tree):
-        out = {}
-        for name, leaf in tree.items():
-            if isinstance(leaf, dict):
-                out[name] = cast(leaf)
-            elif name.endswith(("_proj", "_bias")):
-                out[name] = leaf.to(cfg.dtype)
-            else:
-                out[name] = leaf
-        return out
+        return {
+            name: cast(leaf) if isinstance(leaf, dict) else serving_leaf(name, leaf, cfg)
+            for name, leaf in tree.items()
+        }
 
-    out = cast(params)
-    if not cfg.tie_embeddings:
-        out["embed"] = params["embed"].to(cfg.dtype)
-    return out
+    return cast(params)
 
 
 def lm_head_matrix(params: Params, cfg: ModelConfig) -> torch.Tensor:
@@ -193,21 +231,30 @@ def attn_sublayer(
     return out, (k, v)
 
 
+def default_mlp_fn(p: Params, h: torch.Tensor, cfg: ModelConfig):
+    """(block params, normed hidden) -> (mlp_out, aux).  A dense block has
+    no auxiliary loss: its aux is the Python float 0.0, which adds nothing
+    and launches nothing (JAX's is an f32 zero)."""
+    return L.apply_mlp(p["mlp"], h, cfg), 0.0
+
+
 def dense_block(
     p: Params,
     x: torch.Tensor,
     cfg: ModelConfig,
     positions: torch.Tensor,
     kv_positions: torch.Tensor,
+    mlp_fn=default_mlp_fn,
 ):
-    """Pre-norm attention + MLP; returns (x, (k, v))."""
+    """Pre-norm attention + MLP; returns (x, (k, v), aux)."""
     h = L.rmsnorm(x, p["attn_norm"], cfg.rms_eps)
     attn_out, kv = attn_sublayer(
         p, h, cfg, positions, kv_positions, window=cfg.attn_window
     )
     x = x + attn_out
     h = L.rmsnorm(x, p["mlp_norm"], cfg.rms_eps)
-    return x + L.apply_mlp(p["mlp"], h, cfg), kv
+    mlp_out, aux = mlp_fn(p, h, cfg)
+    return x + mlp_out, kv, aux
 
 
 # ---------------------------------------------------------------------------
@@ -226,42 +273,48 @@ def forward_hidden(
     tokens: torch.Tensor,  # (B, S)
     *,
     collect_kv: bool = False,
+    mlp_fn=default_mlp_fn,
 ):
-    """Embedding -> blocks -> final norm.  Returns (h, kvs) with kvs the
-    stacked (L, B, S, KVH, D) K and V when ``collect_kv``."""
+    """Embedding -> blocks -> final norm.  Returns (h, kvs, aux) with kvs
+    the stacked (L, B, S, KVH, D) K and V when ``collect_kv`` and aux the
+    blocks' summed auxiliary loss (``mlp_fn``'s second output)."""
     h = embed_tokens(params, tokens, cfg)
     b, s, _ = h.shape
     positions = torch.arange(s, dtype=torch.int32, device=h.device).expand(b, s)
     ks: List[torch.Tensor] = []
     vs: List[torch.Tensor] = []
+    aux_sum = 0.0
     remat = cfg.remat == "block" and torch.is_grad_enabled()
     for p in unbind_layers(params["blocks"], cfg.n_layers):
         if remat:
-            h, (k, v) = checkpoint(
-                dense_block, p, h, cfg, positions, positions, use_reentrant=False
+            h, (k, v), aux = checkpoint(
+                dense_block, p, h, cfg, positions, positions, mlp_fn, use_reentrant=False
             )
         else:
-            h, (k, v) = dense_block(p, h, cfg, positions, positions)
+            h, (k, v), aux = dense_block(p, h, cfg, positions, positions, mlp_fn)
+        aux_sum = aux_sum + aux
         if collect_kv:
             ks.append(k)
             vs.append(v)
     h = L.rmsnorm(h, params["final_norm"], cfg.rms_eps)
     kvs = (torch.stack(ks), torch.stack(vs)) if collect_kv else None
-    return h, kvs
+    return h, kvs, aux_sum
 
 
 def loss_fn(
-    params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor]
+    params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
+    mlp_fn=default_mlp_fn, aux_weight: float = 0.0,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Next-token loss of a dense LM, from ``transformer.py:270-287``:
-    (loss, {"loss", "aux", "tokens"}); labels of -1 carry no loss.  Dense
-    models have no auxiliary loss, so ``aux`` is 0."""
-    h, _ = forward_hidden(params, cfg, batch["tokens"])
+    """Next-token loss, from ``transformer.py:270-290``: (loss + aux_weight
+    * aux / n_layers, {"loss", "aux", "tokens"}); labels of -1 carry no
+    loss.  A dense model's aux is 0 and its total is the loss itself."""
+    h, _, aux = forward_hidden(params, cfg, batch["tokens"], mlp_fn=mlp_fn)
     loss, n_tok = L.chunked_cross_entropy(
         h, lm_head_matrix(params, cfg), batch["labels"], cfg.loss_chunk
     )
-    aux = torch.zeros((), dtype=torch.float32, device=h.device)
-    return loss, {"loss": loss, "aux": aux, "tokens": n_tok}
+    aux = torch.as_tensor(aux, dtype=torch.float32, device=h.device)
+    total = loss + aux_weight * aux / max(cfg.n_layers, 1) if aux_weight else loss
+    return total, {"loss": loss, "aux": aux.detach(), "tokens": n_tok}
 
 
 # ---------------------------------------------------------------------------
@@ -293,9 +346,10 @@ def prefill(
     tokens: torch.Tensor,
     *,
     capacity: Optional[int] = None,
+    mlp_fn=default_mlp_fn,
 ) -> Tuple[torch.Tensor, KVCache]:
     """Run the full prompt; return (last-token logits (B, V) f32, cache)."""
-    h, kvs = forward_hidden(params, cfg, tokens, collect_kv=True)
+    h, kvs, _ = forward_hidden(params, cfg, tokens, collect_kv=True, mlp_fn=mlp_fn)
     b, s, _ = h.shape
     cap = capacity or (cfg.attn_window if cfg.attn_window else s)
     cache = init_kv_cache(cfg, b, cap, device=h.device)
@@ -310,6 +364,7 @@ def decode_step(
     cfg: ModelConfig,
     cache: KVCache,
     token: torch.Tensor,  # (B, 1)
+    mlp_fn=default_mlp_fn,
 ) -> Tuple[torch.Tensor, KVCache]:
     """One autoregressive step against the ring cache (B tokens at once).
     The given cache is left unchanged: the step writes into a copy."""
@@ -336,7 +391,7 @@ def decode_step(
         )
         h = h + out.reshape(b, 1, cfg.q_dim) @ p["o_proj"].to(h.dtype)
         hnorm = L.rmsnorm(h, p["mlp_norm"], cfg.rms_eps)
-        h = h + L.apply_mlp(p["mlp"], hnorm, cfg)
+        h = h + mlp_fn(p, hnorm, cfg)[0]
     h = L.rmsnorm(h, params["final_norm"], cfg.rms_eps)
     logits = h[:, 0].float() @ lm_head_matrix(params, cfg).float()
     return logits, KVCache(k=k_all, v=v_all, pos=new_pos, next_pos=cache.next_pos + 1)

@@ -6,21 +6,28 @@ decode everyone to ``max_new_tokens`` in lockstep against the ring cache.
 stops once every row has finished.
 
 ``ContinuousEngine`` -- continuous batching over a fixed set of decode
-slots, on the paged path (dense family): K/V in the shared page pool
-(serve/kv_cache.py), decode through the paged step (serve/paged_decode.py)
-whose attention reads through the page table.  New prompts prefill into
-free slots while in-flight sequences keep decoding; EOS or token-budget
-retirement frees the slot and its pages at once.  Admission reserves a
-request's whole page budget inside the scheduler's admission loop, so two
-queued requests that each fit but not together never both admit.
+slots.  New prompts prefill into free slots while in-flight sequences keep
+decoding; EOS or token-budget retirement frees the slot at once.  Per
+family:
+
+  * dense / moe -- K/V in the shared page pool (serve/kv_cache.py), decode
+    through the paged step (serve/paged_decode.py) whose attention reads
+    through the page table.  Admission reserves a request's whole page
+    budget inside the scheduler's admission loop, so two queued requests
+    that each fit but not together never both admit.
+  * ssm / hybrid -- the family's native cache (SSM state; window ring +
+    SSM state) batched over the slots (``kv_cache.SlotCache``): admission
+    writes a batch-1 prefill cache into its slot's rows and the model's own
+    ``decode`` runs every slot in lockstep (decode is row-independent, so
+    dead slots are ignored lanes).
 
 Time advances in ticks, one decode step per tick; prefill occupies the
 tick a request admits on (its first token is emitted then) and its first
 decode step lands on the next tick.  Decoding is greedy.
 
 Both engines cast the weights for serving once (``transformer.
-serving_params``).  The slot-cache path of the ssm, hybrid and audio
-families comes with those families.
+serving_params``).  The audio family's slot path comes with its slice
+(ROADMAP queue 1 item 8).
 """
 from __future__ import annotations
 
@@ -53,8 +60,9 @@ class ServeEngine:
         self.capacity = capacity
 
     def _check_capacity(self, prompt_len: int, max_new_tokens: int) -> None:
-        if self.model.cfg.attn_window:
-            return  # a window-sized ring wraps by design
+        cfg = self.model.cfg
+        if cfg.family == "ssm" or cfg.attn_window:
+            return  # no ring / a window-sized ring wraps by design
         required = prompt_len + max_new_tokens
         effective = self.capacity or prompt_len  # model_zoo prefill default
         if effective < required:
@@ -136,7 +144,9 @@ class ContinuousEngine:
         self.params = tfm.serving_params(params, self.cfg)
         self.device = model.device
         self.max_slots = max_slots
+        self.max_seq_len = max_seq_len
         self.eos_id = eos_id
+        self.paged = self.cfg.family in pgd.PAGED_FAMILIES
         self.sched = Scheduler(max_slots)
         self.occupancy_trace: List[float] = []
         self.total_ticks = 0
@@ -146,14 +156,18 @@ class ContinuousEngine:
         self._next_rid = 0
         self._tokens_next = np.zeros((max_slots,), np.int32)
 
-        mpps = kvc.pages_needed(max_seq_len, page_size)
-        if num_pages <= 0:
-            # every slot can hold a full-length sequence, +1 trash page
-            num_pages = max_slots * mpps + 1
-        self.kv = kvc.PagedKVCache.build(
-            self.cfg, max_slots, page_size, num_pages, mpps, device=self.device
-        )
-        self._step = pgd.make_paged_step(model)
+        if self.paged:
+            mpps = kvc.pages_needed(max_seq_len, page_size)
+            if num_pages <= 0:
+                # every slot can hold a full-length sequence, +1 trash page
+                num_pages = max_slots * mpps + 1
+            self.kv = kvc.PagedKVCache.build(
+                self.cfg, max_slots, page_size, num_pages, mpps, device=self.device
+            )
+            self._step = pgd.make_paged_step(model)
+        else:
+            self.slot_cache = kvc.SlotCache(model, max_slots, max_seq_len)
+            self.seq_lens = np.zeros((max_slots,), np.int32)
 
     # -- request intake ----------------------------------------------------
 
@@ -172,11 +186,13 @@ class ContinuousEngine:
                 f" one output token."
             )
         total = n + max_new_tokens
-        if total > self.kv.capacity:
+        capacity = self.kv.capacity if self.paged else self.max_seq_len
+        # an SSM state is capacity-free and a window ring wraps by design
+        if self.cfg.family not in ("ssm", "hybrid") and total > capacity:
             raise ValueError(
                 f"request needs {total} kv positions (prompt {n} +"
                 f" max_new_tokens {max_new_tokens}) but a slot holds"
-                f" {self.kv.capacity}; raise max_seq_len to {total} or"
+                f" {capacity}; raise max_seq_len to {total} or"
                 f" reduce the request."
             )
         self._next_rid += 1
@@ -185,7 +201,10 @@ class ContinuousEngine:
 
     def _reserve(self, req: Request, slot: int) -> bool:
         """Scheduler callback: atomically check and reserve the request's
-        worst-case page budget for ``slot``, inside the admission loop."""
+        worst-case page budget for ``slot``, inside the admission loop (a
+        slot-cache family's budget is the free slot itself)."""
+        if not self.paged:
+            return True
         total = len(req.tokens) + req.max_new_tokens
         return self.kv.admit(slot, total) is not None
 
@@ -194,14 +213,22 @@ class ContinuousEngine:
     def _admit(self, st: SlotState, now: int) -> None:
         req = st.req
         tokens = torch.as_tensor(req.tokens, device=self.device)[None]
-        logits, cache = self.model.prefill(self.params, {"tokens": tokens})
-        # the page-table row was reserved by _reserve when the slot was granted
-        row = torch.from_numpy(self.kv.page_table[st.slot].copy()).to(self.device)
-        pgd.write_prompt(
-            self.kv.pages_k, self.kv.pages_v,
-            cache.k[:, 0], cache.v[:, 0], cache.pos[0], row,
-        )
-        self.kv.seq_lens[st.slot] = len(req.tokens)
+        if self.paged:
+            # default capacity: the exact prompt length, every position for
+            # the page writer
+            logits, cache = self.model.prefill(self.params, {"tokens": tokens})
+            # the page-table row was reserved by _reserve when the slot was granted
+            row = torch.from_numpy(self.kv.page_table[st.slot].copy()).to(self.device)
+            pgd.write_prompt(
+                self.kv.pages_k, self.kv.pages_v,
+                cache.k[:, 0], cache.v[:, 0], cache.pos[0], row,
+            )
+            self.kv.seq_lens[st.slot] = len(req.tokens)
+        else:
+            logits, cache = self.model.prefill(
+                self.params, {"tokens": tokens}, self.max_seq_len)
+            self.slot_cache.insert(cache, st.slot)
+            self.seq_lens[st.slot] = len(req.tokens)
         self._emit(st, int(logits[0].argmax()), now)
 
     def _emit(self, st: SlotState, tok: int, now: int) -> None:
@@ -215,7 +242,10 @@ class ContinuousEngine:
 
     def _retire(self, slot: int, now: int, reason: str) -> None:
         st = self.sched.retire(slot, now, reason)
-        self.kv.retire(slot)  # pages return to the pool this tick
+        if self.paged:
+            self.kv.retire(slot)  # pages return to the pool this tick
+        else:
+            self.seq_lens[slot] = 0
         self._results[st.req.rid] = ServedResult(
             rid=st.req.rid,
             tokens=np.asarray(st.out_tokens, np.int32),
@@ -231,19 +261,28 @@ class ContinuousEngine:
         active = self.sched.active_slots()
         act = np.zeros((self.max_slots,), bool)
         act[[s for s, _ in active]] = True
-        pt, sl = self.kv.device_tables()
-        logits, _, _ = self._step(
-            self.params, self.kv.pages_k, self.kv.pages_v, pt, sl,
-            torch.from_numpy(act).to(self.device),
-            torch.from_numpy(self._tokens_next.copy()).to(self.device),
-        )
-        self.kv.seq_lens[act] += 1
+        # copies of the host tables the step reads: the engine mutates them
+        # right after the step is dispatched (ROADMAP queue 3, the JAX race)
+        toks = torch.from_numpy(self._tokens_next.copy()).to(self.device)
+        if self.paged:
+            pt, sl = self.kv.device_tables()
+            logits, _, _ = self._step(
+                self.params, self.kv.pages_k, self.kv.pages_v, pt, sl,
+                torch.from_numpy(act).to(self.device), toks,
+            )
+            self.kv.seq_lens[act] += 1
+        else:
+            logits, self.slot_cache.cache = self.model.decode(
+                self.params, self.slot_cache.cache, {"token": toks[:, None]})
+            self.seq_lens[act] += 1
         self.decode_steps += 1
         next_tokens = logits.argmax(dim=-1).cpu().numpy()
         for slot, st in active:
             self._emit(st, int(next_tokens[slot]), now)
 
     def _occupancy(self) -> float:
+        if not self.paged:
+            return len(self.sched.active) / self.max_slots
         alloc = self.kv.allocator
         return alloc.used_pages / max(alloc.num_pages - 1, 1)
 

@@ -12,12 +12,15 @@ retirement returns every page at once.
 
 The page table, sequence lengths and free list are host state (numpy and
 Python ints), shipped to the device as small tensors each step.
-``SlotCache`` (ssm / hybrid / audio) comes with those families.
+
+``SlotCache`` -- the ssm and hybrid families' native decode cache (SSM
+state, window ring + SSM state) batched over the engine's slots: admission
+writes a batch-1 prefill cache into its slot's rows (``_insert_slot``).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -137,3 +140,54 @@ class PagedKVCache:
             torch.from_numpy(self.page_table.copy()).to(dev),
             torch.from_numpy(self.seq_lens.copy()).to(dev),
         )
+
+
+# ---------------------------------------------------------------------------
+# Slot-batched family caches (SSM state / window ring + SSM state)
+# ---------------------------------------------------------------------------
+
+
+def _leaves_with_path(tree: Any, prefix: str = "") -> List[Tuple[str, torch.Tensor]]:
+    """(path, tensor) of a cache's (nested) NamedTuple fields in field
+    order, with ``jax.tree_util.keystr``'s paths (``".ssm.state"``)."""
+    if isinstance(tree, torch.Tensor):
+        return [(prefix, tree)]
+    out = []
+    for name, value in zip(tree._fields, tree):
+        out.extend(_leaves_with_path(value, f"{prefix}.{name}"))
+    return out
+
+
+def _batch_axis(full: torch.Tensor, sub: torch.Tensor) -> Optional[int]:
+    """The batch axis of a leaf, found structurally: the first axis where
+    the slot-batched (max_slots) and batch-1 shapes differ."""
+    return next((i for i, (a, b) in enumerate(zip(full.shape, sub.shape)) if a != b), None)
+
+
+def _insert_slot(cache: Any, sub: Any, slot: int) -> None:
+    """Write a batch-1 cache into one slot of a slot-batched cache, in
+    place (kv_cache.py:163-193).  Leaves with identical shapes pass through
+    untouched, as JAX's do (none has one while max_slots > 1)."""
+    for (_, full), (_, s) in zip(_leaves_with_path(cache), _leaves_with_path(sub)):
+        ax = _batch_axis(full, s)
+        if ax is not None:
+            full.narrow(ax, slot, 1).copy_(s.to(full.dtype))
+
+
+class SlotCache:
+    """Slot-batched wrapper over a family's native decode cache."""
+
+    def __init__(self, model, max_slots: int, capacity: int):
+        self.max_slots = max_slots
+        self.capacity = capacity
+        self.cache = model.init_cache(max_slots, capacity)
+
+    def insert(self, sub_cache: Any, slot: int) -> None:
+        _insert_slot(self.cache, sub_cache, slot)
+
+
+def batch_axes(cache: Any, sub: Any) -> Dict[str, Optional[int]]:
+    """Leaf path -> detected batch axis (kv_cache.py:196), for tests to
+    hold the structural detection against the family layouts."""
+    return {path: _batch_axis(full, s) for (path, full), (_, s)
+            in zip(_leaves_with_path(cache), _leaves_with_path(sub))}

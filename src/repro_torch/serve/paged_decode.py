@@ -28,7 +28,13 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import layers as L
+from repro_torch.models import moe as moe_lib
 from repro_torch.models import transformer as tfm
+
+# Families whose decode runs on the page pool (the vlm family joins with its
+# slice, ROADMAP queue 1 item 8); the others keep a slot-batched native
+# cache (serve/kv_cache.SlotCache).
+PAGED_FAMILIES = ("dense", "moe")
 
 
 def write_prompt(
@@ -58,6 +64,7 @@ def _paged_decode_step(
     tokens: torch.Tensor,  # (M,) last sampled token per slot
     *,
     cfg: ModelConfig,
+    mlp_fn=tfm.default_mlp_fn,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     m = tokens.shape[0]
     nl, p, ps, kvh, d = pages_k.shape
@@ -85,7 +92,7 @@ def _paged_decode_step(
         )
         h = h + out.reshape(m, 1, cfg.q_dim) @ bp["o_proj"].to(h.dtype)
         hnorm = L.rmsnorm(h, bp["mlp_norm"], cfg.rms_eps)
-        h = h + L.apply_mlp(bp["mlp"], hnorm, cfg)
+        h = h + mlp_fn(bp, hnorm, cfg)[0]
     h = L.rmsnorm(h, params["final_norm"], cfg.rms_eps)
     logits = h[:, 0].float() @ tfm.lm_head_matrix(params, cfg).float()
     return logits, pages_k, pages_v
@@ -93,6 +100,13 @@ def _paged_decode_step(
 
 def make_paged_step(model):
     """``(params, pages_k, pages_v, page_table, seq_lens, active, tokens)
-    -> (logits, pages_k, pages_v)`` for a dense model (the only family
-    ``build_model`` builds so far)."""
-    return functools.partial(_paged_decode_step, cfg=model.cfg)
+    -> (logits, pages_k, pages_v)`` for a model of ``PAGED_FAMILIES``; the
+    MoE family's MLP is its routed experts (``moe.moe_mlp_fn``)."""
+    cfg = model.cfg
+    if cfg.family not in PAGED_FAMILIES:
+        raise ValueError(
+            f"family {cfg.family!r} has no paged decode path "
+            f"(paged families: {PAGED_FAMILIES})"
+        )
+    mlp_fn = moe_lib.moe_mlp_fn if cfg.family == "moe" else tfm.default_mlp_fn
+    return functools.partial(_paged_decode_step, cfg=cfg, mlp_fn=mlp_fn)

@@ -69,6 +69,13 @@ FLASH_CASES = {
     "d128_long": (1, 260, 260, 2, 1, 128, True, 0, 0),
     "d72_window_q_offset": (2, 70, 100, 4, 2, 72, True, 24, 30),
 }
+# the MoE and hybrid families' shapes, on the card only (too large for the
+# CPU tests that share FLASH_CASES): deepseek-moe-16b's MHA 16/16 at D 128;
+# hymba-1.5b's GQA 25/5 at D 64 with its 1024 window, S 2048
+FAMILY_FLASH_CASES = {
+    "mha16_d128": (1, 512, 512, 16, 16, 128, True, 0, 0),
+    "gqa25_5_d64_window1024": (1, 2048, 2048, 25, 5, 64, True, 1024, 0),
+}
 
 
 def paged_inputs(seed, b, mp, ps, h, kvh, d, fills):
@@ -115,11 +122,11 @@ def test_rmsnorm_kernel_matches_plain_on_gpu(dtype):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("case", list(FLASH_CASES))
+@pytest.mark.parametrize("case", list(FLASH_CASES) + list(FAMILY_FLASH_CASES))
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_flash_kernel_matches_plain_on_gpu(case, dtype):
     _require_card()
-    b, sq, sk, h, kvh, d, causal, window, q_offset = FLASH_CASES[case]
+    b, sq, sk, h, kvh, d, causal, window, q_offset = {**FLASH_CASES, **FAMILY_FLASH_CASES}[case]
     g = torch.Generator(device="cuda").manual_seed(1)
     q = torch.randn(b, sq, h, d, generator=g, device="cuda").to(TORCH[dtype])
     k = torch.randn(b, sk, kvh, d, generator=g, device="cuda").to(TORCH[dtype])
@@ -905,3 +912,84 @@ def test_optimizer_kernels_at_a_ragged_rank_on_gpu():
     want = power_iter_ref(gm, q)
     torch.testing.assert_close(power_iter_batched(gm, q), want, rtol=1e-5,
                                atol=1e-5 * float(want.abs().max()))
+
+
+# ---------------------------------------------------------------------------
+# the MoE, SSM and hybrid families' shapes
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("width", [1600, 2048, 3200])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rmsnorm_kernel_at_family_widths_on_gpu(width, dtype):
+    """hymba's d_model 1600 and its mixer's 3200, deepseek's 2048 (and
+    mamba's mixer): widths that are not powers of two but 2048."""
+    _require_card()
+    g = torch.Generator(device="cuda").manual_seed(7)
+    x = torch.randn(37, width, generator=g, device="cuda").to(TORCH[dtype])
+    scale = 1 + 0.1 * torch.randn(width, generator=g, device="cuda")
+    torch.testing.assert_close(rmsnorm_kernel(x, scale).float(),
+                               rmsnorm_ref(x, scale).float(), **TOL[dtype])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_paged_decode_kernel_at_mha16_on_gpu(dtype):
+    """deepseek-moe-16b's decode: MHA 16/16 (G = 1), D 128, page size 16."""
+    _require_card()
+    arrays = paged_inputs(11, 4, 8, 16, 16, 16, 128, [0, 17, 64, 120])
+    q, pk, pv, table, lens = (torch.from_numpy(a).cuda() for a in arrays)
+    q, pk, pv = (t.to(TORCH[dtype]) for t in (q, pk, pv))
+    got = paged_decode_attention_kernel(q, pk, pv, table, lens)
+    ref = paged_decode_attention_ref(q, pk, pv, table, lens)
+    torch.testing.assert_close(got.float(), ref.float(), **TOL[dtype])
+
+
+@pytest.mark.gpu
+def test_optimizer_kernels_on_an_expert_bucket_on_gpu():
+    """Kernels 4, 5 and 9 on deepseek-moe-16b's expert bucket shape (d
+    1408, n 2048; 8 of its 768 slices) at rank 256 and k' 1032."""
+    _require_card()
+    b, d, n, r, kp = 8, 1408, 2048, 256, 1032
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    g = 0.1 * torch.randn(b, d, n, generator=gen, device="cuda")
+    p = torch.linalg.qr(torch.randn(b, d, r, generator=gen, device="cuda"))[0].contiguous()
+    want = project_ref(g, p)
+    torch.testing.assert_close(galore_project_batched(g, p), want, rtol=1e-4,
+                               atol=1e-5 * float(want.abs().max()))
+    w = 0.02 * torch.randn(b, d, n, generator=gen, device="cuda")
+    m = 0.1 * torch.randn(b, r, n, generator=gen, device="cuda")
+    v = (0.1 * torch.randn(b, r, n, generator=gen, device="cuda")) ** 2
+    got = lowrank_adam_update_batched(w, p, want, m, v, 3, 0.0025, 0.0)
+    ref = lowrank_adam_update_ref(w, p, want, m, v, b1=0.9, b2=0.999, eps=1e-8, step=3,
+                                  lr_alpha=0.0025, lr_wd=0.0)
+    for a, bb in zip(got, ref):
+        torch.testing.assert_close(a, bb, rtol=1e-4, atol=1e-5 * float(bb.abs().max()))
+    q = torch.linalg.qr(torch.randn(b, d, kp, generator=gen, device="cuda"))[0].contiguous()
+    want = power_iter_ref(g, q)
+    torch.testing.assert_close(power_iter_batched(g, q), want, rtol=1e-4,
+                               atol=1e-5 * float(want.abs().max()))
+
+
+@pytest.mark.gpu
+def test_moe_dispatch_on_gpu_matches_the_cpu():
+    """The MoE layer's dispatch and grouped products on the card (f32)
+    against the same layer on the CPU: the scatter-add's atomics sum each
+    token's k rows in any order, so the bar is f32's, not bits; the aux
+    loss and the host-synced group sizes must agree."""
+    _require_card()
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import build_model, moe
+
+    cfg = get_config("deepseek-moe-16b", smoke=True).with_(dtype=torch.float32)
+    params = build_model(cfg, device="cpu").init(torch.Generator().manual_seed(3))
+    lp = {k: (v[0] if not isinstance(v, dict) else {kk: vv[0] for kk, vv in v.items()})
+          for k, v in params["blocks"]["moe"].items()}
+    x = torch.randn(4, 33, cfg.d_model, generator=torch.Generator().manual_seed(4))
+    want, want_aux = moe.apply_moe_local(lp, x, cfg)
+    on_card = {k: (v.cuda() if not isinstance(v, dict) else {kk: vv.cuda() for kk, vv in v.items()})
+               for k, v in lp.items()}
+    got, aux = moe.apply_moe_local(on_card, x.cuda(), cfg)
+    torch.testing.assert_close(got.cpu(), want, **TOL["float32"])
+    torch.testing.assert_close(aux.cpu(), want_aux, rtol=1e-6, atol=0)

@@ -18,6 +18,8 @@ from repro_torch.models import build_model
 from repro_torch.models import transformer as tfm
 
 DENSE = ["llama3-8b", "qwen2-1.5b", "granite-8b", "nemotron-4-15b"]
+# the MoE, SSM and hybrid families' configs
+FAMILIES = ["deepseek-moe-16b", "olmoe-1b-7b", "mamba2-370m", "hymba-1.5b"]
 # f32 on the CPU: the same products summed in other orders (XLA vs ATen).
 TOL = dict(atol=2e-5, rtol=1e-5)
 
@@ -43,7 +45,7 @@ def _np(x):
     return np.asarray(x) if not isinstance(x, torch.Tensor) else x.detach().numpy()
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", DENSE + FAMILIES)
 @pytest.mark.parametrize("smoke", [False, True])
 def test_config_matches_jax_field_by_field(arch, smoke):
     jcfg, tcfg = jax_get_config(arch, smoke=smoke), get_config(arch, smoke=smoke)
@@ -57,10 +59,11 @@ def test_config_matches_jax_field_by_field(arch, smoke):
 
 
 def test_unported_archs_raise_clearly():
-    assert sorted(list_archs()) == sorted(DENSE)
+    assert sorted(list_archs()) == sorted(DENSE + FAMILIES)
+    assert sorted(NOT_YET_PORTED) == ["llava-next-34b", "whisper-medium"]
     for arch in NOT_YET_PORTED:
         jax_get_config(arch)  # the reference has it
-        with pytest.raises(NotImplementedError, match="not yet ported"):
+        with pytest.raises(NotImplementedError, match="not yet ported.*item 8"):
             get_config(arch)
     with pytest.raises(ValueError, match="unknown arch"):
         get_config("no-such-arch")
@@ -171,6 +174,29 @@ def test_entry_points_need_a_card_unless_cpu_is_asked(monkeypatch):
 
 
 def test_unported_family_raises():
-    cfg = get_config("llama3-8b", smoke=True).with_(family="moe")
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        build_model(cfg, device="cpu")
+    for family in ("vlm", "audio"):
+        cfg = get_config("llama3-8b", smoke=True).with_(family=family)
+        with pytest.raises(NotImplementedError, match="not yet ported.*item 8"):
+            build_model(cfg, device="cpu")
+
+
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_family_init_has_the_jax_layout(arch):
+    """The port's init of the MoE, SSM and hybrid smoke configs has JAX's
+    paths, shapes and dtypes (4-D expert stacks, the nested ``mixer`` /
+    ``ssm_mixer`` dicts, f32 router, ``a_log``, ``dt_bias``, ``d_skip``),
+    and its serving init casts only what ``serving_params`` casts."""
+    cfg = get_config(arch, smoke=True)
+    model = build_model(cfg, device="cpu")
+    params = model.init(torch.Generator().manual_seed(0))
+    jtree = jax_build_model(jax_get_config(arch, smoke=True)).init(jax.random.PRNGKey(0))
+    ja = jax.tree_util.tree_flatten_with_path(jax.tree_util.tree_map(np.asarray, jtree))[0]
+    tb = jax.tree_util.tree_flatten_with_path(bridge.params_to_numpy(params))[0]
+    assert [(p, a.shape, a.dtype) for p, a in ja] == [(p, b.shape, b.dtype) for p, b in tb]
+    served = model.init(torch.Generator().manual_seed(0), serving=True)
+    want = tfm.serving_params(params, cfg)
+    from repro_torch.core.lowrank import flatten_with_path
+
+    for (path, a), (_, b) in zip(flatten_with_path(served), flatten_with_path(want)):
+        assert a.dtype == b.dtype, path
+        torch.testing.assert_close(a, b, rtol=0, atol=0, msg=path)
