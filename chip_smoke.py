@@ -113,16 +113,38 @@ failure raises and the script exits non-zero:
               per step), ``train_moe`` (4 layers, rank 256: kernel 9 runs),
               ``train_ssm`` and ``serve_ssm`` (mamba2-370m, 48 layers; rank
               512: kernel 9 launches 0 times), ``train_hybrid`` and
-              ``serve_hybrid`` (hymba-1.5b, 32 layers; seq 2048; prompts of
+              ``serve_hybrid`` (hymba-1.5b cut to 16 of its 32 layers,
+              ``HYBRID_LAYERS``; seq 2048; prompts of
               1500 and 1100 tokens past its 1024 window).  The train paths
               run as phase 4 (galore-sara-adam, 3 steps) and first check
               every step-0 gradient finite; the slot-engine paths hold every
               request's tokens to the static engine's, a parting token only
               at a near-tie (``TIE_BAR_SIGMAS``).
-7. report  -- one ``{"kernel_over_library": [...]}`` line (every case's
+7. VLM and enc-dec -- at full width: ``encdec_vlm_kernels`` (RMSNorm at
+              7168 and 1024; flash without a mask over whisper's 1500
+              frames at B 1 and 8, whisper's cross-attention at Sq 64 and
+              at Sq 1 (B 4) against Sk 1500, llava's causal GQA 56/8
+              prefill at S 1600; paged decode at GQA 56/8 over
+              ``PAGED_FILLS`` + 576; kernels 4, 5 and 9 on llava's mlp
+              bucket, 4 and 5 on whisper's 1024 x 1024 bucket),
+              ``serve_vlm`` (llava-next-34b, 60 layers, 34.4 B params made
+              leaf by leaf in bf16, the init's peak printed; phase 3's trace
+              with each request's own 576 seeded patch embeddings ahead of
+              its prompt, in a pool of ``VLM_POOL_PAGES``; request 0's
+              logits against the static exact path, the bar from the f32
+              model at the deepest depth that fits), ``train_vlm`` (2
+              layers, 448 text tokens after the patches, batch 4, rank 512),
+              ``serve_audio`` (whisper-medium, 24 + 24 layers, slot engine,
+              each request's own 1500 frames, prompts of 4-64 tokens, 64
+              new tokens, a ring of 448; every token against the static
+              engine's or a near-tie) and ``train_audio`` (full depth, seq
+              448, batch 8, rank 256: kernel 9 launches 0 times).  The
+              train paths run as phase 6's, with the patches or frames in
+              every batch.
+8. report  -- one ``{"kernel_over_library": [...]}`` line (every case's
               kernel time over its yardstick's), one ``{"kernels": [...]}``
-              line (``launches`` summed over the serve, train_* (4b and 4c
-              included), resume and serve_ckpt runs, each run's own count
+              line (``launches`` summed over every path that ran, each
+              run's own count
               beside it in
               ``launches_by_path``; 0 for the 2-D projection, which no path
               runs), the ``nvidia-smi`` line, and last
@@ -379,6 +401,11 @@ MOE_ARCH, SSM_ARCH, HYBRID_ARCH = "deepseek-moe-16b", "mamba2-370m", "hymba-1.5b
 # hymba's serving trace: two prompts past its 1024-token window, so prefill
 # keeps the window's tail and the ring wraps in decode
 HYBRID_PROMPT_LENS = [1500, 128, 517, 1100, 255, 777, 64, 333]
+# hymba serves and trains cut to 16 of its 32 layers (every layer's shapes
+# as at full depth): the whole script ran 1038 s of its 1200 s at full
+# depth once the VLM and enc-dec paths joined, and hymba's two paths, whose
+# host-bound SSD chunk loop costs time per layer, took 147 s of it
+HYBRID_LAYERS = 16
 # A continuous-engine token may part from the static engine's only at a
 # near-tie.  The two engines run the same bf16 model but batch it
 # differently (4 slots against 1 row: other GEMM kernels, other roundings),
@@ -400,10 +427,10 @@ FAMILY_TRAIN_RUNS = {
                   [(32, 48, 32, 1, "any"), (1024, 2048, 512, 48, "any"),
                    (1024, 4384, 512, 48, "any")]),
     # seq 2048 so attention reaches past the 1024 window (the same 4096 tokens)
-    "train_hybrid": (HYBRID_ARCH, None, 2048, 2, 256,
-                     [(32, 50, 32, 1, "any"), (320, 1600, 256, 64, "any"),
-                      (1600, 1600, 256, 64, "any"), (1600, 3200, 256, 32, "any"),
-                      (1600, 5504, 256, 96, "any"), (1600, 6482, 256, 32, "any")]),
+    "train_hybrid": (HYBRID_ARCH, HYBRID_LAYERS, 2048, 2, 256,
+                     [(16, 50, 16, 1, "any"), (320, 1600, 256, 32, "any"),
+                      (1600, 1600, 256, 32, "any"), (1600, 3200, 256, 16, "any"),
+                      (1600, 5504, 256, 48, "any"), (1600, 6482, 256, 16, "any")]),
 }
 PATH_KERNELS["serve_moe"] = SERVE_KERNELS
 PATH_KERNELS["train_moe"] = _TRAIN_COMMON + (UPDATE_KERNEL["adam"],)
@@ -411,8 +438,41 @@ PATH_KERNELS["serve_ssm"] = ("rmsnorm",)
 PATH_KERNELS["train_ssm"] = ("rmsnorm", "galore_project_batched", UPDATE_KERNEL["adam"])
 PATH_KERNELS["serve_hybrid"] = ("rmsnorm", "flash_attention_fwd")
 PATH_KERNELS["train_hybrid"] = _TRAIN_COMMON + (UPDATE_KERNEL["adam"],)
-# paths that must not launch a kernel: the SSM's power iterations at rank 512
-PATH_NEVER = {"train_ssm": ("power_iter_batched", "flash_attention_fwd")}
+# phase 7: the VLM and enc-dec families at full width.  llava-next-34b's
+# requests each carry 576 patch embeddings ahead of their text, in the
+# pages: the pool holds 250 usable pages, fewer than the 320 that the first
+# four requests reserve ((576 + prompt + 32) / 16 each), so admission waits
+# and pages recycle.  whisper-medium's each carry 1500 frames; its decoder
+# prompts of 4-64 tokens, 64 new tokens each, in a ring of 448 positions
+# (Whisper's text context).
+VLM_ARCH, AUDIO_ARCH = "llava-next-34b", "whisper-medium"
+VLM_POOL_PAGES = 250
+AUDIO_PROMPT_LENS = [64, 4, 48, 17, 33, 8, 56, 25]
+AUDIO_NEW_TOKENS = 64
+AUDIO_MAX_SEQ = 448
+LAYER_LAUNCHES["vlm"] = LAYER_LAUNCHES["dense"]
+# train_vlm: llava-next-34b cut to 2 layers (2.08 B params, near the 4
+# llama layers of phase 4), 448 text tokens after the 576 patches (1024
+# positions), batch 4; rank 512 (k' 2056 < 7168: kernel 9 runs), and the 2-D
+# patch_in_proj joins q and o's bucket.  train_audio: whisper-medium at full
+# depth, 448 decoder tokens and 1500 frames, batch 8; rank 256, whose sara
+# sketch k' 1032 spans the 1024-wide narrow side of every leaf, so the power
+# iterations drop (kernel 9: 0 launches).
+FAMILY_TRAIN_RUNS["train_vlm"] = (
+    VLM_ARCH, 2, 448, 4, 512,
+    [(1024, 7168, 512, 4, "any"), (7168, 7168, 512, 5, "any"), (7168, 20480, 512, 6, "any")])
+FAMILY_TRAIN_RUNS["train_audio"] = (
+    AUDIO_ARCH, None, 448, 8, 256,
+    [(1024, 1024, 256, 288, "any"), (1024, 4096, 256, 144, "any")])
+PATH_KERNELS["serve_vlm"] = SERVE_KERNELS
+PATH_KERNELS["train_vlm"] = _TRAIN_COMMON + (UPDATE_KERNEL["adam"],)
+PATH_KERNELS["serve_audio"] = ("rmsnorm", "flash_attention_fwd")
+PATH_KERNELS["train_audio"] = ("rmsnorm", "flash_attention_fwd", "galore_project_batched",
+                               UPDATE_KERNEL["adam"])
+# paths that must not launch a kernel: the power iterations at a rank whose
+# sketch spans every leaf's narrow side (mamba2 at 512, whisper at 256)
+PATH_NEVER = {"train_ssm": ("power_iter_batched", "flash_attention_fwd"),
+              "train_audio": ("power_iter_batched",)}
 
 
 _T0 = time.perf_counter()
@@ -1073,12 +1133,69 @@ def rel_l2(a, b) -> float:
     return float(torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b))
 
 
-def serve(cfg, dev: str = "cuda", profile_ticks: int = 24):
+def request_prefixes(cfg, n: int, dev: str = "cuda", seed: int = SEED + 7):
+    """Each of ``n`` requests' own prefix, seeded, normal x 0.1 in the
+    activation dtype (as the JAX package's ``configs/specs.py:76-78``): vlm
+    ``n_patches`` patch embeddings, audio ``enc_frames`` frames; an empty
+    dict for the other families."""
+    if cfg.family not in ("vlm", "audio"):
+        return [{} for _ in range(n)]
+    key, rows = (("patch_embeds", cfg.n_patches) if cfg.family == "vlm"
+                 else ("frame_embeds", cfg.enc_frames))
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return [{key: (torch.randn(rows, cfg.d_model, generator=gen, device=dev) * 0.1).to(cfg.dtype)}
+            for _ in range(n)]
+
+
+def prefix_kv(cfg) -> int:
+    """KV positions a request's prefix takes: the vlm family's patches."""
+    return cfg.n_patches if cfg.family == "vlm" else 0
+
+
+def with_prefix(batch: dict, extras: dict) -> dict:
+    """A batch-1 model batch: ``batch`` and the request's extras with a
+    batch axis."""
+    return {**batch, **{k: v[None] for k, v in extras.items()}}
+
+
+class PrefixData:
+    """``data.batch_at(step)`` with the family's prefix added to every
+    batch (``request_prefixes``' draw, one per row, seeded by the step):
+    the train paths of the VLM and enc-dec families."""
+
+    def __init__(self, data, cfg, dev: str = "cuda"):
+        self.data, self.cfg, self.dev = data, cfg, dev
+
+    def batch_at(self, step: int) -> dict:
+        batch = dict(self.data.batch_at(step))
+        rows = request_prefixes(self.cfg, batch["tokens"].shape[0], self.dev,
+                                seed=SEED + 100 + step)
+        for key in rows[0]:
+            batch[key] = torch.stack([r[key] for r in rows])
+        return batch
+
+
+def forward_launches(cfg):
+    """((rmsnorm, flash) launches of one forward pass, (rmsnorm, flash)
+    launches of the remat recompute in its backward).  The enc-dec model:
+    2 norms and 1 attention per encoder layer, 3 norms (self, cross, mlp)
+    and 2 attentions (self, cross) per decoder layer, a final norm each."""
+    if cfg.family == "audio":
+        ne, nd = cfg.n_enc_layers, cfg.n_layers
+        return (2 * ne + 3 * nd + 2, ne + 2 * nd), (2 * ne + 3 * nd, ne + 2 * nd)
+    norms, attns = LAYER_LAUNCHES[cfg.family]
+    nl = cfg.n_layers
+    return (norms * nl + 1, attns * nl), (norms * nl, attns * nl)
+
+
+def serve(cfg, dev: str = "cuda", profile_ticks: int = 24, pool_pages: int = POOL_PAGES):
     """Phase 3 (see the module docstring), or ``serve_moe`` with an MoE
-    config; ``dev="cpu"`` rehearses it at a small size without a card.
-    The serving weights are made leaf by leaf in bf16 (``init(...,
-    serving=True)``): deepseek-moe-16b's f32 tree (65.6 GB) and its bf16
-    copy would not fit the card together."""
+    config, ``serve_vlm`` with a VLM one (each request's patches ahead of
+    its prompt, in its pages; ``pool_pages`` usable pages); ``dev="cpu"``
+    rehearses it at a small size without a card.  The serving weights are
+    made leaf by leaf in bf16 (``init(..., serving=True)``): deepseek-moe-
+    16b's f32 tree (65.6 GB) and its bf16 copy would not fit the card
+    together, and llava-next-34b's bf16 tree alone takes 65 GiB."""
     from repro_torch.core.lowrank import tree_leaves
     from repro_torch.kernels import counters
     from repro_torch.models import build_model
@@ -1104,13 +1221,15 @@ def serve(cfg, dev: str = "cuda", profile_ticks: int = 24):
         f"peak {init_peak / 2**30:.2f} GiB")
     rng = np.random.default_rng(SEED)
     prompts = [rng.integers(0, cfg.vocab_size, (n,)) for n in PROMPT_LENS]
+    extras = request_prefixes(cfg, len(PROMPT_LENS), dev)
+    pre = prefix_kv(cfg)
 
     eng = ContinuousEngine(
         model, params, max_slots=MAX_SLOTS, page_size=PAGE_SIZE,
-        max_seq_len=max(PROMPT_LENS) + NEW_TOKENS, num_pages=POOL_PAGES + 1,
+        max_seq_len=pre + max(PROMPT_LENS) + NEW_TOKENS, num_pages=pool_pages + 1,
     )
-    for p, a in zip(prompts, ARRIVALS):
-        eng.submit(p, NEW_TOKENS, arrival=a)
+    for p, a, e in zip(prompts, ARRIVALS, extras):
+        eng.submit(p, NEW_TOKENS, arrival=a, extras=e or None)
     sync()
     if dev == "cuda":
         torch.cuda.reset_peak_memory_stats()
@@ -1142,8 +1261,8 @@ def serve(cfg, dev: str = "cuda", profile_ticks: int = 24):
     del eng  # frees the pool; the serving params stay in ``params``
     profile = profile_serving(model, params, profile_ticks) if dev == "cuda" else None
     waited = [r.admit_tick - r.arrival for r in results.values()]
-    reserved = sum(kvc.pages_needed(n + NEW_TOKENS, PAGE_SIZE) for n in PROMPT_LENS)
-    if max(waited) <= 0 or reserved <= POOL_PAGES:
+    reserved = sum(kvc.pages_needed(pre + n + NEW_TOKENS, PAGE_SIZE) for n in PROMPT_LENS)
+    if max(waited) <= 0 or reserved <= pool_pages:
         raise AssertionError("scenario did not make admission wait and pages recycle")
     expect = {
         "rmsnorm": (LAYER_LAUNCHES[cfg.family][0] * nl + 1) * (ticks + n_req),
@@ -1162,12 +1281,14 @@ def serve(cfg, dev: str = "cuda", profile_ticks: int = 24):
     # beside the run's own state, else at the deepest depth that does (the
     # bf16 static path then again at that depth, from the same seed).
     p0 = torch.as_tensor(prompts[0], device=dev)[None]
-    n0 = kvc.pages_needed(p0.shape[1] + 1, PAGE_SIZE)
+    b0 = with_prefix({"tokens": p0}, extras[0])
+    kv0 = pre + p0.shape[1]  # the prompt's KV positions, patches included
+    n0 = kvc.pages_needed(kv0 + 1, PAGE_SIZE)
     kv = kvc.PagedKVCache.build(cfg, 1, PAGE_SIZE, 1 + n0, n0, device=dev)
-    row = torch.from_numpy(kv.admit(0, p0.shape[1] + 1)).to(dev)
-    prefill_k, cache = model.prefill(params, {"tokens": p0})
+    row = torch.from_numpy(kv.admit(0, kv0 + 1)).to(dev)
+    prefill_k, cache = model.prefill(params, b0)
     pgd.write_prompt(kv.pages_k, kv.pages_v, cache.k[:, 0], cache.v[:, 0], cache.pos[0], row)
-    kv.seq_lens[0] = p0.shape[1]
+    kv.seq_lens[0] = kv0
     tok0 = prefill_k.argmax(dim=-1).to(torch.int32)
     pt, sl = kv.device_tables()
     decode_k, _, _ = pgd.make_paged_step(model)(
@@ -1176,7 +1297,7 @@ def serve(cfg, dev: str = "cuda", profile_ticks: int = 24):
     )
     del kv, cache
     exact = build_model(cfg.with_(attn_impl="exact"), device=dev)
-    prefill_s, cache_s = exact.prefill(params, {"tokens": p0}, p0.shape[1] + 1)
+    prefill_s, cache_s = exact.prefill(params, b0, kv0 + 1)
     decode_s, _ = exact.decode(params, cache_s, {"token": tok0[:, None]})
     layer_numel = sum(p.numel() for p in tree_leaves(params["blocks"])) // cfg.n_layers
     del cache_s, params
@@ -1190,7 +1311,7 @@ def serve(cfg, dev: str = "cuda", profile_ticks: int = 24):
     if depth < cfg.n_layers:  # the bf16 static path again at the f32 model's depth
         cut = build_model(cfg.with_(attn_impl="exact", n_layers=depth), device=dev)
         params_c = cut.init(torch.Generator(device=dev).manual_seed(SEED), serving=True)
-        pc, cache_c = cut.prefill(params_c, {"tokens": p0}, p0.shape[1] + 1)
+        pc, cache_c = cut.prefill(params_c, b0, kv0 + 1)
         noise_s = (pc, cut.decode(params_c, cache_c, {"token": tok0[:, None]})[0])
         del params_c, cache_c
     if dev == "cuda":
@@ -1200,7 +1321,7 @@ def serve(cfg, dev: str = "cuda", profile_ticks: int = 24):
     cfg32 = cfg.with_(attn_impl="exact", dtype=torch.float32, n_layers=depth)
     exact32 = build_model(cfg32, device=dev)
     params32 = exact32.init(torch.Generator(device=dev).manual_seed(SEED))
-    prefill_f, cache_f = exact32.prefill(params32, {"tokens": p0}, p0.shape[1] + 1)
+    prefill_f, cache_f = exact32.prefill(params32, b0, kv0 + 1)
     decode_f, _ = exact32.decode(params32, cache_f, {"token": tok0[:, None]})
     del params32, cache_f
     # The serving bar: twice the static path's distance to the f32 model.  An
@@ -1233,15 +1354,17 @@ def serve(cfg, dev: str = "cuda", profile_ticks: int = 24):
         "moe_host_syncs": syncs,
         "max_memory_allocated": peak, "launches": launches, "expected": expect,
         "admission_waits": waited, "pages_reserved": reserved,
-        "pool_pages": POOL_PAGES, "request0_parity": parity, "profile": profile,
+        "pool_pages": pool_pages, "request0_parity": parity, "profile": profile,
     }
 
 
 def profile_serving(model, params, new_tokens: int = 24):
     """Device time by kernel over a short continuous run under
-    torch.profiler: 4 requests of 512 tokens admitted together, then
+    torch.profiler: 4 requests of 512 tokens (after their patches, for a
+    VLM) admitted together, then
     ``new_tokens`` - 1 decode ticks (23; 8 for the MoE model, whose ticks
-    hold ~10x the events for the profiler to sum up).  Device busy share =
+    hold ~10x the events for the profiler to sum up, and for the 60-layer
+    VLM, whose 23-tick window took 100 s to sum up).  Device busy share =
     summed kernel time / host wall time (one stream, so kernels do not
     overlap)."""
     from torch.profiler import ProfilerActivity, profile
@@ -1249,10 +1372,10 @@ def profile_serving(model, params, new_tokens: int = 24):
     from repro_torch.serve.engine import ContinuousEngine
 
     eng = ContinuousEngine(model, params, max_slots=4, page_size=PAGE_SIZE,
-                           max_seq_len=512 + new_tokens)
+                           max_seq_len=prefix_kv(model.cfg) + 512 + new_tokens)
     rng = np.random.default_rng(SEED + 1)
-    for _ in range(4):
-        eng.submit(rng.integers(0, model.cfg.vocab_size, (512,)), new_tokens)
+    for e in request_prefixes(model.cfg, 4, seed=SEED + 8):
+        eng.submit(rng.integers(0, model.cfg.vocab_size, (512,)), new_tokens, extras=e or None)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -1323,7 +1446,8 @@ def train(cfg, optimizer: str = "galore-sara-adam", expect_buckets=TRAIN_BUCKETS
     smoke config rehearses it without a card.  Any family: the launch
     counts follow ``LAYER_LAUNCHES``; an MoE model's router aux loss must
     be finite at every step, and ``check_grads`` first takes the step-0
-    gradient and requires every element finite."""
+    gradient and requires every element finite.  The VLM and enc-dec
+    families' batches carry their prefix (``PrefixData``)."""
     import math
 
     from repro_torch.configs.base import TrainConfig
@@ -1367,6 +1491,8 @@ def train(cfg, optimizer: str = "galore-sara-adam", expect_buckets=TRAIN_BUCKETS
     data = SyntheticDataset(
         SyntheticDataConfig(vocab_size=cfg.vocab_size, seq_len=seq, global_batch=batch),
         device=dev)
+    if cfg.family in ("vlm", "audio"):  # every batch carries its patches or frames
+        data = PrefixData(data, cfg, dev)
     grads_finite = finite_grads(model, tc.seed, data.batch_at(0)) if check_grads else None
     # Memory by phase of each step (``timed`` below opens and closes it):
     # allocated at its start, the peak of forward and backward, the peak of
@@ -1425,19 +1551,24 @@ def train(cfg, optimizer: str = "galore-sara-adam", expect_buckets=TRAIN_BUCKETS
         f"{[[round(b / 2**30, 2) for b in m] for m in phase_mem]}")
     if not all(math.isfinite(x) for x in res.losses):
         raise AssertionError(f"non-finite training loss: {res.losses}")
-    if abs(res.losses[0] - math.log(cfg.vocab_size)) > 1.0:
+    # random weights: the normed hidden state has unit mean square and the
+    # lm_head is drawn at scale 0.02, so the logits spread as N(0, s^2) with
+    # s^2 = 0.02^2 d_model, and the first loss sits near ln(vocab) + s^2 / 2
+    # (0.82 above ln(vocab) at llama's 4096, 1.43 at llava's 7168)
+    loss0 = math.log(cfg.vocab_size) + 0.02**2 * cfg.d_model / 2
+    if abs(res.losses[0] - loss0) > 1.0:
         raise AssertionError(
-            f"first loss {res.losses[0]:.3f} is not near ln(vocab) = "
-            f"{math.log(cfg.vocab_size):.3f} for random weights")
+            f"first loss {res.losses[0]:.3f} is not near ln(vocab) + 0.02^2 d_model / 2 = "
+            f"{loss0:.3f} for random weights")
     if cfg.family == "moe" and not (len(aux) == steps and all(map(math.isfinite, aux))):
         raise AssertionError(f"router aux loss not finite at every step: {aux}")
     nl = cfg.n_layers
-    norms, attns = LAYER_LAUNCHES[cfg.family]
+    (fwd_norms, fwd_attns), (remat_norms, remat_attns) = forward_launches(cfg)
     expect = {
-        # per step: the block's norms per layer + the final norm forward,
-        # the block's again in the remat recompute of each block
-        "rmsnorm": steps * (2 * norms * nl + 1),
-        "flash_attention_fwd": steps * 2 * attns * nl,  # forward + remat recompute
+        # per step: the blocks' norms and the final norms forward, the
+        # blocks' again in the remat recompute of each block
+        "rmsnorm": steps * (fwd_norms + remat_norms),
+        "flash_attention_fwd": steps * (fwd_attns + remat_attns),
         # one refresh (step 0): a power-iteration product per bucket, or
         # per low-rank leaf on per-leaf state
         "power_iter_batched": power_iter_calls(opt, shapes),
@@ -1957,12 +2088,14 @@ def train_rank_schedule(cfg, smi: str, dev: str = "cuda", seq: int = TRAIN_SEQ,
     return out
 
 
-def rank_kernel_cases(results, ranks=RANK_CASES, shape=None):
+def rank_kernel_cases(results, ranks=RANK_CASES, shape=None, power: bool = True):
     """Kernels 4, 5 and 9 at the ranks of ``ranks`` (the schedule's new
     rank, and one of 8 mod 16: a ragged last K tile of the f32 tile
-    engine, which steps K by 16) on the mlp bucket's (B, d, n), against
-    their plain versions at ``TOL``, timed beside their bound and library
-    call.  Kernel 9 runs at the sara sketch's k' = min(4 r + 8, d)."""
+    engine, which steps K by 16) on the mlp bucket's (B, d, n), or on
+    ``shape``'s, against their plain versions at ``TOL``, timed beside
+    their bound and library call.  Kernel 9 runs at the sara sketch's k' =
+    min(4 r + 8, d), unless ``power`` is False (a bucket whose sketch
+    spans d, where the path runs no power iteration)."""
     from repro_torch.kernels.galore_project.kernel import galore_project_batched
     from repro_torch.kernels.galore_project.ref import project_ref
     from repro_torch.kernels.power_iter.kernel import power_iter_batched
@@ -2004,6 +2137,9 @@ def rank_kernel_cases(results, ranks=RANK_CASES, shape=None):
                                lambda: torch.baddbmm(w, p, rg, beta=1.0, alpha=-0.01 * 0.25),
                                b_ms, b_by, 5))
         del w, rg, state, args, p
+        if not power:
+            torch.cuda.empty_cache()
+            continue
         kp = min(4 * r + 8, d)
         g = randn(b, d, n)
         q = orthonormal(b, d, kp)
@@ -2355,12 +2491,15 @@ def finite_grads(model, seed: int, batch) -> dict:
     return {"elements": n, "non_finite": 0}
 
 
-def serve_slots(cfg, prompt_lens, dev: str = "cuda", new_tokens: int = NEW_TOKENS):
-    """``serve_ssm`` / ``serve_hybrid``: the slot-cache continuous engine
-    on the serving trace (``prompt_lens``, ``ARRIVALS``, ``MAX_SLOTS``
-    slots), bf16 weights made leaf by leaf; exact launch counts; then each
-    request's tokens against the static engine's, one request at a time,
-    where a parting token must be a near-tie (``TIE_BAR_SIGMAS``)."""
+def serve_slots(cfg, prompt_lens, dev: str = "cuda", new_tokens: int = NEW_TOKENS,
+                max_seq_len: int = 0):
+    """``serve_ssm`` / ``serve_hybrid`` / ``serve_audio``: the slot-cache
+    continuous engine on the serving trace (``prompt_lens``, ``ARRIVALS``,
+    ``MAX_SLOTS`` slots; ``max_seq_len`` ring positions, by default the
+    longest prompt and its new tokens; whisper's requests each carry their
+    own frames), bf16 weights made leaf by leaf; exact launch counts; then
+    each request's tokens against the static engine's, one request at a
+    time, where a parting token must be a near-tie (``TIE_BAR_SIGMAS``)."""
     from repro_torch.core.lowrank import tree_leaves
     from repro_torch.kernels import counters
     from repro_torch.models import build_model
@@ -2379,12 +2518,13 @@ def serve_slots(cfg, prompt_lens, dev: str = "cuda", new_tokens: int = NEW_TOKEN
         f"params made in bf16 in {time.perf_counter() - t0:.1f} s")
     rng = np.random.default_rng(SEED)
     prompts = [rng.integers(0, cfg.vocab_size, (n,)) for n in prompt_lens]
-    eng = ContinuousEngine(model, params, max_slots=MAX_SLOTS,
-                           max_seq_len=max(prompt_lens) + new_tokens)
+    extras = request_prefixes(cfg, len(prompt_lens), dev)
+    max_seq_len = max_seq_len or max(prompt_lens) + new_tokens
+    eng = ContinuousEngine(model, params, max_slots=MAX_SLOTS, max_seq_len=max_seq_len)
     if eng.paged:
         raise AssertionError(f"{cfg.family} took the paged engine")
-    for p, a in zip(prompts, ARRIVALS):
-        eng.submit(p, new_tokens, arrival=a)
+    for p, a, e in zip(prompts, ARRIVALS, extras):
+        eng.submit(p, new_tokens, arrival=a, extras=e or None)
     sync()
     if dev == "cuda":
         torch.cuda.reset_peak_memory_stats()
@@ -2406,35 +2546,47 @@ def serve_slots(cfg, prompt_lens, dev: str = "cuda", new_tokens: int = NEW_TOKEN
     for rid, r in results.items():
         if len(r.tokens) != new_tokens or r.finish_reason != "length":
             raise AssertionError(f"request {rid}: {len(r.tokens)} tokens, {r.finish_reason}")
-    norms, attns = LAYER_LAUNCHES[cfg.family]
-    expect = {"rmsnorm": (norms * nl + 1) * (ticks + n_req),
-              "flash_attention_fwd": attns * nl * n_req}  # prefill only
+    (fwd_norms, fwd_attns), _ = forward_launches(cfg)
+    if cfg.family == "audio":
+        # per admission the encoder and the decoder prompt (self and cross
+        # attention on the flash kernel); per tick the decoder's norms and
+        # its cross-attention, Sq 1 against the frames (the self-attention
+        # reads the ring with exact attention)
+        expect = {"rmsnorm": fwd_norms * n_req + (3 * nl + 1) * ticks,
+                  "flash_attention_fwd": fwd_attns * n_req + nl * ticks}
+    else:
+        expect = {"rmsnorm": fwd_norms * (ticks + n_req),
+                  "flash_attention_fwd": fwd_attns * n_req}  # prefill only
     expect = {k: v for k, v in expect.items() if v}
     if launches != expect:
         raise AssertionError(f"launch counts {launches} != expected {expect}")
     del eng
 
-    static = ServeEngine(model, params)
+    # the ring of a windowed (hybrid) model holds its window by design; the
+    # enc-dec ring must hold each request's prompt and new tokens
+    static = ServeEngine(model, params, capacity=max_seq_len if cfg.family == "audio" else 0)
     parted, f32 = [], None
     t0 = time.perf_counter()
     for rid, p in enumerate(prompts):
         tok = torch.as_tensor(p, device=dev)[None]
-        want = static.generate({"tokens": tok}, new_tokens).tokens[0].cpu().numpy()
+        b1 = with_prefix({"tokens": tok}, extras[rid])
+        want = static.generate(b1, new_tokens).tokens[0].cpu().numpy()
         got = results[rid].tokens
         if (want == got).all():
             continue
         j = int(np.argmax(want != got))
         if j == 0:
-            logits = model.prefill(static.params, {"tokens": tok})[0][0]
+            logits = model.prefill(static.params, b1)[0][0]
         else:
-            logits = static.generate({"tokens": tok}, j).logits_last[0]
+            logits = static.generate(b1, j).logits_last[0]
         gap = float(logits[int(want[j])] - logits[int(got[j])])
         if f32 is None:  # the same model in f32, from the same seed
             m32 = build_model(cfg.with_(dtype=torch.float32), device=dev)
             f32 = (m32, m32.init(torch.Generator(device=dev).manual_seed(SEED)))
         seq = torch.cat([tok, torch.as_tensor(want[:j], device=dev)[None].to(tok.dtype)], 1)
-        l16 = model.prefill(static.params, {"tokens": seq})[0][0]
-        l32 = f32[0].prefill(f32[1], {"tokens": seq})[0][0]
+        bj = with_prefix({"tokens": seq}, extras[rid])
+        l16 = model.prefill(static.params, bj)[0][0]
+        l32 = f32[0].prefill(f32[1], bj)[0][0]
         sigma = float(torch.sqrt(torch.mean((l16 - l32) ** 2)))
         bar = TIE_BAR_SIGMAS * sigma
         parted.append({"request": rid, "step": j, "gap": gap, "bf16_sigma": sigma, "bar": bar})
@@ -2448,7 +2600,8 @@ def serve_slots(cfg, prompt_lens, dev: str = "cuda", new_tokens: int = NEW_TOKEN
         f"static engine {time.perf_counter() - t0:.1f} s")
     return {
         "arch": cfg.arch_id, "params": n_params, "requests": n_req,
-        "prompt_lens": list(prompt_lens), "tokens": emitted, "ticks": ticks,
+        "prompt_lens": list(prompt_lens), "new_tokens": new_tokens,
+        "max_seq_len": max_seq_len, "tokens": emitted, "ticks": ticks,
         "wall_s": wall, "tokens_per_s": emitted / wall, "max_memory_allocated": peak,
         "launches": launches, "expected": expect, "parted": parted,
     }
@@ -2550,17 +2703,127 @@ def family_kernel_cases(results):
                                      shape=FAMILY_TRAIN_RUNS["train_moe"][5][0])
 
 
-def sdpa_masked(qt, kt, vt, allow):
+def sdpa_masked(qt, kt, vt, allow, is_causal: bool = False):
     """``scaled_dot_product_attention`` over (B, H, S, D) with a boolean
-    allow-mask and GQA (K/V heads repeated where this torch has no
+    allow-mask (None: no mask, or SDPA's own causal mask where
+    ``is_causal``) and GQA (K/V heads repeated where this torch has no
     ``enable_gqa``)."""
     F = torch.nn.functional
     try:
-        return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=allow, enable_gqa=True)
+        return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=allow, is_causal=is_causal,
+                                              enable_gqa=True)
     except TypeError:
         g = qt.shape[1] // kt.shape[1]
         return F.scaled_dot_product_attention(
-            qt, kt.repeat_interleave(g, 1), vt.repeat_interleave(g, 1), attn_mask=allow)
+            qt, kt.repeat_interleave(g, 1), vt.repeat_interleave(g, 1), attn_mask=allow,
+            is_causal=is_causal)
+
+
+def encdec_vlm_kernel_cases(results):
+    """Kernels 1-5 and 9 at the shapes the VLM and enc-dec paths give
+    them, each against its plain version at ``TOL``, timed beside its
+    bound and library call: RMSNorm at widths 7168 and 1024 (4 and 4096
+    rows); flash without a mask over whisper's 1500 frames (MHA 16/16, D
+    64; 1500 is no multiple of the 64-row tile, and no causal early exit
+    may apply), whisper's cross-attention with Sq != Sk (a 64-token prefill,
+    and one decode tick of 4 slots at Sq 1, one row of a 64-row tile), and
+    llava's longest causal prefill (GQA 56/8, D 128, S 1600); paged decode
+    at GQA 56/8 (G = 7, one idle head of the 8-head instance) over
+    ``PAGED_FILLS`` + 576 patches; kernels 4, 5 and 9 on llava's mlp bucket
+    (B 6 at 2 layers, 7168 x 20480, rank 512, k' 2056) and kernels 4 and 5
+    on whisper's 1024 x 1024 bucket (B 288, rank 256: its path runs no
+    power iteration)."""
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_fwd
+    from repro_torch.kernels.flash_attention.kernel import last_design as flash_design
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    from repro_torch.kernels.flash_attention_decode.kernel import (
+        paged_decode_attention_kernel,
+    )
+    from repro_torch.kernels.flash_attention_decode.ref import paged_decode_attention_ref
+    from repro_torch.kernels.rmsnorm.kernel import rmsnorm
+    from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
+
+    F = torch.nn.functional
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 9)
+    cases = []
+    bf16 = torch.bfloat16
+
+    def randn(*shape, dtype=torch.float32, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=dev) * scale).to(dtype)
+
+    def record(name, label, dtype, err, timing):
+        record_case(cases, results, name, label, dtype, err, False, timing, relative=False)
+
+    for rows, width in ((4, 7168), (4096, 7168), (4, 1024), (4096, 1024)):
+        x = randn(rows, width, dtype=bf16)
+        scale = 1.0 + randn(width, scale=0.1)
+        err = check_close(f"rmsnorm ({rows},{width})", rmsnorm(x, scale, 1e-5),
+                          rmsnorm_ref(x, scale, 1e-5), *TOL["rmsnorm"]["bfloat16"])
+        b_ms, b_by = bound(2 * rows * width * 2 + width * 4, 4 * rows * width, "bfloat16")
+        scale_lib = scale.to(bf16)
+        record("rmsnorm", f"({rows},{width})", bf16, err, {
+            "ms": device_ms(lambda: rmsnorm(x, scale, 1e-5)),
+            "call_ms": call_ms(lambda: rmsnorm(x, scale, 1e-5)),
+            "plain_ms": device_ms(lambda: rmsnorm_ref(x, scale, 1e-5)),
+            "library_ms": device_ms(lambda: F.rms_norm(x, (width,), scale_lib, 1e-5)),
+            "bound_ms": b_ms, "bound_by": b_by})
+
+    # (label, B, Sq, Sk, H, KVH, D, causal); the library call is SDPA,
+    # with its own causal mask (Sq == Sk) where there is one, no mask
+    # elsewhere
+    for label, nb, sq, sk, h, kvh, d, causal in (
+            ("whisper encoder B=1 S=1500 MHA 16/16 D=64 no mask", 1, 1500, 1500, 16, 16, 64,
+             False),
+            ("whisper encoder B=8 S=1500 MHA 16/16 D=64 no mask", 8, 1500, 1500, 16, 16, 64,
+             False),
+            ("whisper cross prefill B=1 Sq=64 Sk=1500 MHA 16/16 D=64", 1, 64, 1500, 16, 16, 64,
+             False),
+            ("whisper cross decode tick B=4 Sq=1 Sk=1500 MHA 16/16 D=64", 4, 1, 1500, 16, 16, 64,
+             False),
+            ("llava prefill B=1 S=1600 GQA 56/8 D=128 causal", 1, 1600, 1600, 56, 8, 128, True)):
+        q = randn(nb, sq, h, d, dtype=bf16)
+        k, v = (randn(nb, sk, kvh, d, dtype=bf16) for _ in range(2))
+        got = flash_attention_fwd(q, k, v, causal=causal)
+        if flash_design() != "tensor_cores":
+            raise AssertionError(f"flash {label} ran on the {flash_design()}")
+        err = check_close(f"flash {label}", got, flash_attention_ref(q, k, v, causal=causal),
+                          *TOL["flash_attention_fwd"]["bfloat16"])
+        live = sq * (sq + 1) // 2 if causal else sq * sk
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        b_ms, b_by = bound((2 * q.numel() + k.numel() + v.numel()) * 2, 4 * d * h * nb * live,
+                           "bfloat16")
+        record("flash_attention_fwd", label, bf16, err, {
+            "design": "tensor_cores",
+            "ms": device_ms(lambda: flash_attention_fwd(q, k, v, causal=causal)),
+            "call_ms": call_ms(lambda: flash_attention_fwd(q, k, v, causal=causal)),
+            "plain_ms": device_ms(lambda: flash_attention_ref(q, k, v, causal=causal)),
+            "library_ms": device_ms(lambda: sdpa_masked(qt, kt, vt, None, is_causal=causal)),
+            "bound_ms": b_ms, "bound_by": b_by})
+        del q, k, v, got, qt, kt, vt
+
+    fills = [576 + n for n in PAGED_FILLS]
+    q, pk, pv, table, lens = paged_inputs(randn, fills, bf16, False, gen, heads=(56, 8))
+    got = paged_decode_attention_kernel(q, pk, pv, table, lens)
+    err = check_close("paged GQA 56/8", got, paged_decode_attention_ref(q, pk, pv, table, lens),
+                      *TOL["paged_decode_attention"]["bfloat16"])
+    b_ms, b_by = paged_bound(q, table, fills, 0, kvh=8)
+    timing = {**paged_plan(q, pk, table),
+              "ms": device_ms(lambda: paged_decode_attention_kernel(q, pk, pv, table, lens)),
+              "call_ms": call_ms(lambda: paged_decode_attention_kernel(q, pk, pv, table, lens)),
+              "plain_ms": device_ms(lambda: paged_decode_attention_ref(q, pk, pv, table, lens)),
+              "library_ms": None, "bound_ms": b_ms, "bound_by": b_by}
+    if timing.get("design", "tensor_cores") != "tensor_cores":
+        raise AssertionError(f"paged GQA 56/8 ran on the {timing['design']}")
+    record("paged_decode_attention", f"GQA 56/8 {paged_label(fills, 0, False)}", bf16, err,
+           timing)
+    del q, pk, pv, table, lens, got
+    torch.cuda.empty_cache()
+    return (cases
+            + rank_kernel_cases(results, ranks=(512,),
+                                shape=FAMILY_TRAIN_RUNS["train_vlm"][5][-1])
+            + rank_kernel_cases(results, ranks=(256,),
+                                shape=FAMILY_TRAIN_RUNS["train_audio"][5][0], power=False))
 
 
 def family_train(path: str, smi: str, dev: str = "cuda"):
@@ -2574,9 +2837,10 @@ def family_train(path: str, smi: str, dev: str = "cuda"):
     if layers:
         cfg = cfg.with_(n_layers=layers)
     # the SSM's hot step runs ~1e5 small kernels (the chunk loop), whose
-    # profile alone took minutes to sum up: profiled on the MoE path only
+    # profile alone took minutes to sum up: the SSM paths are not profiled
     out = train(cfg, "galore-sara-adam", plan, dev=dev, seq=seq, batch=batch,
-                opt_kw=dict(rank=rank), check_grads=True, profile=path == "train_moe")
+                opt_kw=dict(rank=rank), check_grads=True,
+                profile=path in ("train_moe", "train_vlm", "train_audio"))
     log(f"{path} ({smi}): {arch} {cfg.n_layers} layers, seq {seq}, batch {batch}, rank "
         f"{rank}: refresh {out['refresh_step_ms']:.1f} ms, hot {out['hot_step_ms']} ms, "
         f"peak {out['max_memory_allocated'] / 2**30:.2f} GiB")
@@ -2598,7 +2862,8 @@ def _unflatten_like(like, flat_by_path, dev):
 # few paths on the card), no argument runs them all
 PHASES = ("kernels", "serve", "train", "train_recovery", "train_rank_schedule", "resume",
           "family_kernels", "serve_moe", "train_moe", "serve_ssm", "train_ssm",
-          "serve_hybrid", "train_hybrid")
+          "serve_hybrid", "train_hybrid", "encdec_vlm_kernels", "serve_vlm", "train_vlm",
+          "serve_audio", "train_audio")
 
 
 def main(argv=None) -> int:
@@ -2678,9 +2943,22 @@ def main(argv=None) -> int:
         serve_path = path.replace("train", "serve")
         if path == "train_moe" or serve_path not in only:
             continue
-        arch, lens = (SSM_ARCH, PROMPT_LENS) if path == "train_ssm" else \
-            (HYBRID_ARCH, HYBRID_PROMPT_LENS)
-        runs[serve_path] = phase(serve_path, lambda: serve_slots(get_config(arch), lens))
+        cfg, lens = (get_config(SSM_ARCH), PROMPT_LENS) if path == "train_ssm" else \
+            (get_config(HYBRID_ARCH).with_(n_layers=HYBRID_LAYERS), HYBRID_PROMPT_LENS)
+        runs[serve_path] = phase(serve_path, lambda: serve_slots(cfg, lens))
+    if "encdec_vlm_kernels" in only:
+        cases += phase("encdec_vlm_kernels", lambda: encdec_vlm_kernel_cases(results))
+    if "serve_vlm" in only:  # llava-next-34b at full width and depth, bf16
+        runs["serve_vlm"] = phase("serve_vlm", lambda: serve(
+            get_config(VLM_ARCH), profile_ticks=9, pool_pages=VLM_POOL_PAGES))
+    if "train_vlm" in only:
+        runs["train_vlm"] = phase("train_vlm", lambda: family_train("train_vlm", smi))
+    if "serve_audio" in only:  # whisper-medium at full width and depth, bf16
+        runs["serve_audio"] = phase("serve_audio", lambda: serve_slots(
+            get_config(AUDIO_ARCH), AUDIO_PROMPT_LENS, new_tokens=AUDIO_NEW_TOKENS,
+            max_seq_len=AUDIO_MAX_SEQ))
+    if "train_audio" in only:
+        runs["train_audio"] = phase("train_audio", lambda: family_train("train_audio", smi))
     log(f"phase seconds {phase_s}; all {time.perf_counter() - t_start:.1f} s ({smi})")
 
     for name, r in results.items():

@@ -1,11 +1,12 @@
 """Model and training configuration, from ``src/repro/configs/base.py``.
 
-``ModelConfig`` has the fields of the dense, MoE, SSM and hybrid
-families, with the JAX config's names and defaults, so a config compares
-field by field with its reference; only the dtypes are torch's.  ``RankSchedule`` is the
-reference's rank schedule, field for field (its evaluation lives in
-``core/rank_schedule.py``).  The enc-dec and VLM fields come with their
-families (ROADMAP queue 1 item 8); shape and mesh configs with theirs.
+``ModelConfig`` has the fields of every family (dense, MoE, SSM,
+hybrid, enc-dec and VLM), with the JAX config's names and defaults, so a
+config compares field by field with its reference; only the dtypes are
+torch's.  ``RankSchedule`` is the reference's rank schedule, field for
+field (its evaluation lives in ``core/rank_schedule.py``).  Shape and
+mesh configs come with the launch and distributed slices (ROADMAP queue 1
+items 11 and 12).
 """
 from __future__ import annotations
 
@@ -47,6 +48,13 @@ class ModelConfig:
 
     # --- hybrid (hymba) ---
     attn_window: int = 0  # 0 = global attention; >0 = sliding window
+
+    # --- enc-dec (whisper) ---
+    n_enc_layers: int = 0
+    enc_frames: int = 1500
+
+    # --- VLM (llava) ---
+    n_patches: int = 0  # patch-embedding prefix length for train shape
 
     # --- numerics / impl ---
     dtype: Any = torch.bfloat16  # activation/compute dtype

@@ -4,7 +4,11 @@ CUDA tensors go to the hand-written kernel, through its autograd wrapper
 where a gradient is wanted (training), CPU tensors to the plain version.
 The position arguments keep the models' signature; like the TPU
 kernel (``src/repro/kernels/flash_attention/ops.py:5-7``), both paths take
-positions to be ``arange``: contiguous self-attention, the only call site.
+positions to be ``arange``.  So a caller passes either contiguous
+self-attention (Sq == Sk, causal or windowed or neither), or attention
+with no mask at all (``causal=False``, ``window=0``), where positions do
+not enter and Sq and Sk may differ: whisper's cross-attention, Sq tokens
+against Sk encoder frames (``models/attention.py`` holds that contract).
 """
 from __future__ import annotations
 

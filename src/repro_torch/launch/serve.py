@@ -6,13 +6,23 @@ is given.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-8b --continuous
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-8b --smoke --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-370m --smoke --device cpu \
-        --continuous     # moe: the paged engine; ssm and hybrid: the slot-cache engine
+        --continuous     # moe, vlm: the paged engine; ssm, hybrid, audio: the slot-cache engine
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-medium --smoke --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch llava-next-34b --smoke --device cpu \
+        --continuous
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-8b --smoke --device cpu \
         --continuous --ckpt /path/to/checkpoint_dir     # newest verified step
 
 ``--ckpt`` reads the params of the newest checkpoint whose param leaves
 verify (``train/checkpoint.load_params_latest``), written by the port's
 trainer or the JAX package's alike.
+
+vlm and audio requests carry the family's prefix, zeros as in the JAX
+launcher (``prefix_extras``, ``src/repro/launch/serve.py:54-65``):
+``n_patches`` patch embeddings (8 under ``--smoke``) or ``enc_frames``
+frame embeddings.  The patches also take KV positions, so here (unlike the
+JAX launcher, whose cache holds only prompt + new tokens + a page) the
+cache capacity counts them too.
 """
 from __future__ import annotations
 
@@ -60,17 +70,28 @@ def main(argv=None) -> None:
         print(f"[serve] restored params from {args.ckpt} step {step}")
     rng = np.random.default_rng(args.seed + 1)
 
+    def prefix_extras(batch=None):
+        """The family's prefix, zeros, with a leading batch axis if given."""
+        lead = () if batch is None else (batch,)
+        if cfg.family == "vlm":
+            n = 8 if args.smoke else cfg.n_patches
+            return {"patch_embeds": torch.zeros(lead + (n, cfg.d_model))}
+        if cfg.family == "audio":
+            return {"frame_embeds": torch.zeros(lead + (cfg.enc_frames, cfg.d_model))}
+        return {}
+
+    prefix_kv = prefix_extras().get("patch_embeds", torch.zeros(0)).shape[0]
     if args.continuous:
         eng = ContinuousEngine(
             model, params,
             max_slots=args.max_slots,
-            max_seq_len=args.prompt_len + args.new_tokens + args.page_size,
+            max_seq_len=prefix_kv + args.prompt_len + args.new_tokens + args.page_size,
             page_size=args.page_size,
         )
         del params  # the engine keeps the serving cast
         for i in range(args.requests):
             prompt = rng.integers(0, cfg.vocab_size, (args.prompt_len,))
-            eng.submit(prompt, args.new_tokens, arrival=i)
+            eng.submit(prompt, args.new_tokens, arrival=i, extras=prefix_extras() or None)
         t0 = time.perf_counter()
         results = eng.run()
         if model.device.type == "cuda":
@@ -84,8 +105,9 @@ def main(argv=None) -> None:
 
     batch = {"tokens": torch.from_numpy(
         rng.integers(0, cfg.vocab_size, (args.batch, args.prompt_len))
-    )}
-    eng = ServeEngine(model, params, capacity=args.prompt_len + args.new_tokens + 8)
+    ), **prefix_extras(args.batch)}
+    eng = ServeEngine(model, params,
+                      capacity=prefix_kv + args.prompt_len + args.new_tokens + 8)
     del params
     out = eng.generate(batch, max_new_tokens=args.new_tokens)
     print(f"[serve] generated {tuple(out.tokens.shape)} on {model.device}")

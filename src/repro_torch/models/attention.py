@@ -6,10 +6,14 @@
   * the flash kernel -- ``impl="auto"`` (or ``"pallas"``, kept as an
     alias) on a CUDA tensor sends prefill to the hand-written kernel in
     ``kernels/flash_attention``.  That kernel derives positions from
-    ``arange`` and ignores the position arguments, so only contiguous
-    self-attention may reach it (``forward_hidden``; the ring-cache
-    ``decode_step`` asks for ``exact``).  On the CPU, ``auto`` picks exact
-    or chunked by size as the JAX dispatch does.
+    ``arange`` and ignores the position arguments, so only two kinds of
+    call may reach it: contiguous self-attention (``forward_hidden``,
+    whisper's encoder; Sq == Sk), and attention without a mask (not
+    causal, no window), where positions do not enter, with any Sq and Sk
+    (whisper's cross-attention, ``encdec._cross_sublayer``, one query per
+    slot in decode).  The ring-cache ``decode_step`` asks for ``exact``.
+    On the CPU, ``auto`` picks exact or chunked by size as the JAX
+    dispatch does.
 
 GQA layout: q (B, Sq, H, D), k/v (B, Sk, KVH, D) with H = G * KVH.
 Masking is positional: causal = kv_pos <= q_pos, a window also requires
@@ -142,10 +146,11 @@ def attention(
 ) -> torch.Tensor:
     sq, sk = q.shape[1], k.shape[1]
     if impl == "pallas" or (impl == "auto" and q.is_cuda):
-        if q.is_cuda and sq != sk:
+        if q.is_cuda and sq != sk and (causal or window):
             raise ValueError(
-                f"the flash kernel serves contiguous self-attention (Sq == Sk), "
-                f"got Sq={sq}, Sk={sk}: pass impl='exact' or 'chunked'"
+                f"the flash kernel masks by arange positions: a causal or windowed "
+                f"call needs Sq == Sk, got Sq={sq}, Sk={sk}: pass impl='exact' or "
+                f"'chunked'"
             )
         return fa_ops.flash_attention(
             q, k, v, q_positions, kv_positions, causal=causal, window=window

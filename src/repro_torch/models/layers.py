@@ -24,15 +24,29 @@ Params = Dict[str, object]
 
 def dense_init(
     gen: torch.Generator, shape: Sequence[int], scale: Optional[float] = None,
-    dtype=torch.float32, device=None,
+    dtype=torch.float32, device=None, out_dtype=None,
 ) -> torch.Tensor:
     """Truncated-normal (+-3 sigma) fan-in init; ``shape`` is (..., m, n)
-    and the fan-in is m, so a stacked (L, m, n) leaf draws all layers."""
+    and the fan-in is m.  A stacked leaf ((L, m, n), or (L, E, m, n)) is
+    drawn one slice of its first axis at a time, in f32, scaled, cast to
+    ``dtype`` and written into a stack made in ``out_dtype`` (default
+    ``dtype``): a serving init (``out_dtype`` bf16) never holds the whole
+    leaf in f32, and draws the same numbers as the f32 init."""
+    shape = tuple(shape)
     if scale is None:
         scale = 1.0 / math.sqrt(shape[-2])
-    w = torch.empty(tuple(shape), dtype=torch.float32, device=device)
-    torch.nn.init.trunc_normal_(w, 0.0, 1.0, -3.0, 3.0, generator=gen)
-    return w.mul_(scale).to(dtype)
+
+    def draw(part):
+        w = torch.empty(part, dtype=torch.float32, device=device)
+        torch.nn.init.trunc_normal_(w, 0.0, 1.0, -3.0, 3.0, generator=gen)
+        return w.mul_(scale).to(dtype)
+
+    if len(shape) <= 2:
+        return draw(shape).to(out_dtype or dtype)
+    out = torch.empty(shape, dtype=out_dtype or dtype, device=device)
+    for i in range(shape[0]):
+        out[i] = draw(shape[1:])
+    return out
 
 
 def embed_init(
@@ -83,25 +97,27 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
 
 
 def init_mlp(
-    gen: torch.Generator, cfg: ModelConfig, lead: Sequence[int] = (),
+    gen: torch.Generator, cfg: ModelConfig, lead: Sequence[int], put,
     device=None, d_ff: Optional[int] = None,
 ) -> Params:
     """MLP params with leading dims ``lead`` ((n_layers,) for the stacked
     block leaves), ``d_ff`` wide (default ``cfg.d_ff``; MoE's fused shared
-    experts are ``n_shared_experts * d_ff``)."""
+    experts are ``n_shared_experts * d_ff``), each projection made by
+    ``put`` (a ``transformer.LeafMaker``) in its stored dtype."""
     d, ff = cfg.d_model, d_ff or cfg.d_ff
-    dt = cfg.param_dtype
     lead = tuple(lead)
     out_scale = 1.0 / math.sqrt(ff * 2 * cfg.n_layers)
     if cfg.mlp_kind not in ("swiglu", "squared_relu"):
         raise ValueError(f"unknown mlp_kind {cfg.mlp_kind}")
+
+    def proj(name, shape, scale=None):
+        return put.dense(name, gen, lead + shape, scale=scale, device=device)
+
     p = {}
     if cfg.mlp_kind == "swiglu":
-        p["gate_proj"] = dense_init(gen, lead + (d, ff), dtype=dt, device=device)
-    p["up_proj"] = dense_init(gen, lead + (d, ff), dtype=dt, device=device)
-    p["down_proj"] = dense_init(
-        gen, lead + (ff, d), scale=out_scale, dtype=dt, device=device
-    )
+        p["gate_proj"] = proj("gate_proj", (d, ff))
+    p["up_proj"] = proj("up_proj", (d, ff))
+    p["down_proj"] = proj("down_proj", (ff, d), out_scale)
     return p
 
 

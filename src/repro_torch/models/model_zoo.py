@@ -7,10 +7,12 @@
     loss, metrics = model.loss(params, {"tokens": ..., "labels": ...})
     cache = model.init_cache(batch, capacity)     # the family's decode cache
 
-``model.init(gen, serving=True)`` makes each leaf in its serving dtype as
-it is drawn (``transformer.leaf_maker``), so a model whose f32 params do
-not fit the card can still be served.  The dense, moe, ssm and hybrid
-families are ported; audio and vlm raise (ROADMAP queue 1 item 8).
+The vlm family's batches also carry ``patch_embeds`` (B, n_patches,
+d_model), ahead of the tokens in the sequence and in the KV cache; the
+audio family's carry ``frame_embeds`` (B, enc_frames, d_model), which feed
+the encoder.  ``model.init(gen, serving=True)`` makes each leaf in its
+serving dtype as it is drawn (``transformer.LeafMaker``), so a model whose
+f32 params do not fit the card can still be served.
 """
 from __future__ import annotations
 
@@ -20,10 +22,12 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.models import encdec as encdec_lib
 from repro_torch.models import hybrid as hybrid_lib
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models import transformer as tfm
+from repro_torch.models import vlm as vlm_lib
 
 FAMILIES = ("dense", "moe", "vlm", "audio", "hybrid", "ssm")
 
@@ -42,11 +46,6 @@ def build_model(cfg: ModelConfig, device: DeviceLike = "cuda") -> Model:
     fam = cfg.family
     if fam not in FAMILIES:
         raise ValueError(f"unknown family {fam!r}")
-    if fam in ("audio", "vlm"):
-        raise NotImplementedError(
-            f"family {fam!r} is not yet ported to repro_torch (ROADMAP queue 1 "
-            f"item 8); ported: dense, moe, ssm, hybrid"
-        )
     dev = resolve_device(device)
     kv_cache = lambda batch, cap: tfm.init_kv_cache(cfg, batch, cap, device=dev)  # noqa: E731
     if fam == "dense":
@@ -68,6 +67,29 @@ def build_model(cfg: ModelConfig, device: DeviceLike = "cuda") -> Model:
             decode=lambda p, c, b: moe_lib.decode_step(p, cfg, c, b["token"]),
             loss=lambda p, b: moe_lib.loss_fn(p, cfg, b),
             init_cache=kv_cache,
+        )
+    if fam == "vlm":
+        return Model(
+            cfg=cfg, device=dev,
+            init=lambda gen, serving=False: vlm_lib.init_params(gen, cfg, dev, serving=serving),
+            prefill=lambda p, b, capacity=None: vlm_lib.prefill(
+                p, cfg, b["tokens"], b["patch_embeds"],
+                capacity=capacity or b["tokens"].shape[1] + b["patch_embeds"].shape[1]),
+            decode=lambda p, c, b: vlm_lib.decode_step(p, cfg, c, b["token"]),
+            loss=lambda p, b: vlm_lib.loss_fn(p, cfg, b),
+            init_cache=kv_cache,
+        )
+    if fam == "audio":
+        return Model(
+            cfg=cfg, device=dev,
+            init=lambda gen, serving=False: encdec_lib.init_params(gen, cfg, dev,
+                                                                   serving=serving),
+            prefill=lambda p, b, capacity=None: encdec_lib.prefill(
+                p, cfg, b["tokens"], b["frame_embeds"],
+                capacity=capacity or b["tokens"].shape[1]),
+            decode=lambda p, c, b: encdec_lib.decode_step(p, cfg, c, b["token"]),
+            loss=lambda p, b: encdec_lib.loss_fn(p, cfg, b),
+            init_cache=lambda batch, cap: encdec_lib.init_cache(cfg, batch, cap, device=dev),
         )
     if fam == "hybrid":
         return Model(

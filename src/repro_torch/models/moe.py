@@ -44,12 +44,11 @@ def init_moe_mlp(
     """Router (f32, as JAX's), the (..., E, d, ff) expert stacks and the
     fused shared experts, with leading dims ``lead``."""
     d, ff, e = cfg.d_model, cfg.d_ff, cfg.n_experts
-    dt = cfg.param_dtype
     lead = tuple(lead)
     down_scale = 1.0 / math.sqrt(ff * 2 * cfg.n_layers)
 
     def stack(name, m, n, scale=None):
-        return put(name, L.dense_init(gen, lead + (e, m, n), scale=scale, dtype=dt, device=dev))
+        return put.dense(name, gen, lead + (e, m, n), scale=scale, device=dev)
 
     p = {
         "router_w": L.dense_init(gen, lead + (d, e), scale=0.02, dtype=torch.float32,
@@ -61,9 +60,8 @@ def init_moe_mlp(
         },
     }
     if cfg.n_shared_experts:
-        shared = L.init_mlp(gen, cfg.with_(mlp_kind="swiglu"), lead, device=dev,
-                            d_ff=cfg.n_shared_experts * ff)
-        p["shared_mlp"] = {k: put(k, v) for k, v in shared.items()}
+        p["shared_mlp"] = L.init_mlp(gen, cfg.with_(mlp_kind="swiglu"), lead, put, device=dev,
+                                     d_ff=cfg.n_shared_experts * ff)
     return p
 
 

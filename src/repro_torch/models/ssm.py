@@ -68,9 +68,8 @@ def init_ssm_mixer(gen: torch.Generator, cfg: ModelConfig, lead, dev, put) -> Pa
     conv_w.normal_(0.0, 1.0, generator=gen)
     a_log = torch.log(torch.arange(1, h + 1, dtype=torch.float32, device=dev))
     return {
-        "in_proj": put("in_proj", L.dense_init(gen, lead + (d, in_dim), dtype=dt, device=dev)),
-        "out_proj": put("out_proj", L.dense_init(gen, lead + (d_inner, d), scale=out_scale,
-                                                 dtype=dt, device=dev)),
+        "in_proj": put.dense("in_proj", gen, lead + (d, in_dim), device=dev),
+        "out_proj": put.dense("out_proj", gen, lead + (d_inner, d), scale=out_scale, device=dev),
         "conv_w": (conv_w * 0.02).to(dt),
         "conv_b": torch.zeros(lead + (dims["conv_dim"],), dtype=dt, device=dev),
         "a_log": a_log.expand(lead + (h,)).contiguous(),

@@ -62,45 +62,62 @@ def init_kv_cache(cfg: ModelConfig, batch: int, capacity: int, *, device) -> KVC
 _ATTN_BIASES = ("q_bias", "k_bias", "v_bias")
 
 
-def serving_leaf(name: str, leaf: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """The serving dtype of one leaf, by name: ``*_proj`` weights (expert
-    stacks included), the attention biases and ``embed`` in ``cfg.dtype``;
-    norm scales, the MoE router and the SSM's conv, decay, step
-    (``dt_bias``) and skip parameters stay as they are (JAX reads them in
-    f32 or casts them per use), and so does ``lm_head`` (or ``embed`` for
-    tied configs), which the logits product reads in f32."""
+def serving_dtype(name: str, dtype: torch.dtype, cfg: ModelConfig) -> torch.dtype:
+    """The serving dtype of a leaf named ``name`` that is made in ``dtype``:
+    ``*_proj`` weights (expert stacks included), the attention biases and
+    ``embed`` in ``cfg.dtype``; norm scales, the MoE router and the SSM's
+    conv, decay, step (``dt_bias``) and skip parameters stay as they are
+    (JAX reads them in f32 or casts them per use), and so does ``lm_head``
+    (or ``embed`` for tied configs), which the logits product reads in
+    f32."""
     if name.endswith("_proj") or name in _ATTN_BIASES or (
             name == "embed" and not cfg.tie_embeddings):
-        return leaf.to(cfg.dtype)
-    return leaf
+        return cfg.dtype
+    return dtype
 
 
-def leaf_maker(cfg: ModelConfig, serving: bool):
-    """``put(name, leaf)``: the leaf as made, or already in its serving
-    dtype (``serving_leaf``) when ``serving`` -- each leaf is cast as soon
-    as it is drawn, so the f32 model never lives whole on the card."""
-    if not serving:
-        return lambda name, leaf: leaf
-    return lambda name, leaf: serving_leaf(name, leaf, cfg)
+def serving_leaf(name: str, leaf: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """One leaf in its serving dtype (``serving_dtype``)."""
+    return leaf.to(serving_dtype(name, leaf.dtype, cfg))
 
 
-def init_attn_block(gen: torch.Generator, cfg: ModelConfig, dev: torch.device, put) -> Params:
+class LeafMaker:
+    """``put(name, leaf)``: the leaf as made, or in its serving dtype
+    (``serving_leaf``) when ``serving``.  ``put.dense(name, gen, shape,
+    scale, device)`` draws a ``dense_init`` leaf straight into its stored
+    dtype, one slice of a stacked leaf at a time: a serving init never
+    holds a whole stacked leaf in f32, and draws the very numbers of the
+    f32 init (``init(gen, serving=True)`` equals ``serving_params(init(gen))``
+    bit for bit)."""
+
+    def __init__(self, cfg: ModelConfig, serving: bool):
+        self.cfg = cfg
+        self.serving = serving
+
+    def __call__(self, name: str, leaf: torch.Tensor) -> torch.Tensor:
+        return serving_leaf(name, leaf, self.cfg) if self.serving else leaf
+
+    def dense(self, name: str, gen: torch.Generator, shape, scale=None, device=None):
+        dt = self.cfg.param_dtype
+        out = serving_dtype(name, dt, self.cfg) if self.serving else dt
+        return L.dense_init(gen, shape, scale=scale, dtype=dt, device=device, out_dtype=out)
+
+
+def init_attn_block(gen: torch.Generator, cfg: ModelConfig, dev: torch.device,
+                    put: LeafMaker, n_layers: Optional[int] = None) -> Params:
     """The stacked (L, ...) attention half of a block, as the JAX
     ``init_block`` makes it: both norms and the q/k/v/o projections (and
-    biases)."""
-    nl, d, qd, kvd = cfg.n_layers, cfg.d_model, cfg.q_dim, cfg.kv_dim
+    biases).  ``n_layers`` stacks another count than ``cfg.n_layers``
+    (whisper's encoder), with the same init scales."""
+    nl, d, qd, kvd = n_layers or cfg.n_layers, cfg.d_model, cfg.q_dim, cfg.kv_dim
     dt = cfg.param_dtype
-    o_scale = 1.0 / ((qd * 2 * nl) ** 0.5)
-
-    def proj(name, shape, scale=None):
-        return put(name, L.dense_init(gen, shape, scale=scale, dtype=dt, device=dev))
-
+    o_scale = 1.0 / ((qd * 2 * cfg.n_layers) ** 0.5)
     blocks = {
         "attn_norm": torch.ones((nl, d), dtype=dt, device=dev),
-        "q_proj": proj("q_proj", (nl, d, qd)),
-        "k_proj": proj("k_proj", (nl, d, kvd)),
-        "v_proj": proj("v_proj", (nl, d, kvd)),
-        "o_proj": proj("o_proj", (nl, qd, d), o_scale),
+        "q_proj": put.dense("q_proj", gen, (nl, d, qd), device=dev),
+        "k_proj": put.dense("k_proj", gen, (nl, d, kvd), device=dev),
+        "v_proj": put.dense("v_proj", gen, (nl, d, kvd), device=dev),
+        "o_proj": put.dense("o_proj", gen, (nl, qd, d), o_scale, device=dev),
         "mlp_norm": torch.ones((nl, d), dtype=dt, device=dev),
     }
     if cfg.qkv_bias:
@@ -109,10 +126,10 @@ def init_attn_block(gen: torch.Generator, cfg: ModelConfig, dev: torch.device, p
     return blocks
 
 
-def init_dense_blocks(gen: torch.Generator, cfg: ModelConfig, dev: torch.device, put) -> Params:
-    blocks = init_attn_block(gen, cfg, dev, put)
-    mlp = L.init_mlp(gen, cfg, (cfg.n_layers,), device=dev)
-    blocks["mlp"] = {k: put(k, v) for k, v in mlp.items()}
+def init_dense_blocks(gen: torch.Generator, cfg: ModelConfig, dev: torch.device,
+                      put: LeafMaker, n_layers: Optional[int] = None) -> Params:
+    blocks = init_attn_block(gen, cfg, dev, put, n_layers)
+    blocks["mlp"] = L.init_mlp(gen, cfg, (n_layers or cfg.n_layers,), put, device=dev)
     return blocks
 
 
@@ -122,11 +139,11 @@ def init_params(
 ) -> Params:
     """Random params in ``cfg.param_dtype`` with the JAX tree's layout.
     ``gen`` must live on ``device``.  ``serving`` casts each leaf to its
-    serving dtype as it is made (``leaf_maker``).  ``init_blocks(gen, cfg,
+    serving dtype as it is made (``LeafMaker``).  ``init_blocks(gen, cfg,
     dev, put)`` makes the stacked block leaves (the family's: dense, MoE,
     SSM or hybrid)."""
     dev = resolve_device(device)
-    put = leaf_maker(cfg, serving)
+    put = LeafMaker(cfg, serving)
     blocks = init_blocks(gen, cfg, dev, put)
     d, dt = cfg.d_model, cfg.param_dtype
     params = {
@@ -216,12 +233,15 @@ def attn_sublayer(
     *,
     causal: bool = True,
     window: int = 0,
+    rope: bool = True,
 ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
-    """Self-attention; returns (attn_out (B,S,D), (k, v)) for cache fills."""
+    """Self-attention; returns (attn_out (B,S,D), (k, v)) for cache fills.
+    ``rope=False`` leaves q and k unrotated (whisper's encoder)."""
     b, s, _ = x.shape
     q, k, v = project_qkv(p, x, cfg)
-    q = L.apply_rope(q, q_positions, cfg.rope_theta)
-    k = L.apply_rope(k, q_positions, cfg.rope_theta)
+    if rope:
+        q = L.apply_rope(q, q_positions, cfg.rope_theta)
+        k = L.apply_rope(k, q_positions, cfg.rope_theta)
     out = attn_lib.attention(
         q, k, v, q_positions, kv_positions,
         causal=causal, window=window, impl=cfg.attn_impl,
@@ -272,13 +292,18 @@ def forward_hidden(
     cfg: ModelConfig,
     tokens: torch.Tensor,  # (B, S)
     *,
+    prefix_embeds: Optional[torch.Tensor] = None,  # (B, P, D) pre-embedded
     collect_kv: bool = False,
     mlp_fn=default_mlp_fn,
 ):
-    """Embedding -> blocks -> final norm.  Returns (h, kvs, aux) with kvs
-    the stacked (L, B, S, KVH, D) K and V when ``collect_kv`` and aux the
-    blocks' summed auxiliary loss (``mlp_fn``'s second output)."""
+    """(Prefix +) token embedding -> blocks -> final norm.  Returns (h,
+    kvs, aux) with kvs the stacked (L, B, P + S, KVH, D) K and V when
+    ``collect_kv`` and aux the blocks' summed auxiliary loss (``mlp_fn``'s
+    second output).  A prefix goes ahead of the tokens, with positions
+    over the whole sequence (JAX ``transformer.py:246-267``)."""
     h = embed_tokens(params, tokens, cfg)
+    if prefix_embeds is not None:
+        h = torch.cat([prefix_embeds.to(cfg.dtype), h], dim=1)
     b, s, _ = h.shape
     positions = torch.arange(s, dtype=torch.int32, device=h.device).expand(b, s)
     ks: List[torch.Tensor] = []
@@ -307,10 +332,18 @@ def loss_fn(
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Next-token loss, from ``transformer.py:270-290``: (loss + aux_weight
     * aux / n_layers, {"loss", "aux", "tokens"}); labels of -1 carry no
-    loss.  A dense model's aux is 0 and its total is the loss itself."""
-    h, _, aux = forward_hidden(params, cfg, batch["tokens"], mlp_fn=mlp_fn)
+    loss.  A dense model's aux is 0 and its total is the loss itself.  A
+    ``patch_embeds`` (or ``frame_embeds``) prefix in the batch goes ahead
+    of the tokens and its positions carry no loss."""
+    prefix = batch.get("patch_embeds", batch.get("frame_embeds"))
+    h, _, aux = forward_hidden(params, cfg, batch["tokens"], prefix_embeds=prefix,
+                               mlp_fn=mlp_fn)
+    labels = batch["labels"]
+    if prefix is not None:
+        pad = torch.full(prefix.shape[:2], -1, dtype=labels.dtype, device=labels.device)
+        labels = torch.cat([pad, labels], dim=1)
     loss, n_tok = L.chunked_cross_entropy(
-        h, lm_head_matrix(params, cfg), batch["labels"], cfg.loss_chunk
+        h, lm_head_matrix(params, cfg), labels, cfg.loss_chunk
     )
     aux = torch.as_tensor(aux, dtype=torch.float32, device=h.device)
     total = loss + aux_weight * aux / max(cfg.n_layers, 1) if aux_weight else loss
@@ -345,11 +378,14 @@ def prefill(
     cfg: ModelConfig,
     tokens: torch.Tensor,
     *,
+    prefix_embeds: Optional[torch.Tensor] = None,
     capacity: Optional[int] = None,
     mlp_fn=default_mlp_fn,
 ) -> Tuple[torch.Tensor, KVCache]:
-    """Run the full prompt; return (last-token logits (B, V) f32, cache)."""
-    h, kvs, _ = forward_hidden(params, cfg, tokens, collect_kv=True, mlp_fn=mlp_fn)
+    """Run the full prompt (after ``prefix_embeds``, whose positions come
+    first in the cache); return (last-token logits (B, V) f32, cache)."""
+    h, kvs, _ = forward_hidden(params, cfg, tokens, prefix_embeds=prefix_embeds,
+                               collect_kv=True, mlp_fn=mlp_fn)
     b, s, _ = h.shape
     cap = capacity or (cfg.attn_window if cfg.attn_window else s)
     cache = init_kv_cache(cfg, b, cap, device=h.device)

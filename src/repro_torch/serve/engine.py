@@ -10,24 +10,31 @@ slots.  New prompts prefill into free slots while in-flight sequences keep
 decoding; EOS or token-budget retirement frees the slot at once.  Per
 family:
 
-  * dense / moe -- K/V in the shared page pool (serve/kv_cache.py), decode
-    through the paged step (serve/paged_decode.py) whose attention reads
-    through the page table.  Admission reserves a request's whole page
-    budget inside the scheduler's admission loop, so two queued requests
-    that each fit but not together never both admit.
-  * ssm / hybrid -- the family's native cache (SSM state; window ring +
-    SSM state) batched over the slots (``kv_cache.SlotCache``): admission
-    writes a batch-1 prefill cache into its slot's rows and the model's own
-    ``decode`` runs every slot in lockstep (decode is row-independent, so
-    dead slots are ignored lanes).
+  * dense / moe / vlm -- K/V in the shared page pool (serve/kv_cache.py),
+    decode through the paged step (serve/paged_decode.py) whose attention
+    reads through the page table.  Admission reserves a request's whole
+    page budget inside the scheduler's admission loop, so two queued
+    requests that each fit but not together never both admit.  A vlm
+    request's patch prefix enters the pages at prefill and counts in its
+    KV length (``_kv_len``): the capacity check, the page budget and the
+    slot's ``seq_lens``.
+  * ssm / hybrid / audio -- the family's native cache (SSM state; window
+    ring + SSM state; ring + the encoder's cross K/V) batched over the
+    slots (``kv_cache.SlotCache``): admission writes a batch-1 prefill
+    cache into its slot's rows and the model's own ``decode`` runs every
+    slot in lockstep (decode is row-independent, so dead slots are ignored
+    lanes).
+
+A request's ``extras`` (vlm ``patch_embeds`` (P, D), audio
+``frame_embeds`` (F, D), without the batch axis) reach its prefill with a
+batch axis of 1.
 
 Time advances in ticks, one decode step per tick; prefill occupies the
 tick a request admits on (its first token is emitted then) and its first
 decode step lands on the next tick.  Decoding is greedy.
 
 Both engines cast the weights for serving once (``transformer.
-serving_params``).  The audio family's slot path comes with its slice
-(ROADMAP queue 1 item 8).
+serving_params``).
 """
 from __future__ import annotations
 
@@ -53,21 +60,32 @@ class GenerateResult:
     steps: int
 
 
+def _prompt_kv_len(cfg, batch: Dict[str, Any]) -> int:
+    """KV positions the prompt takes in the decoder's cache: a vlm patch
+    prefix counts; audio frames feed the encoder, not the ring (JAX
+    ``engine.py:61-67``)."""
+    n = batch["tokens"].shape[1]
+    if cfg.family == "vlm":
+        n += batch["patch_embeds"].shape[1]
+    return n
+
+
 class ServeEngine:
     def __init__(self, model: Model, params: Params, capacity: int = 0):
         self.model = model
         self.params = tfm.serving_params(params, model.cfg)
         self.capacity = capacity
 
-    def _check_capacity(self, prompt_len: int, max_new_tokens: int) -> None:
+    def _check_capacity(self, batch: Dict[str, Any], max_new_tokens: int) -> None:
         cfg = self.model.cfg
         if cfg.family == "ssm" or cfg.attn_window:
             return  # no ring / a window-sized ring wraps by design
-        required = prompt_len + max_new_tokens
-        effective = self.capacity or prompt_len  # model_zoo prefill default
+        prompt_kv = _prompt_kv_len(cfg, batch)
+        required = prompt_kv + max_new_tokens
+        effective = self.capacity or prompt_kv  # model_zoo prefill default
         if effective < required:
             raise ValueError(
-                f"cache capacity {effective} cannot hold prompt ({prompt_len})"
+                f"cache capacity {effective} cannot hold prompt ({prompt_kv})"
                 f" + max_new_tokens ({max_new_tokens}): the ring would wrap and"
                 f" overwrite the prompt. Construct ServeEngine(...,"
                 f" capacity={required}) or reduce max_new_tokens."
@@ -80,13 +98,12 @@ class ServeEngine:
         *,
         eos_id: Optional[int] = None,
     ) -> GenerateResult:
-        """Greedy decoding of a batch of equal-length prompts."""
-        tokens = torch.as_tensor(batch["tokens"], device=self.model.device)
-        self._check_capacity(tokens.shape[1], max_new_tokens)
-        logits, cache = self.model.prefill(
-            self.params, {"tokens": tokens}, self.capacity or None
-        )
-        b = tokens.shape[0]
+        """Greedy decoding of a batch of equal-length prompts (with the
+        family's extras: ``patch_embeds`` or ``frame_embeds``)."""
+        batch = {k: torch.as_tensor(v, device=self.model.device) for k, v in batch.items()}
+        self._check_capacity(batch, max_new_tokens)
+        logits, cache = self.model.prefill(self.params, batch, self.capacity or None)
+        b = batch["tokens"].shape[0]
         finished = np.zeros((b,), bool)
         outs: List[torch.Tensor] = []
         steps = 0
@@ -171,14 +188,22 @@ class ContinuousEngine:
 
     # -- request intake ----------------------------------------------------
 
-    def submit(self, tokens, max_new_tokens: int, *, arrival: int = 0) -> int:
+    def _kv_len(self, req: Request) -> int:
+        n = len(req.tokens)
+        if self.cfg.family == "vlm" and req.extras:
+            n += req.extras["patch_embeds"].shape[0]
+        return n
+
+    def submit(self, tokens, max_new_tokens: int, *, arrival: int = 0,
+               extras: Optional[Dict[str, Any]] = None) -> int:
         req = Request(
             rid=self._next_rid,
             tokens=np.asarray(tokens, np.int32),
             max_new_tokens=max_new_tokens,
             arrival=arrival,
+            extras=extras,
         )
-        n = len(req.tokens)
+        n = self._kv_len(req)
         if n < 1 or max_new_tokens < 1:
             raise ValueError(
                 f"degenerate request (prompt kv {n}, max_new_tokens"
@@ -205,30 +230,32 @@ class ContinuousEngine:
         slot-cache family's budget is the free slot itself)."""
         if not self.paged:
             return True
-        total = len(req.tokens) + req.max_new_tokens
+        total = self._kv_len(req) + req.max_new_tokens
         return self.kv.admit(slot, total) is not None
 
     # -- engine steps ------------------------------------------------------
 
     def _admit(self, st: SlotState, now: int) -> None:
         req = st.req
-        tokens = torch.as_tensor(req.tokens, device=self.device)[None]
+        batch = {"tokens": torch.as_tensor(req.tokens, device=self.device)[None]}
+        for k, v in (req.extras or {}).items():
+            batch[k] = torch.as_tensor(v, device=self.device)[None]
+        kv_len = self._kv_len(req)
         if self.paged:
-            # default capacity: the exact prompt length, every position for
-            # the page writer
-            logits, cache = self.model.prefill(self.params, {"tokens": tokens})
+            # default capacity: the exact prompt KV length, every position
+            # for the page writer
+            logits, cache = self.model.prefill(self.params, batch)
             # the page-table row was reserved by _reserve when the slot was granted
             row = torch.from_numpy(self.kv.page_table[st.slot].copy()).to(self.device)
             pgd.write_prompt(
                 self.kv.pages_k, self.kv.pages_v,
                 cache.k[:, 0], cache.v[:, 0], cache.pos[0], row,
             )
-            self.kv.seq_lens[st.slot] = len(req.tokens)
+            self.kv.seq_lens[st.slot] = kv_len
         else:
-            logits, cache = self.model.prefill(
-                self.params, {"tokens": tokens}, self.max_seq_len)
+            logits, cache = self.model.prefill(self.params, batch, self.max_seq_len)
             self.slot_cache.insert(cache, st.slot)
-            self.seq_lens[st.slot] = len(req.tokens)
+            self.seq_lens[st.slot] = kv_len
         self._emit(st, int(logits[0].argmax()), now)
 
     def _emit(self, st: SlotState, tok: int, now: int) -> None:

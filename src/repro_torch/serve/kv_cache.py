@@ -13,9 +13,11 @@ retirement returns every page at once.
 The page table, sequence lengths and free list are host state (numpy and
 Python ints), shipped to the device as small tensors each step.
 
-``SlotCache`` -- the ssm and hybrid families' native decode cache (SSM
-state, window ring + SSM state) batched over the engine's slots: admission
-writes a batch-1 prefill cache into its slot's rows (``_insert_slot``).
+``SlotCache`` -- the ssm, hybrid and audio families' native decode cache
+(SSM state; window ring + SSM state; ring + the encoder's cross K/V,
+written once at admission and read by every decode step) batched over the
+engine's slots: admission writes a batch-1 prefill cache into its slot's
+rows (``_insert_slot``).
 """
 from __future__ import annotations
 
@@ -143,7 +145,8 @@ class PagedKVCache:
 
 
 # ---------------------------------------------------------------------------
-# Slot-batched family caches (SSM state / window ring + SSM state)
+# Slot-batched family caches (SSM state / window ring + SSM state / ring +
+# cross K/V)
 # ---------------------------------------------------------------------------
 
 

@@ -31,10 +31,10 @@ from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import transformer as tfm
 
-# Families whose decode runs on the page pool (the vlm family joins with its
-# slice, ROADMAP queue 1 item 8); the others keep a slot-batched native
-# cache (serve/kv_cache.SlotCache).
-PAGED_FAMILIES = ("dense", "moe")
+# Families whose decode runs on the page pool; the others keep a
+# slot-batched native cache (serve/kv_cache.SlotCache).  vlm decode is
+# token-only: its patches entered the pages at prefill.
+PAGED_FAMILIES = ("dense", "moe", "vlm")
 
 
 def write_prompt(

@@ -1,24 +1,38 @@
-"""The port's bucketed ``galore-sara-adam`` on the MoE, SSM and hybrid
-families against the JAX package's, on the CPU at the smoke configs in
-f32: the plan (expert stacks (L, E, d, ff) put L*E slices into one bucket),
-one refresh and one hot ``update(apply=True)``, with JAX's params,
-gradients and refresh draws carried across.  And ``build_specs`` of the
-four full-width configs, from ``jax.eval_shape`` shapes, against the
-port's on the same shapes: path, low-rank flag, side, rank and group."""
+"""The port's bucketed ``galore-sara-adam`` on the MoE, SSM, hybrid, VLM
+and enc-dec families against the JAX package's, on the CPU at the smoke
+configs in f32: the plan (expert stacks (L, E, d, ff) put L*E slices into
+one bucket), one refresh and one hot ``update(apply=True)``, with JAX's
+params, gradients and refresh draws carried across; for llava-next-34b and
+whisper-medium a 3-step ``train_loop`` on both engines with the family's
+prefix (``patch_embeds``, ``frame_embeds``) in every batch, and the
+microbatched step slicing it.  And ``build_specs`` of the six full-width
+configs, from ``jax.eval_shape`` shapes, against the port's on the same
+shapes: path, low-rank flag, side, rank and group."""
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from repro.configs.base import TrainConfig as JaxTrainConfig
 from repro.configs.registry import get_config as jax_get_config
 from repro.core import make_optimizer as jax_make_optimizer
+from repro.core import schedules as jax_schedules
 from repro.core.lowrank import OptimizerConfig as JaxOptimizerConfig
 from repro.core.lowrank import build_specs as jax_build_specs
 from repro.models import build_model as jax_build_model
+from repro.train.loop import train_loop as jax_train_loop
+from repro.train.state import TrainState as JaxTrainState
+from repro.train.step import make_train_step as jax_make_train_step
 from repro_torch import bridge
-from repro_torch.core import make_optimizer
+from repro_torch.configs.base import TrainConfig
+from repro_torch.configs.registry import get_config
+from repro_torch.core import make_optimizer, schedules
 from repro_torch.core.lowrank import OptimizerConfig, build_specs, flatten_with_path
+from repro_torch.models import build_model
+from repro_torch.train.loop import train_loop
+from repro_torch.train.state import TrainState
+from repro_torch.train.step import make_train_step
 from test_torch_optim_kernels import JaxDraws
 from test_torch_train import HOT_TOL, REFRESH_TOL, _assert_params_close, _torch_tree
 
@@ -112,7 +126,7 @@ def refresh_then_hot_update_match_jax(arch):
 
 
 @pytest.mark.parametrize("arch", ["deepseek-moe-16b", "olmoe-1b-7b", "mamba2-370m",
-                                  "hymba-1.5b"])
+                                  "hymba-1.5b", "llava-next-34b", "whisper-medium"])
 def test_full_width_specs_match_jax(arch):
     """Low-rank eligibility reads only the path and the last two dims, so
     mamba's (48, 32) and hymba's (32, 50) ``d_skip`` stacks get a projector
@@ -163,3 +177,113 @@ def test_chunked_stacked_refresh_equals_one_chain(monkeypatch):
     chunked = proj_lib.refresh_projector_stacked(g, draws, None, cfg, rank=4)
     assert calls == [c for c in (4, 4, 2) for _ in range(cfg.svd_power_iters)]
     torch.testing.assert_close(chunked, one, rtol=0, atol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# the VLM and enc-dec families: the prefix in every batch
+# ---------------------------------------------------------------------------
+
+def _prefix_batches(cfg, n, b=4, s=16, seed=21):
+    """``n`` numpy batches of tokens and labels (the next token) with the
+    family's prefix: ``n_patches`` patch embeddings or ``enc_frames``
+    frames, normal x 0.1."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        tok = rng.integers(0, cfg.vocab_size, (b, s + 1)).astype(np.int32)
+        batch = {"tokens": tok[:, :-1], "labels": tok[:, 1:]}
+        if cfg.family == "vlm":
+            shape, key = (b, cfg.n_patches, cfg.d_model), "patch_embeds"
+        else:
+            shape, key = (b, cfg.enc_frames, cfg.d_model), "frame_embeds"
+        batch[key] = (0.1 * rng.standard_normal(shape)).astype(np.float32)
+        out.append(batch)
+    return out
+
+
+class _Data:
+    def __init__(self, batches, to):
+        self.batches, self.to = batches, to
+
+    def batch_at(self, step):
+        return {k: self.to(v) for k, v in self.batches[step].items()}
+
+
+# whisper-medium's cases run in test_torch_encdec.py (each file within its time)
+def test_three_step_train_loop_with_the_prefix_matches_jax(tmp_path):
+    three_step_train_loop_with_the_prefix_matches_jax("llava-next-34b", tmp_path)
+
+
+def test_microbatched_step_slices_the_prefix():
+    microbatched_step_slices_the_prefix("llava-next-34b")
+
+
+def three_step_train_loop_with_the_prefix_matches_jax(arch, tmp_path):
+    """Refresh at step 0, then two hot steps, on shared batches that carry
+    the prefix, through the port's loop on both engines: losses to 1e-5,
+    the history's norms to 1e-4, final params to REFRESH_TOL (the refresh's
+    LAPACK differences carry on).  JAX's loop runs once, on its bucketed
+    engine: its two engines agree to 1-2 ulp (ROADMAP queue 3), far inside
+    these bars, so one run holds both of the port's (and its compile is
+    most of the test's time)."""
+    steps = 3
+    jcfg = jax_get_config(arch, smoke=True).with_(dtype=jnp.float32)
+    jmodel = jax_build_model(jcfg)
+    jparams = jmodel.init(jax.random.PRNGKey(0))
+    tmodel = build_model(get_config(arch, smoke=True).with_(dtype=torch.float32), device="cpu")
+    batches = _prefix_batches(jcfg, steps)
+    kw = dict(OPT_KW, tau=200)
+    jopt = jax_make_optimizer("galore-sara-adam", jparams,
+                              lr_schedule=jax_schedules.cosine_with_warmup(0.01, 1, steps),
+                              **dict(kw, engine="bucketed"))
+    jstate = JaxTrainState(jparams, jopt.init(jparams))
+    jtc = JaxTrainConfig(total_steps=steps, checkpoint_every=0,
+                         checkpoint_dir=str(tmp_path / "ckpt"))
+    jres = jax_train_loop(jmodel, jopt, _Data(batches, jnp.asarray), jtc,
+                          jax_make_train_step(jmodel, jopt, train_cfg=jtc, donate=False),
+                          state=jstate, log_every=1, handle_signals=False)
+    for engine in ("bucketed", "reference"):
+        tparams = _torch_tree(jparams)
+        topt = make_optimizer("galore-sara-adam", tparams,
+                              lr_schedule=schedules.cosine_with_warmup(0.01, 1, steps),
+                              **dict(kw, engine=engine))
+        tc = TrainConfig(total_steps=steps, checkpoint_dir=str(tmp_path / f"port_{engine}"))
+        tstate = TrainState(tparams, topt.init(tparams)._replace(
+            draws=JaxDraws(jstate.opt_state.key)))
+        tres = train_loop(tmodel, topt, _Data(batches, torch.from_numpy), tc,
+                          make_train_step(tmodel, topt, train_cfg=tc), state=tstate,
+                          log_every=1)
+        np.testing.assert_allclose(tres.losses, jres.losses, rtol=1e-5, err_msg=engine)
+        for tr, jr in zip(tres.history, jres.history):
+            for key in ("loss", "grad_norm", "update_norm"):
+                np.testing.assert_allclose(tr[key], jr[key], rtol=1e-4, err_msg=f"{engine} {key}")
+        assert tres.state.step == int(jres.state.opt_state.step) == steps
+        _assert_params_close(jres.state.params, tres.state.params, **REFRESH_TOL)
+
+
+def microbatched_step_slices_the_prefix(arch):
+    """``train/step.py`` slices every key of the batch per microbatch, the
+    prefix included: 2 x 2 accumulated gives the whole batch's gradient
+    norm and params; a batch whose prefix does not match its tokens would
+    raise inside the model."""
+    cfg = get_config(arch, smoke=True).with_(dtype=torch.float32)
+    model = build_model(cfg, device="cpu")
+    params = model.init(torch.Generator().manual_seed(0))
+    opt = make_optimizer("galore-sara-adam", params, **OPT_KW)
+    state = TrainState(params, opt.init(params))
+    batch = _Data(_prefix_batches(cfg, 1), torch.from_numpy).batch_at(0)
+    seen = []
+    loss = model.loss
+    outs = []
+    for micro in (0, 2):
+        spy = model._replace(loss=lambda p, b: seen.append({k: tuple(v.shape) for k, v in
+                                                           b.items()}) or loss(p, b))
+        new, metrics = make_train_step(spy, opt, train_cfg=TrainConfig(microbatch=micro))[
+            "refresh_step"](state, batch)
+        outs.append((new.params, float(metrics["grad_norm"])))
+    prefix = "patch_embeds" if cfg.family == "vlm" else "frame_embeds"
+    assert [s[prefix][0] for s in seen] == [4, 2, 2]
+    assert all(s["tokens"][0] == s[prefix][0] for s in seen)
+    np.testing.assert_allclose(outs[1][1], outs[0][1], rtol=1e-5)
+    for (path, a), (_, b) in zip(flatten_with_path(outs[0][0]), flatten_with_path(outs[1][0])):
+        torch.testing.assert_close(b, a, atol=5e-5, rtol=0, msg=path)

@@ -75,6 +75,14 @@ FLASH_CASES = {
 FAMILY_FLASH_CASES = {
     "mha16_d128": (1, 512, 512, 16, 16, 128, True, 0, 0),
     "gqa25_5_d64_window1024": (1, 2048, 2048, 25, 5, 64, True, 1024, 0),
+    # whisper-medium: the encoder over 1500 frames without a mask (1500 is
+    # no multiple of the 64-row tile), the cross-attention of a 64-token
+    # prompt and of one decode tick of 4 slots against the frames (Sq != Sk)
+    "whisper_encoder_s1500_d64": (1, 1500, 1500, 16, 16, 64, False, 0, 0),
+    "whisper_cross_64x1500": (1, 64, 1500, 16, 16, 64, False, 0, 0),
+    "whisper_cross_decode_b4_1x1500": (4, 1, 1500, 16, 16, 64, False, 0, 0),
+    # llava-next-34b's longest prefill: 576 patches + 1024 tokens, G = 7
+    "llava_gqa56_8_d128_s1600": (1, 1600, 1600, 56, 8, 128, True, 0, 0),
 }
 
 
@@ -571,9 +579,11 @@ def test_rmsnorm_autograd_matches_plain_on_gpu(dtype):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("case", ["gqa_causal", "window", "ragged"])
+@pytest.mark.parametrize("case", ["gqa_causal", "window", "ragged", "not_causal"])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_flash_autograd_matches_plain_on_gpu(case, dtype):
+    """``not_causal`` is a cross-attention (Sq 16 against Sk 24): the
+    plain-recompute backward takes Sq != Sk."""
     _require_card()
     b, sq, sk, h, kvh, d, causal, window, q_offset = FLASH_CASES[case]
     g = torch.Generator(device="cuda").manual_seed(7)
@@ -920,11 +930,12 @@ def test_optimizer_kernels_at_a_ragged_rank_on_gpu():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("width", [1600, 2048, 3200])
+@pytest.mark.parametrize("width", [1600, 2048, 3200, 1024, 7168])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_rmsnorm_kernel_at_family_widths_on_gpu(width, dtype):
     """hymba's d_model 1600 and its mixer's 3200, deepseek's 2048 (and
-    mamba's mixer): widths that are not powers of two but 2048."""
+    mamba's mixer): widths that are not powers of two but 2048; whisper's
+    1024 and llava's 7168."""
     _require_card()
     g = torch.Generator(device="cuda").manual_seed(7)
     x = torch.randn(37, width, generator=g, device="cuda").to(TORCH[dtype])
@@ -993,3 +1004,79 @@ def test_moe_dispatch_on_gpu_matches_the_cpu():
     got, aux = moe.apply_moe_local(on_card, x.cuda(), cfg)
     torch.testing.assert_close(got.cpu(), want, **TOL["float32"])
     torch.testing.assert_close(aux.cpu(), want_aux, rtol=1e-6, atol=0)
+
+
+# ---------------------------------------------------------------------------
+# the VLM and enc-dec families' shapes
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_paged_decode_kernel_at_gqa56_8_on_gpu(dtype):
+    """llava-next-34b's decode: GQA 56/8 (G = 7, the 8-head instance with
+    one head idle), D 128, page size 16, each slot's 576 patches ahead."""
+    _require_card()
+    arrays = paged_inputs(13, 4, 72, 16, 56, 8, 128, [576, 705, 1093, 640])
+    q, pk, pv, table, lens = (torch.from_numpy(a).cuda() for a in arrays)
+    q, pk, pv = (t.to(TORCH[dtype]) for t in (q, pk, pv))
+    got = paged_decode_attention_kernel(q, pk, pv, table, lens)
+    ref = paged_decode_attention_ref(q, pk, pv, table, lens)
+    torch.testing.assert_close(got.float(), ref.float(), **TOL[dtype])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(2, 7168, 20480, 512, True), (8, 1024, 1024, 256, False)])
+def test_optimizer_kernels_on_the_vlm_and_encdec_buckets_on_gpu(shape):
+    """Kernels 4 and 5 (and 9 where the path runs it) on llava's mlp bucket
+    (7168 x 20480, rank 512, k' 2056; 2 of its 6 slices) and whisper's
+    1024 x 1024 bucket (rank 256; 8 of its 288 slices; its sketch spans
+    d, so no power iteration)."""
+    _require_card()
+    b, d, n, r, power = shape
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    g = 0.1 * torch.randn(b, d, n, generator=gen, device="cuda")
+    p = torch.linalg.qr(torch.randn(b, d, r, generator=gen, device="cuda"))[0].contiguous()
+    want = project_ref(g, p)
+    torch.testing.assert_close(galore_project_batched(g, p), want, rtol=1e-4,
+                               atol=1e-5 * float(want.abs().max()))
+    w = 0.02 * torch.randn(b, d, n, generator=gen, device="cuda")
+    m = 0.1 * torch.randn(b, r, n, generator=gen, device="cuda")
+    v = (0.1 * torch.randn(b, r, n, generator=gen, device="cuda")) ** 2
+    got = lowrank_adam_update_batched(w, p, want, m, v, 3, 0.0025, 0.0)
+    ref = lowrank_adam_update_ref(w, p, want, m, v, b1=0.9, b2=0.999, eps=1e-8, step=3,
+                                  lr_alpha=0.0025, lr_wd=0.0)
+    for a, bb in zip(got, ref):
+        torch.testing.assert_close(a, bb, rtol=1e-4, atol=1e-5 * float(bb.abs().max()))
+    if power:
+        kp = 4 * r + 8
+        q = torch.linalg.qr(torch.randn(b, d, kp, generator=gen, device="cuda"))[0].contiguous()
+        want = power_iter_ref(g, q)
+        torch.testing.assert_close(power_iter_batched(g, q), want, rtol=1e-4,
+                                   atol=1e-5 * float(want.abs().max()))
+
+
+@pytest.mark.gpu
+def test_attention_dispatch_takes_cross_attention_to_the_kernel_on_gpu():
+    """``models/attention.py`` sends attention without a mask to the flash
+    kernel whatever Sq and Sk (whisper's cross-attention), and refuses a
+    causal or windowed call with Sq != Sk, whose arange positions would
+    not be the caller's."""
+    _require_card()
+    from repro_torch.kernels import counters
+    from repro_torch.models import attention as attn_lib
+
+    g = torch.Generator(device="cuda").manual_seed(15)
+    q = torch.randn(2, 3, 4, 64, generator=g, device="cuda").to(torch.bfloat16)
+    k, v = (torch.randn(2, 40, 4, 64, generator=g, device="cuda").to(torch.bfloat16)
+            for _ in range(2))
+    zq = torch.zeros(2, 3, dtype=torch.int32, device="cuda")
+    zk = torch.zeros(2, 40, dtype=torch.int32, device="cuda")
+    before = counters.LAUNCHES["flash_attention_fwd"]
+    got = attn_lib.attention(q, k, v, zq, zk, causal=False)
+    assert counters.LAUNCHES["flash_attention_fwd"] == before + 1
+    want = attn_lib.exact_attention(q, k, v, zq, zk, causal=False)
+    torch.testing.assert_close(got.float(), want.float(), **TOL["bfloat16"])
+    for kw in (dict(causal=True), dict(causal=False, window=8)):
+        with pytest.raises(ValueError, match="Sq == Sk"):
+            attn_lib.attention(q, k, v, zq, zk, **kw)

@@ -13,13 +13,15 @@ import torch
 from repro.configs.registry import get_config as jax_get_config
 from repro.models import build_model as jax_build_model
 from repro_torch import bridge
-from repro_torch.configs.registry import NOT_YET_PORTED, get_config, list_archs
+from repro.configs.registry import list_archs as jax_list_archs
+from repro_torch.configs.registry import get_config, list_archs
 from repro_torch.models import build_model
 from repro_torch.models import transformer as tfm
 
 DENSE = ["llama3-8b", "qwen2-1.5b", "granite-8b", "nemotron-4-15b"]
-# the MoE, SSM and hybrid families' configs
-FAMILIES = ["deepseek-moe-16b", "olmoe-1b-7b", "mamba2-370m", "hymba-1.5b"]
+# the MoE, SSM, hybrid, VLM and enc-dec families' configs
+FAMILIES = ["deepseek-moe-16b", "olmoe-1b-7b", "mamba2-370m", "hymba-1.5b",
+            "llava-next-34b", "whisper-medium"]
 # f32 on the CPU: the same products summed in other orders (XLA vs ATen).
 TOL = dict(atol=2e-5, rtol=1e-5)
 
@@ -59,12 +61,13 @@ def test_config_matches_jax_field_by_field(arch, smoke):
 
 
 def test_unported_archs_raise_clearly():
+    """Every arch of the JAX registry is in the port's, in its order, and
+    builds; only an unknown arch raises."""
+    assert list_archs() == jax_list_archs() == [
+        a for a in jax_list_archs() if a in DENSE + FAMILIES]
     assert sorted(list_archs()) == sorted(DENSE + FAMILIES)
-    assert sorted(NOT_YET_PORTED) == ["llava-next-34b", "whisper-medium"]
-    for arch in NOT_YET_PORTED:
-        jax_get_config(arch)  # the reference has it
-        with pytest.raises(NotImplementedError, match="not yet ported.*item 8"):
-            get_config(arch)
+    for arch in list_archs():
+        assert build_model(get_config(arch, smoke=True), device="cpu").cfg.arch_id == arch
     with pytest.raises(ValueError, match="unknown arch"):
         get_config("no-such-arch")
 
@@ -174,18 +177,23 @@ def test_entry_points_need_a_card_unless_cpu_is_asked(monkeypatch):
 
 
 def test_unported_family_raises():
-    for family in ("vlm", "audio"):
-        cfg = get_config("llama3-8b", smoke=True).with_(family=family)
-        with pytest.raises(NotImplementedError, match="not yet ported.*item 8"):
-            build_model(cfg, device="cpu")
+    """Every family builds; an unknown family raises ValueError."""
+    from repro_torch.models.model_zoo import FAMILIES as ALL_FAMILIES
+
+    assert {get_config(a).family for a in list_archs()} == set(ALL_FAMILIES)
+    cfg = get_config("llama3-8b", smoke=True).with_(family="no-such-family")
+    with pytest.raises(ValueError, match="unknown family"):
+        build_model(cfg, device="cpu")
 
 
 @pytest.mark.parametrize("arch", FAMILIES)
 def test_family_init_has_the_jax_layout(arch):
-    """The port's init of the MoE, SSM and hybrid smoke configs has JAX's
-    paths, shapes and dtypes (4-D expert stacks, the nested ``mixer`` /
-    ``ssm_mixer`` dicts, f32 router, ``a_log``, ``dt_bias``, ``d_skip``),
-    and its serving init casts only what ``serving_params`` casts."""
+    """The port's init of the MoE, SSM, hybrid, VLM and enc-dec smoke
+    configs has JAX's paths, shapes and dtypes (4-D expert stacks, the
+    nested ``mixer`` / ``ssm_mixer`` dicts, f32 router, ``a_log``,
+    ``dt_bias``, ``d_skip``, ``patch_in_proj``, ``enc_blocks`` and the
+    ``cross_*`` leaves), and its serving init casts only what
+    ``serving_params`` casts, to the same bits."""
     cfg = get_config(arch, smoke=True)
     model = build_model(cfg, device="cpu")
     params = model.init(torch.Generator().manual_seed(0))
@@ -200,3 +208,42 @@ def test_family_init_has_the_jax_layout(arch):
     for (path, a), (_, b) in zip(flatten_with_path(served), flatten_with_path(want)):
         assert a.dtype == b.dtype, path
         torch.testing.assert_close(a, b, rtol=0, atol=0, msg=path)
+
+
+@pytest.mark.parametrize("arch", ["llava-next-34b", "whisper-medium", "deepseek-moe-16b",
+                                  "mamba2-370m"])
+def test_serving_init_never_holds_a_stacked_leaf_in_f32(arch):
+    """Every tensor that any op makes during ``init(gen, serving=True)`` is
+    recorded (a dispatch mode sees factories and in-place draws alike): no
+    f32 tensor has the shape of a whole stacked leaf that serving stores in
+    bf16; each such leaf is drawn one layer slice at a time.  The f32 init
+    does make them whole, which shows that the check sees them."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from repro_torch.core.lowrank import flatten_with_path
+
+    class Record(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.f32_shapes = set()
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            for t in (out if isinstance(out, (tuple, list)) else (out,)):
+                if isinstance(t, torch.Tensor) and t.dtype == torch.float32:
+                    self.f32_shapes.add(tuple(t.shape))
+            return out
+
+    cfg = get_config(arch, smoke=True)
+    model = build_model(cfg, device="cpu")
+    with Record() as served_rec:
+        served = model.init(torch.Generator().manual_seed(0), serving=True)
+    with Record() as f32_rec:
+        model.init(torch.Generator().manual_seed(0))
+    cast = [(path, tuple(leaf.shape)) for path, leaf in flatten_with_path(served)
+            if leaf.dtype == torch.bfloat16 and leaf.dim() >= 3]
+    assert cast, "no stacked leaf is cast for serving"
+    for path, shape in cast:
+        assert shape not in served_rec.f32_shapes, path
+        assert shape[1:] in served_rec.f32_shapes, path  # drawn a slice at a time
+        assert shape in f32_rec.f32_shapes, path
