@@ -141,7 +141,18 @@ failure raises and the script exits non-zero:
               448, batch 8, rank 256: kernel 9 launches 0 times).  The
               train paths run as phase 6's, with the patches or frames in
               every batch.
-8. report  -- one ``{"kernel_over_library": [...]}`` line (every case's
+8. tables  -- the paper's experiments through ``repro_torch.benchmarks`` at
+              its LLaMA-60M (8 layers, d_model 512, vocab 32100, seq 256,
+              batch 32; rank 128, alpha 0.25; ``paper_tables``): kernels
+              4, 5, 7, 8 and 9 against their plain versions at the path's
+              buckets, then tables 1, 3 and 4 (16 runs of ``TABLES_STEPS``
+              steps, bucketed where the inner has a fused update, per leaf
+              otherwise) and figures 2, 3 and 4 from table 1's runs.
+              Checks finite losses, the first near ln(vocab), the final
+              below it, exact launch counts per run, SARA's adjacent
+              overlap below GaLore's, the memory ratios and byte counts;
+              prints the rows as one ``{"tables": [...]}`` line.
+9. report  -- one ``{"kernel_over_library": [...]}`` line (every case's
               kernel time over its yardstick's), one ``{"kernels": [...]}``
               line (``launches`` summed over every path that ran, each
               run's own count
@@ -473,6 +484,43 @@ PATH_KERNELS["train_audio"] = ("rmsnorm", "flash_attention_fwd", "galore_project
 # sketch spans every leaf's narrow side (mamba2 at 512, whisper at 256)
 PATH_NEVER = {"train_ssm": ("power_iter_batched", "flash_attention_fwd"),
               "train_audio": ("power_iter_batched",)}
+# tables: the paper's experiments through ``repro_torch.benchmarks`` at its
+# LLaMA-60M (the Table 1 row; pretrain_lm's ``llama-60m`` preset): 8 layers,
+# d_model 512, 8 heads of 64, d_ff 1376, vocab 32100, seq 256, batch 32;
+# f32 params and bf16 compute as the train paths, rank 128 and alpha 0.25
+# as the preset, the randomized SVD.  Every row: TABLES_STEPS steps at lr
+# TABLES_LR, a refresh every TABLES_TAU steps (5 refreshes: 4 adjacent
+# overlaps, so fig2's first and last three differ).  25 steps, not the
+# harness's 150: on the H100 (700 W) full Adam took ~95 ms a hot step and a
+# SARA refresh ~1.25 s, and the 16 runs took the phase ~370 s at 150
+# steps, 181 s at 60 and 118 s at 35 (the whole script 1062 s of its
+# 1200).  lr 1e-3, the paper's full-Adam rate at this size, not the
+# harness's CPU default of 2e-3: at 2e-3 both Adam-mini rows diverge (loss
+# 11-12 at step 60, from 10.48) and the 8-bit rows spike after a refresh,
+# in JAX too from the same inputs at 8 layers and batch 8 on the CPU
+# (tools/tables_cpu.py --trajectory), and on the card with no hand-written
+# kernel or in f32 compute as well (tools/fused_trajectory.py; ROADMAP
+# queue 3).
+# Table 2, the paper's 130M/350M scale row, is not run (ROADMAP).
+TABLES_STEPS, TABLES_TAU, TABLES_LR = 25, 5, 1e-3
+TABLES_PRESET = "llama-60m"
+# the low-rank rows' fused kernels; kernel 9 runs only where the sketch k'
+# is narrower than a leaf's narrow side (GaLore's 136 < 512; SARA's pool of
+# 4 x 128 + 8 spans 512, so its power iterations drop): its count is held
+# exact on every row, but the path does not require it
+PATH_KERNELS["tables"] = _MODEL_KERNELS + (
+    "galore_project_batched", UPDATE_KERNEL["adam"], UPDATE_KERNEL["adam_mini"],
+    UPDATE_KERNEL["adam8bit"])
+# the caching allocator rounds each block up to a multiple of 512 bytes
+ALLOC_ROUND = 512
+# the tables path's bucket plans at LLaMA-60M, rank 128 (d, n, rank, B,
+# side): Adam's mixes sides, Adam-mini's and 8-bit Adam's split them (the
+# mlp's 1376 = 5 x 256 + 96 leaves the 8-bit rows a ragged last chunk);
+# GaLore's sketch k' = rank + 8
+TABLES_BUCKETS = [(512, 512, 128, 32, "any"), (512, 1376, 128, 24, "any")]
+TABLES_SPLIT_BUCKETS = [(512, 512, 128, 32, "left"), (512, 1376, 128, 16, "left"),
+                        (512, 1376, 128, 8, "right")]
+TABLES_KP = 136
 
 
 _T0 = time.perf_counter()
@@ -1198,7 +1246,7 @@ def serve(cfg, dev: str = "cuda", profile_ticks: int = 24, pool_pages: int = POO
     together, and llava-next-34b's bf16 tree alone takes 65 GiB."""
     from repro_torch.core.lowrank import tree_leaves
     from repro_torch.kernels import counters
-    from repro_torch.models import build_model
+    from repro_torch.models import build_model, count_params
     from repro_torch.models import moe as moe_lib
     from repro_torch.serve import kv_cache as kvc
     from repro_torch.serve import paged_decode as pgd
@@ -1215,7 +1263,7 @@ def serve(cfg, dev: str = "cuda", profile_ticks: int = 24, pool_pages: int = POO
     params = model.init(torch.Generator(device=dev).manual_seed(SEED), serving=True)
     sync()
     init_peak = torch.cuda.max_memory_allocated() if dev == "cuda" else 0
-    n_params = sum(p.numel() for p in tree_leaves(params))
+    n_params = count_params(params)
     log(f"{cfg.arch_id}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
         f"{n_params / 1e9:.3f} B params made in bf16 in {time.perf_counter() - t0:.1f} s, "
         f"peak {init_peak / 2**30:.2f} GiB")
@@ -1456,7 +1504,7 @@ def train(cfg, optimizer: str = "galore-sara-adam", expect_buckets=TRAIN_BUCKETS
     from repro_torch.core.schedules import cosine_with_warmup
     from repro_torch.data.synthetic import SyntheticDataConfig, SyntheticDataset
     from repro_torch.kernels import counters
-    from repro_torch.models import build_model
+    from repro_torch.models import build_model, count_params
     from repro_torch.train.loop import train_loop
     from repro_torch.train.step import make_train_step
 
@@ -1473,7 +1521,7 @@ def train(cfg, optimizer: str = "galore-sara-adam", expect_buckets=TRAIN_BUCKETS
     tc = TrainConfig(total_steps=steps, seed=SEED, checkpoint_every=0,
                      checkpoint_dir=str(ckpt_dir))
     params = model.init(torch.Generator(device=dev).manual_seed(tc.seed))
-    n_params = sum(p.numel() for p in tree_leaves(params))
+    n_params = count_params(params)
     opt = make_optimizer(
         optimizer, params,
         lr_schedule=cosine_with_warmup(opt_kw["lr"], TRAIN_WARMUP, steps), **opt_kw)
@@ -2088,14 +2136,14 @@ def train_rank_schedule(cfg, smi: str, dev: str = "cuda", seq: int = TRAIN_SEQ,
     return out
 
 
-def rank_kernel_cases(results, ranks=RANK_CASES, shape=None, power: bool = True):
+def rank_kernel_cases(results, ranks=RANK_CASES, shape=None, power: bool = True, kp=None):
     """Kernels 4, 5 and 9 at the ranks of ``ranks`` (the schedule's new
     rank, and one of 8 mod 16: a ragged last K tile of the f32 tile
     engine, which steps K by 16) on the mlp bucket's (B, d, n), or on
     ``shape``'s, against their plain versions at ``TOL``, timed beside
-    their bound and library call.  Kernel 9 runs at the sara sketch's k' =
-    min(4 r + 8, d), unless ``power`` is False (a bucket whose sketch
-    spans d, where the path runs no power iteration)."""
+    their bound and library call.  Kernel 9 runs at ``kp``, by default the
+    sara sketch's k' = min(4 r + 8, d), unless ``power`` is False (a bucket
+    whose sketch spans d, where the path runs no power iteration)."""
     from repro_torch.kernels.galore_project.kernel import galore_project_batched
     from repro_torch.kernels.galore_project.ref import project_ref
     from repro_torch.kernels.power_iter.kernel import power_iter_batched
@@ -2140,15 +2188,16 @@ def rank_kernel_cases(results, ranks=RANK_CASES, shape=None, power: bool = True)
         if not power:
             torch.cuda.empty_cache()
             continue
-        kp = min(4 * r + 8, d)
+        k_sketch = kp or min(4 * r + 8, d)
         g = randn(b, d, n)
-        q = orthonormal(b, d, kp)
-        err = check_close(f"power_iter {label} k'={kp}", power_iter_batched(g, q),
+        q = orthonormal(b, d, k_sketch)
+        err = check_close(f"power_iter {label} k'={k_sketch}", power_iter_batched(g, q),
                           power_iter_ref(g, q), *TOL["power_iter_batched"]["float32"],
                           rel_atol=True)
-        b_ms, b_by = bound(4 * (b * d * n + 2 * b * d * kp), 4 * b * d * n * kp, "float32")
-        record_case(cases, results, "power_iter_batched", f"{label} k'={kp}", torch.float32, err,
-                    False, timed_case(lambda: power_iter_batched(g, q),
+        b_ms, b_by = bound(4 * (b * d * n + 2 * b * d * k_sketch), 4 * b * d * n * k_sketch,
+                           "float32")
+        record_case(cases, results, "power_iter_batched", f"{label} k'={k_sketch}",
+                    torch.float32, err, False, timed_case(lambda: power_iter_batched(g, q),
                                       lambda: power_iter_ref(g, q),
                                       lambda: torch.bmm(g, torch.bmm(g.transpose(1, 2), q)),
                                       b_ms, b_by, 3))
@@ -2500,9 +2549,8 @@ def serve_slots(cfg, prompt_lens, dev: str = "cuda", new_tokens: int = NEW_TOKEN
     own frames), bf16 weights made leaf by leaf; exact launch counts; then
     each request's tokens against the static engine's, one request at a
     time, where a parting token must be a near-tie (``TIE_BAR_SIGMAS``)."""
-    from repro_torch.core.lowrank import tree_leaves
     from repro_torch.kernels import counters
-    from repro_torch.models import build_model
+    from repro_torch.models import build_model, count_params
     from repro_torch.serve.engine import ContinuousEngine, ServeEngine
 
     def sync():
@@ -2513,7 +2561,7 @@ def serve_slots(cfg, prompt_lens, dev: str = "cuda", new_tokens: int = NEW_TOKEN
     t0 = time.perf_counter()
     params = model.init(torch.Generator(device=dev).manual_seed(SEED), serving=True)
     sync()
-    n_params = sum(p.numel() for p in tree_leaves(params))
+    n_params = count_params(params)
     log(f"{cfg.arch_id}: {cfg.n_layers} layers, d_model {cfg.d_model}, {n_params / 1e9:.3f} B "
         f"params made in bf16 in {time.perf_counter() - t0:.1f} s")
     rng = np.random.default_rng(SEED)
@@ -2855,6 +2903,172 @@ def _unflatten_like(like, flat_by_path, dev):
     return tree_unflatten(like, [flat_by_path[p].to(dev) for p, _ in flatten_with_path(like)])
 
 
+def tables_kernel_cases(results):
+    """Kernels 4, 5, 7, 8 and 9 against their plain versions at the
+    tables path's shapes: 4, 5 and 9 (at GaLore's k') on each bucket of
+    Adam's plan, 7 and 8 on each of the side-split plan's, f32 W."""
+    cases = []
+    for bucket in TABLES_BUCKETS:
+        cases += rank_kernel_cases(results, ranks=(bucket[2],), shape=bucket, kp=TABLES_KP)
+    return cases + update_kernel_cases(results, main_dn=None, plans={
+        "adam_mini": TABLES_SPLIT_BUCKETS, "adam8bit": TABLES_SPLIT_BUCKETS})
+
+
+def paper_tables(smi: str, results=None, dev: str = "cuda", steps: int = TABLES_STEPS,
+                 tau: int = TABLES_TAU, preset=None, cfg_kw=None):
+    """The ``tables`` phase: first ``tables_kernel_cases`` (recorded in
+    ``results``, the kernels' report), then tables 1, 3 and 4 through
+    ``repro_torch.benchmarks.tables`` (table 3 reuses table 1's adam and
+    galore-sara-adam runs), figures 2, 3a/b and 4 from table 1's runs
+    (``figures.fig2_row`` etc.: no extra runs), at the ``llama-60m`` preset
+    (``preset`` overrides its fields and ``cfg_kw`` the model config's: a
+    CPU rehearsal's smoke width, ``attn_impl="pallas"``).  The
+    fused-eligible low-rank rows run on the bucketed engine, the rest per
+    leaf; each row records its engine.  Fails unless every loss is finite,
+    the first near ln(vocab) + 0.02^2 d_model / 2 and the final below it;
+    each row's kernel launches are exact; SARA's mean adjacent overlap is
+    below GaLore's; full Adam's state is > 1.99x its params and every
+    low-rank row's < 1.6x; ``state_memory_bytes`` equals the state tensors'
+    storage bytes (plus the host's step and key), and on the card the
+    allocator's growth over ``opt.init`` exceeds the state's device bytes
+    by less than ``ALLOC_ROUND`` per tensor.  The loss ordering and the gap
+    reductions are reported, not asserted: they are the experiment's
+    result."""
+    import math
+
+    from repro_torch.benchmarks import common, figures
+    from repro_torch.benchmarks import tables as tables_lib
+    from repro_torch.core.lowrank import HOST_STATE_BYTES, state_memory_bytes, state_tensors
+    from repro_torch.core.lowrank import tree_leaves
+    from repro_torch.examples.pretrain_lm import PRESETS
+    from repro_torch.kernels import counters
+
+    p = dict(PRESETS[TABLES_PRESET], **(preset or {}))
+    model_kw = dict(dict(vocab=p["vocab_size"], n_heads=p["n_heads"], n_kv_heads=p["n_kv_heads"],
+                         head_dim=p["head_dim"], d_ff=p["d_ff"], dtype=torch.bfloat16,
+                         rope_theta=10000.0, loss_chunk=2048), **(cfg_kw or {}))
+    shape = dict(d_model=p["d_model"], n_layers=p["n_layers"], seq=p["seq"], batch=p["batch"],
+                 device=dev, model_kw=model_kw)
+    train_kw = dict(steps=steps, lr=TABLES_LR, rank=p["rank"], tau=tau, alpha=0.25,
+                    engine="bucketed", svd_backend="randomized", track_overlap=True)
+    t0 = time.perf_counter()
+    cases = tables_kernel_cases(results) if dev == "cuda" else []
+    log(f"tables: kernel cases in {time.perf_counter() - t0:.1f} s")
+    cfg, model = common.bench_model(d_model=p["d_model"], n_layers=p["n_layers"], device=dev,
+                                    **model_kw)
+    log(f"tables: {cfg.n_layers} layers, d_model {cfg.d_model}, d_ff {cfg.d_ff}, vocab "
+        f"{cfg.vocab_size}, seq {p['seq']}, batch {p['batch']}, rank {p['rank']}, alpha 0.25, "
+        f"lr {TABLES_LR}, {steps} steps, tau {tau} ({smi})")
+    # a warm-up of two steps (a refresh and a hot step), so that the first
+    # row's time per step does not carry the first launches' compiles
+    # (Triton's RMSNorm) and library set-up
+    warm = dict(train_kw, steps=2, tau=2, track_overlap=False)
+    common.train_once(model, common.SharedBatches(
+        common.bench_data(cfg, seq=p["seq"], batch=p["batch"], device=dev), 2),
+        "galore-adam", **warm)
+    t0 = time.perf_counter()
+    counters.reset()
+    runs, zipf = {}, {}
+    rows = tables_lib.table1(results=runs, **shape, **train_kw)
+    rows += tables_lib.table3(results=runs, **shape, **train_kw)
+    rows += tables_lib.table4(results=zipf, **shape, **train_kw)
+    launches = counters.snapshot()
+    params0 = model.init(torch.Generator(device=dev).manual_seed(0))
+    rows.append(figures.fig2_row(runs["galore-adam"]))
+    rows += figures.fig3_rows({n: runs[n] for n in ("galore-adam", "galore-sara-adam")})
+    rows += [figures.fig4_row(n, runs[n], params0, p["rank"])
+             for n in ("galore-adam", "galore-sara-adam", "adam")]
+    seconds = time.perf_counter() - t0
+
+    for table, results in (("bigram", runs), ("zipf", zipf)):
+        for name, out in results.items():
+            ls = out["losses"]
+            log(f"tables {table}/{name} ({out['engine']}): {out['us_per_step'] / 1e3:.1f} ms a "
+                f"step; loss {ls[0]:.4f} -> {out['final_loss']:.4f}, max {max(ls):.4f}, every "
+                f"4th {[round(x, 3) for x in ls[::4]]}; launches {out['launches']}")
+    loss0 = math.log(cfg.vocab_size) + 0.02**2 * cfg.d_model / 2
+    (fwd_norms, fwd_attns), (remat_norms, remat_attns) = forward_launches(cfg)
+    refreshes = -(-steps // tau)
+    report, summed = {}, {}
+    for table, results in (("bigram", runs), ("zipf", zipf)):
+        for name, out in results.items():
+            losses, opt, state = out["losses"], out["optimizer"], out["state"]
+            if not all(math.isfinite(x) for x in losses):
+                raise AssertionError(f"tables {table}/{name}: non-finite loss {losses}")
+            if abs(losses[0] - loss0) > 1.0:
+                raise AssertionError(f"tables {table}/{name}: first loss {losses[0]:.3f} is not "
+                                     f"near ln(vocab) + 0.02^2 d_model / 2 = {loss0:.3f}")
+            if not out["final_loss"] < losses[0]:
+                raise AssertionError(f"tables {table}/{name}: final loss {out['final_loss']:.4f} "
+                                     f"not below the first {losses[0]:.4f}")
+            expect = {"rmsnorm": steps * (fwd_norms + remat_norms),
+                      "flash_attention_fwd": steps * (fwd_attns + remat_attns)}
+            if name != "adam":
+                shapes = [tuple(x.shape) for x in tree_leaves(state.params)]
+                expect["power_iter_batched"] = power_iter_calls(opt, shapes) * refreshes
+            if out["engine"] == "bucketed":
+                nb = len(opt.bucket_plan.buckets)
+                expect["galore_project_batched"] = steps * nb
+                expect[UPDATE_KERNEL[opt.config.inner]] = steps * nb
+            expect = {k: v for k, v in expect.items() if v}
+            if out["launches"] != expect:
+                raise AssertionError(f"tables {table}/{name}: launches {out['launches']} != "
+                                     f"expected {expect}")
+            for k, v in out["launches"].items():
+                summed[k] = summed.get(k, 0) + v
+            mem = out["memory"]
+            ratio = mem["state_to_param_ratio"]
+            if (name == "adam" and not ratio > 1.99) or (name != "adam" and not ratio < 1.6):
+                raise AssertionError(f"tables {table}/{name}: state/param ratio {ratio:.4f}")
+            tensors = state_tensors(state.opt_state)
+            storage = {t.untyped_storage().data_ptr(): t.untyped_storage().nbytes()
+                       for t in tensors}
+            nbytes = state_memory_bytes(state.opt_state)
+            if not nbytes == mem["opt_state_bytes"] == sum(storage.values()) + HOST_STATE_BYTES:
+                raise AssertionError(
+                    f"tables {table}/{name}: state_memory_bytes {nbytes} (at init "
+                    f"{mem['opt_state_bytes']:.0f}) != storage {sum(storage.values())} + "
+                    f"{HOST_STATE_BYTES}")
+            slack = None
+            if mem["allocator_growth"] is not None:
+                slack = mem["allocator_growth"] - (nbytes - HOST_STATE_BYTES)
+                if not 0 <= slack < ALLOC_ROUND * len(tensors):
+                    raise AssertionError(
+                        f"tables {table}/{name}: allocator grew {mem['allocator_growth']} over "
+                        f"opt.init for {nbytes - HOST_STATE_BYTES} state bytes in "
+                        f"{len(tensors)} tensors")
+            report[f"{table}/{name}"] = {
+                "engine": out["engine"], "first_loss": losses[0],
+                "final_loss": out["final_loss"], "max_loss": max(losses),
+                "us_per_step": out["us_per_step"],
+                "overlaps": out["overlaps"], "launches": out["launches"], "expected": expect,
+                "state_to_param_ratio": ratio, "opt_state_bytes": nbytes,
+                "param_bytes": mem["param_bytes"], "state_tensors": len(tensors),
+                "allocator_growth": mem["allocator_growth"], "allocator_slack": slack,
+            }
+            common.record(f"tables/{table}/{name}", out["us_per_step"], engine=out["engine"],
+                          state_layout="bucketed" if out["engine"] == "bucketed" else "perleaf",
+                          device=smi, final_loss=out["final_loss"],
+                          state_to_param_ratio=ratio)
+    if summed != launches:
+        raise AssertionError(f"tables: launches {launches} != the rows' sum {summed}")
+    adj = {n: sum(runs[n]["overlaps"]) / len(runs[n]["overlaps"])
+           for n in ("galore-adam", "galore-sara-adam")}
+    if not adj["galore-sara-adam"] < adj["galore-adam"]:
+        raise AssertionError(f"tables: SARA's mean adjacent overlap is not below GaLore's: {adj}")
+    order = sorted((r["final_loss"], k) for k, r in report.items() if k.startswith("bigram/"))
+    log(f"tables: {len(report)} runs in {seconds:.1f} s; mean adjacent overlap {adj}; bigram "
+        f"final losses best first {[(k[7:], round(v, 4)) for v, k in order]}")
+    for name, us, derived in rows:
+        log(f"  {name}: {us / 1e3:.2f} ms/step, {derived}")
+    return {
+        "preset": p, "steps": steps, "tau": tau, "lr": TABLES_LR, "seconds": seconds,
+        "card": smi, "rows": [list(r) for r in rows], "runs": report,
+        "records": list(common.JSON_RECORDS), "mean_adjacent_overlap": adj,
+        "launches": launches, "cases": cases,
+    }
+
+
 # ---------------------------------------------------------------------------
 
 
@@ -2863,7 +3077,7 @@ def _unflatten_like(like, flat_by_path, dev):
 PHASES = ("kernels", "serve", "train", "train_recovery", "train_rank_schedule", "resume",
           "family_kernels", "serve_moe", "train_moe", "serve_ssm", "train_ssm",
           "serve_hybrid", "train_hybrid", "encdec_vlm_kernels", "serve_vlm", "train_vlm",
-          "serve_audio", "train_audio")
+          "serve_audio", "train_audio", "tables")
 
 
 def main(argv=None) -> int:
@@ -2959,6 +3173,9 @@ def main(argv=None) -> int:
             max_seq_len=AUDIO_MAX_SEQ))
     if "train_audio" in only:
         runs["train_audio"] = phase("train_audio", lambda: family_train("train_audio", smi))
+    if "tables" in only:  # the paper's experiments at LLaMA-60M
+        runs["tables"] = phase("tables", lambda: paper_tables(smi, results))
+        cases += runs["tables"].pop("cases")
     log(f"phase seconds {phase_s}; all {time.perf_counter() - t_start:.1f} s ({smi})")
 
     for name, r in results.items():
@@ -2983,6 +3200,8 @@ def main(argv=None) -> int:
                "ms": c["ms"], "library_ms": c["library_ms"],
                "ratio": c["ms"] / c["library_ms"]} for c in cases if c.get("library_ms")]
     print(json.dumps({"kernel_over_library": ratios}))
+    if "tables" in runs:
+        print(json.dumps({"tables": runs["tables"]["rows"]}))
     keys = ("name", "route", "source", "replaces", "launches", "launches_by_path",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: r.get(k) for k in keys} for r in results.values()]}))

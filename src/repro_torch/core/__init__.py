@@ -5,6 +5,8 @@ from repro_torch.core.lowrank import (
     LowRankOptimizer,
     LowRankOptState,
     make_lowrank_optimizer,
+    optimizer_memory_report,
+    state_memory_bytes,
 )
 
 __all__ = [
@@ -14,4 +16,6 @@ __all__ = [
     "LowRankOptimizer",
     "LowRankOptState",
     "make_lowrank_optimizer",
+    "optimizer_memory_report",
+    "state_memory_bytes",
 ]

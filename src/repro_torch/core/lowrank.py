@@ -714,3 +714,52 @@ def storage_opt_state(optimizer: LowRankOptimizer, state: LowRankOptState) -> Lo
               for i, st in enumerate(state.leaves)]
     return LowRankOptState(step=state.step, draws=state.draws, leaves=leaves,
                            buckets=bucket_states)
+
+
+# ---------------------------------------------------------------------------
+# the paper's memory claim
+# ---------------------------------------------------------------------------
+
+
+# Bytes of what the port keeps on the host and the reference keeps as
+# arrays of its state: the int32 step and the two-word uint32 key.
+HOST_STATE_BYTES = 4 + 8
+
+
+def _tensors(node, out: List[torch.Tensor]) -> None:
+    if isinstance(node, torch.Tensor):
+        out.append(node)
+    elif isinstance(node, (tuple, list)):  # NamedTuples too; None is skipped
+        for x in node:
+            _tensors(x, out)
+    elif isinstance(node, dict):
+        for k in sorted(node):
+            _tensors(node[k], out)
+
+
+def state_tensors(state: LowRankOptState) -> List[torch.Tensor]:
+    """Every tensor of the state: the leaves' projectors (placeholders
+    included) and inner states, then the bucket stacks."""
+    out: List[torch.Tensor] = []
+    _tensors(state.leaves, out)
+    _tensors(state.buckets, out)
+    return out
+
+
+def state_memory_bytes(state: LowRankOptState) -> int:
+    """Total bytes held in optimizer state (the paper's memory claim), as
+    ``src/repro/core/lowrank.py:1140`` counts them: every tensor at its
+    dtype's itemsize, plus the step and key that the reference holds as
+    arrays (``HOST_STATE_BYTES``), so the two packages' totals are equal."""
+    return HOST_STATE_BYTES + sum(t.numel() * t.element_size() for t in state_tensors(state))
+
+
+def optimizer_memory_report(params: PyTree, state: LowRankOptState) -> Dict[str, float]:
+    """Param bytes, state bytes and their ratio (full Adam: ~2)."""
+    pbytes = sum(p.numel() * p.element_size() for p in tree_leaves(params))
+    sbytes = state_memory_bytes(state)
+    return {
+        "param_bytes": float(pbytes),
+        "opt_state_bytes": float(sbytes),
+        "state_to_param_ratio": float(sbytes) / float(max(pbytes, 1)),
+    }

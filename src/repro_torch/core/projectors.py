@@ -220,10 +220,6 @@ def refresh_chunk(bsz: int, d: int, n: int, kp: int) -> int:
     return -(-bsz // chunks)
 
 
-def _qr_q(y: torch.Tensor) -> torch.Tensor:
-    return torch.linalg.qr(y.float())[0]
-
-
 def _refresh_stack(g: torch.Tensor, draws: LeafDraws, prev_p: Optional[torch.Tensor],
                    cfg: ProjectorConfig, rank: int) -> torch.Tensor:
     bsz, d, _ = g.shape
@@ -235,7 +231,7 @@ def _refresh_stack(g: torch.Tensor, draws: LeafDraws, prev_p: Optional[torch.Ten
     if method == "golore":
         if draws.basis is None:
             raise ValueError("a 'golore' refresh needs a Gaussian basis draw")
-        return _qr_q(draws.basis).to(cfg.dtype)
+        return svd_lib.qr_q(draws.basis).to(cfg.dtype)
     if method == "grass":
         row_energy = torch.sum(g.float() ** 2, dim=-1)  # (B, d)
         idx = sampling_lib.gumbel_topk_indices_batched(row_energy, rank, draws.gumbel)
@@ -249,7 +245,7 @@ def _refresh_stack(g: torch.Tensor, draws: LeafDraws, prev_p: Optional[torch.Ten
         norms = torch.linalg.vector_norm(g32, dim=(-2, -1))  # per-slice Frobenius
         step = (cfg.online_pca_lr / (norms ** 2 + 1e-12))[:, None, None]
         y = p32 + step * power_ops.power_iter_step(g32, p32)
-        return _qr_q(y).to(cfg.dtype)
+        return svd_lib.qr_q(y).to(cfg.dtype)
     u, s = svd_lib.topk_svd_batched(
         g, _pool_size(d, cfg, rank), draws.omega, backend=cfg.svd_backend,
         oversample=cfg.svd_oversample, power_iters=cfg.svd_power_iters,

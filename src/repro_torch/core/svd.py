@@ -10,7 +10,14 @@ The Gaussian sketch ``omega`` is an input, never drawn inside (the JAX
 function draws it from its key at ``svd.py:122-124``): the port's refresh
 draws it from a ``torch.Generator``, and the parity tests hand in JAX's own
 draws.  QR and the small SVD stay ``torch.linalg``; they are not Pallas
-kernels in the JAX package either.
+kernels in the JAX package either.  On the CPU they factor in f64 and round
+back to f32 (``qr_q``, ``svd_f32``): MKL's LAPACK picks its blocking by the
+size of the thread pool, so an f32 factorization moves by an ulp with
+``torch.get_num_threads()``, and SARA's draw over small singular values,
+then a first Adam or 8-bit Adam step, magnifies that ulp to ~5e-5 in W'.
+The f64 factors differ across pool sizes ~2**-29 below an f32 ulp, so the
+rounded result does not depend on the pool size.  On the card the factors
+stay f32 (cuSOLVER's result does not depend on a host thread count).
 
 Both return the left singular vectors of G (m x k) and the singular values
 (k,) for G of shape (m, n).
@@ -24,11 +31,33 @@ import torch
 from repro_torch.kernels.power_iter import ops as power_ops
 
 
+def _factor_dtype(x: torch.Tensor) -> torch.dtype:
+    """f64 on the CPU, f32 on the card (see the module docstring)."""
+    return torch.float64 if x.device.type == "cpu" else torch.float32
+
+
+def qr_q(y: torch.Tensor) -> torch.Tensor:
+    """The orthonormal factor of a thin QR, f32; any leading batch dims."""
+    return torch.linalg.qr(y.to(_factor_dtype(y)))[0].float()
+
+
+def svd_f32(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Thin SVD (U, S, Vh) in f32; any leading batch dims."""
+    u, s, vh = torch.linalg.svd(x.to(_factor_dtype(x)), full_matrices=False)
+    return u.float(), s.float(), vh.float()
+
+
+def _leading(u: torch.Tensor, s: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The top k vectors and values, each in storage of its own: a slice
+    would keep the whole factor alive in a projector of the state."""
+    return u[..., :k].contiguous(), s[..., :k].contiguous()
+
+
 def exact_svd(g: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """Top-k left singular vectors and singular values, exactly (f32);
     any leading batch dims."""
-    u, s, _ = torch.linalg.svd(g.float(), full_matrices=False)
-    return u[..., :k], s[..., :k]
+    u, s, _ = svd_f32(g.float())
+    return _leading(u, s, k)
 
 
 def clamp_sketch(
@@ -61,13 +90,12 @@ def randomized_svd_stacked(
         raise ValueError(f"sketch shape {tuple(omega.shape)} != {(bsz, n, kp)}")
     y = torch.bmm(g, omega.float())  # (B, m, k') sketch
     for _ in range(power_iters):
-        q, _ = torch.linalg.qr(y)
-        y = power_ops.power_iter_step(g, q)
-    q, _ = torch.linalg.qr(y)  # (B, m, k') orthonormal range basis
+        y = power_ops.power_iter_step(g, qr_q(y))
+    q = qr_q(y)  # (B, m, k') orthonormal range basis
     b = torch.bmm(q.transpose(1, 2), g)  # (B, k', n)
-    ub, s, _ = torch.linalg.svd(b, full_matrices=False)
+    ub, s, _ = svd_f32(b)
     u = torch.bmm(q, ub)
-    return u[..., :k], s[..., :k]
+    return _leading(u, s, k)
 
 
 def randomized_svd(

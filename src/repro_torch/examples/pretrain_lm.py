@@ -23,10 +23,9 @@ import torch
 
 from repro_torch.configs.base import ModelConfig, TrainConfig
 from repro_torch.core import make_optimizer
-from repro_torch.core.lowrank import tree_leaves
 from repro_torch.core.schedules import cosine_with_warmup
 from repro_torch.data.synthetic import SyntheticDataConfig, SyntheticDataset
-from repro_torch.models import build_model
+from repro_torch.models import build_model, count_params
 from repro_torch.train.loop import train_loop
 from repro_torch.train.step import make_train_step
 
@@ -69,7 +68,7 @@ def main(argv=None) -> None:
         checkpoint_dir=args.ckpt_dir, async_checkpoint=True,
     )
     params = model.init(torch.Generator(device=model.device).manual_seed(tc.seed))
-    n_params = sum(x.numel() for x in tree_leaves(params))
+    n_params = count_params(params)
     print(f"[pretrain] {n_params / 1e6:.1f}M params on {model.device}, "
           f"optimizer={args.optimizer}")
 

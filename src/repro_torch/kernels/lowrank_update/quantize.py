@@ -73,7 +73,11 @@ def quantize_blockwise(x: torch.Tensor, signed: bool) -> Tuple[torch.Tensor, tor
     else:
         rel = _sqrt_rn(torch.clamp(rel, 0.0, 1.0))
         codes = torch.clamp(torch.round(rel * 255.0), 0, 255).to(torch.uint8)
-    return _unblock(codes, n).contiguous(), scale
+    codes = _unblock(codes, n)
+    # a padded row's codes view the padded buffer: copy them into storage of
+    # their own, or the state would hold the pad (256 bytes for a 64-wide
+    # norm's moments) that ``state_memory_bytes`` does not count
+    return (codes.clone(memory_format=torch.contiguous_format) if n % QBLOCK else codes), scale
 
 
 def dequantize_blockwise(codes: torch.Tensor, scale: torch.Tensor, signed: bool) -> torch.Tensor:

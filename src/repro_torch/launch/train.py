@@ -112,10 +112,9 @@ def main(argv=None) -> None:
     from repro_torch.configs.base import TrainConfig
     from repro_torch.configs.registry import get_config
     from repro_torch.core import make_optimizer
-    from repro_torch.core.lowrank import tree_leaves
     from repro_torch.core.schedules import cosine_with_warmup
     from repro_torch.data.synthetic import SyntheticDataConfig, SyntheticDataset
-    from repro_torch.models import build_model
+    from repro_torch.models import build_model, count_params
     from repro_torch.core.rank_schedule import parse_rank_schedule
     from repro_torch.train.loop import train_loop
     from repro_torch.train.monitor import CollectiveWatchdog
@@ -130,7 +129,7 @@ def main(argv=None) -> None:
                      checkpoint_every=args.ckpt_every, checkpoint_dir=args.ckpt_dir,
                      log_spectrum=args.log_spectrum)
     params = model.init(torch.Generator(device=model.device).manual_seed(tc.seed))
-    n_params = sum(p.numel() for p in tree_leaves(params))
+    n_params = count_params(params)
     print(f"[train] {args.arch} {n_params / 1e6:.1f}M params on {model.device}")
 
     rank = args.rank or min(512, max(8, cfg.d_model // 4))

@@ -110,3 +110,10 @@ def build_model(cfg: ModelConfig, device: DeviceLike = "cuda") -> Model:
         loss=lambda p, b: ssm_lib.loss_fn(p, cfg, b),
         init_cache=lambda batch, cap: ssm_lib.init_cache(cfg, batch, cap, device=dev),
     )
+
+
+def count_params(params: Any) -> int:
+    """Elements over every leaf of a params tree (nested dicts of tensors)."""
+    if isinstance(params, dict):
+        return sum(count_params(v) for v in params.values())
+    return params.numel()

@@ -166,3 +166,26 @@ def make_train_step(
 
     fns["rebuild"] = rebuild
     return fns
+
+
+# ---------------------------------------------------------------------------
+# serve steps
+# ---------------------------------------------------------------------------
+
+
+def make_prefill_fn(model) -> Callable:
+    """(params, batch) -> (logits, cache): the model's prefill."""
+
+    def prefill_fn(params, batch):
+        return model.prefill(params, batch)
+
+    return prefill_fn
+
+
+def make_decode_fn(model) -> Callable:
+    """(params, cache, batch) -> (logits, cache): one decode step."""
+
+    def decode_fn(params, cache, batch):
+        return model.decode(params, cache, batch)
+
+    return decode_fn

@@ -35,6 +35,10 @@ from repro_torch.core import inner, make_optimizer
 from repro_torch.core.lowrank import flatten_with_path, tree_leaves
 from test_torch_optim_kernels import JaxDraws
 
+# One intra-op thread: the test workers share the host's cores, and the
+# port's results do not depend on the thread count (core/svd.py).
+torch.set_num_threads(1)
+
 # fed the same gradients and no SVD or QR: f32 results of the same
 # arithmetic, reduced in other orders (XLA vs ATen)
 TOL = dict(atol=1e-6, rtol=0)

@@ -39,6 +39,10 @@ from repro_torch.serve.engine import ContinuousEngine
 from repro_torch.train import checkpoint as ckpt
 from repro_torch.train.state import TrainState, checkpoint_converters
 
+# One intra-op thread: the test workers share the host's cores, and the
+# port's results do not depend on the thread count (core/svd.py).
+torch.set_num_threads(1)
+
 INNERS = ["adam", "msgd", "adam-mini", "adam8bit"]
 ENGINES = ["reference", "bucketed"]
 OPT_KW = dict(rank=8, svd_backend="randomized", grad_clip_norm=1.0)

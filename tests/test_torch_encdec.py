@@ -28,6 +28,10 @@ from test_torch_family_train import (
     three_step_train_loop_with_the_prefix_matches_jax,
 )
 
+# One intra-op thread: the test workers share the host's cores, and the
+# port's results do not depend on the thread count (core/svd.py).
+torch.set_num_threads(1)
+
 # f32, the same products summed in other orders (XLA vs ATen).
 TOL = dict(atol=2e-5, rtol=1e-5)
 GRAD_TOL = dict(atol=1e-6, rtol=1e-5)

@@ -24,6 +24,10 @@ from repro_torch.models import build_model
 from repro_torch.serve import kv_cache as kvc
 from repro_torch.serve.engine import ContinuousEngine, ServeEngine
 
+# One intra-op thread: the test workers share the host's cores, and the
+# port's results do not depend on the thread count (core/svd.py).
+torch.set_num_threads(1)
+
 ARCHS = ["deepseek-moe-16b", "mamba2-370m", "hymba-1.5b", "llava-next-34b", "whisper-medium"]
 PAGED = ("deepseek-moe-16b", "llava-next-34b")
 PROMPT_LENS = [6, 6, 20, 20]  # 20 > hymba's smoke window

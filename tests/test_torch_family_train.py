@@ -36,6 +36,10 @@ from repro_torch.train.step import make_train_step
 from test_torch_optim_kernels import JaxDraws
 from test_torch_train import HOT_TOL, REFRESH_TOL, _assert_params_close, _torch_tree
 
+# One intra-op thread: the test workers share the host's cores, and the
+# port's results do not depend on the thread count (core/svd.py).
+torch.set_num_threads(1)
+
 # mamba2-370m's case runs in test_torch_ssm.py (each file within its time)
 ARCHS = ["deepseek-moe-16b", "hymba-1.5b"]
 OPT_KW = dict(rank=8, lr=0.01, grad_clip_norm=1.0, engine="bucketed",

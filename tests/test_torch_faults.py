@@ -30,6 +30,10 @@ from repro_torch.train import checkpoint as ckpt
 from repro_torch.train import faults
 from repro_torch.train.state import TrainState
 
+# One intra-op thread: the test workers share the host's cores, and the
+# port's results do not depend on the thread count (core/svd.py).
+torch.set_num_threads(1)
+
 # ---------------------------------------------------------------------------
 # specs and plans
 # ---------------------------------------------------------------------------

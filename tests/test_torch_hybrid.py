@@ -18,6 +18,10 @@ from repro_torch.configs.registry import get_config
 from repro_torch.core.lowrank import flatten_with_path, tree_leaves, tree_unflatten
 from repro_torch.models import build_model
 
+# One intra-op thread: the test workers share the host's cores, and the
+# port's results do not depend on the thread count (core/svd.py).
+torch.set_num_threads(1)
+
 # f32, the same products summed in other orders (XLA vs ATen).
 TOL = dict(atol=2e-5, rtol=1e-5)
 GRAD_TOL = dict(atol=1e-6, rtol=1e-5)

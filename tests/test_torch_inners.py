@@ -56,6 +56,10 @@ from test_torch_train import (  # noqa: F401  (pair is a fixture)
     pair,
 )
 
+# One intra-op thread: the test workers share the host's cores, and the
+# port's results do not depend on the thread count (core/svd.py).
+torch.set_num_threads(1)
+
 NAMES = {"msgd": "galore-sara-msgd", "adam_mini": "galore-sara-adam-mini",
          "adam8bit": "galore-sara-adam8bit"}
 # f32 results of the same arithmetic, summed in other orders (XLA vs ATen)
@@ -401,6 +405,34 @@ def test_momentum_carry_on_a_second_refresh_matches_jax(pair, inner_name, carry)
         for jb, tb in zip(js3.buckets, ts3.buckets):
             pj, pt = np.asarray(jb.projector), _np(tb.projector)
             np.testing.assert_allclose(pt * _signs(pj, pt), pj, atol=5e-5)
+
+
+def test_second_refresh_does_not_depend_on_the_thread_count(pair):
+    """The port's side of the adam8bit-reset case above at 1, 2, 4 and 8
+    intra-op threads: the same W' to the bit.  MKL's f32 QR blocks by the
+    pool size, and its one-thread result once put that case past
+    REFRESH_TOL; the refresh now factors in f64 on the CPU (core/svd.py)."""
+    kw = dict(OPT_KW, engine="bucketed", svd_backend="randomized", momentum_carry="reset")
+    jopt = jax_make_optimizer(NAMES["adam8bit"], pair["jparams"], **kw)
+    topt = make_optimizer(NAMES["adam8bit"], pair["tparams"], **kw)
+    g0, g1 = pair["jgrads"]
+    js = jopt.init(pair["jparams"])
+    jp, js, _ = jopt.update(g0, js, pair["jparams"], refresh=True, apply=True)
+    jp, js, _ = jopt.update(g1, js, jp, refresh=False, apply=True)
+    runs = []
+    try:
+        for threads in (1, 2, 4, 8):
+            torch.set_num_threads(threads)
+            ts = bridge.opt_state_from_numpy(topt, _numpy(js), "cpu")._replace(
+                draws=JaxDraws(js.key))
+            tp, _, _ = topt.update(_torch_tree(g0), ts, _torch_tree(jp), refresh=True,
+                                   apply=True)
+            runs.append({path: _np(v) for path, v in flatten_with_path(tp)})
+    finally:
+        torch.set_num_threads(1)
+    for threads, run in zip((2, 4, 8), runs[1:]):
+        for path, value in run.items():
+            np.testing.assert_array_equal(value, runs[0][path], err_msg=f"{threads} {path}")
 
 
 @pytest.mark.parametrize("inner_name", list(NAMES))

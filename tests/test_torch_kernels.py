@@ -37,6 +37,10 @@ from repro_torch.kernels.rmsnorm.kernel import rmsnorm as rmsnorm_kernel
 from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
 from test_torch_gpu import FLASH_CASES, TOL, TORCH, paged_inputs
 
+# One intra-op thread: the test workers share the host's cores, and the
+# port's results do not depend on the thread count (core/svd.py).
+torch.set_num_threads(1)
+
 JNP = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
 
 

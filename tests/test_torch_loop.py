@@ -27,6 +27,10 @@ from repro_torch.train.monitor import StepMonitor
 from repro_torch.train.state import TrainState
 from repro_torch.train.step import make_train_step
 
+# One intra-op thread: the test workers share the host's cores, and the
+# port's results do not depend on the thread count (core/svd.py).
+torch.set_num_threads(1)
+
 NAN = float("nan")
 
 

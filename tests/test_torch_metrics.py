@@ -31,6 +31,10 @@ from repro_torch.train.step import make_train_step
 from test_torch_optim_kernels import JaxDraws
 from test_torch_train import _SharedData
 
+# One intra-op thread: the test workers share the host's cores, and the
+# port's results do not depend on the thread count (core/svd.py).
+torch.set_num_threads(1)
+
 # f32 products and reductions in other orders (XLA vs ATen)
 F32 = dict(atol=1e-6, rtol=1e-5)
 # the singular values of a delta: two LAPACKs, f32

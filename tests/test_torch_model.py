@@ -18,6 +18,10 @@ from repro_torch.configs.registry import get_config, list_archs
 from repro_torch.models import build_model
 from repro_torch.models import transformer as tfm
 
+# One intra-op thread: the test workers share the host's cores, and the
+# port's results do not depend on the thread count (core/svd.py).
+torch.set_num_threads(1)
+
 DENSE = ["llama3-8b", "qwen2-1.5b", "granite-8b", "nemotron-4-15b"]
 # the MoE, SSM, hybrid, VLM and enc-dec families' configs
 FAMILIES = ["deepseek-moe-16b", "olmoe-1b-7b", "mamba2-370m", "hymba-1.5b",

@@ -20,6 +20,10 @@ from repro_torch.core.lowrank import flatten_with_path, tree_leaves, tree_unflat
 from repro_torch.models import build_model
 from repro_torch.models import moe
 
+# One intra-op thread: the test workers share the host's cores, and the
+# port's results do not depend on the thread count (core/svd.py).
+torch.set_num_threads(1)
+
 ARCHS = ["deepseek-moe-16b", "olmoe-1b-7b"]
 # f32, the same products summed in other orders (XLA vs ATen); the
 # scatter-add sums each token's k routed rows in another order too.

@@ -44,6 +44,10 @@ from repro_torch.kernels.power_iter import ops as power_ops
 from repro_torch.kernels.power_iter.kernel import power_iter_batched
 from repro_torch.kernels.power_iter.ref import power_iter_ref
 
+# One intra-op thread: the test workers share the host's cores, and the
+# port's results do not depend on the thread count (core/svd.py).
+torch.set_num_threads(1)
+
 # f32 on the CPU: the same products summed in other orders (XLA vs ATen).
 F32 = dict(atol=2e-5, rtol=1e-5)
 # bf16 W': rounds to 8 significant bits, so one bf16 ulp (2^-7 relative)

@@ -20,6 +20,10 @@ from repro_torch.kernels import counters
 from repro_torch.kernels.galore_project.kernel import galore_project
 from repro_torch.kernels.galore_project.ref import galore_project_ref
 
+# One intra-op thread: the test workers share the host's cores, and the
+# port's results do not depend on the thread count (core/svd.py).
+torch.set_num_threads(1)
+
 # f32: the same products summed over d in other orders (XLA vs ATen), on
 # outputs of order 0.1.  bf16 G: the bar of JAX's own test of its kernel
 # (test_kernels_extra.py:77).

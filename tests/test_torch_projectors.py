@@ -32,6 +32,10 @@ from repro_torch.core import projectors as proj
 from repro_torch.core import sampling
 from test_torch_optim_kernels import _jax_leaf_draws, _t
 
+# One intra-op thread: the test workers share the host's cores, and the
+# port's results do not depend on the thread count (core/svd.py).
+torch.set_num_threads(1)
+
 NEW_METHODS = ["golore", "grass", "online_pca", "identity"]
 # after a QR: sign-aligned columns, to 1e-5 (f32, two LAPACKs)
 QR_TOL = dict(atol=1e-5, rtol=0)

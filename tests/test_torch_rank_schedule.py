@@ -66,6 +66,10 @@ from repro_torch.train.step import make_train_step
 from test_torch_resume import _assert_step_close
 from test_torch_train import _SharedData
 
+# One intra-op thread: the test workers share the host's cores, and the
+# port's results do not depend on the thread count (core/svd.py).
+torch.set_num_threads(1)
+
 # ---------------------------------------------------------------------------
 # schedule evaluation
 # ---------------------------------------------------------------------------

@@ -50,6 +50,10 @@ from test_torch_train import (  # noqa: F401  (pair is a fixture)
     pair,
 )
 
+# One intra-op thread: the test workers share the host's cores, and the
+# port's results do not depend on the thread count (core/svd.py).
+torch.set_num_threads(1)
+
 NAMES = {"adam": "galore-sara-adam", "msgd": "galore-sara-msgd",
          "adam_mini": "galore-sara-adam-mini", "adam8bit": "galore-sara-adam8bit"}
 

@@ -62,6 +62,10 @@ from test_torch_optim_kernels import JaxDraws
 from test_torch_resume import _assert_step_close
 from test_torch_train import REFRESH_TOL, _SharedData
 
+# One intra-op thread: the test workers share the host's cores, and the
+# port's results do not depend on the thread count (core/svd.py).
+torch.set_num_threads(1)
+
 STEPS = 8
 KW = dict(rank=8, tau=4, lr=2e-3, engine="bucketed", svd_backend="randomized",
           momentum_carry="reproject")

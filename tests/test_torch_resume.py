@@ -51,6 +51,10 @@ from repro_torch.train.step import make_train_step
 from test_torch_optim_kernels import JaxDraws
 from test_torch_train import HOT_TOL, REFRESH_TOL, _SharedData
 
+# One intra-op thread: the test workers share the host's cores, and the
+# port's results do not depend on the thread count (core/svd.py).
+torch.set_num_threads(1)
+
 # "reproject": the refresh turns the kept first moment into the new basis,
 # which makes the step blind to the projectors' column signs; under "keep"
 # a refresh after the first pairs JAX's moments with the port's columns,

@@ -29,6 +29,10 @@ from repro_torch.serve.engine import ContinuousEngine, ServeEngine
 from repro_torch.serve.kv_cache import PageAllocator, pages_needed
 from repro_torch.serve.scheduler import Request, Scheduler
 
+# One intra-op thread: the test workers share the host's cores, and the
+# port's results do not depend on the thread count (core/svd.py).
+torch.set_num_threads(1)
+
 ROOT = Path(__file__).resolve().parents[1]
 TOL = dict(atol=2e-5, rtol=1e-5)  # f32, same math in other summation orders
 

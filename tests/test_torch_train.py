@@ -36,6 +36,10 @@ from repro_torch.train.state import TrainState
 from repro_torch.train.step import make_train_step
 from test_torch_optim_kernels import JaxDraws
 
+# One intra-op thread: the test workers share the host's cores, and the
+# port's results do not depend on the thread count (core/svd.py).
+torch.set_num_threads(1)
+
 RANK = 8
 OPT_KW = dict(rank=RANK, lr=0.01, grad_clip_norm=1.0)
 # Loss and gradients: f32, the same products summed in other orders.
