@@ -58,10 +58,10 @@ failure raises and the script exits non-zero:
               (W' and its state) from the kernels against the plain
               versions on the same stacks, one bucket at a time; then
               profiles one hot step (device busy share, time by kernel).
-4b. train_recovery -- ``galore-sara-adam`` as in 4 under the launcher's
+4b. train_recovery -- ``galore-sara-adam`` as in 4, cut to
+              ``RECOVERY_LAYERS`` (1) layer, under the launcher's
               default ``RecoveryPolicy`` (no backoff) with heartbeats and a
-              ``FaultPlan``, 8 steps: steps 0-2 as in 4 (the gate's cost
-              beside ``train``'s hot steps), the pinned step-0 save, a NaN
+              ``FaultPlan``, 8 steps: steps 0-2 as in 4, the pinned step-0 save, a NaN
               gradient at step 3 (skipped: per-leaf bit-pattern checksums
               of params and state equal before and after, ``skipped`` 1),
               NaN losses at steps 5-7 (a rollback to the pin with resample:
@@ -81,9 +81,9 @@ failure raises and the script exits non-zero:
               holds kernels 4, 5 and 9 at ranks 256 and 264 (k' 1032 and
               1064; 264 = 8 mod 16 leaves the f32 tile engine a ragged
               last K tile) on the mlp bucket's shape.
-5. resume  -- train -> checkpoint -> resume -> serve, on the same 4-layer
-              model with ``galore-sara-adam`` at tau 2 (refreshes at steps
-              0, 2 and 4) on the zipf corpus, seq 512, batch 8, each run in
+5. resume  -- train -> checkpoint -> resume -> serve, on the same model
+              cut to ``RESUME_LAYERS`` (1) layer, with ``galore-sara-adam``
+              at tau 2 (refreshes at steps 0, 2 and 4) on the zipf corpus, seq 512, batch 8, each run in
               new objects and freeing the card before the next: C trains 5
               steps uninterrupted, prints each low-rank leaf's adjacent
               subspace overlap at refreshes 2 and 4 (``track_subspace``),
@@ -101,16 +101,48 @@ failure raises and the script exits non-zero:
               on the in-memory params.  Prints the checkpoint's bytes, save
               and load seconds and GB/s, peak host RSS and each run's
               ``max_memory_allocated``, with the card's name and power limit.
+5b. train_dp -- data-parallel training through ``torch.distributed``:
+              one process per card (``torch.cuda.device_count()``; 1 on a
+              one-card machine) on a file store under ``build/``, NCCL.
+              Each runs phase 4's model (4 layers, seq 512, global batch
+              8, ``galore-sara-adam``, rank 512) without clipping
+              (``DP_OPT``) for 3 steps, first single-process (the
+              reference, its params kept on the host), then through
+              ``make_train_step(mesh=..., compressed="flat")`` with
+              replicated state, and with ZeRO state (``state_shards`` =
+              world) where the world has more than one process: each
+              step's params against the reference's (the Adam update's
+              ``TOL`` at world 1; ``DP_REFRESH_TOL`` and f32 compute
+              above), the bytes handed to the collectives per refresh
+              and per hot step equal to ``dp_comm_model``'s, kernels 4
+              and 5 once per bucket in each hot step, exact launch
+              counts; a NaN gradient in the last process's share,
+              skipped by every process with its state unchanged.  In one
+              process: a standard step at 4 shards against the
+              replicated state's, the 4-shard stacks saved by four
+              emulated writers and restored at 2 and 8 shards bit-equal
+              (save and load s, GB/s); kernels 4-8 on a ``narrow`` of a
+              padded stack, a block of real rows and a block of pad rows
+              (``DP_PAD_SHAPE``), each kernel launched once a case.  The
+              first process then runs a world of 4 ranks as threads on
+              its card (``_dp_emulated``, ``DP_EMU_*``: LLaMA-60M's widths
+              at 5 layers), replicated and ZeRO at 4 shards, so the
+              shard-local step (reduce-scatter, projector gather, the
+              fused update on each rank's rows, pad rows included, the W'
+              gather) runs on the card: params equal on every rank, ZeRO
+              against replicated and both against the single-process
+              step, bytes against ``dp_comm_model``'s, exact launches,
+              a NaN in one rank's share skipped by all.
 6. families -- the MoE, SSM and hybrid families at full width:
               ``family_kernels`` (flash at hymba's GQA 25/5, D 64, window
               1024, S 2048 and deepseek's MHA 16/16; paged decode at MHA
               16/16; RMSNorm at widths 1600, 2048 and 3200; kernels 4, 5
-              and 9 on deepseek-moe-16b's 768-slice expert bucket at rank
+              and 9 on deepseek-moe-16b's 384-slice expert bucket at rank
               256), ``serve_moe`` (deepseek-moe-16b, 28 layers, bf16 made
               leaf by leaf, through the paged engine on phase 3's trace;
               request 0's logits against the static exact path, the bar
               from the f32 model at the deepest depth that fits; host syncs
-              per step), ``train_moe`` (4 layers, rank 256: kernel 9 runs),
+              per step), ``train_moe`` (2 layers, rank 256: kernel 9 runs),
               ``train_ssm`` and ``serve_ssm`` (mamba2-370m, 48 layers; rank
               512: kernel 9 launches 0 times), ``train_hybrid`` and
               ``serve_hybrid`` (hymba-1.5b cut to 16 of its 32 layers,
@@ -134,10 +166,11 @@ failure raises and the script exits non-zero:
               logits against the static exact path, the bar from the f32
               model at the deepest depth that fits), ``train_vlm`` (2
               layers, 448 text tokens after the patches, batch 4, rank 512),
-              ``serve_audio`` (whisper-medium, 24 + 24 layers, slot engine,
+              ``serve_audio`` (whisper-medium cut to 12 + 12 of its 24 + 24
+              layers, ``AUDIO_LAYERS``, slot engine,
               each request's own 1500 frames, prompts of 4-64 tokens, 64
               new tokens, a ring of 448; every token against the static
-              engine's or a near-tie) and ``train_audio`` (full depth, seq
+              engine's or a near-tie) and ``train_audio`` (12 + 12 layers, seq
               448, batch 8, rank 256: kernel 9 launches 0 times).  The
               train paths run as phase 6's, with the patches or frames in
               every batch.
@@ -401,6 +434,65 @@ SCHEDULE_RANKS = (512, 256)
 # last K tile of the f32 tile engine), on the mlp bucket's shape
 RANK_CASES = (256, 264)
 PATH_KERNELS["train_recovery"] = _TRAIN_COMMON + (UPDATE_KERNEL["adam"],)
+# resume and train_recovery run cut to 1 of the 4 layers (the same widths
+# and bucket shapes, 2 / 2 / 3 slices): their checkpoints are ~13.7 GB,
+# most of it embed's and lm_head's params and Adam moments, and each
+# refresh ~2 s instead of ~8; the room goes to train_dp
+RESUME_LAYERS = RECOVERY_LAYERS = 1
+# train_dp: data-parallel training on torch.distributed, one process per
+# card (NCCL; the smoke machine has one card, so world 1): the train
+# phase's model, seq, batch and optimizer, without clipping (DP_OPT: the
+# compressed step clips by the R-space norm, so a clipped run would not be
+# the single-process step), 3 steps (refresh + 2 hot) with
+# compressed="flat", replicated and ZeRO state (state_shards = world);
+# in one process, a standard step at DP_ZERO_SHARDS shards, a save of its
+# stacks by that many emulated writers, restored at DP_RESTORE_SHARDS; and
+# kernels 4-8 on a narrow of a padded stack, DP_PAD_SHAPE (d, n, r, B):
+# B 6 pads to 8 over 4 shards, so the last block is all pad rows
+DP_STEPS = 3
+DP_OPT = dict(TRAIN_OPT, grad_clip_norm=0.0)
+DP_ZERO_SHARDS = 4
+DP_RESTORE_SHARDS = (2, 8)
+DP_PAD_SHAPE = (1024, 4096, 512, 6)
+# the phase took 67.7-82.3 s on the H100 (NVIDIA H100 80GB HBM3, 700.00
+# W); a hung process or collective fails it after this long, well inside
+# the script's limit
+DP_TIMEOUT_S = 240
+# A one-card machine holds a world of one process, whose ZeRO layout has
+# one shard: the shard-local step never runs there.  So the first process
+# also runs a world of DP_EMU_RANKS ranks as threads of its own on its card
+# (``_ThreadHub``: their collectives exchange through the card's memory),
+# replicated and ZeRO (state_shards = DP_EMU_RANKS), 3 steps of the
+# paper's LLaMA-60M (``TABLES_PRESET``'s widths) at 5 of its 8 layers, so
+# the mlp bucket's 15 slices pad to 16 and the last rank's block of 4 rows
+# holds 1 pad row (at 7 layers the phase took 98 s of the 90 it has, on an
+# H100 80GB HBM3, 700 W), with f32 compute, seq 256, global batch 32,
+# rank 128, the randomized SVD, no clipping.  ZeRO against replicated in
+# the same world, whose sums run in the same order: ZERO_TOL of the CPU
+# tests (tests/test_torch_distributed.py).  A world of several processes
+# against the single-process step: REFRESH_TOL of the same file, the bar
+# of those CPU worlds.  The emulated world against it on the card is held
+# as those tests hold a trajectory and a hot step: the ranks' f32
+# products over 8 rows each round apart from the single process's over
+# 32 (cuBLAS picks its kernels by the shapes), the refresh's f32 factors
+# turn that into other projectors where singular values crowd, and Adam's
+# normalized step magnifies it (1.16e-4 at step 2 at 7 layers on that
+# H100, against REFRESH_TOL's 5e-5; 1.2e-7 on the CPU, whose factors are
+# f64), so the 3-step trajectory is held by its losses (RESUME_LOSS_RTOL,
+# as a resumed run) and its params only under twice the summed learning
+# rates (Adam's step taken the other way at every step), and one hot step
+# from the single-process state to HOT_LOOP_TOL (1e-6 abs on all but
+# 1e-4 of each leaf, those within 1e-4).  A world of one process sums as
+# the single-process step does, and is held to the kernels' TOL.
+DP_EMU_RANKS = DP_ZERO_SHARDS
+DP_EMU_LAYERS = 5
+DP_EMU_SEQ, DP_EMU_BATCH = 256, 32
+DP_EMU_OPT = dict(rank=128)
+DP_EMU_BUCKETS = [(512, 512, 128, 20, "any"), (512, 1376, 128, 15, "any")]
+DP_ZERO_TOL = 1e-6
+DP_REFRESH_TOL = 5e-5
+DP_HOT_TOL = dict(atol=1e-6, share=1e-4, cap=1e-4)
+PATH_KERNELS["train_dp"] = _TRAIN_COMMON + (UPDATE_KERNEL["adam"],)
 PATH_KERNELS["train_rank_schedule"] = _TRAIN_COMMON + (UPDATE_KERNEL["adam"],)
 
 # phase 6: the MoE, SSM and hybrid families at full width.  RMSNorm and
@@ -425,15 +517,20 @@ HYBRID_LAYERS = 16
 # the RMS distance between the bf16 and f32 models' logits on the same
 # tokens (the prompt and the tokens before the parting step).
 TIE_BAR_SIGMAS = 4
+# deepseek trains cut to 2 of its 28 layers (4 until the script passed its
+# time limit once the data-parallel phase joined: its SARA refresh over the
+# 768-slice expert bucket took 52.9 s on the H100, NVIDIA H100 80GB HBM3,
+# 700.00 W, and the whole script 1051 s of its 1200)
+MOE_TRAIN_LAYERS = 2
 # rank 256 for moe and hybrid: SARA's pool (4 r) then leaves k' 1032 below
 # the narrow side of their leaves, so kernel 9 runs; at the launcher's 512
 # it spans every leaf's narrow side and the power iterations drop (as
 # JAX's clamp_sketch); mamba2 keeps 512, where kernel 9 must launch 0 times
 FAMILY_TRAIN_RUNS = {
     # path: (arch, layers (None: full depth), seq, batch, rank, bucket plan)
-    "train_moe": (MOE_ARCH, 4, TRAIN_SEQ, TRAIN_BATCH, 256,
-                  [(1408, 2048, 256, 768, "any"), (2048, 2048, 256, 16, "any"),
-                   (2048, 2816, 256, 12, "any")]),
+    "train_moe": (MOE_ARCH, MOE_TRAIN_LAYERS, TRAIN_SEQ, TRAIN_BATCH, 256,
+                  [(1408, 2048, 256, 384, "any"), (2048, 2048, 256, 8, "any"),
+                   (2048, 2816, 256, 6, "any")]),
     "train_ssm": (SSM_ARCH, None, TRAIN_SEQ, TRAIN_BATCH, 512,
                   [(32, 48, 32, 1, "any"), (1024, 2048, 512, 48, "any"),
                    (1024, 4384, 512, 48, "any")]),
@@ -461,20 +558,25 @@ VLM_POOL_PAGES = 250
 AUDIO_PROMPT_LENS = [64, 4, 48, 17, 33, 8, 56, 25]
 AUDIO_NEW_TOKENS = 64
 AUDIO_MAX_SEQ = 448
+# whisper serves and trains cut to 12 of its 24 encoder and 24 decoder
+# layers (every layer's shapes as at full depth): at full depth its two
+# paths took 107 s of the script's 1051 s on the H100 (NVIDIA H100 80GB
+# HBM3, 700.00 W), too near the script's 1200-s limit
+AUDIO_LAYERS = 12
 LAYER_LAUNCHES["vlm"] = LAYER_LAUNCHES["dense"]
 # train_vlm: llava-next-34b cut to 2 layers (2.08 B params, near the 4
 # llama layers of phase 4), 448 text tokens after the 576 patches (1024
 # positions), batch 4; rank 512 (k' 2056 < 7168: kernel 9 runs), and the 2-D
-# patch_in_proj joins q and o's bucket.  train_audio: whisper-medium at full
-# depth, 448 decoder tokens and 1500 frames, batch 8; rank 256, whose sara
-# sketch k' 1032 spans the 1024-wide narrow side of every leaf, so the power
-# iterations drop (kernel 9: 0 launches).
+# patch_in_proj joins q and o's bucket.  train_audio: whisper-medium at
+# ``AUDIO_LAYERS``, 448 decoder tokens and 1500 frames, batch 8; rank 256,
+# whose sara sketch k' 1032 spans the 1024-wide narrow side of every leaf,
+# so the power iterations drop (kernel 9: 0 launches).
 FAMILY_TRAIN_RUNS["train_vlm"] = (
     VLM_ARCH, 2, 448, 4, 512,
     [(1024, 7168, 512, 4, "any"), (7168, 7168, 512, 5, "any"), (7168, 20480, 512, 6, "any")])
 FAMILY_TRAIN_RUNS["train_audio"] = (
-    AUDIO_ARCH, None, 448, 8, 256,
-    [(1024, 1024, 256, 288, "any"), (1024, 4096, 256, 144, "any")])
+    AUDIO_ARCH, AUDIO_LAYERS, 448, 8, 256,
+    [(1024, 1024, 256, 144, "any"), (1024, 4096, 256, 72, "any")])
 PATH_KERNELS["serve_vlm"] = SERVE_KERNELS
 PATH_KERNELS["train_vlm"] = _TRAIN_COMMON + (UPDATE_KERNEL["adam"],)
 PATH_KERNELS["serve_audio"] = ("rmsnorm", "flash_attention_fwd")
@@ -494,8 +596,11 @@ PATH_NEVER = {"train_ssm": ("power_iter_batched", "flash_attention_fwd"),
 # harness's 150: on the H100 (700 W) full Adam took ~95 ms a hot step and a
 # SARA refresh ~1.25 s, and the 16 runs took the phase ~370 s at 150
 # steps, 181 s at 60 and 118 s at 35 (the whole script 1062 s of its
-# 1200).  lr 1e-3, the paper's full-Adam rate at this size, not the
-# harness's CPU default of 2e-3: at 2e-3 both Adam-mini rows diverge (loss
+# 1200).  Its depth stays 8: at 4 layers embed's and lm_head's full Adam
+# state lifts GaLore's state / param ratio to 1.6235, past the path's 1.6
+# bar (on the H100, NVIDIA H100 80GB HBM3, 700.00 W).  lr 1e-3, the
+# paper's full-Adam rate at this size, not the harness's CPU default of
+# 2e-3: at 2e-3 both Adam-mini rows diverge (loss
 # 11-12 at step 60, from 10.48) and the 8-bit rows spike after a refresh,
 # in JAX too from the same inputs at 8 layers and batch 8 on the CPU
 # (tools/tables_cpu.py --trajectory), and on the card with no hand-written
@@ -1236,7 +1341,7 @@ def forward_launches(cfg):
     return (norms * nl + 1, attns * nl), (norms * nl, attns * nl)
 
 
-def serve(cfg, dev: str = "cuda", profile_ticks: int = 24, pool_pages: int = POOL_PAGES):
+def serve(cfg, dev: str = "cuda", profile_ticks: int = 8, pool_pages: int = POOL_PAGES):
     """Phase 3 (see the module docstring), or ``serve_moe`` with an MoE
     config, ``serve_vlm`` with a VLM one (each request's patches ahead of
     its prompt, in its pages; ``pool_pages`` usable pages); ``dev="cpu"``
@@ -1406,13 +1511,16 @@ def serve(cfg, dev: str = "cuda", profile_ticks: int = 24, pool_pages: int = POO
     }
 
 
-def profile_serving(model, params, new_tokens: int = 24):
+def profile_serving(model, params, new_tokens: int = 8):
     """Device time by kernel over a short continuous run under
     torch.profiler: 4 requests of 512 tokens (after their patches, for a
     VLM) admitted together, then
-    ``new_tokens`` - 1 decode ticks (23; 8 for the MoE model, whose ticks
+    ``new_tokens`` - 1 decode ticks (7; 3 for the MoE model, whose ticks
     hold ~10x the events for the profiler to sum up, and for the 60-layer
-    VLM, whose 23-tick window took 100 s to sum up).  Device busy share =
+    VLM).  Summing the events up takes far longer than the run (on the
+    H100, NVIDIA H100 80GB HBM3, 700.00 W: 45 s for llama's 23 ticks and
+    69 s for deepseek's 8, where the script summed them twice), so the
+    window is short.  Device busy share =
     summed kernel time / host wall time (one stream, so kernels do not
     overlap)."""
     from torch.profiler import ProfilerActivity, profile
@@ -1434,7 +1542,8 @@ def profile_serving(model, params, new_tokens: int = 24):
     groups = {"matmul": 0.0, "flash_attention_fwd": 0.0,
               "paged_decode_attention": 0.0, "rmsnorm": 0.0, "other": 0.0}
     kernels = []
-    for e in prof.key_averages():
+    averages = prof.key_averages()  # summed once: tens of seconds on a deep model
+    for e in averages:
         us = _device_us(e)
         if us <= 0 or not _is_kernel(e) or e.key.startswith(("Memcpy", "Memset")):
             continue
@@ -1454,7 +1563,7 @@ def profile_serving(model, params, new_tokens: int = 24):
         kernels.append((us / 1e3, e.count, name[:90]))
     kernels.sort(reverse=True)
     host_ops = sorted(
-        ((e.self_cpu_time_total / 1e3, e.count, e.key[:60]) for e in prof.key_averages()
+        ((e.self_cpu_time_total / 1e3, e.count, e.key[:60]) for e in averages
          if e.self_cpu_time_total > 0),
         reverse=True,
     )
@@ -1695,7 +1804,7 @@ def hot_step_parity(path: str, model, opt, state, batch, dev: str = "cuda"):
                 bk.side, ikw)
         got = kernel_update(*args)  # on the whole stack
         # the plain version in chunks of slices (each slice's update is its
-        # own): its f32 temporaries for all 768 slices of an expert bucket
+        # own): its f32 temporaries for all 384 slices of an expert bucket
         # would not fit beside the kernel's output
         for lo in range(0, bk.batch, PARITY_CHUNK):
             cut = lambda x: x[lo:lo + PARITY_CHUNK] if torch.is_tensor(x) else x  # noqa: E731
@@ -1889,7 +1998,7 @@ def train_recovery(cfg, smi: str, train_hot_ms=None, dev: str = "cuda", seq: int
         log(f"train_recovery: {free / 1e9:.1f} GB free under {ckpt_dir.parent} for the pinned "
             "checkpoint")
         if dev == "cuda" and free < 20e9:
-            raise AssertionError(f"{free} bytes free: the pinned checkpoint needs ~17.3 GB")
+            raise AssertionError(f"{free} bytes free: the pinned checkpoint needs ~14 GB")
 
         calls, refreshes, skip = [], [], {}
 
@@ -2661,7 +2770,7 @@ def family_kernel_cases(results):
     flash at hymba's D 64, GQA 25/5, window 1024, S 2048 (training, B 2)
     and deepseek's MHA 16/16 at D 128 (serving prefill); paged decode at
     MHA 16/16; RMSNorm at widths 1600, 2048 and 3200; kernels 4, 5 and 9
-    on deepseek's 768-slice expert bucket (d 1408, n 2048) at rank 256
+    on deepseek's 384-slice expert bucket (d 1408, n 2048) at rank 256
     (k' 1032)."""
     from repro_torch.kernels.flash_attention.kernel import flash_attention_fwd
     from repro_torch.kernels.flash_attention.kernel import last_design as flash_design
@@ -2746,7 +2855,7 @@ def family_kernel_cases(results):
            err, timing)
     del q, pk, pv, table, lens, got
     torch.cuda.empty_cache()
-    # kernels 4, 5 and 9 on the 768-slice expert bucket (8.9 GB per f32 stack)
+    # kernels 4, 5 and 9 on the 384-slice expert bucket (4.4 GB per f32 stack)
     return cases + rank_kernel_cases(results, ranks=(256,),
                                      shape=FAMILY_TRAIN_RUNS["train_moe"][5][0])
 
@@ -2874,6 +2983,14 @@ def encdec_vlm_kernel_cases(results):
                                 shape=FAMILY_TRAIN_RUNS["train_audio"][5][0], power=False))
 
 
+def cut_depth(cfg, layers: int):
+    """``cfg`` at ``layers`` layers (and as many encoder layers, for an
+    encoder-decoder), every layer's shapes unchanged."""
+    if cfg.n_enc_layers:
+        return cfg.with_(n_layers=layers, n_enc_layers=layers)
+    return cfg.with_(n_layers=layers)
+
+
 def family_train(path: str, smi: str, dev: str = "cuda"):
     """One of ``FAMILY_TRAIN_RUNS`` through ``train`` (galore-sara-adam,
     bucketed, randomized SVD, 3 steps), with the step-0 gradients checked
@@ -2883,7 +3000,7 @@ def family_train(path: str, smi: str, dev: str = "cuda"):
     arch, layers, seq, batch, rank, plan = FAMILY_TRAIN_RUNS[path]
     cfg = get_config(arch)
     if layers:
-        cfg = cfg.with_(n_layers=layers)
+        cfg = cut_depth(cfg, layers)
     # the SSM's hot step runs ~1e5 small kernels (the chunk loop), whose
     # profile alone took minutes to sum up: the SSM paths are not profiled
     out = train(cfg, "galore-sara-adam", plan, dev=dev, seq=seq, batch=batch,
@@ -3074,8 +3191,836 @@ def paper_tables(smi: str, results=None, dev: str = "cuda", steps: int = TABLES_
 
 # every phase in order; ``--only a,b`` runs a subset (a quick check of a
 # few paths on the card), no argument runs them all
+# ---------------------------------------------------------------------------
+# phase 5b: data-parallel training on torch.distributed
+# ---------------------------------------------------------------------------
+
+
+def train_buckets(layers: int):
+    """``TRAIN_BUCKETS`` at ``layers`` layers: k/v and q/o two slices a
+    layer, the mlp three."""
+    return [(d, n, r, b * layers // TRAIN_LAYERS, side) for d, n, r, b, side in TRAIN_BUCKETS]
+
+
+def _count_plain_dispatch() -> None:
+    """CPU rehearsal only: count the ops dispatchers' calls as launches, as
+    the kernels count theirs on the card (no kernel launches on the CPU)."""
+    from repro_torch.kernels import counters
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.lowrank_update import ops as up_ops
+    from repro_torch.kernels.power_iter import ops as pi_ops
+    from repro_torch.kernels.rmsnorm import ops as rn_ops
+
+    for mod, fn, name in ((rn_ops, "rmsnorm", "rmsnorm"),
+                          (fa_ops, "flash_attention", "flash_attention_fwd"),
+                          (up_ops, "bucketed_project", "galore_project_batched"),
+                          (up_ops, "bucketed_adam_update", UPDATE_KERNEL["adam"]),
+                          (pi_ops, "power_iter_step", "power_iter_batched")):
+        def counted(*a, _f=getattr(mod, fn), _n=name, **k):
+            counters.bump(_n)
+            return _f(*a, **k)
+        setattr(mod, fn, counted)
+
+
+def _dp_pad_cases(dev: str, rank: int, shape=DP_PAD_SHAPE):
+    """Kernels 4-8 on one process's block of rows of a padded ZeRO stack,
+    passed as a ``narrow`` of the padded stack (contiguous, its data away
+    from the buffer's start): a block of real rows and a block of pad rows
+    (zero W, P, R and state; 8-bit scales 0), each against the plain
+    version, and the pad block's W' exactly 0 and every output finite.
+    ``dev`` places the tensors ("cuda:0", "cpu"); on the card each case
+    calls its kernel (its count must rise by one) and on the CPU, the
+    rehearsal, the plain version twice."""
+    from repro_torch.core.buckets import zero_padded_batch
+    from repro_torch.kernels import counters
+    from repro_torch.kernels.galore_project import kernel as project_kernel
+    from repro_torch.kernels.galore_project.ref import project_ref
+    from repro_torch.kernels.lowrank_update import quantize as qz
+
+    on_card = torch.device(dev).type == "cuda"
+
+    def launched(fn, name):
+        """fn()'s result, after checking that it launched ``name`` once
+        on the card and nothing on the CPU."""
+        before = counters.snapshot()
+        got = fn()
+        now = counters.snapshot()
+        delta = {k: v - before.get(k, 0) for k, v in now.items() if v != before.get(k, 0)}
+        if delta != ({name: 1} if on_card else {}):
+            raise AssertionError(f"train_dp pad {name}: launches {delta}")
+        return got
+
+    d, n, r, b = shape
+    bp = zero_padded_batch(b, DP_ZERO_SHARDS)
+    rows = bp // DP_ZERO_SHARDS
+    blocks = ((b - 1) // rows, bp // rows - 1)  # the last block of real rows, of pad rows
+    if bp == b:
+        raise AssertionError(f"train_dp: {shape} leaves no pad rows at {DP_ZERO_SHARDS} shards")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 11 + rank)
+
+    def padded(*shape, scale=1.0):
+        x = torch.zeros((bp,) + shape, device=dev)
+        x[:b] = torch.randn((b,) + shape, generator=gen, device=dev) * scale
+        return x
+
+    out = {}
+    w, p, g = padded(d, n, scale=0.02), padded(d, r), padded(d, n)
+    p[:b] = torch.linalg.qr(p[:b])[0]
+    rg = padded(r, n)
+    for inner in ("adam", "msgd", "adam_mini", "adam8bit"):
+        side = "right" if inner in ("adam_mini", "adam8bit") else "any"
+        m = padded(r, n, scale=0.1)
+        if inner == "adam":
+            state = (m, padded(r, n, scale=0.1) ** 2)
+        elif inner == "msgd":
+            state = (m,)
+        elif inner == "adam_mini":
+            state = (m, padded(r if side == "left" else n, scale=0.1) ** 2)
+        else:
+            mc, ms = qz.quantize_stacked(m[:b], side, signed=True)
+            vc, vs = qz.quantize_stacked(padded(r, n, scale=0.1)[:b] ** 2, side, signed=False)
+            state = tuple(torch.cat([x, x.new_zeros((bp - b,) + tuple(x.shape[1:]))])
+                          for x in (mc, ms, vc, vs))
+        kernel, plain = fused_update(inner, on_card), fused_update(inner, False)
+        for k in blocks:
+            view = lambda x: x.narrow(0, k * rows, rows)  # noqa: E731
+            args = (view(w), view(p), view(rg), tuple(map(view, state)), 3, 0.01 * 0.25, 0.0,
+                    side, INNER_KW[inner])
+            got = launched(lambda: kernel(*args), UPDATE_KERNEL[inner])
+            want = plain(*args)
+            errs = check_update(inner, f"train_dp pad {inner} rows {k * rows}:", got, want,
+                                "float32")
+            if not all(bool(torch.isfinite(x.float()).all()) for x in got):
+                raise AssertionError(f"train_dp pad {inner} block {k}: a non-finite output")
+            if k * rows >= b and bool(got[0].any()):
+                raise AssertionError(f"train_dp pad {inner}: pad rows' W' is not 0")
+            out[f"{inner} rows {k * rows}:{(k + 1) * rows}"] = errs
+    for k in blocks:
+        gv, pv = g.narrow(0, k * rows, rows), p.narrow(0, k * rows, rows)
+        got = launched(lambda: (project_kernel.galore_project_batched(gv, pv) if on_card
+                                else project_ref(gv, pv)), "galore_project_batched")
+        out[f"project rows {k * rows}:{(k + 1) * rows}"] = check_close(
+            f"train_dp pad project block {k}", got, project_ref(gv, pv),
+            *TOL["galore_project_batched"]["float32"], rel_atol=True)
+    return out
+
+
+class _ThreadHub:
+    """The collectives of ``size`` threads of one process, each one rank of
+    a data-parallel world: a call puts its tensor in its slot, waits for
+    every rank, combines the slots in rank order (so every rank sums in one
+    order) and waits again before a slot is reused.  The threads share the
+    card's default stream, so the card runs their work in the order the
+    barriers give it on the host.  A rank that fails breaks the barrier,
+    and the others raise."""
+
+    def __init__(self, size: int):
+        import threading
+
+        self.size = size
+        self.slots = [None] * size
+        self.barrier = threading.Barrier(size, timeout=DP_TIMEOUT_S)
+
+    def exchange(self, index: int, t, combine):
+        self.slots[index] = t
+        self.barrier.wait()
+        out = combine(self.slots)
+        self.barrier.wait()
+        return out
+
+    def run(self, fn):
+        """fn(rank) on every rank, each in a thread of its own; re-raises
+        the first failure."""
+        import threading
+
+        errors = []
+
+        def target(k):
+            try:
+                fn(k)
+            except BaseException as e:  # noqa: BLE001 -- re-raised below
+                errors.append((k, e))
+                self.barrier.abort()
+
+        threads = [threading.Thread(target=target, args=(k,)) for k in range(self.size)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        # a rank's own failure first, not the broken barrier it left behind
+        errors.sort(key=lambda ke: isinstance(ke[1], threading.BrokenBarrierError))
+        if errors:
+            k, e = errors[0]
+            raise AssertionError(f"train_dp emulated rank {k}: {e!r}") from e
+
+
+def _cloned(x):
+    """A copy of every tensor of a tree of dicts, lists and (named) tuples."""
+    if torch.is_tensor(x):
+        return x.clone()
+    if isinstance(x, dict):
+        return {k: _cloned(v) for k, v in x.items()}
+    if isinstance(x, tuple) and hasattr(x, "_fields"):
+        return type(x)(*map(_cloned, x))
+    if isinstance(x, (list, tuple)):
+        return type(x)(map(_cloned, x))
+    return x
+
+
+def _summed(xs):
+    out = xs[0].clone()
+    for x in xs[1:]:
+        out += x
+    return out
+
+
+class _EmuAxes:
+    """``launch/mesh.DPAxes`` over the ranks of a ``_ThreadHub``: the same
+    calls, and the same byte counts, into the rank's own ``comm``."""
+
+    def __init__(self, names, size: int, index: int, hub: _ThreadHub, comm):
+        self.names, self.size, self.index, self.group, self.comm = names, size, index, hub, comm
+
+    def _count(self, kind: str, nbytes: int) -> None:
+        self.comm[kind] += nbytes
+        self.comm[kind + "_calls"] += 1
+
+    def all_reduce_(self, t):
+        self._count("all_reduce", t.numel() * t.element_size())
+        return t.copy_(self.group.exchange(self.index, t, _summed))
+
+    def all_reduce_scalars(self, values):
+        self.comm["scalars_calls"] += 1
+        return self.group.exchange(self.index, values, _summed)
+
+    def reduce_scatter(self, t):
+        if t.shape[0] % self.size:
+            raise ValueError(f"reduce_scatter: {t.shape[0]} rows over {self.size} ranks")
+        t = t.contiguous()
+        rows = t.shape[0] // self.size
+        lo = self.index * rows
+        self._count("reduce_scatter", t.numel() * t.element_size())
+        return self.group.exchange(self.index, t,
+                                   lambda xs: _summed([x[lo:lo + rows] for x in xs]))
+
+    def all_gather(self, t):
+        t = t.contiguous()
+        self._count("all_gather", t.numel() * t.element_size() * self.size)
+        return self.group.exchange(self.index, t, torch.cat)
+
+
+class _EmuMesh:
+    """The (ranks, 1) data x model mesh of a ``_ThreadHub``'s ranks, as
+    ``launch/mesh.make_mesh`` builds one over processes."""
+
+    axis_names = ("data", "model")
+    distributed = True
+
+    def __init__(self, hub: _ThreadHub, index: int):
+        from collections import Counter
+
+        self.hub, self.rank, self.size = hub, index, hub.size
+        self.shape = {"data": hub.size, "model": 1}
+        self.coords = {"data": index, "model": 0}
+        self.comm = Counter()
+
+    def axes(self, names):
+        if tuple(names) != ("data",):
+            raise ValueError(f"the emulated mesh has one data-parallel axis, not {names}")
+        return _EmuAxes(("data",), self.size, self.rank, self.hub, self.comm)
+
+
+def _dp_emulated(cfg, dev: str, seq: int, batch: int, opt_kw, expect_buckets,
+                 steps: int = DP_STEPS):
+    """``DP_EMU_RANKS`` ranks as threads of this process on its device
+    (``_ThreadHub``), through ``make_train_step(mesh=..., compressed=
+    "flat")`` with replicated and with ZeRO state (state_shards = ranks),
+    ``steps`` steps (a refresh, then hot steps) on the global batches.
+    Holds every rank's params equal to rank 0's bit for bit, ZeRO's to
+    replicated's (``DP_ZERO_TOL``), both to the single-process step's (the
+    trajectory's losses and Adam's cap; one hot step from its state to
+    ``DP_HOT_TOL``), each rank's bytes to the collectives
+    to ``dp_comm_model``'s, ZeRO's rows per bucket, the launches exactly
+    (every rank's forward, backward, projection and fused update), and a
+    NaN in the last rank's share skipped by every rank, its state kept."""
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.core import buckets as buckets_lib
+    from repro_torch.core import lowrank as lowrank_lib
+    from repro_torch.core import make_optimizer
+    from repro_torch.core.lowrank import tree_leaves
+    from repro_torch.core.schedules import cosine_with_warmup
+    from repro_torch.data.synthetic import SyntheticDataConfig, SyntheticDataset
+    from repro_torch.kernels import counters
+    from repro_torch.models import build_model
+    from repro_torch.train.recovery import RecoveryPolicy
+    from repro_torch.train.state import TrainState
+    from repro_torch.train.step import make_train_step
+
+    n = DP_EMU_RANKS
+    opt_kw = dict(DP_OPT, **(opt_kw or {}))
+    model = build_model(cfg, device=dev)
+    data = SyntheticDataset(SyntheticDataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
+                                                global_batch=batch), device=dev)
+    batches = [data.batch_at(s) for s in range(steps + 1)]
+    tc = TrainConfig(total_steps=steps, seed=SEED)
+    on_card = torch.device(dev).type == "cuda"
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    def fresh():
+        return model.init(torch.Generator(device=dev).manual_seed(SEED))
+
+    def optimizer(params, shards=0):
+        zero = dict(state_sharding="zero", state_shards=shards) if shards else {}
+        return make_optimizer("galore-sara-adam", params, lr_schedule=cosine_with_warmup(
+            opt_kw["lr"], TRAIN_WARMUP, steps), **opt_kw, **zero)
+
+    def run(fns, state, s, batch_s=None):
+        return (fns["refresh_step"] if s == 0 else fns["step"])(
+            state, batches[s] if batch_s is None else batch_s)
+
+    # the single-process path on the same global batches
+    params = fresh()
+    opt = optimizer(params)
+    plan = [(bk.d, bk.n, bk.rank, bk.batch, bk.side) for bk in opt.bucket_plan.buckets]
+    if plan != list(expect_buckets):
+        raise AssertionError(f"train_dp emulated: bucket plan {plan} != {expect_buckets}")
+    flat_like = [buckets_lib._Like(tuple(p.shape), p.dtype) for p in tree_leaves(params)]
+    nb = len(plan)
+    (fwd_n, fwd_a), (rem_n, rem_a) = forward_launches(cfg)
+    # per rank: ``steps`` steps and the hot step from the reference's state
+    per_rank = {"rmsnorm": (steps + 1) * (fwd_n + rem_n),
+                "flash_attention_fwd": (steps + 1) * (fwd_a + rem_a),
+                "galore_project_batched": (steps + 1) * nb, UPDATE_KERNEL["adam"]: (steps + 1) * nb,
+                "power_iter_batched": power_iter_calls(opt, [x.shape for x in flat_like])}
+    expect = {k: n * v for k, v in per_rank.items() if v}
+    fns = make_train_step(model, opt, train_cfg=tc)
+    state, ref, ref_losses = TrainState(params, opt.init(params)), [], []
+    del params
+    for s in range(steps):
+        state, m = run(fns, state, s)
+        ref.append([p.clone() for p in tree_leaves(state.params)])
+        ref_losses.append(float(m["loss"]))
+    lr_sums = np.cumsum([float(opt.config.lr_schedule(s)) for s in range(steps)]).tolist()
+    # one more hot step from the final state: what the ranks' hot step
+    # from the same state is held to
+    ref_state, ref_opt = state, opt
+    ref_hot = [p.clone() for p in tree_leaves(run(fns, _cloned(state), steps)[0].params)]
+    del state, fns, opt
+
+    out = {"ranks": n, "plan": plan, "runs": {}, "launches": {}, "expected": expect}
+    finals = {}
+    for kind in ("replicated", "zero"):
+        hub = _ThreadHub(n)
+        recs = [dict(params=[], comm=[], ms=[], losses=[]) for _ in range(n)]
+
+        def steps_of(k, kind=kind, hub=hub, recs=recs):
+            mesh = _EmuMesh(hub, k)
+            params = fresh()
+            opt = optimizer(params, n if kind == "zero" else 0)
+            fns = make_train_step(model, opt, mesh=mesh, train_cfg=tc, compressed="flat")
+            state = fns["place_state"](TrainState(params, opt.init(params)))
+            del params
+            rec = recs[k]
+            for s in range(steps):
+                mesh.comm.clear()
+                t = time.perf_counter()
+                state, m = run(fns, state, s)
+                sync()
+                rec["ms"].append((time.perf_counter() - t) * 1e3)
+                rec["losses"].append(float(m["loss"]))
+                rec["comm"].append(dict(mesh.comm))
+                rec["params"].append([p.clone() for p in tree_leaves(state.params)])
+            rec.update(state=state, opt=opt, mesh=mesh,
+                       model=buckets_lib.dp_comm_model(opt.bucket_plan, flat_like,
+                                                       state_shards=opt.state_layout.shards),
+                       rows=[b.projector.shape[0] for b in state.opt_state.buckets])
+            # one hot step from the single-process state, in this layout
+            start = TrainState(_cloned(ref_state.params), lowrank_lib.storage_opt_state(
+                opt, lowrank_lib.canonical_opt_state(ref_opt, _cloned(ref_state.opt_state))))
+            rec["hot"] = tree_leaves(run(fns, fns["place_state"](start), steps)[0].params)
+
+        before = counters.snapshot()
+        hub.run(steps_of)
+        now = counters.snapshot()
+        launched = {k: v - before.get(k, 0) for k, v in now.items() if v != before.get(k, 0)}
+        if launched != expect:
+            raise AssertionError(f"train_dp emulated {kind}: launches {launched} != {expect}")
+        out["launches"] = {k: out["launches"].get(k, 0) + v for k, v in launched.items()}
+
+        shards = recs[0]["opt"].state_layout.shards
+        want_rows = [buckets_lib.zero_padded_batch(b, n) // n if kind == "zero" else b
+                     for _, _, _, b, _ in plan]
+        key = "zero" if kind == "zero" else "compressed"
+        errs, ref_errs = [], []
+        for k, rec in enumerate(recs):
+            if rec["rows"] != want_rows:
+                raise AssertionError(f"train_dp emulated {kind} rank {k}: rows {rec['rows']}")
+            handed = [sum(c.get(x, 0) for x in ("all_reduce", "reduce_scatter", "all_gather"))
+                      for c in rec["comm"]]
+            want = [rec["model"][f"{key}_refresh"]["bytes"]] + \
+                [rec["model"][f"{key}_hot"]["bytes"]] * (steps - 1)
+            if handed != want:
+                raise AssertionError(f"train_dp emulated {kind} rank {k}: bytes {handed} != {want}")
+            for s in range(steps):
+                for a, b in zip(rec["params"][s], recs[0]["params"][s]):
+                    if not torch.equal(a, b):
+                        raise AssertionError(f"train_dp emulated {kind} step {s}: rank {k}'s "
+                                             "params differ from rank 0's")
+        shares = []
+        for s in range(steps):
+            got = recs[0]["params"][s]
+            diffs = [(a - b).abs() for a, b in zip(got, ref[s])]
+            ref_errs.append(max(float(x.max()) for x in diffs))
+            shares.append(max(float((x > DP_HOT_TOL["atol"]).float().mean()) for x in diffs))
+            del diffs
+            if kind == "zero":
+                errs.append(max(float((a - b).abs().max())
+                                for a, b in zip(got, finals["replicated"][s])))
+        gaps = [abs(a - b) / abs(b) for a, b in zip(recs[0]["losses"], ref_losses)]
+        caps = [2 * x for x in lr_sums]
+        hot = [(a - b).abs() for a, b in zip(recs[0]["hot"], ref_hot)]
+        hot_err = max(float(x.max()) for x in hot)
+        hot_share = max(float((x > DP_HOT_TOL["atol"]).float().mean()) for x in hot)
+        del hot
+        if (max(gaps) > RESUME_LOSS_RTOL or any(e > c for e, c in zip(ref_errs, caps))
+                or hot_share > DP_HOT_TOL["share"] or hot_err > DP_HOT_TOL["cap"]):
+            raise AssertionError(
+                f"train_dp emulated {kind} against the single-process step: loss gaps {gaps} "
+                f"(bar {RESUME_LOSS_RTOL}), params' max abs err {ref_errs} (caps {caps}); a hot "
+                f"step from its state: max abs err {hot_err}, largest share of a leaf off by > "
+                f"{DP_HOT_TOL['atol']} {hot_share} (bar {DP_HOT_TOL})")
+        if errs and max(errs) > DP_ZERO_TOL:
+            raise AssertionError(f"train_dp emulated zero: params against replicated {errs} > "
+                                 f"{DP_ZERO_TOL}")
+        finals[kind] = recs[0]["params"]
+        rec0 = recs[0]
+        out["runs"][kind] = {
+            "shards": shards, "rows": rec0["rows"], "ms": [r["ms"] for r in recs],
+            "bytes": handed, "model_bytes": want, "max_abs_err_vs_single_process": ref_errs,
+            "share_off_vs_single_process": shares, "loss_rel_gaps": gaps,
+            "hot_step_max_abs_err": hot_err, "hot_step_share_off": hot_share,
+            "max_abs_err_vs_replicated": errs or None,
+            "comm_calls": {c: v for c, v in rec0["comm"][-1].items() if c.endswith("_calls")}}
+        log(f"train_dp emulated {kind} ({n} ranks as threads of one process on {dev}, shards "
+            f"{shards}, rows {rec0['rows']}): rank 0 refresh {rec0['ms'][0]:.1f} ms, hot "
+            f"{[round(t, 1) for t in rec0['ms'][1:]]} ms (the ranks' work in turn on one "
+            f"device); against the single-process step, loss gaps {gaps}, params max abs err "
+            f"per step {ref_errs}, largest share of a leaf off by > {DP_HOT_TOL['atol']} "
+            f"{shares}; a hot step from its state, max abs err {hot_err}, share off {hot_share}"
+            + (f"; params against replicated {errs}" if errs else "")
+            + f", equal on every rank; bytes to the collectives per rank {handed} "
+            f"(dp_comm_model {want}); collective calls of a hot step "
+            f"{out['runs'][kind]['comm_calls']}")
+        if kind == "zero":
+            # a non-finite gradient in the last rank's share: every rank
+            # skips the step and keeps its state
+            skips = [None] * n
+
+            def skip_of(k, recs=recs):
+                rec = recs[k]
+                gated = make_train_step(model, rec["opt"], mesh=rec["mesh"], train_cfg=tc,
+                                        compressed="flat",
+                                        recovery=RecoveryPolicy(rollback_backoff_s=0.0))
+                bad = dict(batches[steps])
+                if k == n - 1:
+                    bad["grad_scale"] = np.float32("nan")
+                before = state_checksums(rec["state"])
+                new, m = gated["step"](rec["state"], bad)
+                skips[k] = {"skipped": float(m["skipped"]), "bad_step": float(m["bad_step"]),
+                            "unchanged": state_checksums(new) == before}
+
+            hub.run(skip_of)
+            if any(x != {"skipped": 1.0, "bad_step": 1.0, "unchanged": True} for x in skips):
+                raise AssertionError(f"train_dp emulated: the non-finite step {skips}")
+            out["skip"] = skips
+        del recs
+        if on_card:
+            torch.cuda.empty_cache()
+    log(f"train_dp emulated: every rank skipped the non-finite step; launches {out['launches']}")
+    return out
+
+
+def _dp_worker(rank: int, world: int, out_dir: str, cfg, dev: str, seq: int, batch: int,
+               opt_kw, expect_buckets, steps: int, pad_shape, emulated) -> None:
+    """One process of ``train_dp``: its summary goes to ``rank<r>.json`` in
+    ``out_dir``; a failed check raises (the process exits non-zero).
+    ``emulated`` is what rank 0 hands ``_dp_emulated`` (cfg, seq, batch,
+    optimizer overrides, bucket plan)."""
+    from datetime import timedelta
+
+    import torch.distributed as dist
+
+    # cuBLAS's own reductions fixed, and the deterministic embedding
+    # backward: the reference and the data-parallel runs then sum every
+    # gradient in one order, and differ only by the reduction itself
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.core import buckets as buckets_lib
+    from repro_torch.core import lowrank as lowrank_lib
+    from repro_torch.core import make_optimizer
+    from repro_torch.core.lowrank import tree_leaves
+    from repro_torch.core.schedules import cosine_with_warmup
+    from repro_torch.data.synthetic import SyntheticDataConfig, SyntheticDataset
+    from repro_torch.device import resolve_device
+    from repro_torch.kernels import counters
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models import build_model
+    from repro_torch.train.recovery import RecoveryPolicy
+    from repro_torch.train.state import TrainState
+    from repro_torch.train.step import make_train_step
+
+    if dev == "cuda":
+        torch.cuda.set_device(rank)
+        resolve_device("cuda")
+        devname = f"cuda:{rank}"
+    else:
+        torch.set_num_threads(1)
+        _count_plain_dispatch()
+        devname = "cpu"
+    dist.init_process_group("nccl" if dev == "cuda" else "gloo",
+                            init_method=f"file://{out_dir}/store", world_size=world, rank=rank,
+                            timeout=timedelta(seconds=DP_TIMEOUT_S))
+    try:
+        log(f"train_dp rank {rank}: process group up ({dist.get_backend()}, world {world})")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+
+        def sync():
+            if dev == "cuda":
+                torch.cuda.synchronize()
+
+        opt_kw = dict(DP_OPT, **(opt_kw or {}))
+        if world > 1:
+            # each process's bf16 products over its own rows round apart
+            # from the single-process step's over all of them (2.6e-4 in W
+            # at world 2 on the CPU, 3e-8 with f32 compute): a world of
+            # several processes computes in f32, as the CPU tests do
+            cfg = cfg.with_(dtype=torch.float32)
+        model = build_model(cfg, device=devname)
+        data = SyntheticDataset(SyntheticDataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
+                                                    global_batch=batch), device=devname)
+        batches = [data.batch_at(s) for s in range(steps + 1)]
+        mesh = mesh_lib.make_mesh((world, 1))
+        tc = TrainConfig(total_steps=steps, seed=SEED)
+
+        def fresh():
+            return model.init(torch.Generator(device=devname).manual_seed(SEED))
+
+        def optimizer(params, shards=0):
+            zero = dict(state_sharding="zero", state_shards=shards) if shards else {}
+            return make_optimizer("galore-sara-adam", params, lr_schedule=cosine_with_warmup(
+                opt_kw["lr"], TRAIN_WARMUP, steps), **opt_kw, **zero)
+
+        def run(fns, state, after=None):
+            ms, losses = [], []
+            for s in range(steps):
+                mesh_lib.comm_reset()
+                before = counters.snapshot()
+                sync()
+                t = time.perf_counter()
+                state, m = (fns["refresh_step"] if s == 0 else fns["step"])(state, batches[s])
+                sync()
+                ms.append((time.perf_counter() - t) * 1e3)
+                losses.append(float(m["loss"]))
+                if after is not None:
+                    now = counters.snapshot()
+                    after(s, state, {k: now.get(k, 0) - before.get(k, 0) for k in now
+                                     if now.get(k, 0) != before.get(k, 0)})
+            return state, ms, losses
+
+        # the single-process path on the same global batches, its params
+        # after each step kept on the host, in page-locked memory on the
+        # card's machine (a copy of the 7.7 GB there and back at the link's
+        # rate, not at a pageable copy's)
+        def host_copy(st):
+            out = []
+            for p in tree_leaves(st.params):
+                h = torch.empty(p.shape, dtype=p.dtype, pin_memory=dev == "cuda")
+                out.append(h.copy_(p, non_blocking=True))
+            sync()
+            return out
+
+        params = fresh()
+        opt = optimizer(params)
+        plan = [(bk.d, bk.n, bk.rank, bk.batch, bk.side) for bk in opt.bucket_plan.buckets]
+        if plan != list(expect_buckets):
+            raise AssertionError(f"train_dp bucket plan {plan} != {expect_buckets}")
+        flat_like = [buckets_lib._Like(tuple(p.shape), p.dtype) for p in tree_leaves(params)]
+        power_iters = power_iter_calls(opt, [x.shape for x in flat_like])
+        ref_host = []
+        state, ref_ms, ref_losses = run(
+            make_train_step(model, opt, train_cfg=tc), TrainState(params, opt.init(params)),
+            lambda s, st, d: ref_host.append(host_copy(st)))
+        del state, params, opt
+        if dev == "cuda":
+            torch.cuda.empty_cache()
+        log(f"train_dp rank {rank}: the single-process path, refresh {ref_ms[0]:.1f} ms, hot "
+            f"{[round(t, 1) for t in ref_ms[1:]]} ms, its params kept on the host")
+        (fwd_n, fwd_a), (rem_n, rem_a) = forward_launches(cfg)
+        nb = len(plan)
+        tol = TOL[UPDATE_KERNEL["adam"]]["float32"]
+        out = {"rank": rank, "world": world, "plan": plan, "ref_ms": ref_ms,
+               "ref_losses": ref_losses, "runs": {}}
+        launches = {}  # the main path: the data-parallel runs
+        model_bytes = None
+        # ZeRO at one process is one shard, the replicated step itself: a
+        # world of one runs only the replicated state (its ZeRO step runs in
+        # ``_dp_emulated``)
+        kinds = ("replicated", "zero") if world > 1 else ("replicated",)
+        for kind in kinds:
+            params = fresh()
+            opt = optimizer(params, world if kind == "zero" else 0)
+            fns = make_train_step(model, opt, mesh=mesh, train_cfg=tc, compressed="flat")
+            state = fns["place_state"](TrainState(params, opt.init(params)))
+            del params
+            model_bytes = buckets_lib.dp_comm_model(opt.bucket_plan, flat_like,
+                                                    state_shards=opt.state_layout.shards)
+            rec = {"comm": [], "launches": [], "err": []}
+            if dev == "cuda":
+                torch.cuda.reset_peak_memory_stats()
+
+            def after(s, st, launched, rec=rec):
+                rec["comm"].append(mesh_lib.comm_snapshot())
+                rec["launches"].append(launched)
+                err = 0.0
+                for (path, p), want in zip(lowrank_lib.flatten_with_path(st.params), ref_host[s]):
+                    want = want.to(p.device, non_blocking=True)
+                    if world == 1:  # the same sums as the reference: the kernel's bar
+                        err = max(err, check_close(f"train_dp {kind} step {s} {path}", p, want,
+                                                   *tol, rel_atol=True))
+                        continue
+                    # the gradients summed over processes: the CPU tests' bar
+                    e = float((p - want).abs().max())
+                    if e > DP_REFRESH_TOL:
+                        raise AssertionError(f"train_dp {kind} step {s} {path}: max abs err {e} "
+                                             f"> {DP_REFRESH_TOL}")
+                    err = max(err, e)
+                rec["err"].append(err)
+
+            counters.reset()
+            state, ms, losses = run(fns, state, after)
+            for k, v in counters.snapshot().items():
+                launches[k] = launches.get(k, 0) + v
+            rec.update(ms=ms, losses=losses, shards=opt.state_layout.shards,
+                       rows=[b.projector.shape[0] for b in state.opt_state.buckets],
+                       max_memory_allocated=(torch.cuda.max_memory_allocated()
+                                             if dev == "cuda" else 0))
+            key = "zero_hot" if opt.state_layout.shards > 1 else "compressed_hot"
+            want_hot = model_bytes[key]["bytes"]
+            want_ref = model_bytes[key.replace("hot", "refresh")]["bytes"]
+
+            def handed(c):
+                return sum(c.get(k, 0) for k in ("all_reduce", "reduce_scatter", "all_gather"))
+
+            rec["bytes"] = {"refresh": handed(rec["comm"][0]), "hot": handed(rec["comm"][1]),
+                            "model_refresh": want_ref, "model_hot": want_hot}
+            if (rec["bytes"]["refresh"], rec["bytes"]["hot"]) != (want_ref, want_hot):
+                raise AssertionError(f"train_dp {kind}: bytes to the collectives {rec['bytes']}")
+            for s in range(1, steps):  # each hot step: kernels 4 and 5 once per bucket
+                hot = rec["launches"][s]
+                if (hot.get("galore_project_batched"), hot.get(UPDATE_KERNEL["adam"])) != (nb, nb):
+                    raise AssertionError(f"train_dp {kind} hot step {s} launches {hot}")
+            out["runs"][kind] = rec
+            log(f"train_dp rank {rank} {kind} (shards {rec['shards']}, rows {rec['rows']}): "
+                f"refresh {ms[0]:.1f} ms, hot {[round(t, 1) for t in ms[1:]]} ms beside the "
+                f"single-process path's {ref_ms[0]:.1f} / {[round(t, 1) for t in ref_ms[1:]]} ms; "
+                f"params against it, max abs err per step {rec['err']}; bytes to the "
+                f"collectives refresh {rec['bytes']['refresh']} hot {rec['bytes']['hot']} "
+                f"(dp_comm_model {want_ref} / {want_hot}); max_memory_allocated "
+                f"{rec['max_memory_allocated'] / 2**30:.2f} GiB")
+            if kind == "replicated":
+                out["in_process"] = _dp_in_process(model, state, opt, optimizer, batches[steps],
+                                                   Path(out_dir) / f"rank{rank}", dev)
+            if kind == kinds[-1]:
+                # a non-finite gradient in the last process's share: every
+                # process skips the step and keeps its state
+                gated = make_train_step(model, opt, mesh=mesh, train_cfg=tc, compressed="flat",
+                                        recovery=RecoveryPolicy(rollback_backoff_s=0.0))
+                bad = dict(batches[steps])
+                if rank == world - 1:
+                    bad["grad_scale"] = np.float32("nan")
+                before = state_checksums(state)
+                new, m = gated["step"](state, bad)
+                out["skip"] = {"skipped": float(m["skipped"]), "bad_step": float(m["bad_step"]),
+                               "unchanged": state_checksums(new) == before}
+                del new, gated
+            del state, fns
+            if dev == "cuda":
+                torch.cuda.empty_cache()
+        per_run = {"rmsnorm": steps * (fwd_n + rem_n), "flash_attention_fwd": steps * (fwd_a + rem_a),
+                   "galore_project_batched": steps * nb, UPDATE_KERNEL["adam"]: steps * nb,
+                   "power_iter_batched": power_iters}
+        expect = {k: len(kinds) * v for k, v in per_run.items() if v}
+        if launches != expect:
+            raise AssertionError(f"train_dp launches {launches} != {expect}")
+        out.update(launches=launches, expected=expect, comm_model=model_bytes)
+        out["pad_cases"] = _dp_pad_cases(devname, rank, pad_shape)
+        if rank == 0:
+            del model, data, batches, ref_host
+            if dev == "cuda":
+                torch.cuda.empty_cache()
+            ecfg, eseq, ebatch, eopt, ebuckets = emulated
+            out["emulated"] = _dp_emulated(ecfg, devname, eseq, ebatch, eopt, ebuckets, steps)
+        log(f"train_dp rank {rank}: skipped the non-finite step ({out['skip']}), the pad-row "
+            "cases held")
+        (Path(out_dir) / f"rank{rank}.json").write_text(json.dumps(out, default=str))
+    finally:
+        dist.destroy_process_group()
+
+
+def _dp_in_process(model, state, opt, optimizer, batch, out_dir: Path, dev: str):
+    """In one process, from the replicated run's final state: one standard
+    step with ``state_shards`` 4 against the replicated state's (TOL), then
+    the 4-shard state's bucket stacks saved by four emulated writers and
+    restored at 2 and 8 shards, bit-equal."""
+    from repro_torch.core import buckets as buckets_lib
+    from repro_torch.core import lowrank as lowrank_lib
+    from repro_torch.core.lowrank import tree_leaves
+    from repro_torch.train import checkpoint as ckpt_lib
+    from repro_torch.train import state as state_lib
+    from repro_torch.train.state import TrainState
+    from repro_torch.train.step import make_train_step
+
+    def sync():
+        if dev == "cuda":
+            torch.cuda.synchronize()
+
+    opt4 = optimizer(state.params, DP_ZERO_SHARDS)
+    st4 = TrainState(state.params, lowrank_lib.storage_opt_state(
+        opt4, lowrank_lib.canonical_opt_state(opt, state.opt_state)))
+    new, _ = make_train_step(model, opt)["step"](state, batch)
+    want = tree_leaves(new.params)
+    del new
+    new4, _ = make_train_step(model, opt4)["step"](st4, batch)
+    tol = TOL[UPDATE_KERNEL["adam"]]["float32"]
+    err = max(check_close(f"train_dp shards {DP_ZERO_SHARDS} {i}", a, b, *tol, rel_atol=True)
+              for i, (a, b) in enumerate(zip(tree_leaves(new4.params), want)))
+    del new4, want
+    # the shard-parallel format, four writers emulated by one process
+    stacks = TrainState({}, st4.opt_state._replace(leaves=[]))
+    base = out_dir / "sharded_ckpt"  # a directory of this process's own
+    mgr = ckpt_lib.CheckpointManager(
+        str(base), shard_spec=ckpt_lib.ShardSpec(DP_ZERO_SHARDS, tuple(range(DP_ZERO_SHARDS))),
+        canonical_rows=state_lib.bucket_canonical_rows(opt4))
+    sync()
+    t = time.perf_counter()
+    mgr.save(stacks, 1)
+    save_s = time.perf_counter() - t
+    nbytes = mgr.last_save["bytes"]
+    if not ckpt_lib.verify_checkpoint(str(base), 1):
+        raise AssertionError("train_dp: the sharded checkpoint does not verify")
+    want_rows = buckets_lib.zero_unpad_states(opt4.state_layout, st4.opt_state.buckets)
+    loads = {}
+    for m in DP_RESTORE_SHARDS:
+        opt_m = optimizer(state.params, m)
+        skel = TrainState({}, lowrank_lib.LowRankOptState(
+            step=0, draws=st4.opt_state.draws, leaves=[],
+            buckets=buckets_lib.init_bucket_states(opt_m.state_layout, dev)))
+        sync()
+        t = time.perf_counter()
+        got = ckpt_lib.CheckpointManager(str(base)).load(skel, step=1)
+        sync()
+        loads[m] = time.perf_counter() - t
+        rows = [bst.projector.shape[0] for bst in got.opt_state.buckets]
+        for gb, wb in zip(buckets_lib.zero_unpad_states(opt_m.state_layout, got.opt_state.buckets),
+                          want_rows):
+            for x, y in zip(gb, wb):
+                if (x is None) != (y is None) or (x is not None and not torch.equal(x, y)):
+                    raise AssertionError(f"train_dp: the restore at {m} shards is not bit-equal")
+        if got.opt_state.step != st4.opt_state.step or rows != [
+                buckets_lib.zero_padded_batch(b.batch, m) for b in opt_m.bucket_plan.buckets]:
+            raise AssertionError(f"train_dp: the restore at {m} shards: rows {rows}")
+        del got, skel
+    shutil.rmtree(base, ignore_errors=True)
+    out = {"shards_step_max_abs_err": err, "ckpt_bytes": nbytes, "save_s": save_s,
+           "save_gb_s": nbytes / save_s / 1e9, "load_s": loads,
+           "load_gb_s": {m: nbytes / s / 1e9 for m, s in loads.items()}}
+    log(f"train_dp in one process: a standard step at {DP_ZERO_SHARDS} shards against "
+        f"replicated state, max abs err {err:.3e}; the 4-writer sharded save of the bucket "
+        f"stacks {nbytes} bytes in {save_s:.2f} s ({out['save_gb_s']:.2f} GB/s), restored at "
+        + ", ".join(f"{m} shards in {s:.2f} s ({nbytes / s / 1e9:.2f} GB/s)"
+                    for m, s in loads.items()) + ", bit-equal")
+    return out
+
+
+def _emulated_cfg(n_layers: int = DP_EMU_LAYERS):
+    """The emulated world's model: ``TABLES_PRESET``'s widths (the paper's
+    LLaMA-60M) at ``n_layers`` layers, f32 compute."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.examples.pretrain_lm import PRESETS
+
+    p = PRESETS[TABLES_PRESET]
+    return get_config("llama3-8b", smoke=True).with_(
+        dtype=torch.float32, d_model=p["d_model"], n_layers=n_layers, n_heads=p["n_heads"],
+        n_kv_heads=p["n_kv_heads"], head_dim=p["head_dim"], d_ff=p["d_ff"],
+        vocab_size=p["vocab_size"], rope_theta=10000.0, loss_chunk=2048)
+
+
+def train_dp(cfg, smi: str, dev: str = "cuda", world: int = 0,
+             seq: int = TRAIN_SEQ, batch: int = TRAIN_BATCH, opt_kw=None,
+             expect_buckets=TRAIN_BUCKETS, steps: int = DP_STEPS, pad_shape=DP_PAD_SHAPE,
+             emulated=None):
+    """Phase 5b (path ``train_dp``): ``world`` processes (default one per
+    card) on a file store under ``build/``, NCCL on the card (gloo with
+    ``dev="cpu"``, the rehearsal), each running ``_dp_worker``: the
+    single-process path (the reference), then ``compressed="flat"`` with
+    replicated and with ZeRO state (``state_shards`` = world), each step's
+    params against the reference's within the Adam update's ``TOL``, the
+    bytes handed to the collectives equal to ``dp_comm_model``'s, exact
+    launch counts, a skipped non-finite step, the in-process ZeRO and
+    sharded-checkpoint checks and the pad-row kernel cases; the first
+    process then runs ``_dp_emulated`` on ``emulated`` = (cfg, seq, batch,
+    optimizer overrides, bucket plan), by default ``DP_EMU_*``.  With one
+    process the ZeRO state has one shard, so only the replicated run is
+    made.  ``DP_OPT`` has no clipping: the compressed step clips by the
+    R-space norm, as the reference's (``src/repro/core/lowrank.py:666``),
+    so a clipped run would not be the single-process step."""
+    world = world or torch.cuda.device_count()
+    emulated = emulated or (_emulated_cfg(), DP_EMU_SEQ, DP_EMU_BATCH, DP_EMU_OPT,
+                            DP_EMU_BUCKETS)
+    out_dir = fresh_dir("train_dp")
+    out_dir.mkdir()
+    try:
+        ctx = torch.multiprocessing.get_context("spawn")
+        procs = [ctx.Process(target=_dp_worker, args=(r, world, str(out_dir), cfg, dev, seq,
+                                                      batch, opt_kw, expect_buckets, steps,
+                                                      pad_shape, emulated))
+                 for r in range(world)]
+        for p in procs:
+            p.start()
+        deadline = time.monotonic() + DP_TIMEOUT_S
+        for p in procs:
+            p.join(max(deadline - time.monotonic(), 1.0))
+        alive = [p for p in procs if p.is_alive()]
+        for p in alive:
+            p.kill()
+            p.join()
+        codes = [p.exitcode for p in procs]
+        if alive or any(codes):
+            raise AssertionError(f"train_dp processes ended with {codes}"
+                                 f"{' (killed at the time limit)' if alive else ''}")
+        ranks = [json.loads((out_dir / f"rank{r}.json").read_text()) for r in range(world)]
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    for r in ranks:
+        if r["skip"] != {"skipped": 1.0, "bad_step": 1.0, "unchanged": True}:
+            raise AssertionError(f"train_dp rank {r['rank']}: the non-finite step {r['skip']}")
+    head = ranks[0]
+    # the path's launches: the processes' runs and the emulated world's
+    launches = dict(head["launches"])
+    for k, v in head["emulated"]["launches"].items():
+        launches[k] = launches.get(k, 0) + v
+    log(f"train_dp: {world} process(es), every one skipped the non-finite step; launches "
+        f"{launches} (the emulated world's {head['emulated']['launches']}); pad-row cases "
+        f"{head['pad_cases']}; card {smi}")
+    return dict(head, launches=launches, card=smi, skips=[r["skip"] for r in ranks])
+
+
 PHASES = ("kernels", "serve", "train", "train_recovery", "train_rank_schedule", "resume",
-          "family_kernels", "serve_moe", "train_moe", "serve_ssm", "train_ssm",
+          "train_dp", "family_kernels", "serve_moe", "train_moe", "serve_ssm", "train_ssm",
           "serve_hybrid", "train_hybrid", "encdec_vlm_kernels", "serve_vlm", "train_vlm",
           "serve_audio", "train_audio", "tables")
 
@@ -3138,19 +4083,25 @@ def main(argv=None) -> int:
         for path, (optimizer, plan, _, opt_kw) in TRAIN_RUNS.items():
             runs[path] = phase(path, lambda: train(cfg_train, optimizer, plan, opt_kw=opt_kw))
     if "train_recovery" in only:
-        hot = runs["train"]["hot_step_ms"] if "train" in runs else None
-        runs["train_recovery"] = phase("train_recovery",
-                                       lambda: train_recovery(cfg_train, smi, hot))
+        # at 1 layer: the gate's cost is its in-phase turns, not a
+        # difference with train's 4-layer hot steps
+        runs["train_recovery"] = phase("train_recovery", lambda: train_recovery(
+            cfg_train.with_(n_layers=RECOVERY_LAYERS), smi, None,
+            expect_buckets=train_buckets(RECOVERY_LAYERS)))
     if "train_rank_schedule" in only:
         runs["train_rank_schedule"] = phase("train_rank_schedule",
                                             lambda: train_rank_schedule(cfg_train, smi))
     if "resume" in only:
-        runs["resume"], runs["serve_ckpt"] = phase("resume", lambda: resume(cfg_train, smi))
+        runs["resume"], runs["serve_ckpt"] = phase("resume", lambda: resume(
+            cfg_train.with_(n_layers=RESUME_LAYERS), smi,
+            expect_buckets=train_buckets(RESUME_LAYERS)))
+    if "train_dp" in only:
+        runs["train_dp"] = phase("train_dp", lambda: train_dp(cfg_train, smi))
     if "family_kernels" in only:
         cases += phase("family_kernels", lambda: family_kernel_cases(results))
     if "serve_moe" in only:  # deepseek-moe-16b at full width and depth
         runs["serve_moe"] = phase("serve_moe", lambda: serve(get_config(MOE_ARCH),
-                                                             profile_ticks=9))
+                                                             profile_ticks=4))
     for path in ("train_moe", "train_ssm", "train_hybrid"):
         if path in only:
             runs[path] = phase(path, lambda: family_train(path, smi))
@@ -3164,13 +4115,13 @@ def main(argv=None) -> int:
         cases += phase("encdec_vlm_kernels", lambda: encdec_vlm_kernel_cases(results))
     if "serve_vlm" in only:  # llava-next-34b at full width and depth, bf16
         runs["serve_vlm"] = phase("serve_vlm", lambda: serve(
-            get_config(VLM_ARCH), profile_ticks=9, pool_pages=VLM_POOL_PAGES))
+            get_config(VLM_ARCH), profile_ticks=4, pool_pages=VLM_POOL_PAGES))
     if "train_vlm" in only:
         runs["train_vlm"] = phase("train_vlm", lambda: family_train("train_vlm", smi))
-    if "serve_audio" in only:  # whisper-medium at full width and depth, bf16
+    if "serve_audio" in only:  # whisper-medium at full width, 12 + 12 layers, bf16
         runs["serve_audio"] = phase("serve_audio", lambda: serve_slots(
-            get_config(AUDIO_ARCH), AUDIO_PROMPT_LENS, new_tokens=AUDIO_NEW_TOKENS,
-            max_seq_len=AUDIO_MAX_SEQ))
+            cut_depth(get_config(AUDIO_ARCH), AUDIO_LAYERS), AUDIO_PROMPT_LENS,
+            new_tokens=AUDIO_NEW_TOKENS, max_seq_len=AUDIO_MAX_SEQ))
     if "train_audio" in only:
         runs["train_audio"] = phase("train_audio", lambda: family_train("train_audio", smi))
     if "tables" in only:  # the paper's experiments at LLaMA-60M

@@ -4,14 +4,14 @@
 hybrid, enc-dec and VLM), with the JAX config's names and defaults, so a
 config compares field by field with its reference; only the dtypes are
 torch's.  ``RankSchedule`` is the reference's rank schedule, field for
-field (its evaluation lives in ``core/rank_schedule.py``).  Shape and
-mesh configs come with the launch and distributed slices (ROADMAP queue 1
-items 11 and 12).
+field (its evaluation lives in ``core/rank_schedule.py``).  ``MeshConfig``
+names the data-parallel mesh (``launch/mesh.py``).  Shape configs come
+with the launch slice (ROADMAP queue 1 item 12).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any
+from typing import Any, Optional, Tuple
 
 import torch
 
@@ -159,14 +159,29 @@ class RankSchedule:
 
 
 @dataclasses.dataclass(frozen=True)
+class MeshConfig:
+    """The mesh's shape and axis names, as ``src/repro/configs/base.py``'s:
+    (pod, data, model) when ``multi_pod``, else (data, model).  The port
+    runs the data-parallel axes; a ``model`` extent above 1 raises in
+    ``launch/mesh.make_mesh``."""
+
+    multi_pod: bool = False
+    shape: Optional[Tuple[int, ...]] = None
+
+    def axes(self) -> Tuple[str, ...]:
+        return ("pod", "data", "model") if self.multi_pod else ("data", "model")
+
+    def default_shape(self) -> Tuple[int, ...]:
+        return (2, 16, 16) if self.multi_pod else (16, 16)
+
+
+@dataclasses.dataclass(frozen=True)
 class TrainConfig:
     """The fields of ``src/repro/configs/base.py::TrainConfig`` that the
     port's train step and loop read, with the JAX defaults.  The refresh
     cadence (``tau``, ``refresh_groups``) and gradient clipping are read
     from the optimizer's ``OptimizerConfig``, and so is the rank schedule
-    the loop evaluates (``OptimizerConfig.rank_schedule``).  The
-    sharded-checkpoint field comes with the distributed slice (ROADMAP
-    queue 1 item 11).
+    the loop evaluates (``OptimizerConfig.rank_schedule``).
 
     ``train_loop`` restores from ``checkpoint_dir`` whenever it holds
     checkpoints, so a caller that must start fresh passes a directory of
@@ -189,3 +204,8 @@ class TrainConfig:
     keep_checkpoints: int = 3
     checkpoint_dir: str = "/tmp/repro_ckpt"
     async_checkpoint: bool = True
+    # the shard-parallel format for a ZeRO run (state_sharding="zero",
+    # state_shards > 1): each writer saves only its rows of the bucket
+    # stacks, with no canonical gather (train/checkpoint.py); False keeps
+    # the canonical per-leaf format
+    sharded_checkpoint: bool = True

@@ -17,10 +17,10 @@ Names compose  <projector>[-sara]? - <inner>  as in the reference:
     fira-adam / fira-sara-adam  -> Fira residual path (dominant / SARA)
     *-adafactor, *-adam-mini, *-adam8bit, *-msgd variants likewise.
 
-Every name builds.  The options still to be ported raise
-``NotImplementedError``, naming their ROADMAP item: rank schedules and
-``group_ranks`` (item 10), ``state_sharding`` (item 11), and in ``update``
-``skip_nonfinite`` (item 9) and ``projected`` (item 11).
+Every name builds, and every option of the reference's
+``OptimizerConfig`` that the port has runs (``state_sharding="zero"`` and
+``update(projected=True, shard_axes=...)`` with the data-parallel step,
+``train/step.py``).
 """
 from __future__ import annotations
 

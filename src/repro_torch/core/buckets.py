@@ -17,8 +17,19 @@
 
 Draws are inputs: each refreshed leaf asks the state's draw source for its
 sketch, Gumbel noise or basis by its global leaf index, as the JAX key
-chain folds the leaf index (``buckets.py:850-861``).  ZeRO padding and the
-modeled accounting are not ported (ROADMAP queue 1 items 11 and 12).
+chain folds the leaf index (``buckets.py:850-861``).
+
+The data-parallel step (``train/step.py``) reduces the gradients in this
+layout: ``bucketed_project_grads`` (one f32 (B, r, n) R stack per bucket,
+the hot step's payload) and ``bucketed_stack_grads`` (one (B, d, n) stack,
+the refresh's), which ``bucketed_update`` and ``bucketed_refresh`` take
+as ``stacked_grads``.  ``state_sharding="zero"`` pads every stack to a
+multiple of the shard count with inert zero rows (the ``zero_*``
+helpers), so each process owns one block of rows.  ``dp_comm_model`` and
+``sharded_ckpt_model`` are the reference's host models of the bytes those
+steps hand to the collectives and write per checkpoint writer.  The rest
+of the modeled accounting waits for the benchmark slice (ROADMAP queue 1
+item 12).
 """
 from __future__ import annotations
 
@@ -152,11 +163,18 @@ class LeafStateTemplate(NamedTuple):
 
 
 class StateLayout(NamedTuple):
+    """The state's bucket-native layout.  ``shards > 1`` is the ZeRO layout
+    (``state_sharding="zero"``): every stack is padded along its leading B
+    to a multiple of ``shards`` with inert zero rows, so each process can
+    own ``B_pad / shards`` contiguous rows.  Checkpoints of the canonical
+    format hold the unpadded per-leaf layout."""
+
     plan: BucketPlan
     inner_name: str  # 'adam' | 'msgd' | 'adam_mini' | 'adam8bit'
     has_v: bool
     templates: Dict[int, LeafStateTemplate]  # keyed by leaf_idx
     projector_dtype: torch.dtype = torch.float32
+    shards: int = 1  # 1: replicated; > 1: ZeRO-sharded over the DP axes
 
 
 def build_state_layout(
@@ -166,9 +184,12 @@ def build_state_layout(
     *,
     inner_name: str,
     projector_dtype=torch.float32,
+    shards: int = 1,
 ) -> StateLayout:
     """Canonical per-leaf templates for every bucketed leaf."""
     del flat_specs
+    if shards < 1:
+        raise ValueError(f"shards must be >= 1, got {shards}")
     has_v = inner_lib.fused_has_second_moment(inner_name)
     if inner_name in SIDE_HOMOGENEOUS_INNERS:
         for bucket in plan.buckets:
@@ -200,13 +221,14 @@ def build_state_layout(
                 m = _Like(mshape, f32)
                 v = m if has_v else None
             templates[e.leaf_idx] = LeafStateTemplate(proj, m, v, m_scale, m_scale)
-    return StateLayout(plan, inner_name, has_v, templates, projector_dtype)
+    return StateLayout(plan, inner_name, has_v, templates, projector_dtype, shards)
 
 
 def init_bucket_states(layout: StateLayout, device) -> Tuple[BucketState, ...]:
     """Eye projectors (the first refresh installs the real ones) and zero
     moments, stacked (quantized zeros for adam8bit: the codes and scales
-    of ``inner.adam8bit().init``)."""
+    of ``inner.adam8bit().init``); padded to the ZeRO rows when
+    ``layout.shards > 1`` (``zero_pad_states``)."""
     out = []
     for bucket in layout.plan.buckets:
         B, d, n, r = bucket.batch, bucket.d, bucket.n, bucket.rank
@@ -224,7 +246,149 @@ def init_bucket_states(layout: StateLayout, device) -> Tuple[BucketState, ...]:
         else:
             v = torch.zeros_like(z) if layout.has_v else None
         out.append(BucketState(projector=proj, m=z, v=v))
+    return zero_pad_states(layout, out)
+
+
+# ---------------------------------------------------------------------------
+# the ZeRO layout (state_sharding="zero"), ``src/repro/core/buckets.py:409-600``
+# ---------------------------------------------------------------------------
+#
+# Each (B, ...) stack pads along dim 0 to B_pad = ceil(B / shards) * shards,
+# so every process owns a contiguous (B_pad / shards, ...) block of rows of
+# every buffer.  The pad rows are inert: every fused update works row by
+# row, all their inputs (W, G, P, moments) are zero, and zero rows are fixed
+# points of every update (adam8bit's too: zero codes with scale 0, and the
+# requantized zero rows, dequantize to exactly 0).  The canonical layout
+# drops them first, so their bit patterns never reach a checkpoint of that
+# format.
+
+
+def zero_padded_batch(batch: int, shards: int) -> int:
+    """Smallest multiple of ``shards`` >= ``batch``."""
+    return -(-batch // shards) * shards
+
+
+def _pad_rows(x: torch.Tensor, rows: int) -> torch.Tensor:
+    if x.shape[0] == rows:
+        return x
+    pad = x.new_zeros((rows - x.shape[0],) + tuple(x.shape[1:]))
+    return torch.cat([x, pad], dim=0)
+
+
+def _map_state(bst: BucketState, fn) -> BucketState:
+    return BucketState(*[None if x is None else fn(x) for x in bst])
+
+
+def zero_pad_states(layout: StateLayout, bucket_states: Sequence[BucketState]
+                    ) -> Tuple[BucketState, ...]:
+    """Canonical-batch stacks -> the padded ZeRO stacks (zero rows)."""
+    if layout.shards <= 1:
+        return tuple(bucket_states)
+    return tuple(
+        _map_state(bst, lambda x, bp=zero_padded_batch(bucket.batch, layout.shards):
+                   _pad_rows(x, bp))
+        for bucket, bst in zip(layout.plan.buckets, bucket_states))
+
+
+def zero_unpad_states(layout: StateLayout, bucket_states: Sequence[BucketState]
+                      ) -> Tuple[BucketState, ...]:
+    """Padded ZeRO stacks -> canonical-batch stacks (pad rows dropped)."""
+    if layout.shards <= 1:
+        return tuple(bucket_states)
+    return tuple(_map_state(bst, lambda x, b=bucket.batch: x[:b])
+                 for bucket, bst in zip(layout.plan.buckets, bucket_states))
+
+
+def zero_pad_grad_stacks(layout: StateLayout, stacks: Sequence[torch.Tensor]
+                         ) -> Tuple[torch.Tensor, ...]:
+    """Per-bucket gradient stacks zero-padded to the shardable batch, what
+    the per-bucket reduce-scatter takes: a pad row is zero on every
+    process, so its scattered sum is exactly zero."""
+    return tuple(_pad_rows(x, zero_padded_batch(bucket.batch, layout.shards))
+                 for bucket, x in zip(layout.plan.buckets, stacks))
+
+
+def zero_shard_index(axes) -> int:
+    """This process's combined index over the DP axes (``launch/mesh.
+    DPAxes``): the row order of their reduce-scatters and all-gathers."""
+    return axes.index
+
+
+def zero_local_states(layout: StateLayout, bucket_states: Sequence[BucketState],
+                      shard_index: int) -> Tuple[BucketState, ...]:
+    """One shard's block of rows of full padded stacks, each a copy of its
+    own (the full stacks can then be freed)."""
+    out = []
+    for bucket, bst in zip(layout.plan.buckets, bucket_states):
+        rows = zero_padded_batch(bucket.batch, layout.shards) // layout.shards
+        lo = shard_index * rows
+        out.append(_map_state(bst, lambda x, lo=lo, rows=rows: x[lo:lo + rows].clone()))
     return tuple(out)
+
+
+def zero_gather_states(local_states: Sequence[BucketState], axes
+                       ) -> Tuple[BucketState, ...]:
+    """Every shard's rows gathered back into the full padded stacks (the
+    inverse of ``zero_local_states``)."""
+    return tuple(_map_state(bst, axes.all_gather) for bst in local_states)
+
+
+def zero_gather_projectors(layout: StateLayout, local_states: Sequence[BucketState], axes
+                           ) -> Tuple[torch.Tensor, ...]:
+    """The full unpadded (B, d, r) projector stacks from shard-local state:
+    the hot step's projection runs over all B rows of this process's
+    gradient before the reduce-scatter, so every process needs every
+    projector (the per-step price of sharding them, ``dp_comm_model``'s
+    zero schedule)."""
+    return tuple(axes.all_gather(bst.projector)[:bucket.batch]
+                 for bucket, bst in zip(layout.plan.buckets, local_states))
+
+
+def zero_local_param_stacks(layout: StateLayout, flat_params: Sequence[torch.Tensor],
+                            shard_index: int) -> Tuple[torch.Tensor, ...]:
+    """This shard's (B_pad / shards, d, n) block of rows of every W stack
+    (params are replicated, so no collective)."""
+    out = []
+    for bucket in layout.plan.buckets:
+        bp = zero_padded_batch(bucket.batch, layout.shards)
+        rows = bp // layout.shards
+        lo = shard_index * rows
+        w = _pad_rows(_gather_rows(bucket, flat_params, lo, min(lo + rows, bucket.batch)),
+                      rows)
+        out.append(w)
+    return tuple(out)
+
+
+def _gather_rows(bucket: Bucket, leaves, lo: int, hi: int) -> torch.Tensor:
+    """Rows [lo, hi) of the bucket's (B, d, n) stack, stacking only the
+    entries they touch (an empty (0, d, n) stack when lo >= hi)."""
+    parts, off = [], 0
+    for e in bucket.entries:
+        a, b = max(lo, off), min(hi, off + e.batch)
+        if a < b:
+            parts.append(_orient_in(leaves[e.leaf_idx], e.side)[a - off:b - off])
+        off += e.batch
+    if not parts:
+        x = _orient_in(leaves[bucket.entries[0].leaf_idx], bucket.entries[0].side)
+        return x.new_zeros((0,) + tuple(x.shape[1:]))
+    return parts[0].contiguous() if len(parts) == 1 else torch.cat(parts, dim=0)
+
+
+def zero_gather_stacks(layout: StateLayout, local_stacks: Sequence[torch.Tensor], axes
+                       ) -> Tuple[torch.Tensor, ...]:
+    """Every shard's block of rows gathered into full unpadded stacks: the
+    W' gather of the ZeRO hot step (pad rows dropped)."""
+    return tuple(axes.all_gather(x)[:bucket.batch]
+                 for bucket, x in zip(layout.plan.buckets, local_stacks))
+
+
+def zero_scatter_outputs(plan: BucketPlan, stacks: Sequence[torch.Tensor],
+                         flat_params: Sequence) -> Dict[int, torch.Tensor]:
+    """Full (B, d, n) output stacks -> {leaf_idx: per-leaf tensor}."""
+    out: Dict[int, torch.Tensor] = {}
+    for bucket, x in zip(plan.buckets, stacks):
+        out.update(_scatter(bucket, x, flat_params))
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -364,11 +528,33 @@ def bucketed_all_finite(plan: BucketPlan, flat_grads: Sequence[torch.Tensor]
     """Per-bucket device bool ``all(isfinite(stack))``, JAX's skip-step
     check (``src/repro/core/buckets.py:709``), reading the bucket's leaves
     where they lie, so no stack is built for it.  The port's gate does
-    not split its check by bucket: ``all_finite`` over every gradient
-    gives the same verdict.  (JAX's ``stacked_grads`` form serves the
-    compressed step, ROADMAP queue 1 item 11.)"""
+    not split its check by bucket: ``all_finite`` over every gradient (the
+    data-parallel step's reduced stacks too) gives the same verdict."""
     return [all_finite([flat_grads[e.leaf_idx] for e in bucket.entries])
             for bucket in plan.buckets]
+
+
+def bucketed_project_grads(plan: BucketPlan, bucket_states: Sequence[BucketState],
+                           flat_grads: Sequence[torch.Tensor],
+                           projectors: Optional[Sequence[torch.Tensor]] = None
+                           ) -> Tuple[torch.Tensor, ...]:
+    """One f32 (B, r, n) R-space stack per bucket, R = P^T G from the bucket
+    projector stacks (the projection kernel on the card): the hot payload
+    of the project-then-reduce step, one contiguous buffer per bucket.
+    ``projectors`` overrides the (B, d, r) stacks (the ZeRO step passes the
+    gathered full projectors, ``zero_gather_projectors``)."""
+    if projectors is None:
+        projectors = [bst.projector for bst in bucket_states]
+    return tuple(update_ops.bucketed_project(_gather(bucket, flat_grads), p)
+                 for bucket, p in zip(plan.buckets, projectors))
+
+
+def bucketed_stack_grads(plan: BucketPlan, flat_grads: Sequence[torch.Tensor]
+                         ) -> Tuple[torch.Tensor, ...]:
+    """One full (B, d, n) gradient stack per bucket, canonical orientation:
+    the refresh step's payload, which ``bucketed_refresh`` and
+    ``bucketed_update`` take as it is."""
+    return tuple(_gather(bucket, flat_grads) for bucket in plan.buckets)
 
 
 # ---------------------------------------------------------------------------
@@ -386,20 +572,36 @@ def bucketed_update(
     lr: float,
     *,
     apply: bool,
-) -> Tuple[Dict[int, torch.Tensor], Tuple[BucketState, ...], List[torch.Tensor]]:
+    projected: bool = False,
+    stacked_grads: Optional[Sequence[torch.Tensor]] = None,
+    stacked_params: Optional[Sequence[torch.Tensor]] = None,
+    out_stacked: bool = False,
+) -> Tuple[Any, Tuple[BucketState, ...], List[torch.Tensor]]:
     """Run every bucket against its storage-layout state.  Returns
     ({leaf_idx: new param (apply) or update}, new bucket states,
-    per-bucket squared update norms)."""
+    per-bucket squared update norms).
+
+    ``stacked_grads`` (one stack per bucket, canonical orientation) stands
+    for the per-leaf gather: the data-parallel step's reduced (B, r, n) R
+    stacks with ``projected=True`` (no projection runs), or its reduced
+    full (B, d, n) stacks.  The ZeRO hot step passes each process's block
+    of rows of every operand, ``stacked_params`` included, and takes the
+    W' stacks back unscattered (``out_stacked``) for its all-gather: every
+    fused update works row by row, so a block goes through the same
+    kernels."""
     lr_alpha = lr * cfg.alpha
     lr_wd = lr * cfg.weight_decay if cfg.weight_decay else 0.0
     ik = cfg.inner_kwargs()
     out_leaves: Dict[int, torch.Tensor] = {}
+    out_stacks: List[torch.Tensor] = []
     new_states: List[BucketState] = []
     norm_sq: List[torch.Tensor] = []
-    for bucket, bst in zip(plan.buckets, bucket_states):
-        w = _gather(bucket, flat_params)
+    for bi, (bucket, bst) in enumerate(zip(plan.buckets, bucket_states)):
+        w = stacked_params[bi] if stacked_params is not None else _gather(bucket, flat_params)
         p = bst.projector
-        r_g = update_ops.bucketed_project(_gather(bucket, flat_grads), p)
+        g = stacked_grads[bi] if stacked_grads is not None else _gather(bucket, flat_grads)
+        r_g = g if projected else update_ops.bucketed_project(g, p)
+        del g
         if cfg.inner == "msgd":
             w_new, m_new = update_ops.bucketed_msgd_update(
                 w, p, r_g, bst.m, lr_alpha, lr_wd, **ik
@@ -429,9 +631,12 @@ def bucketed_update(
             for a, b in zip(w_new.split(64), w.split(64))]).sum())
         out = w_new if apply else w_new - w
         del w, w_new
-        out_leaves.update(_scatter(bucket, out, flat_params))
+        if out_stacked:
+            out_stacks.append(out)
+        else:
+            out_leaves.update(_scatter(bucket, out, flat_params))
         new_states.append(new_bst)
-    return out_leaves, tuple(new_states), norm_sq
+    return (out_stacks if out_stacked else out_leaves), tuple(new_states), norm_sq
 
 
 # ---------------------------------------------------------------------------
@@ -469,6 +674,7 @@ def bucketed_refresh(
     group: int,
     momentum_carry: str,
     stacked_refresh_fn=None,  # (g_stack, draws, old_p_stack, rank) -> stack
+    stacked_grads: Optional[Sequence[torch.Tensor]] = None,
 ) -> Tuple[Tuple[BucketState, ...], List[torch.Tensor]]:
     """Refresh the projectors of one refresh ``group`` in the bucket stacks.
 
@@ -481,15 +687,21 @@ def bucketed_refresh(
     codes: as in JAX, it is kept); "reset" zeroes the refreshed slices'
     whole inner state, adam8bit's codes and scales included (scales 0,
     which dequantize to 0 like the quantized zeros of init).
+    ``stacked_grads`` (one canonical (B, d, n) stack per bucket, the
+    data-parallel refresh's reduced payload) stands for the per-leaf
+    gradients: the refreshed entries' rows are sliced out of it.
     Returns (new bucket states, per-leaf overlap diagnostics)."""
     new_states: List[BucketState] = []
     overlaps: List[torch.Tensor] = []
-    for bucket, bst in zip(layout.plan.buckets, bucket_states):
+    for bi, (bucket, bst) in enumerate(zip(layout.plan.buckets, bucket_states)):
         device = bst.projector.device
         hot = [e for e in bucket.entries if flat_specs[e.leaf_idx].group == group]
         new_slices: Dict[int, torch.Tensor] = {}
         if hot and stacked_refresh_fn is not None:
-            g_stack = _gather(bucket._replace(entries=tuple(hot)), flat_grads)
+            if stacked_grads is not None:
+                g_stack = _slice_entries(bucket, stacked_grads[bi], hot)
+            else:
+                g_stack = _gather(bucket._replace(entries=tuple(hot)), flat_grads)
             old_stack = _slice_entries(bucket, bst.projector, hot)
             per = [entry_draws(draws, e, layout.templates[e.leaf_idx], bucket, pcfg, device)
                    for e in hot]
@@ -511,8 +723,12 @@ def bucketed_refresh(
                 if flat_specs[e.leaf_idx].group != group:
                     continue
                 tmpl = layout.templates[e.leaf_idx]
+                if stacked_grads is not None:
+                    g_leaf = _unstack_entry(stacked_grads[bi], bucket, e, tmpl)
+                else:
+                    g_leaf = flat_grads[e.leaf_idx]
                 new_p = refresh_fn(
-                    flat_grads[e.leaf_idx],
+                    g_leaf,
                     entry_draws(draws, e, tmpl, bucket, pcfg, device),
                     old_slice.reshape(tmpl.projector.shape),
                     flat_specs[e.leaf_idx],
@@ -546,6 +762,21 @@ def bucketed_refresh(
     return tuple(new_states), overlaps
 
 
+def _unstack_entry(stacked: torch.Tensor, bucket: Bucket, entry: BucketEntry,
+                   template: LeafStateTemplate) -> torch.Tensor:
+    """One entry's per-leaf view of a full (B, d, n) gradient stack
+    (orientation and leading dims restored)."""
+    off = 0
+    for e in bucket.entries:
+        if e.leaf_idx == entry.leaf_idx:
+            break
+        off += e.batch
+    part = stacked[off:off + entry.batch]
+    if entry.side == "right":
+        part = part.transpose(-1, -2)
+    return part.reshape(tuple(template.projector.shape[:-2]) + tuple(part.shape[-2:]))
+
+
 def _slice_entries(
     bucket: Bucket, stacked: torch.Tensor, entries: Sequence[BucketEntry]
 ) -> torch.Tensor:
@@ -572,3 +803,185 @@ def _select_slices(
         parts.append((new if t else old)[off:off + e.batch])
         off += e.batch
     return parts[0] if len(parts) == 1 else torch.cat(parts, dim=0)
+
+
+# ---------------------------------------------------------------------------
+# host models of the state, checkpoint and data-parallel bytes,
+# ``src/repro/core/buckets.py:1150-1560``
+# ---------------------------------------------------------------------------
+
+
+def _itemsize(dtype: torch.dtype) -> int:
+    return torch.empty((), dtype=dtype).element_size()
+
+
+def _leaf_nbytes(leaf) -> int:
+    """Bytes of a tensor, or of anything with a shape and a torch dtype."""
+    n = 1
+    for s in leaf.shape:
+        n *= int(s)
+    return n * _itemsize(leaf.dtype)
+
+
+def modeled_state_bytes(plan: BucketPlan, inner: str = "adam", shards: int = 1
+                        ) -> Dict[str, float]:
+    """Resident bytes of the bucketed leaves' state: f32 projector stacks and
+    the inner's moment buffers (``moment_bytes_per_param`` per R-space
+    element: 8 for adam, ~2 for adam8bit's codes and scales).  ``shards``
+    adds the ZeRO layout: ``padded_total`` the padded stacks' bytes,
+    ``per_device`` what one process holds (``padded_total / shards``)."""
+    projectors = moments = n_elems = per_device = padded_total = 0
+    for bk in plan.buckets:
+        B, d, n, r = bk.batch, bk.d, bk.n, bk.rank
+        row_proj = d * r * 4
+        if inner == "msgd":
+            row_mom = r * n * 4
+        elif inner == "adam_mini":
+            rows = r if bk.side != "right" else n
+            row_mom = r * n * 4 + rows * 4
+        elif inner == "adam8bit":
+            rows, rowlen = (r, n) if bk.side != "right" else (n, r)
+            row_mom = 2 * r * n + 2 * rows * qz.num_blocks(rowlen) * 4
+        else:
+            row_mom = 2 * r * n * 4
+        projectors += B * row_proj
+        moments += B * row_mom
+        n_elems += B * r * n
+        bp = zero_padded_batch(B, shards)
+        padded_total += bp * (row_proj + row_mom)
+        per_device += (bp // shards) * (row_proj + row_mom)
+    return {
+        "total": float(projectors + moments),
+        "projectors": float(projectors),
+        "moments": float(moments),
+        "moment_bytes_per_param": moments / max(n_elems, 1),
+        "shards": float(shards),
+        "padded_total": float(padded_total),
+        "per_device": float(per_device),
+    }
+
+
+def sharded_ckpt_model(plan: BucketPlan, inner: str = "adam", shards: int = 1
+                       ) -> Dict[str, float]:
+    """The bucketed state's checkpoint write: ``canonical_bytes`` through one
+    writer in the canonical format, ``sharded_bytes_per_host`` one writer's
+    block of rows in the shard-parallel format (``padded_total / shards``),
+    and ``stack_files_per_host`` its files (one per bucket per live
+    ``BucketState`` field).  Params and the other leaves are replicated in
+    both formats and left out."""
+    if inner == "msgd":
+        fields = 2  # projector + m
+    elif inner == "adam8bit":
+        fields = 5  # projector + m/v codes + m/v scales
+    else:
+        fields = 3  # projector + m + v (adam_mini's per-row v too)
+    st = modeled_state_bytes(plan, inner, shards)
+    return {
+        "canonical_bytes": st["total"],
+        "sharded_bytes_per_host": st["padded_total"] / max(shards, 1),
+        "stack_files_per_host": float(len(plan.buckets) * fields),
+        "shards": float(shards),
+    }
+
+
+def dp_comm_model(
+    plan: BucketPlan,
+    flat_params: Sequence,
+    *,
+    axis_sizes: Optional[Dict[str, int]] = None,
+    state_shards: int = 1,
+    inner: str = "adam",
+    rank_plans: Optional[Sequence[Tuple[float, BucketPlan]]] = None,
+) -> Dict[str, Any]:
+    """Bytes one process hands the data-parallel collectives per step, by
+    schedule, as the reference's model (``buckets.py:1401``):
+
+    * ``standard`` -- every gradient leaf full-rank, one operand per leaf;
+    * ``compressed_hot`` -- one f32 (B, r, n) R stack per bucket plus the
+      full-rank leaves (the low-rank part shrinks by d / r);
+    * ``compressed_refresh`` -- full-rank stacks, one per bucket;
+    * ``zero_hot`` (``state_shards > 1``) -- the R stacks reduce-scattered
+      (padded rows), the full projector stacks and the updated W' rows
+      all-gathered;
+    * ``zero_refresh`` -- the refresh's full stacks plus the one gather of
+      every padded state stack.
+
+    ``axis_sizes`` ({"pod": p, "data": d}) adds the per-axis split of a
+    hierarchical reduction and ``pod_mode_hot``; ``rank_plans`` ([(weight,
+    plan)], a rank schedule's segments) the peak and time-weighted state
+    bytes.  Full-rank gradients count at their param dtype, R stacks as
+    f32.  ``train/step.py``'s collectives count the same bytes
+    (``launch/mesh.COMM``)."""
+    rest_bytes = n_rest = 0
+    for i, leaf in enumerate(flat_params):
+        if i in plan.bucketed:
+            continue
+        rest_bytes += _leaf_nbytes(leaf)
+        n_rest += 1
+    lowrank_full = lowrank_rspace = n_lowrank_leaves = 0
+    rs_rspace_pad = ag_proj = ag_w = 0
+    for bk in plan.buckets:
+        dt = _itemsize(flat_params[bk.entries[0].leaf_idx].dtype)
+        for e in bk.entries:
+            lowrank_full += e.batch * bk.d * bk.n * _itemsize(flat_params[e.leaf_idx].dtype)
+            n_lowrank_leaves += 1
+        lowrank_rspace += bk.batch * bk.rank * bk.n * 4
+        bp = zero_padded_batch(bk.batch, max(state_shards, 1))
+        rs_rspace_pad += bp * bk.rank * bk.n * 4
+        ag_proj += bp * bk.d * bk.rank * 4
+        ag_w += bp * bk.d * bk.n * dt
+    state_gather = modeled_state_bytes(plan, inner=inner,
+                                       shards=max(state_shards, 1))["padded_total"]
+    out: Dict[str, Any] = {
+        "standard": {"bytes": rest_bytes + lowrank_full,
+                     "collectives": n_rest + n_lowrank_leaves},
+        "compressed_hot": {"bytes": rest_bytes + lowrank_rspace,
+                           "collectives": n_rest + len(plan.buckets)},
+        "compressed_refresh": {"bytes": rest_bytes + lowrank_full,
+                               "collectives": n_rest + len(plan.buckets)},
+        "lowrank_bytes_standard": lowrank_full,
+        "lowrank_bytes_compressed_hot": lowrank_rspace,
+        "lowrank_compression_ratio": (lowrank_full / lowrank_rspace
+                                      if lowrank_rspace else 1.0),
+    }
+    if state_shards > 1:
+        out["zero_hot"] = {
+            "bytes": rest_bytes + rs_rspace_pad + ag_proj + ag_w,
+            "collectives": n_rest + 3 * len(plan.buckets),
+            "reduce_scatter_bytes": rs_rspace_pad,
+            "all_gather_bytes": ag_proj + ag_w,
+        }
+        stacks_per_bucket = 2 + (inner != "msgd") + 2 * (inner == "adam8bit")
+        out["zero_refresh"] = {
+            "bytes": rest_bytes + lowrank_full + int(state_gather),
+            "collectives": n_rest + len(plan.buckets) * (1 + stacks_per_bucket),
+            "state_gather_bytes": int(state_gather),
+        }
+        out["modeled_state_bytes_per_device"] = modeled_state_bytes(
+            plan, inner=inner, shards=state_shards)["per_device"]
+    if axis_sizes:
+        data_n = int(axis_sizes.get("data", 1))
+        pod_n = int(axis_sizes.get("pod", 1))
+        for key in ("standard", "compressed_hot", "compressed_refresh", "zero_hot",
+                    "zero_refresh"):
+            if key not in out:
+                continue
+            payload = out[key]["bytes"]
+            out[key]["per_axis"] = {
+                "intra_pod_bytes": payload if data_n > 1 else 0,
+                "inter_pod_bytes": payload // data_n if pod_n > 1 else 0,
+            }
+        # compressed="pod": the data axis reduces every leaf full-rank, only
+        # the compressed stacks cross pods
+        out["pod_mode_hot"] = {
+            "intra_pod_bytes": out["standard"]["bytes"] if data_n > 1 else 0,
+            "inter_pod_bytes": out["compressed_hot"]["bytes"] if pod_n > 1 else 0,
+        }
+    if rank_plans:
+        seg_bytes = [(w, modeled_state_bytes(p, inner=inner,
+                                             shards=max(state_shards, 1))["total"])
+                     for w, p in rank_plans]
+        wsum = sum(w for w, _ in seg_bytes) or 1.0
+        out["modeled_state_bytes_peak"] = max(b for _, b in seg_bytes)
+        out["modeled_state_bytes_avg"] = sum(w * b for w, b in seg_bytes) / wsum
+    return out

@@ -37,8 +37,14 @@ checkpoints hold, as the reference's do.
 ``update(..., skip_nonfinite=True)`` is the recovery's skip-step gate, and
 ``rebuild_at_rank`` / ``current_ranks`` the re-bucketing half of the rank
 schedules (``core/rank_schedule.py`` evaluates them and migrates state).
-Not ported here: ``projected=``/``StackedGrads``, ``shard_axes`` and ZeRO
-(ROADMAP queue 1 item 11).
+
+The data-parallel step (``train/step.py``) reduces gradients before the
+update: ``project_grads`` / ``project_grads_stacked`` (R-space, the hot
+step's project-then-reduce payload) and ``stack_grads`` (full-rank
+stacks, the refresh's), which ``update`` takes with ``projected=True`` or
+as ``StackedGrads``.  ``state_sharding="zero"`` pads the bucket stacks to
+``state_shards`` blocks of rows; ``update(..., shard_axes=)`` then runs on
+this process's block (``launch/mesh.DPAxes``).
 """
 from __future__ import annotations
 
@@ -70,8 +76,6 @@ DEFAULT_EXCLUDE = (
     "pos_",
 )
 
-_LATER = "ROADMAP queue 1"
-
 
 @dataclasses.dataclass(frozen=True)
 class OptimizerConfig:
@@ -98,7 +102,13 @@ class OptimizerConfig:
     momentum_carry: str = "keep"  # keep | reset | reproject
     refresh_groups: int = 1
     engine: str = "reference"  # reference | bucketed
-    state_sharding: str = ""  # not ported: "zero" raises
+    # ZeRO state sharding: "" keeps the full bucket stacks on every
+    # process; "zero" pads each stack's B to a multiple of state_shards
+    # (inert zero rows), so one process owns a block of rows of every
+    # buffer.  Needs bucket-native state; state_shards must equal the DP
+    # replica count of the mesh the step runs on (train/step.py checks).
+    state_sharding: str = ""  # "" | "zero"
+    state_shards: int = 1
     min_dim: int = 16  # leaves with min(m, n) < this stay full-rank
     exclude: Tuple[str, ...] = DEFAULT_EXCLUDE
     seed: int = 0
@@ -244,6 +254,17 @@ class LowRankOptState(NamedTuple):
     buckets: Tuple[buckets_lib.BucketState, ...] = ()
 
 
+class StackedGrads(NamedTuple):
+    """Gradients in the bucket-native layout, for the data-parallel step:
+    one stack per bucket of the plan (f32 (B, r, n) R stacks on the hot
+    step, full (B, d, n) stacks on the refresh, canonical orientation) and
+    the gradients of every leaf outside the buckets, in ascending leaf
+    order.  Reducing it takes ``len(buckets) + len(rest)`` collectives."""
+
+    buckets: Tuple[torch.Tensor, ...]
+    rest: Tuple[torch.Tensor, ...]
+
+
 class AuxInfo(NamedTuple):
     grad_norm: torch.Tensor
     update_norm: torch.Tensor
@@ -373,10 +394,10 @@ def _safe_ratio(num: torch.Tensor, den: torch.Tensor) -> torch.Tensor:
 def _validate(cfg: OptimizerConfig) -> None:
     if cfg.method not in ("full",) + proj_lib.METHODS:
         raise ValueError(f"unknown method {cfg.method!r}")
-    if cfg.state_sharding:
-        raise NotImplementedError(
-            f"ZeRO state sharding is not yet ported to repro_torch ({_LATER} item 11)"
-        )
+    if cfg.state_sharding not in ("", "zero"):
+        raise ValueError(f"unknown state_sharding {cfg.state_sharding!r}")
+    if cfg.state_sharding == "zero" and cfg.state_shards < 1:
+        raise ValueError(f"state_shards must be >= 1, got {cfg.state_shards}")
     if cfg.group_ranks:
         if len(cfg.group_ranks) != max(cfg.refresh_groups, 1):
             raise ValueError(
@@ -426,7 +447,18 @@ def make_lowrank_optimizer(
             state_layout = buckets_lib.build_state_layout(
                 bucket_plan, specs, flat_like, inner_name=cfg.inner,
                 projector_dtype=cfg.projector_dtype,
+                shards=cfg.state_shards if cfg.state_sharding == "zero" else 1,
             )
+    if cfg.state_sharding == "zero" and state_layout is None:
+        raise ValueError(
+            "state_sharding='zero' shards the bucket stacks, so it needs "
+            "bucket-native state: engine='bucketed' with a fused inner "
+            "(adam/msgd/adam8bit/adam_mini), no Fira, and at least one "
+            "bucketed leaf"
+        )
+    # the leaves outside the buckets: the ``rest`` of ``StackedGrads``
+    rest_indices = tuple(i for i in range(len(specs))
+                         if bucket_plan is None or i not in bucket_plan.bucketed)
 
     def init(params: PyTree) -> LowRankOptState:
         flat = tree_leaves(params)
@@ -520,38 +552,126 @@ def make_lowrank_optimizer(
         unless an element is not or their squares overflow, and only a
         non-finite norm reads the gradients again (``all_finite``: JAX's
         per-bucket check, which reads the same elements) to tell the two
-        apart."""
-        for flag, what in (
-            (projected, "projected gradients"),
-            (shard_axes is not None, "sharded state (shard_axes)"),
-        ):
-            if flag:
-                raise NotImplementedError(
-                    f"{what} is not yet ported to repro_torch ({_LATER} item 11)"
+        apart.
+
+        ``projected=True``: the low-rank gradients are already in R-space
+        (``project_grads``, or the R stacks of ``project_grads_stacked``),
+        reduced across processes by the data-parallel step; no projection
+        runs.  Not with a refresh or Fira, which need the full gradient.
+        ``grads`` may be ``StackedGrads`` (bucket-native optimizers): R
+        stacks with ``projected=True``, full stacks with ``refresh=True``.
+
+        ``shard_axes`` (a ZeRO optimizer, ``state_shards > 1``: the
+        ``launch/mesh.DPAxes`` its stacks are sharded over): ``state.buckets``
+        hold this process's block of rows.  A hot step takes the
+        reduce-scattered block of every R stack, runs the fused update on
+        those rows and all-gathers W'; a refresh gathers the state once,
+        runs the replicated refresh and update, and keeps its rows again.
+        The squared norms and the gate's verdict are summed across the
+        processes (one scalar each), so every process skips or applies
+        together.  Without ``shard_axes`` a ZeRO optimizer computes on the
+        full padded stacks, which it unpads first and pads again after."""
+        if projected and refresh:
+            raise ValueError("projected gradients cannot drive a refresh step")
+        if projected and cfg.fira:
+            raise ValueError("Fira needs full-rank grads (residual term)")
+        stacked_in = isinstance(grads, StackedGrads)
+        if stacked_in:
+            if state_layout is None:
+                raise ValueError(
+                    "StackedGrads need a bucket-native optimizer "
+                    "(engine='bucketed' with a fused inner, no Fira)"
                 )
+            if not (projected or refresh):
+                raise ValueError(
+                    "StackedGrads hold R-space stacks (projected=True) or "
+                    "full-rank refresh stacks (refresh=True); a plain hot "
+                    "step takes the per-leaf gradient tree"
+                )
+            if (len(grads.buckets) != len(bucket_plan.buckets)
+                    or len(grads.rest) != len(rest_indices)):
+                raise ValueError(
+                    "StackedGrads shape mismatch: expected "
+                    f"{len(bucket_plan.buckets)} bucket stacks + "
+                    f"{len(rest_indices)} rest leaves, got "
+                    f"{len(grads.buckets)} + {len(grads.rest)}"
+                )
+        zero_layout = state_layout is not None and state_layout.shards > 1
+        shard_local = zero_layout and shard_axes is not None
+        if shard_axes is not None and not zero_layout:
+            raise ValueError(
+                "shard_axes is only meaningful for a zero-sharded "
+                "optimizer (state_sharding='zero', state_shards > 1)"
+            )
+        if shard_local and not stacked_in:
+            raise ValueError(
+                "shard-local updates take StackedGrads (the reduce-"
+                "scattered hot payload or full refresh stacks)"
+            )
         if state_layout is not None and not state.buckets:
             raise ValueError("bucket-native optimizer got a per-leaf state")
+        given = state  # what a skipped step returns
+        shard_index = None
+        if zero_layout and not shard_local:
+            # the replicated representation: compute on the unpadded stacks
+            state = state._replace(buckets=buckets_lib.zero_unpad_states(
+                state_layout, state.buckets))
+        if shard_local:
+            shard_index = buckets_lib.zero_shard_index(shard_axes)
+            if refresh:
+                # gather once, refresh and update replicated, keep the rows
+                full = buckets_lib.zero_gather_states(state.buckets, shard_axes)
+                state = state._replace(
+                    buckets=buckets_lib.zero_unpad_states(state_layout, full))
+                del full
         step = state.step + 1  # 1-indexed for bias correction
         lr = _lr_at(state.step)
-        flat_g = tree_leaves(grads)
         flat_p = tree_leaves(params)
-        gnorm = _global_norm(flat_g)
+        if stacked_in:
+            # the bucketed leaves' gradients live in the stacks
+            flat_g: List[Optional[torch.Tensor]] = [None] * len(specs)
+            for j, i in enumerate(rest_indices):
+                flat_g[i] = grads.rest[j]
+            stacked_g: Optional[List[torch.Tensor]] = list(grads.buckets)
+            every_g = list(grads.buckets) + list(grads.rest)
+        else:
+            flat_g = tree_leaves(grads)
+            stacked_g = None
+            every_g = flat_g
+        if shard_local and not refresh:
+            # disjoint blocks of rows: the global norm is the summed local
+            # squares (pad rows are zero) plus the replicated rest's
+            bsq = sum(torch.sum(torch.square(x.float())) for x in stacked_g)
+            bsq = shard_axes.all_reduce_scalars(bsq.reshape(1))[0]
+            gnorm = torch.sqrt(bsq + sum((torch.sum(torch.square(g.float())) for g in grads.rest),
+                                         torch.zeros((), device=bsq.device)))
+        else:
+            gnorm = _global_norm(every_g)
         skipped = None
         if skip_nonfinite:
             # on the raw (pre-clip) gradients: a NaN norm would make the clip
-            # scale poison every leaf; ``bool`` is the gate's one host sync
-            if not bool(torch.isfinite(gnorm)) and not bool(buckets_lib.all_finite(flat_g)):
+            # scale poison every leaf; ``bool`` is the gate's one host sync.
+            # The norm is the same number on every process; a shard's own
+            # check of its rows is summed across them, so all agree.
+            bad = not bool(torch.isfinite(gnorm)) and not bool(buckets_lib.all_finite(every_g))
+            if shard_local and not bool(torch.isfinite(gnorm)):
+                flag = torch.full((1,), float(bad), device=gnorm.device)
+                bad = bool(shard_axes.all_reduce_scalars(flag)[0] > 0)
+            if bad:
                 nan = torch.full((), float("nan"), device=gnorm.device)
                 out = params if apply else tree_unflatten(
                     params, [torch.zeros_like(p) for p in flat_p])
-                return out, state, AuxInfo(
+                return out, given, AuxInfo(
                     grad_norm=gnorm, update_norm=nan,
                     mean_refresh_overlap=nan if refresh else torch.zeros_like(nan),
                     skipped=torch.ones_like(nan))
             skipped = torch.zeros((), dtype=torch.float32, device=gnorm.device)
         if cfg.grad_clip_norm and cfg.grad_clip_norm > 0:
             scale = torch.clamp(cfg.grad_clip_norm / (gnorm + 1e-12), max=1.0)
-            flat_g = [g * scale.to(g.dtype) for g in flat_g]
+            flat_g = [None if g is None else g * scale.to(g.dtype) for g in flat_g]
+            if stacked_g is not None:
+                stacked_g = [g * scale.to(g.dtype) for g in stacked_g]
+        del every_g
         draws = state.draws.split() if refresh else state.draws
         g_now = group % groups
 
@@ -577,11 +697,30 @@ def make_lowrank_optimizer(
                     state_layout, state.buckets, specs, flat_g, draws,
                     pcfg, _refresh_fn, group=g_now,
                     momentum_carry=cfg.momentum_carry, stacked_refresh_fn=stacked_fn,
+                    stacked_grads=stacked_g,
                 )
                 overlaps.extend(bucket_overlaps)
-            fused, new_buckets, bucket_norm_sq = buckets_lib.bucketed_update(
-                bucket_plan, cfg, new_buckets, flat_g, flat_p, step, lr, apply=apply,
-            )
+            if shard_local and not refresh:
+                # this process's rows of every W stack through the fused
+                # update, then the one gather of W'
+                local_w = buckets_lib.zero_local_param_stacks(state_layout, flat_p, shard_index)
+                out_stacks, new_buckets, bucket_norm_sq = buckets_lib.bucketed_update(
+                    bucket_plan, cfg, new_buckets, flat_g, flat_p, step, lr, apply=apply,
+                    projected=projected, stacked_grads=stacked_g, stacked_params=local_w,
+                    out_stacked=True,
+                )
+                del local_w
+                full_stacks = buckets_lib.zero_gather_stacks(state_layout, out_stacks,
+                                                             shard_axes)
+                del out_stacks
+                fused = buckets_lib.zero_scatter_outputs(bucket_plan, full_stacks, flat_p)
+                del full_stacks
+            else:
+                fused, new_buckets, bucket_norm_sq = buckets_lib.bucketed_update(
+                    bucket_plan, cfg, new_buckets, flat_g, flat_p, step, lr, apply=apply,
+                    projected=projected, stacked_grads=stacked_g,
+                )
+        del stacked_g
 
         flat_out: List[torch.Tensor] = []
         norm_sq: List[torch.Tensor] = []
@@ -609,7 +748,7 @@ def make_lowrank_optimizer(
                 st, ov = _carry(spec, st, new_p)
                 overlaps.append(ov)
             proj = st.projector
-            r_g = proj_lib.project(g.float(), proj, spec.side)
+            r_g = g.float() if projected else proj_lib.project(g.float(), proj, spec.side)
             direction, inner_state = inner.update(r_g, st.inner, step)
             full_dir = proj_lib.backproject(direction.to(proj.dtype), proj, spec.side)
             upd = -lr * cfg.alpha * full_dir.float()
@@ -629,8 +768,18 @@ def make_lowrank_optimizer(
             new_leaves.append(LeafState(proj, inner_state))
 
         zero = torch.zeros((), dtype=torch.float32, device=gnorm.device)
-        unorm = torch.sqrt(sum(norm_sq, zero) + sum(bucket_norm_sq, zero))
+        bucket_sq = sum(bucket_norm_sq, zero)
+        if shard_local and not refresh:
+            # disjoint blocks of rows: one scalar sum across the processes
+            bucket_sq = shard_axes.all_reduce_scalars(bucket_sq.reshape(1))[0]
+        unorm = torch.sqrt(sum(norm_sq, zero) + bucket_sq)
         mean_overlap = torch.mean(torch.stack(overlaps)) if overlaps else zero
+        if zero_layout and not shard_local:
+            new_buckets = buckets_lib.zero_pad_states(state_layout, new_buckets)
+        elif shard_local and refresh:
+            new_buckets = buckets_lib.zero_local_states(
+                state_layout, buckets_lib.zero_pad_states(state_layout, new_buckets),
+                shard_index)
         new_state = LowRankOptState(
             step=step, draws=draws, leaves=new_leaves, buckets=new_buckets
         )
@@ -681,6 +830,84 @@ def current_ranks(optimizer: LowRankOptimizer) -> Tuple[int, Tuple[int, ...]]:
 
 
 # ---------------------------------------------------------------------------
+# the data-parallel step's payloads
+# ---------------------------------------------------------------------------
+
+
+def project_grads(optimizer: LowRankOptimizer, grads: PyTree, state: LowRankOptState) -> PyTree:
+    """The low-rank leaves' gradients in R-space under the current
+    projectors (``src/repro/core/lowrank.py:947``), the others as they are:
+    the per-leaf project-then-reduce payload.  P is the same on every
+    process, so the sum of the projections is the projection of the sum."""
+    stacked_projs: Dict[int, torch.Tensor] = {}
+    layout = optimizer.state_layout
+    if layout is not None and state.buckets:
+        stacked_projs = buckets_lib.leaf_projectors(
+            layout, buckets_lib.zero_unpad_states(layout, state.buckets))
+    out = []
+    for i, (spec, st, g) in enumerate(zip(optimizer.specs, state.leaves, tree_leaves(grads))):
+        if spec.lowrank:
+            proj = stacked_projs.get(i, st.projector)
+            out.append(proj_lib.project(g.float(), proj, spec.side))
+        else:
+            out.append(g)
+    return tree_unflatten(grads, out)
+
+
+def _require_bucket_native(optimizer: LowRankOptimizer, what: str) -> None:
+    if optimizer.state_layout is None:
+        raise ValueError(
+            f"{what} needs a bucket-native optimizer (engine='bucketed' "
+            "with a fused inner, no Fira); the reference engine uses the "
+            "per-leaf project_grads path"
+        )
+
+
+def _rest(optimizer: LowRankOptimizer, flat_grads: Sequence[torch.Tensor]) -> Tuple:
+    bucketed = optimizer.bucket_plan.bucketed
+    return tuple(g for i, g in enumerate(flat_grads) if i not in bucketed)
+
+
+def project_grads_stacked(optimizer: LowRankOptimizer, grads: PyTree, state: LowRankOptState,
+                          shard_axes=None) -> StackedGrads:
+    """One f32 (B, r, n) R stack per bucket, from the bucket projector
+    stacks (the projection kernel on the card), and the other leaves'
+    gradients: the hot payload of the project-then-reduce step, handed to
+    ``update(..., projected=True)`` once reduced (``lowrank.py:999``).  A
+    ZeRO state's projectors are gathered first where ``shard_axes`` is
+    given (every process projects all B rows of its own gradient before
+    the reduce-scatter), or unpadded where it is not."""
+    _require_bucket_native(optimizer, "project_grads_stacked")
+    if not state.buckets:
+        raise ValueError(
+            "bucket-native optimizer got a canonical per-leaf state; "
+            "convert with storage_opt_state(optimizer, state)"
+        )
+    layout = optimizer.state_layout
+    flat_g = tree_leaves(grads)
+    projectors = None
+    if layout.shards > 1:
+        if shard_axes is not None:
+            projectors = buckets_lib.zero_gather_projectors(layout, state.buckets, shard_axes)
+        else:
+            projectors = [bst.projector
+                          for bst in buckets_lib.zero_unpad_states(layout, state.buckets)]
+    stacks = buckets_lib.bucketed_project_grads(layout.plan, state.buckets, flat_g,
+                                                projectors=projectors)
+    return StackedGrads(buckets=stacks, rest=_rest(optimizer, flat_g))
+
+
+def stack_grads(optimizer: LowRankOptimizer, grads: PyTree) -> StackedGrads:
+    """The full gradients in the bucket-native layout: one (B, d, n) stack
+    per bucket and the other leaves (``lowrank.py:1049``), the refresh
+    step's payload, which ``update(..., refresh=True)`` takes as it is."""
+    _require_bucket_native(optimizer, "stack_grads")
+    flat_g = tree_leaves(grads)
+    stacks = buckets_lib.bucketed_stack_grads(optimizer.state_layout.plan, flat_g)
+    return StackedGrads(buckets=stacks, rest=_rest(optimizer, flat_g))
+
+
+# ---------------------------------------------------------------------------
 # state-layout conversion: storage <-> canonical per-leaf (the checkpoint's)
 # ---------------------------------------------------------------------------
 
@@ -691,12 +918,14 @@ def canonical_opt_state(optimizer: LowRankOptimizer, state: LowRankOptState) -> 
     projector and inner state back, and ``buckets`` is empty, as a
     reference-engine state is.  A re-layout only (views, transposes and
     copies; codes and per-row v carried bit for bit), so a checkpoint from
-    either engine resumes on the other.  The port has no ZeRO padding to
-    drop.  No-op for a state that is already canonical."""
+    either engine resumes on the other.  A ZeRO state's pad rows are
+    dropped first, so the checkpoint is the same at every shard count.
+    No-op for a state that is already canonical."""
     layout = optimizer.state_layout
     if layout is None or not state.buckets:
         return state
-    per_leaf = buckets_lib.bucketed_to_leaf_states(layout, state.buckets)
+    per_leaf = buckets_lib.bucketed_to_leaf_states(
+        layout, buckets_lib.zero_unpad_states(layout, state.buckets))
     leaves = [LeafState(*per_leaf[i]) if i in per_leaf else st
               for i, st in enumerate(state.leaves)]
     return LowRankOptState(step=state.step, draws=state.draws, leaves=leaves, buckets=())
@@ -709,7 +938,8 @@ def storage_opt_state(optimizer: LowRankOptimizer, state: LowRankOptState) -> Lo
     layout = optimizer.state_layout
     if layout is None or state.buckets:
         return state
-    bucket_states = buckets_lib.leaf_states_to_bucketed(layout, state.leaves)
+    bucket_states = buckets_lib.zero_pad_states(
+        layout, buckets_lib.leaf_states_to_bucketed(layout, state.leaves))
     leaves = [_placeholder(st.projector.device) if i in layout.plan.bucketed else st
               for i, st in enumerate(state.leaves)]
     return LowRankOptState(step=state.step, draws=state.draws, leaves=leaves,

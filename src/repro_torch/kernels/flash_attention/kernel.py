@@ -73,7 +73,7 @@ def flash_attention_fwd(
     build.check(err, NAME)
     global _last_design
     _last_design = DESIGNS[design.value]
-    counters.LAUNCHES[NAME] += 1
+    counters.bump(NAME)
     return out
 
 

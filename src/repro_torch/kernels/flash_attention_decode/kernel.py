@@ -119,5 +119,5 @@ def paged_decode_attention_kernel(
             torch.cuda.current_stream().cuda_stream,
         )
     build.check(err, NAME)
-    counters.LAUNCHES[NAME] += 1
+    counters.bump(NAME)
     return out

@@ -48,7 +48,7 @@ def galore_project_batched(g: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
             b, d, n, r, torch.cuda.current_stream().cuda_stream,
         )
     build.check(err, NAME)
-    counters.LAUNCHES[NAME] += 1
+    counters.bump(NAME)
     return out
 
 
@@ -96,5 +96,5 @@ def galore_project(
             b1, 1.0 - b1, b2, 1.0 - b2, torch.cuda.current_stream().cuda_stream,
         )
     build.check(err, NAME_2D)
-    counters.LAUNCHES[NAME_2D] += 1
+    counters.bump(NAME_2D)
     return r_out, m_out, v_out

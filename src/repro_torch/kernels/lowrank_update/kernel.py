@@ -108,7 +108,7 @@ def lowrank_adam_update_batched(
             float(lr_alpha), 1.0 - float(lr_wd), _stream(),
         )
     build.check(err, NAME)
-    counters.LAUNCHES[NAME] += 1
+    counters.bump(NAME)
     return w_out, m_out, v_out
 
 
@@ -133,7 +133,7 @@ def lowrank_msgd_update_batched(
             float(b1), 1.0 - b1, float(lr_alpha), 1.0 - float(lr_wd), _stream(),
         )
     build.check(err, MSGD_NAME)
-    counters.LAUNCHES[MSGD_NAME] += 1
+    counters.bump(MSGD_NAME)
     return w_out, m_out
 
 
@@ -176,7 +176,7 @@ def lowrank_adam_mini_update_batched(
             float(lr_alpha), 1.0 - float(lr_wd), _stream(),
         )
     build.check(err, ADAM_MINI_NAME)
-    counters.LAUNCHES[ADAM_MINI_NAME] += 1
+    counters.bump(ADAM_MINI_NAME)
     return w_out, m_out, v_new
 
 
@@ -224,5 +224,5 @@ def lowrank_adam8bit_update_batched(
             float(lr_alpha), 1.0 - float(lr_wd), _stream(),
         )
     build.check(err, ADAM8BIT_NAME)
-    counters.LAUNCHES[ADAM8BIT_NAME] += 1
+    counters.bump(ADAM8BIT_NAME)
     return tuple(outs)

@@ -46,5 +46,5 @@ def power_iter_batched(g: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
             _DTYPES[g.dtype], b, m, n, kp, torch.cuda.current_stream().cuda_stream,
         )
     build.check(err, NAME)
-    counters.LAUNCHES[NAME] += 1
+    counters.bump(NAME)
     return y

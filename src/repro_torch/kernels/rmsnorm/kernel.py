@@ -72,7 +72,7 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5) -> torch.Te
             x, scale, y, d, float(eps), BLOCK=block,
             num_warps=min(16, max(1, block // 256)),
         )
-    counters.LAUNCHES[NAME] += 1
+    counters.bump(NAME)
     return y
 
 

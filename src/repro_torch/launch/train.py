@@ -51,20 +51,67 @@ adds the refresh update's spectrum to the history.  The run ends with a
         --device cpu --steps 8 --tau 2 --engine bucketed --svd-backend randomized \\
         --rank-schedule step:16:8 --ckpt-dir /path/to/ckpt
 
+Data parallel, one process per card: ``--mesh data,model`` (or
+``pod,data,model``; model 1) over the processes, ``--compressed-dp`` for
+the project-then-reduce step (``flat``, or ``--compressed-dp pod``),
+``--state-sharding zero`` for ZeRO state (``--state-shards`` defaults to
+the compressed axes' replica count).  Start the processes with torchrun,
+which sets ``RANK`` / ``WORLD_SIZE`` / ``MASTER_ADDR`` / ``MASTER_PORT``:
+
+    PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \
+        --arch llama3-8b --engine bucketed --svd-backend randomized \
+        --mesh 4,1 --compressed-dp --state-sharding zero --steps 100
+
+or one launcher per process with ``--coordinator`` (``host:port``, or a
+``file://`` store), ``--num-processes`` and ``--process-id``.  The process
+group is NCCL on the card and gloo with ``--device cpu``; there is no
+fallback from one to the other, and a collective that fails or waits
+past ``GROUP_TIMEOUT`` raises.  Each process feeds the global batch
+(``--batch``) and runs its own rows of it.
+
 Beyond the reference's flags, ``--svd-backend`` picks the refresh's SVD
 (the reference's default, exact, or randomized, whose power iterations
 run on the CUDA kernel), and ``--dist`` the synthetic corpus (bigram or
-zipf).  Mesh, ZeRO and multi-process flags (``--mesh``, ``--coordinator``,
-``--num-processes``, ``--process-id``) come with the distributed slice
-(ROADMAP queue 1 item 11), and so do the heartbeat flags
-(``--heartbeat-timeout``, ``--stale-action``): this launcher runs one
-process, which beats just before it checks, so no worker can go stale
-and the run's closing line has no stale-worker count; Fira's limiter keeps its default, as the
+zipf).  The heartbeat flags (``--heartbeat-timeout``, ``--stale-action``)
+wait for ROADMAP queue 1 item 11, second half: every process beats just
+before it checks, so no worker can go stale and the run's closing line
+has no stale-worker count; Fira's limiter keeps its default, as the
 reference's launcher has no flag for it either.
 """
 from __future__ import annotations
 
 import argparse
+import os
+from datetime import timedelta
+
+# how long a collective of the process group may wait before it raises
+GROUP_TIMEOUT = timedelta(minutes=10)
+
+
+def maybe_init_distributed(args) -> bool:
+    """Start the default process group when the run has several processes
+    (``src/repro/launch/train.py:22``): from ``--coordinator`` /
+    ``--num-processes`` / ``--process-id``, or from torchrun's ``RANK`` /
+    ``WORLD_SIZE`` / ``MASTER_ADDR`` environment.  NCCL when the device is
+    CUDA (each process on the card of its ``LOCAL_RANK``), gloo only with
+    ``--device cpu``.  Returns whether a group was started."""
+    import torch
+    import torch.distributed as dist
+
+    if args.coordinator:
+        addr = args.coordinator
+        init = addr if "://" in addr else f"tcp://{addr}"
+        world, rank = args.num_processes, args.process_id
+    elif "RANK" in os.environ and "WORLD_SIZE" in os.environ:
+        init, world, rank = "env://", int(os.environ["WORLD_SIZE"]), int(os.environ["RANK"])
+    else:
+        return False
+    backend = "gloo" if torch.device(args.device).type == "cpu" else "nccl"
+    if backend == "nccl":
+        torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", rank % torch.cuda.device_count())))
+    dist.init_process_group(backend, init_method=init, world_size=world, rank=rank,
+                            timeout=GROUP_TIMEOUT)
+    return True
 
 
 def main(argv=None) -> None:
@@ -105,7 +152,21 @@ def main(argv=None) -> None:
                     help=">0: loss > factor x windowed median is a bad step")
     ap.add_argument("--collective-timeout", type=float, default=0.0,
                     help=">0: arm the step watchdog (a sync per step)")
+    ap.add_argument("--mesh", default="",
+                    help="'data,model' or 'pod,data,model' (model 1) over the processes")
+    ap.add_argument("--compressed-dp", nargs="?", const="flat", default="",
+                    choices=("flat", "pod"),
+                    help="project-then-reduce DP gradient compression (flat | pod)")
+    ap.add_argument("--state-sharding", default="", choices=("", "zero"),
+                    help="'' (replicated) | 'zero' (each process keeps its rows of the stacks)")
+    ap.add_argument("--state-shards", type=int, default=0,
+                    help="ZeRO shard count; default: the compressed axes' replica count")
+    ap.add_argument("--coordinator", default="",
+                    help="host:port (or a file:// store) of the process group")
+    ap.add_argument("--num-processes", type=int, default=1)
+    ap.add_argument("--process-id", type=int, default=0)
     args = ap.parse_args(argv)
+    distributed = maybe_init_distributed(args)
 
     import torch
 
@@ -114,6 +175,7 @@ def main(argv=None) -> None:
     from repro_torch.core import make_optimizer
     from repro_torch.core.schedules import cosine_with_warmup
     from repro_torch.data.synthetic import SyntheticDataConfig, SyntheticDataset
+    from repro_torch.launch.mesh import axes_size, batch_axes, make_mesh, single_device_mesh
     from repro_torch.models import build_model, count_params
     from repro_torch.core.rank_schedule import parse_rank_schedule
     from repro_torch.train.loop import train_loop
@@ -124,13 +186,25 @@ def main(argv=None) -> None:
     cfg = get_config(args.arch, smoke=args.smoke)
     if args.smoke:
         cfg = cfg.with_(dtype=torch.float32)
-    model = build_model(cfg, device=args.device)
+    device = args.device
+    if distributed and torch.device(device).type == "cuda" and torch.device(device).index is None:
+        device = f"cuda:{torch.cuda.current_device()}"
+    model = build_model(cfg, device=device)
     tc = TrainConfig(total_steps=args.steps, microbatch=args.microbatch,
                      checkpoint_every=args.ckpt_every, checkpoint_dir=args.ckpt_dir,
                      log_spectrum=args.log_spectrum)
     params = model.init(torch.Generator(device=model.device).manual_seed(tc.seed))
     n_params = count_params(params)
-    print(f"[train] {args.arch} {n_params / 1e6:.1f}M params on {model.device}")
+    mesh = None
+    if args.mesh:
+        mesh = make_mesh(tuple(int(x) for x in args.mesh.split(",")))
+    elif distributed:
+        mesh = make_mesh((torch.distributed.get_world_size(), 1))
+    elif args.compressed_dp:
+        mesh = single_device_mesh()
+    procs = mesh.size if mesh is not None else 1
+    print(f"[train] {args.arch} {n_params / 1e6:.1f}M params on {model.device}, "
+          f"{procs} process(es)")
 
     rank = args.rank or min(512, max(8, cfg.d_model // 4))
     if args.rank_schedule and not args.rank:
@@ -141,6 +215,11 @@ def main(argv=None) -> None:
         lr_schedule=cosine_with_warmup(args.lr, args.warmup, args.steps),
         grad_clip_norm=1.0,
     )
+    if args.state_sharding:
+        dp = ("pod",) if args.compressed_dp == "pod" else (
+            batch_axes(mesh) if mesh is not None else ())
+        kw.update(state_sharding=args.state_sharding,
+                  state_shards=args.state_shards or (axes_size(mesh, dp) if mesh else 1))
     if args.engine:
         kw["engine"] = args.engine
     if args.svd_backend:
@@ -175,9 +254,14 @@ def main(argv=None) -> None:
             on_timeout=lambda s, dt: print(
                 f"[train] WATCHDOG: step call {s} exceeded {dt:.1f}s", flush=True),
         )
-    fns = make_train_step(model, opt, train_cfg=tc, recovery=recovery, watchdog=watchdog)
-    res = train_loop(model, opt, data, tc, fns, log_every=max(args.steps // 20, 1),
-                     recovery=recovery)
+    fns = make_train_step(model, opt, mesh=mesh, train_cfg=tc, compressed=args.compressed_dp,
+                          recovery=recovery, watchdog=watchdog)
+    try:
+        res = train_loop(model, opt, data, tc, fns, log_every=max(args.steps // 20, 1),
+                         recovery=recovery)
+    finally:
+        if distributed:
+            torch.distributed.destroy_process_group()
     if not res.losses:
         print(f"[train] done: step {res.final_step}, no steps left to run")
         return

@@ -17,7 +17,7 @@ contiguous row range.  The group sizes reach the host once per call (one
 sync per MoE layer), counted in ``HOST_SYNCS``.  DeepSeek's shared experts
 are fused into one dense SwiGLU of width ``n_shared_experts * d_ff``
 (always-active experts' outputs sum).  The expert-parallel path
-(moe.py:152-261) waits for the distributed slice (ROADMAP queue 1 item 11).
+(moe.py:152-261) waits for ROADMAP queue 1 item 11, second half.
 """
 from __future__ import annotations
 
@@ -124,12 +124,12 @@ def apply_moe_local(p: Params, x: torch.Tensor, cfg: ModelConfig) -> Tuple[torch
 
 def apply_moe_mlp(p: Params, x: torch.Tensor, cfg: ModelConfig):
     """The local dropless path; the expert-parallel dispatch over a mesh
-    comes with ROADMAP queue 1 item 11."""
+    comes with ROADMAP queue 1 item 11, second half."""
     if torch.distributed.is_available() and torch.distributed.is_initialized() \
             and torch.distributed.get_world_size() > 1:
         raise NotImplementedError(
             "MoE expert parallelism over a mesh is not yet ported to "
-            "repro_torch (ROADMAP queue 1 item 11); run on one device")
+            "repro_torch (ROADMAP queue 1 item 11, second half); run on one device")
     return apply_moe_local(p, x, cfg)
 
 

@@ -22,8 +22,8 @@ numbers either way.
 Parameter naming: ``*_proj`` matrices are low-rank eligible; ``a_log``,
 ``dt_bias``, ``conv_*`` and the norm scale are excluded by name
 (``d_skip`` is not: see ROADMAP queue 3).  JAX's ``_shard_ssm_heads``, a
-sharding constraint on a mesh, has no counterpart until the distributed
-slice (ROADMAP queue 1 item 11).
+sharding constraint on a mesh, has no counterpart until tensor
+parallelism (ROADMAP queue 1 item 11, second half).
 """
 from __future__ import annotations
 

@@ -24,10 +24,12 @@ Injection points, as in the reference:
     sorted ``.npy`` names, so one plan corrupts the same file at the same
     offset with the same bytes in both packages.
 
-The shard kinds (``ckpt_missing_shard``, ``ckpt_corrupt_shard``,
-``ckpt_divergent_manifest``) act on the sharded checkpoint format, which
-comes with the distributed slice: ``FaultSpec`` accepts them, as the
-reference's does, and a ``FaultPlan`` that arms one raises.
+The shard kinds act on the shard-parallel format: ``ckpt_missing_shard`` /
+``ckpt_corrupt_shard`` delete or flip bytes in one committed shard file
+(a committed checkpoint with one shard invalid, which verification and
+the fallback load must walk past), and ``ckpt_divergent_manifest`` makes
+the last shard's manifest disagree at write time (the commit barrier must
+refuse to merge it).
 """
 from __future__ import annotations
 
@@ -57,7 +59,7 @@ CKPT_KINDS = (
     "ckpt_divergent_manifest",  # mutate one per-shard manifest at write
 )
 KINDS = STEP_KINDS + CKPT_KINDS
-# the kinds that need the sharded checkpoint format (ROADMAP queue 1 item 11)
+# the kinds that act on the shard-parallel checkpoint format
 SHARD_KINDS = ("ckpt_missing_shard", "ckpt_corrupt_shard", "ckpt_divergent_manifest")
 
 
@@ -96,11 +98,6 @@ class FaultPlan:
 
     def __init__(self, specs=(), seed: int = 0):
         self.specs: Tuple[FaultSpec, ...] = tuple(specs)
-        for sp in self.specs:
-            if sp.kind in SHARD_KINDS:
-                raise NotImplementedError(
-                    f"{sp.kind} acts on the sharded checkpoint format, which is not yet "
-                    "ported to repro_torch (ROADMAP queue 1 item 11)")
         self.seed = seed
         self.fired: List[Tuple[str, int]] = []  # (kind, step or save_index)
         self._budget = [sp.times for sp in self.specs]
@@ -163,9 +160,10 @@ class FaultPlan:
 class FaultyCheckpointIO(ckpt_lib.CheckpointIO):
     """A ``CheckpointIO`` that injects the plan's checkpoint faults.  Write
     errors raise from ``save_leaf`` before any byte lands (the manager's
-    retry starts again at ``begin``); corruption and truncation follow the
-    commit, so the checkpoint is committed but invalid, the case the
-    verified fallback of the load must walk past."""
+    retry starts again at ``begin``); a divergent shard manifest is written
+    as it goes; corruption, deletion and truncation follow the commit, so
+    the checkpoint is committed but invalid, the case the verified
+    fallback of the load must walk past."""
 
     def __init__(self, plan: FaultPlan):
         self.plan = plan
@@ -181,6 +179,16 @@ class FaultyCheckpointIO(ckpt_lib.CheckpointIO):
                           f"{os.path.basename(fpath)})")
         super().save_leaf(fpath, arr)
 
+    def write_manifest(self, mpath: str, manifest) -> None:
+        # the divergent manifest: the last shard's header names another
+        # step, so shard 0's (the barrier's reference) stays clean
+        if ckpt_lib._SHARD_MANIFEST_RE.match(os.path.basename(mpath)):
+            if int(manifest.get("shard", -1)) == int(manifest.get("num_shards", 0)) - 1:
+                if self.plan._take("ckpt_divergent_manifest",
+                                   save_index=self._ordinal) is not None:
+                    manifest = dict(manifest, step=int(manifest["step"]) + 1)
+        super().write_manifest(mpath, manifest)
+
     def _corrupt_file(self, victim: str) -> None:
         size = os.path.getsize(victim)
         junk = self._rng.integers(0, 256, 16, dtype=np.uint8)
@@ -191,8 +199,16 @@ class FaultyCheckpointIO(ckpt_lib.CheckpointIO):
     def commit(self, tmp: str, final: str) -> None:
         super().commit(tmp, final)
         all_npy = sorted(f for f in os.listdir(final) if f.endswith(".npy"))
+        shard_npy = [f for f in all_npy if ckpt_lib._SHARD_FILE_RE.search(f)]
         if self.plan._take("ckpt_corrupt_leaf", save_index=self._ordinal) is not None:
             self._corrupt_file(os.path.join(final, all_npy[int(self._rng.integers(len(all_npy)))]))
+        if shard_npy and self.plan._take("ckpt_missing_shard",
+                                         save_index=self._ordinal) is not None:
+            os.remove(os.path.join(final, shard_npy[int(self._rng.integers(len(shard_npy)))]))
+        if shard_npy and self.plan._take("ckpt_corrupt_shard",
+                                         save_index=self._ordinal) is not None:
+            self._corrupt_file(os.path.join(final,
+                                            shard_npy[int(self._rng.integers(len(shard_npy)))]))
         if self.plan._take("ckpt_truncate_manifest", save_index=self._ordinal) is not None:
             mpath = os.path.join(final, ckpt_lib._MANIFEST)
             with open(mpath, "r+b") as f:

@@ -58,6 +58,16 @@ cadence, deferred metric fetch and subspace tracking.
   * **Spectrum** (``TrainConfig.log_spectrum``, or an adaptive schedule):
     the ``SpectrumLogger`` reads each refresh's update of one probe leaf
     per group; its records go to the history with ``log_spectrum``.
+  * **Data parallel** (steps made with ``make_train_step(mesh=...)``):
+    every process runs the loop on the global batches, and the steps'
+    summed verdicts keep their decisions the same.  A ZeRO run
+    (``state_shards > 1``) writes the shard-parallel format unless
+    ``TrainConfig.sharded_checkpoint`` is False: each process its block of
+    rows (``checkpoint.local_shard_ids``), the bucket rows recorded
+    (``state.bucket_canonical_rows``, rebound at a re-bucket).  A fresh
+    state takes the step's layout (``fns["place_state"]``); a replicated
+    state is written by rank 0 alone; the processes meet at a barrier
+    before they list the directory and before a rollback's load.
 """
 from __future__ import annotations
 
@@ -73,6 +83,7 @@ from repro_torch.configs.base import RankSchedule, TrainConfig
 from repro_torch.core import lowrank as lowrank_lib
 from repro_torch.core import metrics as metrics_lib
 from repro_torch.core import rank_schedule as rank_schedule_lib
+from repro_torch.launch.mesh import barrier
 from repro_torch.train import checkpoint as ckpt_lib
 from repro_torch.train import recovery as recovery_lib
 from repro_torch.train import state as state_lib
@@ -148,10 +159,23 @@ def train_loop(
     groups = max(optimizer.config.refresh_groups, 1)
     sub_tau = max(tau // groups, 1)
     canonicalize, localize = state_lib.checkpoint_converters(optimizer)
+    mesh = step_fns.get("mesh")
+    zero_axes = step_fns.get("zero_axes")  # this process holds a block of rows
+    layout = optimizer.state_layout
+    shard_spec = None
+    if train_cfg.sharded_checkpoint and layout is not None and layout.shards > 1:
+        shard_spec = ckpt_lib.ShardSpec(
+            num_shards=layout.shards, shard_ids=ckpt_lib.local_shard_ids(layout.shards),
+            holds=zero_axes.index if zero_axes is not None else None)
+    elif zero_axes is not None:
+        raise ValueError("a ZeRO step whose processes hold their own rows writes the "
+                         "shard-parallel format: TrainConfig.sharded_checkpoint=True")
     manager = ckpt_lib.CheckpointManager(
         train_cfg.checkpoint_dir, keep=train_cfg.keep_checkpoints,
         canonicalize=canonicalize, localize=localize,
         io=fault_plan.checkpoint_io() if fault_plan is not None else None,
+        shard_spec=shard_spec, canonical_rows=state_lib.bucket_canonical_rows(optimizer),
+        writer=mesh is None or not mesh.distributed or mesh.rank == 0,
     )
     monitor = StepMonitor()
     tracker = metrics_lib.OverlapTracker() if track_subspace else None
@@ -182,7 +206,22 @@ def train_loop(
         optimizer = new_opt
         step_fns = step_fns["rebuild"](new_opt)
         canonicalize, localize = state_lib.checkpoint_converters(new_opt)
-        manager.rebind(canonicalize, localize)
+        manager.rebind(canonicalize, localize,
+                       canonical_rows=state_lib.bucket_canonical_rows(new_opt))
+
+    def place(st: TrainState) -> TrainState:
+        fn = step_fns.get("place_state")
+        return fn(st) if fn is not None else st
+
+    def load_one(skel: TrainState, ck: int) -> TrainState:
+        """One checkpoint into ``skel``; a canonical one into a state that
+        holds a block of rows loads the full stacks first."""
+        if zero_axes is not None and "sharded" not in ckpt_lib.checkpoint_format(
+                train_cfg.checkpoint_dir, ck):
+            full = TrainState(skel.params, optimizer.init(skel.params)._replace(
+                draws=skel.opt_state.draws))
+            return place(manager.load(full, step=ck))
+        return manager.load(skel, step=ck)
 
     def restore_latest(skel: TrainState):
         """The newest checkpoint that loads -> (state, step).  Under a
@@ -190,11 +229,11 @@ def train_loop(
         optimizer at its rank(s) before loading (``load`` wants exact
         shapes); a candidate that fails to read falls through to the next
         older one, as ``load_latest`` walks."""
-        if rank_sched is None:
-            return manager.load_latest(skel)
         first_err: Optional[BaseException] = None
         for ck in reversed(ckpt_lib.checkpoint_dirs(train_cfg.checkpoint_dir)):
             try:
+                if rank_sched is None:
+                    return load_one(skel, ck), ck
                 meta = ckpt_lib.checkpoint_meta(train_cfg.checkpoint_dir, ck)
                 rank_now, groups_now = lowrank_lib.current_ranks(optimizer)
                 want_rank = int(meta.get("rank", rank_now))
@@ -209,9 +248,9 @@ def train_loop(
                     adopt(new_opt)
                     # a skeleton at the new geometry, keeping the caller's
                     # kind of draw source
-                    skel = TrainState(skel.params, optimizer.init(skel.params)._replace(
-                        draws=skel.opt_state.draws))
-                return manager.load(skel, step=ck), ck
+                    skel = place(TrainState(skel.params, optimizer.init(skel.params)._replace(
+                        draws=skel.opt_state.draws)))
+                return load_one(skel, ck), ck
             except (OSError, ValueError, KeyError) as e:
                 if first_err is None:
                     first_err = e
@@ -223,10 +262,13 @@ def train_loop(
     if state is None:
         gen = torch.Generator(device=model.device).manual_seed(train_cfg.seed)
         params = model.init(gen)
-        state = TrainState(params, optimizer.init(params))
+        state = place(TrainState(params, optimizer.init(params)))
         del params  # the state owns them: the first step's output replaces them
     start_step = 0
-    if ckpt_lib.checkpoint_dirs(train_cfg.checkpoint_dir):
+    # every process lists the directory before any of them writes to it
+    found = ckpt_lib.checkpoint_dirs(train_cfg.checkpoint_dir)
+    barrier(mesh)
+    if found:
         state, start_step = restore_latest(state)
         # said on every restore: the default directory is shared with the
         # JAX package, whose checkpoints this loop reads too
@@ -263,7 +305,7 @@ def train_loop(
             monitor.save_retries = manager.retries_performed
 
     # a rollback needs a target: pin the first step's state (save ordinal 0)
-    if recovery is not None and ckpt_lib.latest_step(train_cfg.checkpoint_dir) is None:
+    if recovery is not None and not found:
         safe_save(state, start_step, blocking=True)
 
     # (step, metrics on the device, health) of the steps not yet fetched
@@ -340,12 +382,14 @@ def train_loop(
         old_opt = optimizer
         new_opt = lowrank_lib.rebuild_at_rank(old_opt, cur_state.params, rank=new_rank,
                                               group_ranks=new_group_ranks)
-        migrated = rank_schedule_lib.migrate_opt_state(old_opt, new_opt, cur_state.opt_state)
+        full = step_fns["gather_state"](cur_state) if "gather_state" in step_fns else cur_state
+        migrated = rank_schedule_lib.migrate_opt_state(old_opt, new_opt, full.opt_state)
+        del full
         adopt(new_opt)
         rank_to, _ = lowrank_lib.current_ranks(new_opt)
         history.append({"event": "rebucket", "step": float(s), "rank_from": float(rank_from),
                         "rank_to": float(rank_to)})
-        return TrainState(cur_state.params, migrated)
+        return place(TrainState(cur_state.params, migrated))
 
     guard = _PreemptionGuard(handle_signals)
     step = start_step
@@ -429,6 +473,7 @@ def train_loop(
                 if backoff > 0:
                     time.sleep(backoff)
                 drain_save_error()  # never race a save in flight
+                barrier(mesh)  # every process's save has landed
                 state, ck_step = restore_latest(state)
                 last_verified = ck_step
                 if recovery.resample_on_rollback:

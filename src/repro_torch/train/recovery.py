@@ -93,7 +93,8 @@ class DivergenceDetector:
                 verdict: bool = False) -> None:
         """Feed one step; raises ``RollbackNeeded`` when the streak trips.
         ``verdict`` is ``metrics["bad_step"]``, the step's own bad-step
-        flag (across processes in the distributed step, item 11)."""
+        flag, summed across the processes by the data-parallel step
+        (``train/step.py``), so every process rolls back together."""
         if verdict:
             bad, why = True, "cross-process bad-step verdict"
         elif not math.isfinite(loss):

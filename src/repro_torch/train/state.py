@@ -6,7 +6,8 @@ state is bucket-native (``engine="bucketed"`` with a fused inner and no
 Fira) converts on save and load, so a checkpoint written under one engine resumes under
 the other, and under the JAX package.  The conversion moves data only
 (8-bit codes and scales, Adam-mini's per-row v included), so nothing is
-requantized.
+requantized; a ZeRO state's pad rows are dropped.  The shard-parallel
+format of a ZeRO run records ``bucket_canonical_rows`` instead.
 """
 from __future__ import annotations
 
@@ -46,3 +47,14 @@ def checkpoint_converters(optimizer: lowrank_lib.LowRankOptimizer):
         lambda ts: canonical_train_state(optimizer, ts),
         lambda ts: storage_train_state(optimizer, ts),
     )
+
+
+def bucket_canonical_rows(optimizer: lowrank_lib.LowRankOptimizer):
+    """{bucket index: canonical (unpadded) row count}, which a shard-parallel
+    checkpoint records so that a load strips the writer's pad rows before
+    it pads again for its own shard count; None for per-leaf optimizers,
+    which have no stacks to shard."""
+    layout = optimizer.state_layout
+    if layout is None:
+        return None
+    return {i: b.batch for i, b in enumerate(layout.plan.buckets)}

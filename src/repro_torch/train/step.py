@@ -1,4 +1,4 @@
-"""The train step, from ``src/repro/train/step.py`` (single device).
+"""The train step, from ``src/repro/train/step.py``.
 
 ``make_train_step(model, optimizer, train_cfg=...)`` returns the hot step
 and the refresh step, ``f(state, batch) -> (state, metrics)``; the caller
@@ -8,17 +8,41 @@ microbatches in ``TrainConfig.accum_dtype``), then calls
 ``optimizer.update(..., apply=True)``: with ``engine="bucketed"`` the fused
 update writes W' itself and no separate apply pass runs.
 
+With ``mesh=`` (``launch/mesh.py``, one process per card) the step is data
+parallel: it takes the global batch, runs its own rows of it
+(``launch/sharding.shard_batch``) and reduces the gradients over the
+batch axes before the update, each collective a sum divided by the
+replica count as a Python float (gloo has no average; this is the
+reference's psum-then-divide):
+
+  * ``compressed=""`` -- every gradient leaf reduced full-rank, one
+    collective per leaf, largest first (what the reference's SPMD step
+    inserts);
+  * ``compressed="flat"`` -- project-then-reduce over all the batch axes:
+    the hot step reduces one f32 (B, r, n) R stack per bucket (d / r fewer
+    bytes; P is the same on every process), the refresh one full (B, d, n)
+    stack per bucket, each largest first, and the full-rank leaves;
+  * ``compressed="pod"`` -- the same over the ``pod`` axis only, after a
+    full-rank reduction over ``data`` within each pod.
+
+Params stay replicated.  With ``state_sharding="zero"`` (``state_shards``
+= the compressed axes' replica count) each process keeps only its rows of
+the padded bucket stacks (``shard_train_state``): the hot step
+reduce-scatters the R stacks and updates its rows (``update(...,
+shard_axes=)``).  The loss and the metrics are averaged across the
+processes, and ``metrics["bad_step"]`` is one summed verdict (any
+process's non-finite loss, or a skipped update), so the loop's rollback
+decision is the same on every process.
+
 ``recovery=`` (a ``RecoveryPolicy`` with ``skip_nonfinite_updates``) turns
 on the skip-step gate of both steps; ``watchdog=`` (a
 ``CollectiveWatchdog``) guards each call; ``fns["rebuild"](new_optimizer)``
-makes the same steps around an optimizer re-bucketed at a new rank.  The
-distributed flavours (compressed DP, ZeRO) come with their slice (ROADMAP
-queue 1 item 11).
+makes the same steps around an optimizer re-bucketed at a new rank.
 """
 from __future__ import annotations
 
 import functools
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 # ``torch.utils.checkpoint`` (block remat, the chunked loss) imports
@@ -29,7 +53,10 @@ import torch
 import torch._dynamo  # noqa: F401
 
 from repro_torch.configs.base import TrainConfig
+from repro_torch.core import buckets as buckets_lib
 from repro_torch.core import lowrank as lowrank_lib
+from repro_torch.launch import sharding as shd
+from repro_torch.launch.mesh import axes_size, batch_axes
 from repro_torch.train.state import TrainState
 
 
@@ -91,41 +118,124 @@ def _split_grad_scale(batch):
     return batch, None
 
 
+def _largest_first(tensors) -> List[int]:
+    """Dispatch order of the per-bucket collectives: the largest payload
+    first, so the longest reduction starts earliest."""
+    return sorted(range(len(tensors)), key=lambda i: (-tensors[i].numel(), i))
+
+
+def _mean_(tensors, axes, n: float) -> None:
+    """Average each tensor across ``axes`` in place, largest first: a sum,
+    then a division by the replica count as a Python float."""
+    for i in _largest_first(tensors):
+        axes.all_reduce_(tensors[i]).div_(n)
+
+
+def _pmean_stacked(sg: lowrank_lib.StackedGrads, axes, n: float) -> lowrank_lib.StackedGrads:
+    """One collective per bucket stack (largest first) and one per leaf
+    outside the buckets (``step.py:155``)."""
+    _mean_(list(sg.buckets), axes, n)
+    _mean_(list(sg.rest), axes, n)
+    return sg
+
+
+def _reduce_scatter_stacked(sg: lowrank_lib.StackedGrads, axes, n: float, layout
+                            ) -> lowrank_lib.StackedGrads:
+    """The ZeRO hot step's reduction (``step.py:170``): each bucket's R stack
+    padded to the shardable batch, reduce-scattered over ``axes`` (largest
+    first) and divided by the replica count, so each process keeps its own
+    (B_pad / shards, r, n) rows; the other leaves averaged."""
+    padded = list(buckets_lib.zero_pad_grad_stacks(layout, sg.buckets))
+    for i in _largest_first(padded):
+        padded[i] = axes.reduce_scatter(padded[i]).div_(n)
+    _mean_(list(sg.rest), axes, n)
+    return sg._replace(buckets=tuple(padded))
+
+
+def _scale(grads, gscale):
+    if gscale is None:
+        return grads
+    return lowrank_lib.tree_unflatten(grads, [
+        g * torch.as_tensor(gscale, dtype=g.dtype, device=g.device)
+        for g in lowrank_lib.tree_leaves(grads)])
+
+
 def make_train_step(
     model,
     optimizer: lowrank_lib.LowRankOptimizer,
     *,
+    mesh=None,
     train_cfg: Optional[TrainConfig] = None,
+    compressed="",  # False/'' | True/'flat' | 'pod'
     recovery=None,  # Optional[repro_torch.train.recovery.RecoveryPolicy]
     watchdog=None,  # Optional[repro_torch.train.monitor.CollectiveWatchdog]
 ) -> Dict[str, Callable]:
     """Returns {'step': f(state, batch), 'refresh_step': f(state, batch,
-    group=0), 'rebuild': f(new_optimizer) -> the same dict}.
+    group=0), 'rebuild': f(new_optimizer) -> the same dict, ...}.
     The model's device decides where the step runs (``build_model``
     defaults to the card and raises without one unless asked for the CPU).
+
+    ``mesh`` and ``compressed`` as in the module docstring; an unknown
+    mode, a compressed mode without a mesh, ``"pod"`` without a pod axis,
+    and a ZeRO optimizer whose ``state_shards`` is not the compressed
+    axes' replica count raise, as in the reference.  ``fns["place_state"]``
+    turns a state with the full stacks into the step's layout (this
+    process's rows for a ZeRO compressed step), ``fns["gather_state"]``
+    the other way.
 
     With ``recovery.skip_nonfinite_updates`` both steps gate the update
     (``optimizer.update(skip_nonfinite=True)``) and report
     ``metrics["skipped"]``; ``metrics["bad_step"]`` is 1 for a non-finite
     loss or a skipped update.  ``watchdog`` waits for each call's result
     and records calls past its timeout (keyed by the call's ordinal)."""
+    compressed = "flat" if compressed is True else (compressed or "")
+    if compressed not in ("", "flat", "pod"):
+        raise ValueError(
+            f"unknown compressed mode {compressed!r}: expected "
+            "False/''/True/'flat'/'pod'"
+        )
+    if compressed and mesh is None:
+        raise ValueError(
+            f"compressed={compressed!r} needs a mesh (the project-then-"
+            "reduce schedule reduces over the DP axes)"
+        )
+    if compressed == "pod" and "pod" not in mesh.axis_names:
+        raise ValueError(f"'pod' compression needs a pod axis; mesh has {mesh.axis_names}")
+    layout = optimizer.state_layout
+    zero = layout is not None and layout.shards > 1
+    if zero and compressed:
+        dp_names = ("pod",) if compressed == "pod" else batch_axes(mesh)
+        n = axes_size(mesh, dp_names)
+        if optimizer.config.state_shards != n:
+            raise ValueError(
+                f"state_sharding='zero' built with state_shards="
+                f"{optimizer.config.state_shards}, but compressed="
+                f"{compressed!r} reduces over DP axes {dp_names} of total "
+                f"size {n}; the shard count must equal the DP replica count"
+            )
     micro = train_cfg.microbatch if train_cfg else 0
     accum_dtype = (train_cfg.accum_dtype if train_cfg else None) or torch.float32
     vg = _value_and_grad(model, micro, accum_dtype)
     skip_nonfinite = bool(recovery is not None and recovery.skip_nonfinite_updates)
+    # the reductions: over every batch axis (metrics, verdicts, the standard
+    # step's gradients), the compressed axes, and a pod's data axis
+    all_dp = mesh.axes(batch_axes(mesh)) if mesh is not None else None
+    red = intra = None
+    if compressed:
+        red = mesh.axes(("pod",)) if compressed == "pod" else all_dp
+        if compressed == "pod" and "data" in mesh.axis_names:
+            intra = mesh.axes(("data",))
+    shard_axes = red if zero and compressed else None
+    local_rows = shard_axes is not None and mesh.distributed
 
-    def step_fn(state: TrainState, batch, *, refresh: bool, group: int = 0):
+    def local_loss_and_grads(state: TrainState, batch):
         batch, gscale = _split_grad_scale(batch)
+        if mesh is not None:
+            batch = shd.shard_batch(batch, mesh)
         (loss, metrics), grads = vg(state.params, batch)
-        if gscale is not None:
-            grads = lowrank_lib.tree_unflatten(grads, [
-                g * torch.as_tensor(gscale, dtype=g.dtype, device=g.device)
-                for g in lowrank_lib.tree_leaves(grads)])
-        params, opt_state, aux = optimizer.update(
-            grads, state.opt_state, state.params, refresh=refresh,
-            group=group, apply=True, skip_nonfinite=skip_nonfinite,
-        )
-        del grads
+        return loss, metrics, _scale(grads, gscale)
+
+    def finish(loss, metrics, aux, params, opt_state):
         out_metrics = {
             **metrics,
             "grad_norm": aux.grad_norm,
@@ -133,15 +243,76 @@ def make_train_step(
             "refresh_overlap": aux.mean_refresh_overlap,
         }
         bad = (~torch.isfinite(loss)).float()
+        if all_dp is not None and all_dp.group is not None:
+            # one collective: every metric's mean and the summed verdict of
+            # "my own loss went non-finite", clamped to a flag
+            keys = sorted(metrics)
+            vec = torch.stack([metrics[k].float().reshape(()) for k in keys] + [bad])
+            vec = all_dp.all_reduce_scalars(vec)
+            for j, k in enumerate(keys):
+                out_metrics[k] = (vec[j] / all_dp.size).to(metrics[k].dtype)
+            bad = torch.clamp(vec[-1], max=1.0)
         if skip_nonfinite:
+            # the update's verdict is already the same on every process
             out_metrics["skipped"] = aux.skipped
             bad = torch.maximum(bad, aux.skipped)
         out_metrics["bad_step"] = bad
         return TrainState(params, opt_state), out_metrics
 
+    def step_fn(state: TrainState, batch, *, refresh: bool, group: int = 0):
+        loss, metrics, grads = local_loss_and_grads(state, batch)
+        if all_dp is not None and all_dp.group is not None:
+            _mean_(lowrank_lib.tree_leaves(grads), all_dp, float(all_dp.size))
+        params, opt_state, aux = optimizer.update(
+            grads, state.opt_state, state.params, refresh=refresh,
+            group=group, apply=True, skip_nonfinite=skip_nonfinite,
+        )
+        del grads
+        return finish(loss, metrics, aux, params, opt_state)
+
+    def compressed_step_fn(state: TrainState, batch, *, refresh: bool, group: int = 0):
+        loss, metrics, grads = local_loss_and_grads(state, batch)
+        if intra is not None and intra.group is not None:
+            # 'pod': the data axis reduces full-rank inside each pod first
+            _mean_(lowrank_lib.tree_leaves(grads), intra, float(intra.size))
+        n = float(red.size)
+        if refresh:
+            if layout is not None:
+                # full-rank (B, d, n) stacks, one collective per bucket; the
+                # refresh and the update take the reduced stacks as they are
+                grads = _pmean_stacked(lowrank_lib.stack_grads(optimizer, grads), red, n)
+            else:
+                _mean_(lowrank_lib.tree_leaves(grads), red, n)
+            params, opt_state, aux = optimizer.update(
+                grads, state.opt_state, state.params, refresh=True, group=group,
+                apply=True, skip_nonfinite=skip_nonfinite, shard_axes=shard_axes,
+            )
+        else:
+            if layout is not None:
+                # one f32 (B, r, n) R stack per bucket from the projector
+                # stacks (gathered first in ZeRO); ZeRO keeps its rows
+                rgrads = lowrank_lib.project_grads_stacked(
+                    optimizer, grads, state.opt_state, shard_axes=shard_axes)
+                del grads
+                if shard_axes is not None:
+                    rgrads = _reduce_scatter_stacked(rgrads, red, n, layout)
+                else:
+                    rgrads = _pmean_stacked(rgrads, red, n)
+            else:
+                rgrads = lowrank_lib.project_grads(optimizer, grads, state.opt_state)
+                del grads
+                _mean_(lowrank_lib.tree_leaves(rgrads), red, n)
+            params, opt_state, aux = optimizer.update(
+                rgrads, state.opt_state, state.params, refresh=False, projected=True,
+                apply=True, skip_nonfinite=skip_nonfinite, shard_axes=shard_axes,
+            )
+            del rgrads
+        return finish(loss, metrics, aux, params, opt_state)
+
+    base = compressed_step_fn if compressed else step_fn
     fns: Dict[str, Callable] = {
-        "step": functools.partial(step_fn, refresh=False),
-        "refresh_step": functools.partial(step_fn, refresh=True),
+        "step": functools.partial(base, refresh=False),
+        "refresh_step": functools.partial(base, refresh=True),
     }
     if watchdog is not None:
         def guarded(fn):
@@ -157,15 +328,53 @@ def make_train_step(
 
         fns = {k: guarded(f) for k, f in fns.items()}
     fns["watchdog"] = watchdog
+    fns["mesh"] = mesh
+
+    def place_state(state: TrainState) -> TrainState:
+        """Full padded stacks -> the step's layout (this process's rows of a
+        ZeRO compressed step's stacks; the state itself otherwise)."""
+        if not local_rows:
+            return state
+        return shard_train_state(state, mesh, zero_dp_axes=shard_axes.names)[0]
+
+    def gather_state(state: TrainState) -> TrainState:
+        """The inverse of ``place_state``: every process's rows gathered."""
+        if not local_rows:
+            return state
+        full = buckets_lib.zero_gather_states(state.opt_state.buckets, shard_axes)
+        return state._replace(opt_state=state.opt_state._replace(buckets=full))
+
+    fns["place_state"] = place_state
+    fns["gather_state"] = gather_state
+    # the axes whose block of rows this process's state holds (None: the
+    # full stacks): the loop's shard-parallel checkpoints write that block
+    fns["zero_axes"] = shard_axes if local_rows else None
 
     def rebuild(new_optimizer: lowrank_lib.LowRankOptimizer) -> Dict[str, Callable]:
-        """The same steps (config, recovery, watchdog) around an optimizer
-        re-bucketed at a new rank."""
-        return make_train_step(model, new_optimizer, train_cfg=train_cfg,
-                               recovery=recovery, watchdog=watchdog)
+        """The same steps (mesh, mode, config, recovery, watchdog) around an
+        optimizer re-bucketed at a new rank."""
+        return make_train_step(model, new_optimizer, mesh=mesh, train_cfg=train_cfg,
+                               compressed=compressed, recovery=recovery, watchdog=watchdog)
 
     fns["rebuild"] = rebuild
     return fns
+
+
+def shard_train_state(state: TrainState, mesh, *,
+                      zero_dp_axes: Optional[Tuple[str, ...]] = None):
+    """(state, rows): with ``zero_dp_axes`` (a ZeRO optimizer's state), the
+    state holding only this process's rows of every padded bucket stack
+    (``launch/sharding.zero_state_rows``), each a copy of its own so the
+    full stacks can be freed, and those rows per bucket; else the state as
+    it is (params and the rest are replicated) and None."""
+    if not zero_dp_axes:
+        return state, None
+    if not state.opt_state.buckets:
+        raise ValueError("zero_dp_axes given for a state without bucket stacks")
+    rows = shd.zero_state_rows(state, mesh.axes(zero_dp_axes))
+    local = tuple(buckets_lib.BucketState(*[None if x is None else x[lo:hi].clone() for x in bst])
+                  for (lo, hi), bst in zip(rows, state.opt_state.buckets))
+    return state._replace(opt_state=state.opt_state._replace(buckets=local)), rows
 
 
 # ---------------------------------------------------------------------------

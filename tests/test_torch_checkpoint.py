@@ -371,16 +371,25 @@ def test_retention_never_deletes_newest_verified(tmp_ckpt):
 
 
 def test_sharded_checkpoint_raises_not_silently(tmp_ckpt):
+    """A manifest of the sharded format is read as one, as JAX's manager
+    reads it (here one with no stacks: every leaf replicated); one that
+    lacks a leaf raises, as in the canonical format."""
     mgr = ckpt.CheckpointManager(tmp_ckpt)
-    mgr.save(_state(), 10)
+    st = _state()
+    mgr.save(st, 10)
     mpath = os.path.join(tmp_ckpt, "step_00000010", "manifest.json")
     with open(mpath) as f:
         man = json.load(f)
     man.update(format="sharded", num_shards=1, sharded={})
     with open(mpath, "w") as f:
         json.dump(man, f)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        mgr.load(_zeros_like(_state()))
+    assert ckpt.checkpoint_format(tmp_ckpt, 10) == "sharded"
+    _assert_trees_equal(mgr.load(_zeros_like(st)), st)
+    man["leaves"].pop(next(iter(man["leaves"])))
+    with open(mpath, "w") as f:
+        json.dump(man, f)
+    with pytest.raises(KeyError, match="missing leaf"):
+        mgr.load(_zeros_like(st))
 
 
 # ---------------------------------------------------------------------------

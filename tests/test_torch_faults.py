@@ -6,8 +6,9 @@ the same leaf file at the same offset with the same bytes (and truncating
 the same manifest) for the same seed, on the same state written by both
 packages (``get_config("llama3-8b", smoke=True)`` in f32, a fresh
 ``galore-sara-adam`` state carried across with ``bridge``), write errors
-retried alike, and the shard kinds, which need the sharded format (ROADMAP
-queue 1 item 11), raising in the port.  Also the monitor's heartbeats and
+retried alike, and the shard kinds acting alike on the shard-parallel
+format (the same shard file deleted or corrupted, the same manifest made
+divergent).  Also the monitor's heartbeats and
 watchdog on the same fake-clock scripts as JAX's, and the step's watchdog
 hook."""
 import os
@@ -97,11 +98,30 @@ def test_plan_hooks_and_fired_log_match_jax():
 
 @pytest.mark.parametrize("kind", ["ckpt_missing_shard", "ckpt_corrupt_shard",
                                   "ckpt_divergent_manifest"])
-def test_shard_kinds_are_accepted_and_raise_when_armed(kind):
-    spec = faults.FaultSpec(kind, save_index=0)  # accepted, as JAX's
-    jax_faults.FaultPlan([jax_faults.FaultSpec(kind, save_index=0)])
-    with pytest.raises(NotImplementedError, match="item 11"):
-        faults.FaultPlan([spec])
+def test_shard_kinds_are_accepted_and_raise_when_armed(kind, tmp_path):
+    """Armed, each shard kind acts as JAX's on the shard-parallel format:
+    the same shard file deleted or corrupted (same offset, same bytes) at
+    the commit, the same shard manifest made divergent at its write."""
+    for name, io in (("port", faults.FaultPlan([faults.FaultSpec(kind, save_index=0)])
+                      .checkpoint_io()),
+                     ("jax", jax_faults.FaultPlan([jax_faults.FaultSpec(kind, save_index=0)])
+                      .checkpoint_io())):
+        tmp = tmp_path / name / "step_00000001.tmp"
+        tmp.mkdir(parents=True)
+        data = np.random.default_rng(1).standard_normal(64).astype(np.float32)
+        for f in ("a.s00000_of_00002.npy", "a.s00001_of_00002.npy", "b.npy"):
+            np.save(tmp / f, data)
+        io.begin(0, 0)
+        for k in range(2):
+            io.write_manifest(str(tmp / f"manifest.shard{k:05d}.json"),
+                              {"step": 1, "num_shards": 2, "shard": k, "leaves": {}})
+        io.commit(str(tmp), str(tmp_path / name / "step_00000001"))
+        assert io.plan.fired == [(kind, 0)]
+    port, jax_dir = tmp_path / "port" / "step_00000001", tmp_path / "jax" / "step_00000001"
+    assert sorted(os.listdir(port)) == sorted(os.listdir(jax_dir))
+    assert len(os.listdir(port)) == (4 if kind == "ckpt_missing_shard" else 5)
+    for f in os.listdir(port):
+        assert (port / f).read_bytes() == (jax_dir / f).read_bytes(), f
 
 
 # ---------------------------------------------------------------------------

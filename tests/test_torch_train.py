@@ -28,7 +28,7 @@ from repro.train.step import make_train_step as jax_make_train_step
 from repro_torch import bridge
 from repro_torch.configs.base import TrainConfig
 from repro_torch.configs.registry import get_config
-from repro_torch.core import buckets, make_optimizer, schedules
+from repro_torch.core import buckets, lowrank, make_optimizer, schedules
 from repro_torch.core.lowrank import flatten_with_path, tree_leaves, tree_unflatten
 from repro_torch.models import build_model
 from repro_torch.train.loop import train_loop
@@ -370,12 +370,27 @@ def test_training_entry_points_need_a_card_unless_cpu_is_asked(monkeypatch):
 
 
 def test_unported_optimizer_options_raise(pair):
-    """What is still to be ported (ZeRO, projected gradients: item 11)
-    raises and names its ROADMAP item; the baselines (golore, Adafactor,
-    Fira), rank schedules and group ranks build, with JAX's validation, and
-    the skip-step gate runs."""
-    with pytest.raises(NotImplementedError, match="not yet ported.*item 11"):
-        make_optimizer("galore-sara-adam", pair["tparams"], state_sharding="zero")
+    """ZeRO state and projected gradients (the data-parallel step's) build
+    and run, with JAX's validation (ZeRO needs bucket-native state; a
+    projected refresh raises), a projected hot step equals the plain one
+    on the same gradients; the baselines (golore, Adafactor, Fira), rank
+    schedules and group ranks build, with JAX's validation, and the
+    skip-step gate runs."""
+    with pytest.raises(ValueError, match="bucket-native state"):
+        make_optimizer("galore-sara-adam", pair["tparams"], state_sharding="zero",
+                       state_shards=2)
+    zopt = make_optimizer("galore-sara-adam", pair["tparams"], state_sharding="zero",
+                          state_shards=2, rank=RANK, engine="bucketed")
+    assert zopt.state_layout.shards == 2
+    plain = make_optimizer("galore-sara-adam", pair["tparams"], rank=RANK)
+    pstate = plain.init(pair["tparams"])
+    grads = _torch_tree(pair["jgrads"][0])
+    want, _, _ = plain.update(grads, pstate, pair["tparams"], refresh=False, apply=True)
+    got, _, _ = plain.update(lowrank.project_grads(plain, grads, pstate), pstate,
+                             pair["tparams"], refresh=False, projected=True, apply=True)
+    assert all(torch.equal(x, y) for x, y in zip(tree_leaves(got), tree_leaves(want)))
+    with pytest.raises(ValueError, match="cannot drive a refresh"):
+        plain.update(grads, pstate, pair["tparams"], refresh=True, projected=True)
     for name, kw in (("golore-adam", {}), ("galore-sara-adafactor", {}),
                      ("galore-sara-adam", {"fira": True}),
                      ("galore-sara-adam", {"rank_schedule": "cosine:8:4"}),
@@ -386,8 +401,6 @@ def test_unported_optimizer_options_raise(pair):
             make_optimizer("galore-sara-adam", pair["tparams"], **kw)
     opt = make_optimizer("galore-sara-adam", pair["tparams"], **OPT_KW)
     state = opt.init(pair["tparams"])
-    with pytest.raises(NotImplementedError, match="item 11"):
-        opt.update(pair["tparams"], state, pair["tparams"], refresh=False, projected=True)
     _, new, aux = opt.update(pair["tparams"], state, pair["tparams"], refresh=True,
                              skip_nonfinite=True)
     assert float(aux.skipped) == 0.0 and new.step == 1
