@@ -104,7 +104,8 @@ failure raises and the script exits non-zero:
 5b. train_dp -- data-parallel training through ``torch.distributed``:
               one process per card (``torch.cuda.device_count()``; 1 on a
               one-card machine) on a file store under ``build/``, NCCL.
-              Each runs phase 4's model (4 layers, seq 512, global batch
+              Each runs phase 4's model (at ``DP_LAYERS`` = 2 of its 4
+              layers since the tensor-parallel phase joined; seq 512, global batch
               8, ``galore-sara-adam``, rank 512) without clipping
               (``DP_OPT``) for 3 steps, first single-process (the
               reference, its params kept on the host), then through
@@ -137,15 +138,16 @@ failure raises and the script exits non-zero:
               ``family_kernels`` (flash at hymba's GQA 25/5, D 64, window
               1024, S 2048 and deepseek's MHA 16/16; paged decode at MHA
               16/16; RMSNorm at widths 1600, 2048 and 3200; kernels 4, 5
-              and 9 on deepseek-moe-16b's 384-slice expert bucket at rank
+              and 9 on deepseek-moe-16b's 192-slice expert bucket at rank
               256), ``serve_moe`` (deepseek-moe-16b, 28 layers, bf16 made
               leaf by leaf, through the paged engine on phase 3's trace;
               request 0's logits against the static exact path, the bar
               from the f32 model at the deepest depth that fits; host syncs
-              per step), ``train_moe`` (2 layers, rank 256: kernel 9 runs),
+              per step), ``train_moe`` (1 layer, rank 256:
+              kernel 9 runs),
               ``train_ssm`` and ``serve_ssm`` (mamba2-370m, 48 layers; rank
               512: kernel 9 launches 0 times), ``train_hybrid`` and
-              ``serve_hybrid`` (hymba-1.5b cut to 16 of its 32 layers,
+              ``serve_hybrid`` (hymba-1.5b cut to 8 of its 32 layers,
               ``HYBRID_LAYERS``; seq 2048; prompts of
               1500 and 1100 tokens past its 1024 window).  The train paths
               run as phase 4 (galore-sara-adam, 3 steps) and first check
@@ -450,6 +452,11 @@ RESUME_LAYERS = RECOVERY_LAYERS = 1
 # kernels 4-8 on a narrow of a padded stack, DP_PAD_SHAPE (d, n, r, B):
 # B 6 pads to 8 over 4 shards, so the last block is all pad rows
 DP_STEPS = 3
+# at 2 of phase 4's 4 layers: the script passed the 900 s it keeps to (half
+# its 1200-s limit, with room for the card's spread) once train_tp joined,
+# and depth is what this phase can lose (its checks are per bucket and per
+# step)
+DP_LAYERS = 2
 DP_OPT = dict(TRAIN_OPT, grad_clip_norm=0.0)
 DP_ZERO_SHARDS = 4
 DP_RESTORE_SHARDS = (2, 8)
@@ -504,11 +511,12 @@ MOE_ARCH, SSM_ARCH, HYBRID_ARCH = "deepseek-moe-16b", "mamba2-370m", "hymba-1.5b
 # hymba's serving trace: two prompts past its 1024-token window, so prefill
 # keeps the window's tail and the ring wraps in decode
 HYBRID_PROMPT_LENS = [1500, 128, 517, 1100, 255, 777, 64, 333]
-# hymba serves and trains cut to 16 of its 32 layers (every layer's shapes
+# hymba serves and trains cut to 8 of its 32 layers (every layer's shapes
 # as at full depth): the whole script ran 1038 s of its 1200 s at full
 # depth once the VLM and enc-dec paths joined, and hymba's two paths, whose
-# host-bound SSD chunk loop costs time per layer, took 147 s of it
-HYBRID_LAYERS = 16
+# host-bound SSD chunk loop costs time per layer, took 147 s of it; 16
+# until the tensor-parallel phase joined (the two took 71.7 s at 16)
+HYBRID_LAYERS = 8
 # A continuous-engine token may part from the static engine's only at a
 # near-tie.  The two engines run the same bf16 model but batch it
 # differently (4 slots against 1 row: other GEMM kernels, other roundings),
@@ -517,11 +525,12 @@ HYBRID_LAYERS = 16
 # the RMS distance between the bf16 and f32 models' logits on the same
 # tokens (the prompt and the tokens before the parting step).
 TIE_BAR_SIGMAS = 4
-# deepseek trains cut to 2 of its 28 layers (4 until the script passed its
+# deepseek trains cut to 1 of its 28 layers (4 until the script passed its
 # time limit once the data-parallel phase joined: its SARA refresh over the
 # 768-slice expert bucket took 52.9 s on the H100, NVIDIA H100 80GB HBM3,
-# 700.00 W, and the whole script 1051 s of its 1200)
-MOE_TRAIN_LAYERS = 2
+# 700.00 W, and the whole script 1051 s of its 1200; 2 until the
+# tensor-parallel phase joined, 37.9 s at 2); it serves at full depth
+MOE_TRAIN_LAYERS = 1
 # rank 256 for moe and hybrid: SARA's pool (4 r) then leaves k' 1032 below
 # the narrow side of their leaves, so kernel 9 runs; at the launcher's 512
 # it spans every leaf's narrow side and the power iterations drop (as
@@ -529,16 +538,16 @@ MOE_TRAIN_LAYERS = 2
 FAMILY_TRAIN_RUNS = {
     # path: (arch, layers (None: full depth), seq, batch, rank, bucket plan)
     "train_moe": (MOE_ARCH, MOE_TRAIN_LAYERS, TRAIN_SEQ, TRAIN_BATCH, 256,
-                  [(1408, 2048, 256, 384, "any"), (2048, 2048, 256, 8, "any"),
-                   (2048, 2816, 256, 6, "any")]),
+                  [(1408, 2048, 256, 192, "any"), (2048, 2048, 256, 4, "any"),
+                   (2048, 2816, 256, 3, "any")]),
     "train_ssm": (SSM_ARCH, None, TRAIN_SEQ, TRAIN_BATCH, 512,
                   [(32, 48, 32, 1, "any"), (1024, 2048, 512, 48, "any"),
                    (1024, 4384, 512, 48, "any")]),
     # seq 2048 so attention reaches past the 1024 window (the same 4096 tokens)
     "train_hybrid": (HYBRID_ARCH, HYBRID_LAYERS, 2048, 2, 256,
-                     [(16, 50, 16, 1, "any"), (320, 1600, 256, 32, "any"),
-                      (1600, 1600, 256, 32, "any"), (1600, 3200, 256, 16, "any"),
-                      (1600, 5504, 256, 48, "any"), (1600, 6482, 256, 16, "any")]),
+                     [(320, 1600, 256, 16, "any"), (1600, 1600, 256, 16, "any"),
+                      (1600, 3200, 256, 8, "any"), (1600, 5504, 256, 24, "any"),
+                      (1600, 6482, 256, 8, "any")]),
 }
 PATH_KERNELS["serve_moe"] = SERVE_KERNELS
 PATH_KERNELS["train_moe"] = _TRAIN_COMMON + (UPDATE_KERNEL["adam"],)
@@ -1849,13 +1858,17 @@ def power_iter_calls(opt, shapes) -> int:
     if opt.state_layout is not None:
         # a stack too large for one refresh chain runs in chunks, each
         # with its own power iterations (projectors.refresh_chunk)
+        # a tensor-parallel bucket refreshes at its global leaves' (d, n)
+        # (``Bucket.global_dims``): gathered, or its columns of the sketch
         def chunks(bk):
             if cfg.method not in ("dominant", "sara") or cfg.svd_backend != "randomized":
                 return 1
-            k = bk.rank if cfg.method == "dominant" else min(bk.d, cfg.sara_pool_factor * bk.rank)
-            _, kp, _ = svd_lib.clamp_sketch(bk.d, bk.n, k, cfg.svd_oversample, 0)
-            return -(-bk.batch // proj_lib.refresh_chunk(bk.batch, bk.d, bk.n, kp))
-        return sum(per_unit(bk.d, bk.n, bk.rank) * chunks(bk) for bk in opt.bucket_plan.buckets)
+            d, n = bk.global_dims()
+            k = bk.rank if cfg.method == "dominant" else min(d, cfg.sara_pool_factor * bk.rank)
+            _, kp, _ = svd_lib.clamp_sketch(d, n, k, cfg.svd_oversample, 0)
+            return -(-bk.batch // proj_lib.refresh_chunk(bk.batch, d, n, kp))
+        return sum(per_unit(*bk.global_dims(), bk.rank) * chunks(bk)
+                   for bk in opt.bucket_plan.buckets)
     return sum(per_unit(min(shape[-2:]), max(shape[-2:]), spec.rank)
                for spec, shape in zip(opt.specs, shapes) if spec.lowrank)
 
@@ -2855,7 +2868,7 @@ def family_kernel_cases(results):
            err, timing)
     del q, pk, pv, table, lens, got
     torch.cuda.empty_cache()
-    # kernels 4, 5 and 9 on the 384-slice expert bucket (4.4 GB per f32 stack)
+    # kernels 4, 5 and 9 on the 192-slice expert bucket (2.2 GB per f32 stack)
     return cases + rank_kernel_cases(results, ranks=(256,),
                                      shape=FAMILY_TRAIN_RUNS["train_moe"][5][0])
 
@@ -3415,6 +3428,7 @@ class _EmuMesh:
 
     axis_names = ("data", "model")
     distributed = True
+    tp = 1  # no tensor parallelism: the model axis has extent 1
 
     def __init__(self, hub: _ThreadHub, index: int):
         from collections import Counter
@@ -3428,6 +3442,11 @@ class _EmuMesh:
         if tuple(names) != ("data",):
             raise ValueError(f"the emulated mesh has one data-parallel axis, not {names}")
         return _EmuAxes(("data",), self.size, self.rank, self.hub, self.comm)
+
+    def model_axes(self):
+        from repro_torch.launch.mesh import DPAxes
+
+        return DPAxes(("model",), 1, 0)
 
 
 def _dp_emulated(cfg, dev: str, seq: int, batch: int, opt_kw, expect_buckets,
@@ -4019,8 +4038,627 @@ def train_dp(cfg, smi: str, dev: str = "cuda", world: int = 0,
     return dict(head, launches=launches, card=smi, skips=[r["skip"] for r in ranks])
 
 
+# phase 5c: tensor (and expert) parallelism over ``model``.  Two processes
+# share the one card (``TP_WORLD`` ranks of a (1, 2) data x model mesh, each
+# on cuda:0) over gloo, on a file store under ``build/``: NCCL refuses two
+# ranks on one device, and ranks as threads of one process would block in
+# backward's collectives on the autograd engine's one device thread.  The
+# dense run: llama3-8b at full width cut to ``TP_LAYERS`` layers, seq 512,
+# global batch 8, bf16 compute, ``TRAIN_OPT``, 3 steps; its losses against
+# the single-process run of the same steps (made in the parent first)
+# within ``TP_LOSS_GAP``: bf16 rounds each process's partial outputs before
+# the f32 all-reduce, one rounding the single process does not make (the
+# gaps read 1.1e-4 to 2.6e-4 on losses of ~11.8 in the H100 runs that set
+# the bar).  From the single-process run's state after step 1 (lr 2e-4 at
+# the next step; 0 at step 0, where the trajectory's refresh moves no
+# param), in f32 compute, tensor parallel against one process: one hot
+# step, each process's blocks within ``DP_HOT_TOL``; and one refresh step
+# (both refresh routes, then the update with the new projectors) under
+# ``momentum_carry=TP_REFRESH_CARRY``, each block's change within
+# ``TP_REFRESH_REL`` of one process's: ||W'_TP - W'_1|| / ||W'_1 - W||.
+# The carry: under the trajectory's "keep" a second refresh pairs the kept
+# moments with the new projector's columns, whose signs the card's f32 QR
+# and SVD pick differently from the two routes' rounding-apart inputs (96%
+# of a block over 1e-6 in an H100 run), as they part the packages (ROADMAP
+# queue 3); "reproject" turns the moments with the projector, so W' does
+# not depend on the signs.  The bar: the card's f32 SVD turns rounding into
+# other small singular vectors, which SARA samples and Adam's elementwise
+# step does not forgive, so one process against itself with its gradient
+# summed in another order (two microbatches) read up to 0.122 and tensor
+# parallel against one process 0.023 to 0.147 (H100 runs); an update left
+# out reads 1, one along an unrelated projector 1.2 to 1.4.  Kernel 9
+# against its plain version on each "n"
+# bucket's local block at the path's k', which the global n sets and may
+# exceed the block's columns (q: 2056 sketch columns, 2048 local columns).
+# The MoE run: deepseek-moe-16b at full width, ``TP_MOE_LAYERS`` layer,
+# 32 experts per rank: at capacity factor 8 in f32 the step-0 loss within
+# ``TP_MOE_LOSS_TOL`` and every gradient within ``TP_MOE_GRAD_RTOL`` of its
+# leaf's largest |g| against the one-process local path, with no pair
+# dropped; at the config's 1.25, 3 steps in bf16 with exact launch counts
+# per rank (path ``train_tp_moe``), finite, the dropped share printed.
+TP_WORLD = 2
+TP_LAYERS = 2
+TP_STEPS = 3
+TP_LOSS_GAP = 1e-3
+TP_MOE_LAYERS = 1
+TP_MOE_CAPACITY = 8.0
+TP_MOE_LOSS_TOL = 1e-5
+TP_MOE_GRAD_RTOL = 1e-4
+TP_TIMEOUT_S = 420
+TP_REFRESH_REL = 0.3
+TP_REFRESH_CARRY = "reproject"
+PATH_KERNELS["train_tp"] = _TRAIN_COMMON + (UPDATE_KERNEL["adam"],)
+PATH_KERNELS["train_tp_moe"] = _TRAIN_COMMON + (UPDATE_KERNEL["adam"],)
+
+
+def _launches_since(before) -> dict:
+    """The kernels' launches since the counters' snapshot ``before``."""
+    from repro_torch.kernels import counters
+
+    now = counters.snapshot()
+    return {k: v - before.get(k, 0) for k, v in now.items() if v != before.get(k, 0)}
+
+
+def _train_expect(cfg, opt, steps: int) -> dict:
+    """Exact launches of ``steps`` bucketed Adam steps (the first a
+    refresh) of ``cfg``'s model under the optimizer ``opt`` (this process's
+    buckets), as ``train`` counts them."""
+    (fwd_n, fwd_a), (rem_n, rem_a) = forward_launches(cfg)
+    nb = len(opt.bucket_plan.buckets)
+    expect = {"rmsnorm": steps * (fwd_n + rem_n), "flash_attention_fwd": steps * (fwd_a + rem_a),
+              "galore_project_batched": steps * nb, UPDATE_KERNEL["adam"]: steps * nb,
+              "power_iter_batched": power_iter_calls(opt, [])}
+    return {k: v for k, v in expect.items() if v}
+
+
+def _blocks_within(what: str, got, want, tol=DP_HOT_TOL) -> dict:
+    """Each pair of blocks (``got``, ``want``) within ``tol``: the share of
+    a block's elements over ``atol`` at most ``share``, none over ``cap``.
+    Returns the largest error and share."""
+    out = {"max_abs_err": 0.0, "share_over_atol": 0.0}
+    for i, (a, b) in enumerate(zip(got, want)):
+        err = (a - b).abs()
+        off, top = float((err > tol["atol"]).float().mean()), float(err.max())
+        if off > tol["share"] or top > tol["cap"]:
+            raise AssertionError(f"{what}: leaf {i}: {off} of its block over {tol['atol']}, "
+                                 f"max {top}")
+        out.update(max_abs_err=max(out["max_abs_err"], top),
+                   share_over_atol=max(out["share_over_atol"], off))
+    return out
+
+
+def _steps_within(what: str, got, want, start, names) -> list:
+    """Each block's step (``got`` and ``want`` from the same ``start``)
+    within ``TP_REFRESH_REL`` of the reference's own change,
+    ||got - want|| / ||want - start||: an update left out reads 1, one
+    along an unrelated projector ~1.4.  Every block's reading is logged
+    before a miss raises.  Returns one record per block."""
+    out = []
+    for name, a, b, s0 in zip(names, got, want, start):
+        err = (a - b).abs()
+        out.append({"leaf": name,
+                    "rel": float(torch.linalg.vector_norm(a - b)
+                                 / torch.linalg.vector_norm(b - s0)),
+                    "max_abs_err": float(err.max()),
+                    "share_over_1e-6": float((err > 1e-6).float().mean())})
+    log(f"{what}: {out}")
+    bad = [r for r in out if not r["rel"] <= TP_REFRESH_REL]
+    if bad:
+        raise AssertionError(f"{what}: {bad} past {TP_REFRESH_REL} of the step")
+    return out
+
+
+def _tp_refresh_optimizer(params, opt_kw):
+    """The dense run's optimizer with ``TP_REFRESH_CARRY`` for the f32
+    refresh step from one state (see the constants)."""
+    from repro_torch.core import make_optimizer
+    from repro_torch.core.schedules import cosine_with_warmup
+
+    return make_optimizer("galore-sara-adam", params, lr_schedule=cosine_with_warmup(
+        opt_kw["lr"], TRAIN_WARMUP, TP_STEPS), **dict(opt_kw, momentum_carry=TP_REFRESH_CARRY))
+
+
+def _tp_power_cases(opt, dev: str, rank: int) -> list:
+    """Kernel 9 on each "n" bucket's local block (B, d, n / model) with a
+    (B, d, k') basis at the k' of the bucket's global leaves (the split
+    refresh's first chunk), against the plain ``bmm(G, bmm(G^T, Q))``; each
+    case launches the kernel once (on the CPU, the rehearsal, the counted
+    plain dispatch)."""
+    from repro_torch.core import projectors as proj_lib
+    from repro_torch.core import svd as svd_lib
+    from repro_torch.kernels.power_iter import ops as pi_ops
+    from repro_torch.kernels.power_iter.ref import power_iter_ref
+    from repro_torch.kernels import counters
+
+    cfg = opt.config
+    gen = torch.Generator(device=dev).manual_seed(SEED + 13 + rank)
+    out = []
+    for bk in opt.bucket_plan.buckets:
+        if bk.split != "n":
+            continue
+        d, n = bk.global_dims()
+        pool = min(d, cfg.sara_pool_factor * bk.rank)
+        _, kp, iters = svd_lib.clamp_sketch(d, n, pool, cfg.svd_oversample, cfg.svd_power_iters)
+        if not iters:
+            continue
+        b = proj_lib.refresh_chunk(bk.batch, d, n, kp)
+        g = torch.randn((b, bk.d, bk.n), generator=gen, device=dev)
+        q = svd_lib.qr_q(torch.randn((b, bk.d, kp), generator=gen, device=dev))
+        before = counters.snapshot()
+        got = pi_ops.power_iter_step(g, q)
+        launches = _launches_since(before)
+        if launches != {"power_iter_batched": 1}:
+            raise AssertionError(f"train_tp power-iteration case: launches {launches}")
+        label = f"B={b} d={bk.d} n={bk.n} (of {n}) k'={kp}"
+        err = check_close(f"train_tp power_iter {label}", got, power_iter_ref(g, q),
+                          *TOL["power_iter_batched"]["float32"], rel_atol=True)
+        log(f"train_tp rank {rank} power_iter {label}: kernel vs plain max abs err {err}")
+        out.append({"case": label, "max_abs_err": err})
+        del g, q, got
+    return out
+
+
+def _tp_dense(rank: int, devname: str, mesh, shared, cpu_cfg, seq: int, batch: int):
+    """The dense run of one process of ``train_tp`` (see the constants);
+    ``shared`` holds the single-process run's state after step 1, its
+    params after one f32 hot step from it, and its low-rank leaves'
+    params after one f32 refresh step from it; ``cpu_cfg`` stands for
+    llama3-8b in a CPU rehearsal."""
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core import make_optimizer
+    from repro_torch.core.buckets import tp_hot_comm_bytes
+    from repro_torch.core.lowrank import flatten_with_path, tree_leaves
+    from repro_torch.core.schedules import cosine_with_warmup
+    from repro_torch.data.synthetic import SyntheticDataConfig, SyntheticDataset
+    from repro_torch.kernels import counters
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import sharding as shd
+    from repro_torch.models import build_model
+    from repro_torch.models import parallel as par
+    from repro_torch.train.state import TrainState
+    from repro_torch.train.step import make_train_step
+
+    on_card = torch.device(devname).type == "cuda"
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    cfg = cpu_cfg or get_config("llama3-8b").with_(n_layers=TP_LAYERS)
+    model = build_model(cfg, device=devname)
+    data = SyntheticDataset(SyntheticDataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
+                                                global_batch=batch), device=devname)
+    batches = [data.batch_at(s) for s in range(TP_STEPS + 1)]
+    tc = TrainConfig(total_steps=TP_STEPS, seed=SEED)
+    params = model.init(torch.Generator(device=devname).manual_seed(SEED))
+    opt_kw = dict(TRAIN_OPT) if on_card else dict(TRAIN_OPT, rank=8, svd_oversample=4)
+    opt = make_optimizer("galore-sara-adam", params, lr_schedule=cosine_with_warmup(
+        opt_kw["lr"], TRAIN_WARMUP, TP_STEPS), **opt_kw)
+    fns = make_train_step(model, opt, mesh=mesh, train_cfg=tc)
+    state = fns["place_state"](TrainState(params, opt.init(params)))
+    del params
+    lopt = fns["optimizer"]
+    plan = [(bk.d, bk.n, bk.rank, bk.batch, bk.split) for bk in lopt.bucket_plan.buckets]
+    if on_card:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    ms, losses, comm, per_step = [], [], [], []
+    counters.reset()  # the main path's launches: the 3 steps
+    for s in range(TP_STEPS):
+        mesh_lib.comm_reset()
+        before = counters.snapshot()
+        sync()
+        t = time.perf_counter()
+        state, m = (fns["refresh_step"] if s == 0 else fns["step"])(state, batches[s])
+        sync()
+        ms.append((time.perf_counter() - t) * 1e3)
+        losses.append(float(m["loss"]))
+        comm.append(mesh_lib.comm_snapshot())
+        per_step.append(_launches_since(before))
+    launches = counters.snapshot()
+    peak = torch.cuda.max_memory_allocated() if on_card else 0
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"train_tp rank {rank}: losses {losses}")
+    expect = _train_expect(cfg, lopt, TP_STEPS)
+    if launches != expect:
+        raise AssertionError(f"train_tp rank {rank}: launches {launches} != {expect}")
+    act_bytes = torch.empty((), dtype=cfg.dtype).element_size()
+    want = tp_hot_comm_bytes(cfg, batch, seq, lopt.bucket_plan, act_bytes)
+    got = [c.get("all_reduce@model", 0) + c.get("all_gather@model", 0)
+           + c.get("reduce_scatter@model", 0) for c in comm]
+    if any(g != want for g in got[1:]):
+        raise AssertionError(f"train_tp rank {rank}: hot-step bytes over model {got[1:]} "
+                             f"!= {want} (the shapes' count)")
+    log(f"train_tp rank {rank}: llama3-8b {cfg.n_layers} layers, local plan {plan}; losses "
+        f"{losses}; refresh {ms[0]:.1f} ms, hot {[round(x, 1) for x in ms[1:]]} ms; "
+        f"max_memory_allocated {peak / 2**30:.2f} GiB; launches {launches}; hot-step bytes "
+        f"over model {got[1:]} (formula {want}), refresh step {got[0]}")
+    # each local bucket of one more hot step: kernel against plain; kernel 9
+    # on each "n" bucket's block at the split refresh's shapes
+    with par.use(mesh.model_axes()):
+        parity = hot_step_parity("train_tp", model, lopt, state, batches[TP_STEPS],
+                                 dev="cuda" if on_card else "cpu")
+    power = _tp_power_cases(lopt, devname, rank)
+    # from the single-process run's state after step 1, which the parent
+    # shares with the processes (CUDA IPC on the card), in f32 compute: one
+    # hot step and one refresh step, this process's blocks against the
+    # parent's own steps from it, cut to the same blocks
+    del state, fns
+    if on_card:
+        torch.cuda.empty_cache()
+    model32 = build_model(cfg.with_(dtype=torch.float32), device=devname)
+    fns32 = make_train_step(model32, opt, mesh=mesh, train_cfg=tc)
+    ax, splits = mesh.model_axes(), fns32["optimizer"].tp.splits
+
+    def block(i, x):
+        return shd.local_block(x, splits[i], ax.index, ax.size)
+
+    st = fns32["place_state"](TrainState(shared["params"], shared["opt_state"]))
+    out, _ = fns32["step"](st, batches[TP_STEPS])
+    mine = tree_leaves(out.params)
+    del out
+    hot = _blocks_within(f"train_tp rank {rank}: the f32 hot step from the single-process state",
+                         mine, [block(i, x) for i, x in enumerate(shared["hot"])])
+    del mine
+    del st
+    fns32 = make_train_step(model32, _tp_refresh_optimizer(shared["params"], opt_kw), mesh=mesh,
+                            train_cfg=tc)
+    out, _ = fns32["refresh_step"](
+        fns32["place_state"](TrainState(shared["params"], shared["opt_state"])),
+        batches[TP_STEPS])
+    mine = tree_leaves(out.params)
+    del out, fns32
+    want, paths = shared["refreshed"], [p for p, _ in flatten_with_path(shared["params"])]
+    low = sorted(want)
+    refreshed = _steps_within(
+        f"train_tp rank {rank}: the f32 refresh step from the single-process state",
+        [mine[i] for i in low], [block(i, want[i]) for i in low],
+        [block(i, x) for i, x in enumerate(tree_leaves(shared["params"])) if i in low],
+        [paths[i] for i in low])
+    del mine
+    log(f"train_tp rank {rank}: from the single-process state in f32, tensor parallel against "
+        f"one process: hot step {hot}, refresh step (low-rank leaves) {refreshed}")
+    mesh_lib.barrier(mesh)
+    if on_card:
+        torch.cuda.empty_cache()
+    return {"plan": plan, "losses": losses, "ms": ms, "max_memory_allocated": peak,
+            "launches": launches, "expected": expect, "per_step": per_step,
+            "hot_bytes": got[1:], "refresh_bytes": got[0], "hot_bytes_formula": want,
+            "parity": parity, "power_iter_cases": power, "hot_from_same_state": hot,
+            "refresh_from_same_state": refreshed}
+
+
+def _tp_moe(rank: int, devname: str, mesh, cfg, seq: int, batch: int, opt_kw):
+    """The MoE run of one process of ``train_tp`` (see the constants)."""
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.core import make_optimizer
+    from repro_torch.core.lowrank import flatten_with_path, tree_leaves, tree_unflatten
+    from repro_torch.core.schedules import cosine_with_warmup
+    from repro_torch.data.synthetic import SyntheticDataConfig, SyntheticDataset
+    from repro_torch.kernels import counters
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import sharding as shd
+    from repro_torch.models import build_model
+    from repro_torch.models import moe as moe_lib
+    from repro_torch.models import parallel as par
+    from repro_torch.train.state import TrainState
+    from repro_torch.train.step import make_train_step
+
+    on_card = torch.device(devname).type == "cuda"
+    data = SyntheticDataset(SyntheticDataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
+                                                global_batch=batch), device=devname)
+
+    def loss_and_grads(model, params, axes):
+        leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
+        with par.use(axes):
+            loss, _ = model.loss(tree_unflatten(params, leaves), data.batch_at(0))
+            grads = torch.autograd.grad(loss, leaves)
+        return float(loss.detach()), tree_unflatten(params, list(grads))
+
+    # capacity factor 8, f32: the expert-parallel step-0 loss and gradients
+    # against one process's local path
+    model8 = build_model(cfg.with_(moe_capacity_factor=TP_MOE_CAPACITY, dtype=torch.float32),
+                         device=devname)
+    params = model8.init(torch.Generator(device=devname).manual_seed(SEED))
+    splits = shd.tp_splits(params, mesh)
+    moe_lib.reset_ep_drops()
+    loss_tp, grads_tp = loss_and_grads(model8, shd.shard_params(params, mesh, splits),
+                                       mesh.model_axes())
+    drops8 = moe_lib.ep_drops()
+    grads_tp = shd.gather_params(grads_tp, mesh, splits)
+    out = {"ep_loss": loss_tp, "drops_cf8": drops8}
+    if rank == 0:
+        loss_1, grads_1 = loss_and_grads(model8, params, mesh_lib.single_device_mesh().model_axes())
+        if abs(loss_1 - loss_tp) > TP_MOE_LOSS_TOL:
+            raise AssertionError(f"train_tp moe: expert-parallel loss {loss_tp} against the "
+                                 f"local path's {loss_1}")
+        worst = 0.0
+        for (path, a), b in zip(flatten_with_path(grads_tp), tree_leaves(grads_1)):
+            scale = float(b.abs().max())
+            err = float((a - b).abs().max())
+            if err > TP_MOE_GRAD_RTOL * scale:
+                raise AssertionError(f"train_tp moe: gradient {path} {err} apart (largest "
+                                     f"|g| {scale})")
+            worst = max(worst, err / max(scale, 1e-30))
+        out.update(local_loss=loss_1, grad_rel_err=worst)
+        del grads_1
+    del params, grads_tp, model8
+    if on_card:
+        torch.cuda.empty_cache()
+    # the config's capacity factor, bf16: 3 steps of the train step, with
+    # this process's launches counted (path ``train_tp_moe``)
+    model = build_model(cfg, device=devname)
+    params = model.init(torch.Generator(device=devname).manual_seed(SEED))
+    opt = make_optimizer("galore-sara-adam", params, lr_schedule=cosine_with_warmup(
+        TRAIN_OPT["lr"], TRAIN_WARMUP, TP_STEPS), **dict(TRAIN_OPT, **opt_kw))
+    fns = make_train_step(model, opt, mesh=mesh, train_cfg=TrainConfig(total_steps=TP_STEPS))
+    state = fns["place_state"](TrainState(params, opt.init(params)))
+    del params
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    moe_lib.reset_ep_drops()
+    losses, ms = [], []
+    counters.reset()
+    for s in range(TP_STEPS):
+        if on_card:
+            torch.cuda.synchronize()
+        t = time.perf_counter()
+        state, m = (fns["refresh_step"] if s == 0 else fns["step"])(state, data.batch_at(s))
+        losses.append(float(m["loss"]))
+        ms.append((time.perf_counter() - t) * 1e3)
+    launches = counters.snapshot()
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"train_tp moe rank {rank}: losses {losses}")
+    expect = _train_expect(cfg, fns["optimizer"], TP_STEPS)
+    if launches != expect:
+        raise AssertionError(f"train_tp moe rank {rank}: launches {launches} != {expect}")
+    drops = moe_lib.ep_drops()
+    out.update(losses=losses, ms=ms, drops=drops, launches=launches, expected=expect,
+               max_memory_allocated=torch.cuda.max_memory_allocated() if on_card else 0,
+               plan=[(bk.d, bk.n, bk.rank, bk.batch, bk.split)
+                     for bk in fns["optimizer"].bucket_plan.buckets])
+    log(f"train_tp moe rank {rank}: {cfg.arch_id} {cfg.n_layers} layer(s), capacity "
+        f"{TP_MOE_CAPACITY}: step-0 loss {loss_tp} (local path {out.get('local_loss')}), "
+        f"gradients {out.get('grad_rel_err')} of their largest apart, drops {drops8}; at "
+        f"{cfg.moe_capacity_factor}: losses {losses}, {ms} ms, dropped "
+        f"{drops['dropped']} of {drops['routed']} pairs, max_memory_allocated "
+        f"{out['max_memory_allocated'] / 2**30:.2f} GiB; launches {launches}")
+    del state, fns
+    return out
+
+
+def _tp_worker(rank: int, world: int, out_dir: str, dev: str, shared, dense, moe) -> None:
+    """One process of ``train_tp``: its summary to ``rank<r>.json``; a failed
+    check raises (the process exits non-zero).  ``shared`` as
+    ``_tp_dense`` takes it; ``dense`` = (cpu config or None, seq, batch);
+    ``moe`` = (cfg, seq, batch, optimizer overrides)."""
+    from datetime import timedelta
+
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.device import resolve_device
+    from repro_torch.launch import mesh as mesh_lib
+
+    if dev == "cuda":
+        torch.cuda.set_device(0)  # every rank on the one card
+        resolve_device("cuda")
+        devname = "cuda:0"
+    else:
+        torch.set_num_threads(1)
+        _count_plain_dispatch()
+        devname = "cpu"
+    dist.init_process_group("gloo", init_method=f"file://{out_dir}/store", world_size=world,
+                            rank=rank, timeout=timedelta(seconds=TP_TIMEOUT_S))
+    try:
+        mesh = mesh_lib.make_mesh((1, world))
+        log(f"train_tp rank {rank}: gloo group up, mesh {mesh.shape} on {devname}")
+        out = {"rank": rank, "dense": _tp_dense(rank, devname, mesh, shared, *dense)}
+        out["moe"] = _tp_moe(rank, devname, mesh, *moe)
+        (Path(out_dir) / f"rank{rank}.json").write_text(json.dumps(out, default=str))
+    finally:
+        dist.destroy_process_group()
+
+
+def _ipc_tree(x, on_card: bool):
+    """A copy of a tree of tensors (dicts, lists, NamedTuples) for CUDA IPC:
+    the card's machine lacks the ``pidfd_open`` call that sharing a tensor
+    of an expandable segment needs, so on the card the copies go to the
+    allocator's fixed segments, and the setting comes back after."""
+    def copy(y):
+        if torch.is_tensor(y):
+            return y.clone()
+        if isinstance(y, dict):
+            return {k: copy(v) for k, v in y.items()}
+        if isinstance(y, list):
+            return [copy(v) for v in y]
+        if isinstance(y, tuple):
+            return type(y)(*map(copy, y)) if hasattr(y, "_fields") else tuple(map(copy, y))
+        return y
+
+    expandable = "expandable_segments:True" in os.environ.get("PYTORCH_CUDA_ALLOC_CONF", "")
+    if on_card and expandable:
+        torch.cuda.memory._set_allocator_settings("expandable_segments:False")
+    try:
+        return copy(x)
+    finally:
+        if on_card and expandable:
+            torch.cuda.memory._set_allocator_settings("expandable_segments:True")
+
+
+def _tp_main(out_json: str, dev: str, dense, moe) -> None:
+    """The process that ``train_tp`` spawns: the single-process dense run
+    and its f32 hot and refresh steps from its state after step 1, then
+    ``TP_WORLD`` processes (``_tp_worker``) on the one card, sharing that
+    state and those steps' params with them by CUDA IPC; their summaries and its own go to
+    ``out_json``.  A process of its own, so that everything it shared is
+    freed when it ends (CUDA IPC keeps a producer's shared memory until its
+    consumers' references are counted down, which exiting consumers do not
+    reliably do).  Fails if a rank fails or outlives ``TP_TIMEOUT_S``."""
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core import make_optimizer
+    from repro_torch.core.lowrank import tree_leaves
+    from repro_torch.core.schedules import cosine_with_warmup
+    from repro_torch.data.synthetic import SyntheticDataConfig, SyntheticDataset
+    from repro_torch.device import resolve_device
+    from repro_torch.models import build_model
+    from repro_torch.train.state import TrainState
+    from repro_torch.train.step import make_train_step
+
+    on_card = torch.device(dev).type == "cuda"
+    if on_card:
+        torch.cuda.set_device(0)
+        resolve_device("cuda")
+    else:
+        torch.set_num_threads(1)
+    cfg = dense[0] or get_config("llama3-8b").with_(n_layers=TP_LAYERS)
+    seq, batch = dense[1], dense[2]
+    # the single-process run of the same steps
+    model = build_model(cfg, device=dev)
+    data = SyntheticDataset(SyntheticDataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
+                                                global_batch=batch), device=dev)
+    params = model.init(torch.Generator(device=dev).manual_seed(SEED))
+    opt_kw = dict(TRAIN_OPT) if on_card else dict(TRAIN_OPT, rank=8, svd_oversample=4)
+    opt = make_optimizer("galore-sara-adam", params, lr_schedule=cosine_with_warmup(
+        opt_kw["lr"], TRAIN_WARMUP, TP_STEPS), **opt_kw)
+    tc = TrainConfig(total_steps=TP_STEPS, seed=SEED)
+    fns = make_train_step(model, opt, train_cfg=tc)
+    state = TrainState(params, opt.init(params))
+    del params
+    ref_losses, ref_ms = [], []
+    for s in range(TP_STEPS):
+        if on_card:
+            torch.cuda.synchronize()
+        t = time.perf_counter()
+        state, m = (fns["refresh_step"] if s == 0 else fns["step"])(state, data.batch_at(s))
+        ref_losses.append(float(m["loss"]))
+        ref_ms.append((time.perf_counter() - t) * 1e3)
+        if s == 1:
+            state1 = state
+    del state, fns
+    # its state after step 1, and the params of one f32 hot step and of one
+    # f32 refresh step from it (the low-rank leaves: the refresh changes
+    # no other): shared with the processes (CUDA IPC; this process keeps
+    # them alive until they end)
+    shared = {"params": _ipc_tree(state1.params, on_card),
+              "opt_state": _ipc_tree(state1.opt_state, on_card)}
+    del state1
+    model32 = build_model(cfg.with_(dtype=torch.float32), device=dev)
+    st = TrainState(shared["params"], shared["opt_state"])
+    one, _ = make_train_step(model32, opt, train_cfg=tc)["step"](st, data.batch_at(TP_STEPS))
+    shared["hot"] = _ipc_tree(tree_leaves(one.params), on_card)
+    del one
+    one, _ = make_train_step(model32, _tp_refresh_optimizer(shared["params"], opt_kw),
+                             train_cfg=tc)["refresh_step"](st, data.batch_at(TP_STEPS))
+    shared["refreshed"] = _ipc_tree({i: x for i, x in enumerate(tree_leaves(one.params))
+                                     if opt.specs[i].lowrank}, on_card)
+    del one
+    # the bar's yardstick: one process against itself, the same refresh
+    # step with its gradient summed in another order (two microbatches),
+    # read as the processes' steps are (``_steps_within``)
+    two, _ = make_train_step(model32, _tp_refresh_optimizer(shared["params"], opt_kw),
+                             train_cfg=TrainConfig(total_steps=TP_STEPS, seed=SEED,
+                                                   microbatch=batch // 2))["refresh_step"](
+        st, data.batch_at(TP_STEPS))
+    flat2, flat0 = tree_leaves(two.params), tree_leaves(shared["params"])
+    self_rel = {i: float(torch.linalg.vector_norm(flat2[i] - x)
+                         / torch.linalg.vector_norm(x - flat0[i]))
+                for i, x in shared["refreshed"].items()}
+    del two, flat2, flat0
+    del opt, model, model32, st
+    if on_card:
+        torch.cuda.empty_cache()
+    log(f"train_tp: the single-process run, losses {ref_losses}, {ref_ms} ms")
+    out_dir = fresh_dir("train_tp")
+    out_dir.mkdir()
+    try:
+        ctx = torch.multiprocessing.get_context("spawn")
+        procs = [ctx.Process(target=_tp_worker,
+                             args=(r, TP_WORLD, str(out_dir), "cuda" if on_card else "cpu",
+                                   shared, dense, moe))
+                 for r in range(TP_WORLD)]
+        for p in procs:
+            p.start()
+        deadline = time.monotonic() + TP_TIMEOUT_S
+        for p in procs:
+            p.join(max(deadline - time.monotonic(), 1.0))
+        alive = [p for p in procs if p.is_alive()]
+        for p in alive:
+            p.kill()
+            p.join()
+        codes = [p.exitcode for p in procs]
+        if alive or any(codes):
+            raise AssertionError(f"train_tp processes ended with {codes}"
+                                 f"{' (killed at the time limit)' if alive else ''}")
+        ranks = [json.loads((out_dir / f"rank{r}.json").read_text()) for r in range(TP_WORLD)]
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    Path(out_json).write_text(json.dumps({"ranks": ranks, "ref_losses": ref_losses,
+                                          "ref_ms": ref_ms, "self_rel": self_rel}, default=str))
+
+
+def train_tp(smi: str, dev: str = "cuda", dense=None, moe=None):
+    """Phase 5c (paths ``train_tp`` and ``train_tp_moe``, see the
+    constants): ``_tp_main`` in a process of its own, then the checks
+    across its ranks.  Returns the two paths' runs.  ``dense`` / ``moe``
+    override the configs for a CPU rehearsal."""
+    from repro_torch.configs.registry import get_config
+
+    dense = dense or (None, TRAIN_SEQ, TRAIN_BATCH)
+    if moe is None:
+        arch, _, mseq, mbatch, mrank, _ = FAMILY_TRAIN_RUNS["train_moe"]
+        moe = (cut_depth(get_config(arch), TP_MOE_LAYERS), mseq, mbatch, dict(rank=mrank))
+    out_json = fresh_dir("train_tp_main.json")
+    proc = torch.multiprocessing.get_context("spawn").Process(
+        target=_tp_main, args=(str(out_json), dev, dense, moe))
+    proc.start()
+    proc.join(TP_TIMEOUT_S + 120)
+    if proc.is_alive():
+        proc.kill()
+        proc.join()
+        raise AssertionError("train_tp: the phase's process was killed at its time limit")
+    if proc.exitcode:
+        raise AssertionError(f"train_tp: the phase's process ended with {proc.exitcode}")
+    got = json.loads(out_json.read_text())
+    out_json.unlink()
+    ranks, ref_losses, ref_ms = got["ranks"], got["ref_losses"], got["ref_ms"]
+    self_rel = sorted(got["self_rel"].values())
+    gaps = [abs(a - b) for a, b in zip(ranks[0]["dense"]["losses"], ref_losses)]
+    if max(gaps) > TP_LOSS_GAP:
+        raise AssertionError(f"train_tp: losses {ranks[0]['dense']['losses']} against the "
+                             f"single-process {ref_losses}: gaps {gaps} > {TP_LOSS_GAP}")
+    for r in ranks[1:]:
+        if r["dense"]["losses"] != ranks[0]["dense"]["losses"]:
+            raise AssertionError(f"train_tp: the processes' losses differ {r['dense']['losses']}")
+    if sum(r["moe"]["drops_cf8"]["dropped"] for r in ranks):
+        raise AssertionError(f"train_tp moe: pairs dropped at capacity {TP_MOE_CAPACITY}: "
+                             f"{[r['moe']['drops_cf8'] for r in ranks]}")
+    routed = sum(r["moe"]["drops"]["routed"] for r in ranks)
+    dropped = sum(r["moe"]["drops"]["dropped"] for r in ranks)
+    head = ranks[0]
+    log(f"train_tp ({smi}; {TP_WORLD} processes sharing one card, so the times are not a "
+        f"tensor-parallel speed): loss gaps {gaps} against the single-process run "
+        f"({ref_losses}); f32 from one state, per process: hot step "
+        f"{[r['dense']['hot_from_same_state'] for r in ranks]}, refresh step "
+        f"{[r['dense']['refresh_from_same_state'] for r in ranks]} (one process against "
+        f"itself, its gradient in two microbatches: {self_rel}); per process "
+        f"max_memory_allocated "
+        f"{[round(r['dense']['max_memory_allocated'] / 2**30, 2) for r in ranks]} GiB, hot "
+        f"step ms {[r['dense']['ms'][1:] for r in ranks]}; moe dropped share at "
+        f"{moe[0].moe_capacity_factor}: {dropped / max(routed, 1):.4f} ({dropped} of {routed}), "
+        f"launches per process {[r['moe']['launches'] for r in ranks]}")
+    dense_run = {"launches": head["dense"]["launches"], "ranks": ranks, "ref_losses": ref_losses,
+                 "ref_ms": ref_ms, "loss_gaps": gaps, "refresh_self_rel": self_rel, "card": smi}
+    moe_run = {"launches": head["moe"]["launches"], "moe_drop_share": dropped / max(routed, 1),
+               "card": smi}
+    return dense_run, moe_run
+
+
 PHASES = ("kernels", "serve", "train", "train_recovery", "train_rank_schedule", "resume",
-          "train_dp", "family_kernels", "serve_moe", "train_moe", "serve_ssm", "train_ssm",
+          "train_dp", "train_tp", "family_kernels", "serve_moe", "train_moe", "serve_ssm", "train_ssm",
           "serve_hybrid", "train_hybrid", "encdec_vlm_kernels", "serve_vlm", "train_vlm",
           "serve_audio", "train_audio", "tables")
 
@@ -4096,7 +4734,10 @@ def main(argv=None) -> int:
             cfg_train.with_(n_layers=RESUME_LAYERS), smi,
             expect_buckets=train_buckets(RESUME_LAYERS)))
     if "train_dp" in only:
-        runs["train_dp"] = phase("train_dp", lambda: train_dp(cfg_train, smi))
+        runs["train_dp"] = phase("train_dp", lambda: train_dp(
+            cfg_train.with_(n_layers=DP_LAYERS), smi, expect_buckets=train_buckets(DP_LAYERS)))
+    if "train_tp" in only:
+        runs["train_tp"], runs["train_tp_moe"] = phase("train_tp", lambda: train_tp(smi))
     if "family_kernels" in only:
         cases += phase("family_kernels", lambda: family_kernel_cases(results))
     if "serve_moe" in only:  # deepseek-moe-16b at full width and depth

@@ -45,6 +45,23 @@ stacks, the refresh's), which ``update`` takes with ``projected=True`` or
 as ``StackedGrads``.  ``state_sharding="zero"`` pads the bucket stacks to
 ``state_shards`` blocks of rows; ``update(..., shard_axes=)`` then runs on
 this process's block (``launch/mesh.DPAxes``).
+
+Tensor parallelism (``tensor_parallel_optimizer``): the optimizer of one
+process's blocks of the params (``launch/sharding.param_spec``), its plan
+made from the global leaves -- the side (left if m <= n), the rank clamp
+and the refresh groups -- and run on the blocks.  Where the projector
+spans the unsplit dim, R and W' are local; where it spans the split dim,
+R is a partial sum all-reduced over ``model`` (the moments are then the
+same on every process) and the projector is this process's rows of it
+(``core/buckets.py``).  The squared norms of the split leaves are summed
+over ``model`` and the whole leaves counted once, so the global norm, the
+clip and the skip-step verdict are the same on every process.
+``tp_global_opt_state`` / ``tp_local_opt_state`` convert between the
+blocks and the global canonical per-leaf state, what checkpoints hold.
+It covers the bucket-native engine with Adam or MSGD (elementwise
+moments); Adam-mini's per-row v and 8-bit Adam's per-row-chunk scales
+would need their rows reduced over ``model``, and Fira and Adafactor run
+the per-leaf loop: those raise under tensor parallelism.
 """
 from __future__ import annotations
 
@@ -362,10 +379,20 @@ def build_specs(
     return specs
 
 
+class TPPlan(NamedTuple):
+    """Tensor parallelism of an optimizer: the ``model`` axis
+    (``launch/mesh.DPAxes``) and, per leaf in flat order, the dim of the
+    global leaf split over it (None: whole)."""
+
+    axes: Any
+    splits: Tuple[Optional[int], ...]
+
+
 class LowRankOptimizer(NamedTuple):
     """(init, update, specs).  ``bucket_plan`` is the static bucketing
     (None for the reference engine); ``state_layout`` is non-None iff the
-    state is stored bucket-native."""
+    state is stored bucket-native.  ``likes`` are the leaves' shapes and
+    dtypes in flat order (this process's blocks under ``tp``)."""
 
     init: Callable[[PyTree], LowRankOptState]
     update: Callable[..., Tuple[PyTree, LowRankOptState, AuxInfo]]
@@ -373,6 +400,8 @@ class LowRankOptimizer(NamedTuple):
     config: OptimizerConfig
     bucket_plan: Optional[buckets_lib.BucketPlan] = None
     state_layout: Optional[buckets_lib.StateLayout] = None
+    likes: Tuple[Any, ...] = ()
+    tp: Optional[TPPlan] = None
 
 
 def _placeholder(device) -> LeafState:
@@ -381,6 +410,28 @@ def _placeholder(device) -> LeafState:
 
 def _global_norm(leaves: Sequence[torch.Tensor]) -> torch.Tensor:
     return torch.sqrt(sum(torch.sum(torch.square(x.float())) for x in leaves))
+
+
+def _tp_norm(values: Sequence[torch.Tensor], flags: Sequence[bool], shard_axes, n_rows: int,
+             tp_axes, squared: bool = False) -> torch.Tensor:
+    """The global norm under tensor parallelism: the squares of the blocks
+    of split tensors (``flags``) summed over ``model``, the whole ones
+    counted once; the first ``n_rows`` values are a ZeRO shard's rows,
+    summed over ``shard_axes`` first.  ``values`` are tensors, or their
+    squared norms with ``squared``."""
+    sqs = [v if squared else torch.sum(torch.square(v.float())) for v in values]
+    zero = torch.zeros((), dtype=torch.float32, device=sqs[0].device)
+
+    def total(lo, hi, want):
+        return sum((q for q, f in zip(sqs[lo:hi], flags[lo:hi]) if f == want), zero)
+
+    rows_split, rows_whole = total(0, n_rows, True), total(0, n_rows, False)
+    if shard_axes is not None:
+        rows = shard_axes.all_reduce_scalars(torch.stack([rows_split, rows_whole]))
+        rows_split, rows_whole = rows[0], rows[1]
+    split = tp_axes.all_reduce_scalars(
+        (rows_split + total(n_rows, len(sqs), True)).reshape(1))[0]
+    return torch.sqrt(split + rows_whole + total(n_rows, len(sqs), False))
 
 
 def _safe_ratio(num: torch.Tensor, den: torch.Tensor) -> torch.Tensor:
@@ -425,10 +476,53 @@ def make_lowrank_optimizer(
     if cfg.rank < 1:
         raise ValueError(f"rank must be >= 1, got {cfg.rank}")
     specs = build_specs(params_like, cfg, lowrank_filter)
+    return _assemble(cfg, specs, tree_leaves(params_like))
+
+
+def tensor_parallel_optimizer(optimizer: "LowRankOptimizer", mesh) -> "LowRankOptimizer":
+    """The optimizer of this process's blocks under ``mesh``'s ``model``
+    axis (module docstring): the global optimizer's specs, its leaves cut
+    by ``launch/sharding.param_spec``.  The optimizer itself where the
+    axis has extent 1."""
+    from repro_torch.launch import sharding as shd
+
+    ax = mesh.model_axes()
+    if ax.size == 1:
+        return optimizer
+    cfg = optimizer.config
+    if cfg.engine != "bucketed" or cfg.inner not in ("adam", "msgd") or cfg.fira:
+        raise NotImplementedError(
+            f"tensor parallelism runs the bucketed engine with adam or msgd, no Fira; "
+            f"got engine={cfg.engine!r}, inner={cfg.inner!r}, fira={cfg.fira} "
+            "(ROADMAP queue 1 item 11, second half)")
+    if cfg.rank_schedule:
+        raise NotImplementedError("rank schedules under tensor parallelism are not ported "
+                                  "(ROADMAP queue 1 item 11, second half)")
+    splits, likes = [], []
+    for spec, like in zip(optimizer.specs, optimizer.likes):
+        shape = tuple(like.shape)
+        d = shd.model_dim(shd.param_spec(spec.path, shape, mesh), len(shape))
+        splits.append(d)
+        if d is not None:
+            shape = shape[:d] + (shape[d] // ax.size,) + shape[d + 1:]
+        likes.append(buckets_lib._Like(shape, like.dtype))
+    out = _assemble(cfg, optimizer.specs, likes, TPPlan(ax, tuple(splits)))
+    if out.state_layout is None:
+        raise NotImplementedError("tensor parallelism needs bucket-native state")
+    return out
+
+
+def _assemble(cfg: OptimizerConfig, specs: List[LeafSpec], flat_like: Sequence,
+              tp: Optional[TPPlan] = None) -> "LowRankOptimizer":
+    """The optimizer of ``specs`` over leaves shaped like ``flat_like``
+    (with ``tp``, this process's blocks of the global leaves the specs
+    were made from)."""
     inner = cfg.make_inner()
     pcfg = cfg.projector_config()
-    flat_like = tree_leaves(params_like)
     groups = max(cfg.refresh_groups, 1)
+    likes = tuple(buckets_lib._Like(tuple(x.shape), x.dtype) for x in flat_like)
+    tp_axes = tp.axes if tp is not None else None
+    tp_split = tp.splits if tp is not None else (None,) * len(specs)
 
     bucket_plan = None
     state_layout = None
@@ -438,6 +532,7 @@ def make_lowrank_optimizer(
         bucket_plan = buckets_lib.build_bucket_plan(
             specs, flat_like,
             split_sides=cfg.inner in buckets_lib.SIDE_HOMOGENEOUS_INNERS,
+            tp_splits=tp_split, tp=tp_axes.size if tp_axes is not None else 1,
         )
         # bucket-native storage only where the fused engine covers every hot
         # step of every low-rank leaf: Adafactor (no fused update) and Fira
@@ -484,7 +579,8 @@ def make_lowrank_optimizer(
                     inner=inner.init(p),
                 ))
         bucket_states = (
-            buckets_lib.init_bucket_states(state_layout, device)
+            buckets_lib.init_bucket_states(state_layout, device,
+                                           tp_axes.index if tp_axes is not None else 0)
             if state_layout is not None else ()
         )
         return LowRankOptState(
@@ -521,6 +617,16 @@ def make_lowrank_optimizer(
                 m2 = torch.einsum("...ko,...no->...kn", m, c)
             inner_state = inner_state._replace(m=m2.to(m.dtype))
         return LeafState(projector=new_p, inner=inner_state), overlap
+
+    def _split_flags(stacked_in: bool, projected: bool) -> List[bool]:
+        """Per gradient tensor handed to the update (the leaves, or the
+        bucket stacks then the rest): is it a block of a tensor split over
+        ``model``?  A "d" bucket's R stack is whole once reduced."""
+        if stacked_in:
+            return ([bk.split in ("n", "b") or (bk.split == "d" and not projected)
+                     for bk in bucket_plan.buckets]
+                    + [tp_split[i] is not None for i in rest_indices])
+        return [x is not None for x in tp_split]
 
     def update(
         grads: PyTree,
@@ -638,7 +744,11 @@ def make_lowrank_optimizer(
             flat_g = tree_leaves(grads)
             stacked_g = None
             every_g = flat_g
-        if shard_local and not refresh:
+        if tp_axes is not None:
+            gnorm = _tp_norm(every_g, _split_flags(stacked_in, projected),
+                             shard_axes if shard_local and not refresh else None,
+                             len(stacked_g) if stacked_in else 0, tp_axes)
+        elif shard_local and not refresh:
             # disjoint blocks of rows: the global norm is the summed local
             # squares (pad rows are zero) plus the replicated rest's
             bsq = sum(torch.sum(torch.square(x.float())) for x in stacked_g)
@@ -654,9 +764,12 @@ def make_lowrank_optimizer(
             # The norm is the same number on every process; a shard's own
             # check of its rows is summed across them, so all agree.
             bad = not bool(torch.isfinite(gnorm)) and not bool(buckets_lib.all_finite(every_g))
-            if shard_local and not bool(torch.isfinite(gnorm)):
+            if (shard_local or tp_axes is not None) and not bool(torch.isfinite(gnorm)):
                 flag = torch.full((1,), float(bad), device=gnorm.device)
-                bad = bool(shard_axes.all_reduce_scalars(flag)[0] > 0)
+                for ax in (shard_axes if shard_local else None, tp_axes):
+                    if ax is not None:
+                        flag = ax.all_reduce_scalars(flag)
+                bad = bool(flag[0] > 0)
             if bad:
                 nan = torch.full((), float("nan"), device=gnorm.device)
                 out = params if apply else tree_unflatten(
@@ -693,11 +806,18 @@ def make_lowrank_optimizer(
                             gs, leaf_draws, old_ps, pcfg, rank=rank
                         )
 
+                split_fn = None
+                if tp_axes is not None and pcfg.method in ("dominant", "sara") \
+                        and pcfg.svd_backend == "randomized":
+                    def split_fn(gs, leaf_draws, old_ps, rank, n_total):
+                        return proj_lib.refresh_projector_stacked_split(
+                            gs, leaf_draws, pcfg, rank=rank, n_total=n_total, axes=tp_axes)
+
                 new_buckets, bucket_overlaps = buckets_lib.bucketed_refresh(
                     state_layout, state.buckets, specs, flat_g, draws,
                     pcfg, _refresh_fn, group=g_now,
                     momentum_carry=cfg.momentum_carry, stacked_refresh_fn=stacked_fn,
-                    stacked_grads=stacked_g,
+                    stacked_grads=stacked_g, tp_axes=tp_axes, split_refresh_fn=split_fn,
                 )
                 overlaps.extend(bucket_overlaps)
             if shard_local and not refresh:
@@ -707,7 +827,7 @@ def make_lowrank_optimizer(
                 out_stacks, new_buckets, bucket_norm_sq = buckets_lib.bucketed_update(
                     bucket_plan, cfg, new_buckets, flat_g, flat_p, step, lr, apply=apply,
                     projected=projected, stacked_grads=stacked_g, stacked_params=local_w,
-                    out_stacked=True,
+                    out_stacked=True, tp_axes=tp_axes,
                 )
                 del local_w
                 full_stacks = buckets_lib.zero_gather_stacks(state_layout, out_stacks,
@@ -718,7 +838,7 @@ def make_lowrank_optimizer(
             else:
                 fused, new_buckets, bucket_norm_sq = buckets_lib.bucketed_update(
                     bucket_plan, cfg, new_buckets, flat_g, flat_p, step, lr, apply=apply,
-                    projected=projected, stacked_grads=stacked_g,
+                    projected=projected, stacked_grads=stacked_g, tp_axes=tp_axes,
                 )
         del stacked_g
 
@@ -768,11 +888,19 @@ def make_lowrank_optimizer(
             new_leaves.append(LeafState(proj, inner_state))
 
         zero = torch.zeros((), dtype=torch.float32, device=gnorm.device)
-        bucket_sq = sum(bucket_norm_sq, zero)
-        if shard_local and not refresh:
-            # disjoint blocks of rows: one scalar sum across the processes
-            bucket_sq = shard_axes.all_reduce_scalars(bucket_sq.reshape(1))[0]
-        unorm = torch.sqrt(sum(norm_sq, zero) + bucket_sq)
+        if tp_axes is not None:
+            # blocks of split leaves summed over ``model``, whole leaves once
+            flags = [bk.split != "" for bk in bucket_plan.buckets] if bucket_norm_sq else []
+            flags += [tp_split[i] is not None for i in range(len(specs)) if i not in fused]
+            unorm = _tp_norm(list(bucket_norm_sq) + norm_sq, flags,
+                             shard_axes if shard_local and not refresh else None,
+                             len(bucket_norm_sq), tp_axes, squared=True)
+        else:
+            bucket_sq = sum(bucket_norm_sq, zero)
+            if shard_local and not refresh:
+                # disjoint blocks of rows: one scalar sum across the processes
+                bucket_sq = shard_axes.all_reduce_scalars(bucket_sq.reshape(1))[0]
+            unorm = torch.sqrt(sum(norm_sq, zero) + bucket_sq)
         mean_overlap = torch.mean(torch.stack(overlaps)) if overlaps else zero
         if zero_layout and not shard_local:
             new_buckets = buckets_lib.zero_pad_states(state_layout, new_buckets)
@@ -789,7 +917,7 @@ def make_lowrank_optimizer(
 
     return LowRankOptimizer(
         init=init, update=update, specs=specs, config=cfg,
-        bucket_plan=bucket_plan, state_layout=state_layout,
+        bucket_plan=bucket_plan, state_layout=state_layout, likes=likes, tp=tp,
     )
 
 
@@ -892,8 +1020,9 @@ def project_grads_stacked(optimizer: LowRankOptimizer, grads: PyTree, state: Low
         else:
             projectors = [bst.projector
                           for bst in buckets_lib.zero_unpad_states(layout, state.buckets)]
-    stacks = buckets_lib.bucketed_project_grads(layout.plan, state.buckets, flat_g,
-                                                projectors=projectors)
+    stacks = buckets_lib.bucketed_project_grads(
+        layout.plan, state.buckets, flat_g, projectors=projectors,
+        tp_axes=optimizer.tp.axes if optimizer.tp is not None else None)
     return StackedGrads(buckets=stacks, rest=_rest(optimizer, flat_g))
 
 
@@ -944,6 +1073,60 @@ def storage_opt_state(optimizer: LowRankOptimizer, state: LowRankOptState) -> Lo
               for i, st in enumerate(state.leaves)]
     return LowRankOptState(step=state.step, draws=state.draws, leaves=leaves,
                            buckets=bucket_states)
+
+
+# ---------------------------------------------------------------------------
+# tensor parallelism: this process's blocks <-> the global canonical state
+# ---------------------------------------------------------------------------
+
+
+def _map_tp_leaf(spec: LeafSpec, st: LeafState, split: Optional[int], ndim: int, fn) -> LeafState:
+    """A canonical per-leaf state with ``fn(tensor, dim)`` applied to each
+    of its tensors that is split over ``model``: the projector along its d
+    ("d") or its stack dim ("b"), the moments along the leaf's own split
+    dim where that is not the projected one (a moment is the leaf's shape
+    with the projected dim replaced by the rank).  Other leaves' inner
+    state is shaped like the param."""
+    if split is None:
+        return st
+    proj, mdim = st.projector, split
+    if spec.lowrank:
+        kind = buckets_lib.tp_kind(spec.side, split, ndim)
+        if kind in ("d", "b"):
+            proj = fn(proj, ndim - 2 if kind == "d" else split)
+        mdim = None if kind == "d" else split
+    if mdim is None or st.inner is None:
+        return LeafState(proj, st.inner)
+    inner = type(st.inner)(*[fn(x, mdim) if torch.is_tensor(x) and x.dim() == ndim else x
+                             for x in st.inner])
+    return LeafState(proj, inner)
+
+
+def tp_global_opt_state(optimizer: LowRankOptimizer, state: LowRankOptState) -> LowRankOptState:
+    """This process's state of a ``tensor_parallel_optimizer`` -> the global
+    canonical per-leaf state, gathered over ``model`` (every process gets
+    it; the collectives run in leaf order on every process)."""
+    canon = canonical_opt_state(optimizer, state)
+    ax, splits = optimizer.tp.axes, optimizer.tp.splits
+    leaves = [_map_tp_leaf(spec, st, d, len(like.shape),
+                           lambda x, dim: ax.all_gather(x, dim=dim))
+              for spec, st, d, like in zip(optimizer.specs, canon.leaves, splits, optimizer.likes)]
+    return canon._replace(leaves=leaves)
+
+
+def tp_local_opt_state(optimizer: LowRankOptimizer, state: LowRankOptState) -> LowRankOptState:
+    """The global canonical per-leaf state -> this process's blocks in the
+    storage layout of ``optimizer`` (a ``tensor_parallel_optimizer``)."""
+    ax, splits = optimizer.tp.axes, optimizer.tp.splits
+
+    def block(x, dim):
+        n = x.shape[dim] // ax.size
+        return x.narrow(dim, ax.index * n, n).clone()
+
+    leaves = [_map_tp_leaf(spec, st, d, len(like.shape), block)
+              for spec, st, d, like in zip(optimizer.specs, state.leaves, splits, optimizer.likes)]
+    return storage_opt_state(optimizer, LowRankOptState(
+        step=state.step, draws=state.draws, leaves=leaves, buckets=()))
 
 
 # ---------------------------------------------------------------------------

@@ -256,6 +256,41 @@ def _refresh_stack(g: torch.Tensor, draws: LeafDraws, prev_p: Optional[torch.Ten
     return p.to(cfg.dtype)
 
 
+def refresh_projector_stacked_split(
+    g: torch.Tensor,  # (B, d, n) this process's columns of the oriented stack
+    draws: LeafDraws,  # the sketch's rows of those columns; the Gumbel noise whole
+    cfg: ProjectorConfig,
+    *,
+    rank: int,
+    n_total: int,
+    axes,
+) -> torch.Tensor:
+    """``refresh_projector_stacked`` for dominant and sara on the randomized
+    backend, on this process's columns of a stack split over ``axes``
+    (``svd.randomized_svd_stacked(split=)``): the same (B, d, rank)
+    projectors on every process, chunked as the whole stack would be."""
+    if cfg.method not in ("dominant", "sara") or cfg.svd_backend != "randomized":
+        raise ValueError(f"the split refresh covers dominant and sara on the randomized "
+                         f"backend, not {cfg.method!r} on {cfg.svd_backend!r}")
+    bsz, d, _ = g.shape
+    rank = min(rank, d)
+    pool = _pool_size(d, cfg, rank)
+    _, kp, _ = svd_lib.clamp_sketch(d, n_total, pool, cfg.svd_oversample, cfg.svd_power_iters)
+    step = refresh_chunk(bsz, d, n_total, kp)
+    outs = []
+    for i in range(0, bsz, step):
+        u, s = svd_lib.randomized_svd_stacked(
+            g[i:i + step].float(), pool, draws.omega[i:i + step],
+            oversample=cfg.svd_oversample, power_iters=cfg.svd_power_iters,
+            split=(axes, n_total))
+        if cfg.method == "dominant":
+            outs.append(u.to(cfg.dtype))
+        else:
+            outs.append(sampling_lib.sara_select(u, s, rank, draws.gumbel[i:i + step])[0]
+                        .to(cfg.dtype))
+    return outs[0] if len(outs) == 1 else torch.cat(outs)
+
+
 def refresh_projector(
     g: torch.Tensor,
     draws: LeafDraws,

@@ -21,6 +21,13 @@ stay f32 (cuSOLVER's result does not depend on a host thread count).
 
 Both return the left singular vectors of G (m x k) and the singular values
 (k,) for G of shape (m, n).
+
+Under tensor parallelism ``randomized_svd_stacked(split=(axes, n_total))``
+takes this process's columns of G: the sketch product and each power
+iteration are summed over the ``model`` axis (G Omega = sum_k G_k Omega_k,
+G G^T Q = sum_k G_k (G_k^T Q), the kernel on the local block), so Q is the
+same on every process, and the small Q^T G is gathered along its columns
+for the SVD.  No process holds the whole gradient.
 """
 from __future__ import annotations
 
@@ -80,19 +87,29 @@ def randomized_svd_stacked(
     *,
     oversample: int = 8,
     power_iters: int = 2,
+    split=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One batched randomized-SVD chain over a (B, m, n) stack.  Returns
-    (U (B, m, k), S (B, k))."""
+    (U (B, m, k), S (B, k)).  ``split`` = (axes, n_total): ``g`` is this
+    process's columns of a (B, m, n_total) stack split over ``axes`` and
+    ``omega`` its rows of the sketch (module docstring)."""
     g = g.float()
     bsz, m, n = g.shape
-    k, kp, power_iters = clamp_sketch(m, n, k, oversample, power_iters)
+    axes, n_total = split if split is not None else (None, n)
+    k, kp, power_iters = clamp_sketch(m, n_total, k, oversample, power_iters)
     if tuple(omega.shape) != (bsz, n, kp):
         raise ValueError(f"sketch shape {tuple(omega.shape)} != {(bsz, n, kp)}")
-    y = torch.bmm(g, omega.float())  # (B, m, k') sketch
+
+    def summed(y):
+        return y if axes is None else axes.all_reduce_(y)
+
+    y = summed(torch.bmm(g, omega.float()))  # (B, m, k') sketch
     for _ in range(power_iters):
-        y = power_ops.power_iter_step(g, qr_q(y))
+        y = summed(power_ops.power_iter_step(g, qr_q(y)))
     q = qr_q(y)  # (B, m, k') orthonormal range basis
     b = torch.bmm(q.transpose(1, 2), g)  # (B, k', n)
+    if axes is not None:
+        b = axes.all_gather(b, dim=2)
     ub, s, _ = svd_f32(b)
     u = torch.bmm(q, ub)
     return _leading(u, s, k)

@@ -1,15 +1,23 @@
-"""The data-parallel mesh on ``torch.distributed``, from
-``src/repro/launch/mesh.py``.
+"""The mesh on ``torch.distributed``, from ``src/repro/launch/mesh.py``.
 
 A mesh names the axes (pod, data, model) of the processes, one card each,
 in row-major order: the process of rank ``r`` sits at the coordinates of
-``r`` in the mesh's shape.  The port runs the data-parallel axes, ``pod``
-and ``data``; a ``model`` extent above 1 (tensor parallelism) raises.
-``Mesh.axes(names)`` is one set of those axes as a process group
-(``DPAxes``): this process's index along them, their extent, and the
-collectives the train step hands its gradients to.  Those count the bytes
-they are handed in ``COMM`` (``comm_reset`` / ``comm_snapshot``), the
-figure ``core/buckets.dp_comm_model`` models.
+``r`` in the mesh's shape.  ``pod`` and ``data`` are the data-parallel
+axes; ``model`` is tensor (and expert) parallelism.  ``Mesh.axes(names)``
+is one set of those axes as a process group (``DPAxes``): this process's
+index along them, their extent, and the collectives the train step and
+the model's tensor-parallel layers (``models/parallel.py``) hand their
+tensors to; ``Mesh.model_axes()`` is the ``model`` axis alone.  The
+collectives count the bytes they are handed in ``COMM`` (``comm_reset`` /
+``comm_snapshot``), the figure ``core/buckets.dp_comm_model`` models for
+the data-parallel axes.
+
+On gloo only ``all_reduce`` and ``broadcast`` take CUDA tensors (the
+backend table of ``torch.distributed``): an axes object of a gloo group
+stages its other collectives of CUDA tensors through host memory, chosen
+by the group's backend when the mesh is made, and counts them as the same
+collective.  That is how two processes share one card (NCCL refuses two
+ranks on one device).
 
 The mesh uses the default process group, so the caller starts it first
 (``launch/train.maybe_init_distributed``; NCCL for CUDA tensors, gloo for
@@ -29,8 +37,6 @@ import torch.distributed as dist
 
 AXES = ("pod", "data", "model")
 DP_AXES = ("pod", "data")
-_TP_LATER = ("tensor parallelism over the 'model' axis is not yet ported to repro_torch "
-             "(ROADMAP queue 1 item 11, second half)")
 
 # Bytes handed to each kind of collective (``all_reduce``, ``reduce_scatter``,
 # ``all_gather``: the input, the input, the gathered output) and the calls
@@ -49,19 +55,23 @@ def comm_snapshot() -> Dict[str, int]:
 
 
 class DPAxes:
-    """Data-parallel axes of a mesh as one process group.
+    """Axes of a mesh as one process group: data-parallel ones, or the
+    ``model`` axis alone.
 
     ``index`` is this process's combined index over ``names``
     (major-to-minor in the given order, the row order of the gathered and
     scattered stacks), ``size`` their extent.  ``group`` None means no
     process group (a one-process mesh): every collective is then the
-    identity and counts nothing."""
+    identity and counts nothing.  ``stage`` (a gloo group) runs
+    ``reduce_scatter`` and ``all_gather`` of CUDA tensors on host copies."""
 
-    def __init__(self, names: Tuple[str, ...], size: int, index: int, group=None):
+    def __init__(self, names: Tuple[str, ...], size: int, index: int, group=None,
+                 stage: bool = False):
         self.names = tuple(names)
         self.size = int(size)
         self.index = int(index)
         self.group = group
+        self.stage = bool(stage)
 
     def __repr__(self) -> str:
         return f"DPAxes({self.names}, size={self.size}, index={self.index})"
@@ -72,12 +82,14 @@ class DPAxes:
             COMM[key] += nbytes
             COMM[key + "_calls"] += 1
 
-    def all_reduce_(self, t: torch.Tensor) -> torch.Tensor:
-        """Sum ``t`` over the axes, in place; returns ``t``."""
+    def all_reduce_(self, t: torch.Tensor, op: str = "sum") -> torch.Tensor:
+        """Sum (or ``op="max"``: the largest of) ``t`` over the axes, in
+        place; returns ``t``."""
         if self.group is None:
             return t
         self._count("all_reduce", t.numel() * t.element_size())
-        dist.all_reduce(t, op=dist.ReduceOp.SUM, group=self.group)
+        dist.all_reduce(t, op=dist.ReduceOp.MAX if op == "max" else dist.ReduceOp.SUM,
+                        group=self.group)
         return t
 
     def all_reduce_scalars(self, values: torch.Tensor) -> torch.Tensor:
@@ -96,29 +108,39 @@ class DPAxes:
             return t
         if t.shape[0] % self.size:
             raise ValueError(f"reduce_scatter: {t.shape[0]} rows over {self.size} processes")
-        t = t.contiguous()
-        out = t.new_empty((t.shape[0] // self.size,) + tuple(t.shape[1:]))
         self._count("reduce_scatter", t.numel() * t.element_size())
-        dist.reduce_scatter_tensor(out, t, op=dist.ReduceOp.SUM, group=self.group)
-        return out
+        src = t.contiguous()
+        staged = self.stage and src.is_cuda
+        if staged:
+            src = src.cpu()
+        out = src.new_empty((src.shape[0] // self.size,) + tuple(src.shape[1:]))
+        dist.reduce_scatter_tensor(out, src, op=dist.ReduceOp.SUM, group=self.group)
+        return out.to(t.device) if staged else out
 
-    def all_gather(self, t: torch.Tensor) -> torch.Tensor:
-        """Every process's ``t`` stacked along dim 0 in index order."""
+    def all_gather(self, t: torch.Tensor, dim: int = 0) -> torch.Tensor:
+        """Every process's ``t`` concatenated along ``dim`` (0: stacked
+        rows) in index order."""
         if self.group is None:
             return t
-        t = t.contiguous()
-        out = t.new_empty((t.shape[0] * self.size,) + tuple(t.shape[1:]))
+        dim = dim % t.dim()
+        src = t.movedim(dim, 0).contiguous()
+        staged = self.stage and src.is_cuda
+        if staged:
+            src = src.cpu()
+        out = src.new_empty((src.shape[0] * self.size,) + tuple(src.shape[1:]))
         self._count("all_gather", out.numel() * out.element_size())
-        dist.all_gather_into_tensor(out, t, group=self.group)
-        return out
+        dist.all_gather_into_tensor(out, src, group=self.group)
+        if staged:
+            out = out.to(t.device)
+        return out.movedim(0, dim).contiguous() if dim else out
 
 
 class Mesh:
     """Axis names, extents and this process's coordinates, with a process
-    group per set of data-parallel axes (``axes``)."""
+    group per set of data-parallel axes and one for ``model`` (``axes``)."""
 
     def __init__(self, axis_names: Tuple[str, ...], shape: Tuple[int, ...], rank: int = 0,
-                 groups: Optional[Dict[Tuple[str, ...], object]] = None):
+                 groups: Optional[Dict[Tuple[str, ...], object]] = None, stage: bool = False):
         self.axis_names = tuple(axis_names)
         self.shape = dict(zip(self.axis_names, (int(s) for s in shape)))
         self.rank = int(rank)
@@ -131,6 +153,7 @@ class Mesh:
             r //= self.shape[a]
         self.coords = {a: coords[a] for a in self.axis_names}
         self._groups = dict(groups or {})
+        self.stage = bool(stage)
 
     def __repr__(self) -> str:
         return f"Mesh({self.shape}, rank={self.rank})"
@@ -140,17 +163,31 @@ class Mesh:
         """Whether the mesh spans processes (its collectives are real)."""
         return bool(self._groups)
 
+    @property
+    def tp(self) -> int:
+        """The ``model`` extent (1 without the axis)."""
+        return self.shape.get("model", 1)
+
     def axes(self, names: Sequence[str]) -> DPAxes:
         """The data-parallel axes ``names`` (taken in (pod, data) order,
-        the order of the ranks in their group) as a ``DPAxes``."""
-        for a in names:
-            if a not in self.axis_names or a not in DP_AXES:
-                raise ValueError(f"{a!r} is not a data-parallel axis of {self.axis_names}")
-        names = tuple(a for a in DP_AXES if a in names)
+        the order of the ranks in their group), or ``("model",)``, as a
+        ``DPAxes``."""
+        if tuple(names) != ("model",):
+            for a in names:
+                if a not in self.axis_names or a not in DP_AXES:
+                    raise ValueError(f"{a!r} is not a data-parallel axis of {self.axis_names}")
+            names = tuple(a for a in DP_AXES if a in names)
+        elif "model" not in self.axis_names:
+            return DPAxes(("model",), 1, 0)
         index = 0
         for a in names:
             index = index * self.shape[a] + self.coords[a]
-        return DPAxes(names, axes_size(self, names), index, self._groups.get(names))
+        return DPAxes(names, axes_size(self, names), index, self._groups.get(names),
+                      stage=self.stage)
+
+    def model_axes(self) -> DPAxes:
+        """The ``model`` axis as a ``DPAxes`` (extent 1 without one)."""
+        return self.axes(("model",))
 
 
 def _world() -> Tuple[int, int]:
@@ -171,8 +208,6 @@ def make_mesh(shape: Tuple[int, ...], axes: Optional[Tuple[str, ...]] = None) ->
     if len(axes) != len(shape) or set(axes) - set(AXES):
         raise ValueError(f"mesh shape {shape} does not fit axes {axes}")
     extents = dict(zip(axes, shape))
-    if extents.get("model", 1) > 1:
-        raise NotImplementedError(_TP_LATER)
     rank, world = _world()
     total = 1
     for s in shape:
@@ -180,24 +215,30 @@ def make_mesh(shape: Tuple[int, ...], axes: Optional[Tuple[str, ...]] = None) ->
     if total != world:
         raise ValueError(f"mesh {dict(extents)} has {total} places for {world} processes")
     groups: Dict[Tuple[str, ...], object] = {}
+    stage = False
     if dist.is_available() and dist.is_initialized():
+        stage = dist.get_backend() == "gloo"
         dp = tuple(a for a in DP_AXES if a in axes)
         layout = Mesh(axes, shape)
-        for k in range(1, len(dp) + 1):
-            for subset in itertools.combinations(dp, k):
-                if axes_size(layout, subset) == world:
-                    groups[subset] = dist.group.WORLD
-                    continue
-                # the processes that differ only along ``subset``
-                parts: Dict[Tuple[int, ...], list] = {}
-                for r in range(world):
-                    c = Mesh(axes, shape, r).coords
-                    parts.setdefault(tuple(c[a] for a in axes if a not in subset), []).append(r)
-                for ranks in parts.values():
-                    g = dist.new_group(ranks)
-                    if rank in ranks:
-                        groups[subset] = g
-    return Mesh(axes, shape, rank, groups)
+        subsets = [s for k in range(1, len(dp) + 1) for s in itertools.combinations(dp, k)]
+        if extents.get("model", 1) > 1:
+            subsets.append(("model",))
+        for subset in subsets:
+            if axes_size(layout, subset) == 1 < world:
+                continue  # an axis of extent 1 needs no group: its collectives are identities
+            if axes_size(layout, subset) == world:
+                groups[subset] = dist.group.WORLD
+                continue
+            # the processes that differ only along ``subset``
+            parts: Dict[Tuple[int, ...], list] = {}
+            for r in range(world):
+                c = Mesh(axes, shape, r).coords
+                parts.setdefault(tuple(c[a] for a in axes if a not in subset), []).append(r)
+            for ranks in parts.values():
+                g = dist.new_group(ranks)
+                if rank in ranks:
+                    groups[subset] = g
+    return Mesh(axes, shape, rank, groups, stage)
 
 
 def single_device_mesh() -> Mesh:

@@ -1,8 +1,18 @@
-"""Where each process's share of the batch and of the ZeRO state lies,
-from the data-parallel part of ``src/repro/launch/sharding.py``.
+"""Where each process's share of the params, the batch and the ZeRO state
+lies, from ``src/repro/launch/sharding.py``.
 
 The reference states placements as ``PartitionSpec``s for XLA; here each
-process holds its own tensors, so the same rules are row ranges:
+process holds its own tensors, so the same rules are blocks and row
+ranges:
+
+  * ``param_spec`` -- the name-based rules (``_RULES``, ``RULE_OVERRIDES``,
+    ``_guard``, the ``experts`` rule, the replicated ``router_w``), as a
+    tuple of axis names or None per dim (the ``PartitionSpec``'s entries).
+    ``tp_splits`` reads from it the dim each leaf splits over ``model``;
+    ``shard_params`` cuts this process's blocks and ``gather_params``
+    joins them again.  The dims the rules put on ``data`` are recorded in
+    the spec but not split: the port runs no FSDP yet (ROADMAP queue 1
+    item 11, second half).
 
   * ``batch_rows`` / ``shard_batch`` -- ``batch_spec``: dim 0 of the global
     batch splits evenly over the batch axes (pod, data) when it divides;
@@ -14,17 +24,130 @@ process holds its own tensors, so the same rules are row ranges:
     count at init) splits its dim 0 over the DP axes; everything else is
     replicated (``train/step.shard_train_state`` keeps those rows).
 
-The name-based tensor-parallel rules (``param_spec``, ``tree_shardings``)
-and ``cache_spec`` wait for tensor parallelism (ROADMAP queue 1 item 11,
-second half).
+``cache_spec`` waits: neither package's serving launcher takes a mesh.
+``tree_shardings`` has no counterpart: there is no SPMD partitioner to
+hand placements to.
 """
 from __future__ import annotations
 
-from typing import List, Tuple
+import re
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
+from repro_torch.core.lowrank import flatten_with_path, tree_leaves, tree_unflatten
 from repro_torch.launch.mesh import axes_size, batch_axes
+
+# (regex on path, (second_to_last_axis, last_axis)) in priority order.
+_RULES: Tuple[Tuple[str, Tuple[Optional[str], Optional[str]]], ...] = (
+    (r"embed", ("model", "data")),  # (vocab, d)
+    (r"lm_head", ("data", "model")),  # (d, vocab)
+    (r"(o_proj|down_proj|out_proj|cross_o_proj)", ("model", "data")),
+    (
+        r"(q_proj|k_proj|v_proj|gate_proj|up_proj|in_proj|cross_[qkv]_proj"
+        r"|patch_in_proj)",
+        ("data", "model"),
+    ),
+)
+
+# Minimum per-shard extent: no dim is split below it (narrow leaves such as
+# a few KV heads stay whole).
+MIN_SHARD_EXTENT = 64
+
+# Experiment overrides: {regex: (ax_m2, ax_m1)} checked before _RULES.
+RULE_OVERRIDES: dict = {}
+
+Spec = Tuple[Optional[str], ...]
+
+
+def _guard(dim: int, axis: Optional[str], mesh) -> Optional[str]:
+    if axis is None or axis not in mesh.axis_names:
+        return None
+    n = mesh.shape[axis]
+    if dim % n != 0 or dim // n < MIN_SHARD_EXTENT:
+        return None
+    return axis
+
+
+def param_spec(path: str, shape: Tuple[int, ...], mesh) -> Spec:
+    """The reference's ``param_spec`` (``sharding.py:67-99``): per dim of a
+    leaf of global ``shape``, the mesh axis it is split over, or None; ()
+    for a replicated leaf.  ``mesh`` needs ``.shape`` (a dict) and
+    ``.axis_names``."""
+    if len(shape) < 2:
+        return ()
+    low = path.lower()
+    for pat, axes in RULE_OVERRIDES.items():
+        if re.search(pat, low):
+            a2 = _guard(shape[-2], axes[0], mesh)
+            a1 = _guard(shape[-1], axes[1], mesh)
+            return tuple([None] * (len(shape) - 2) + [a2, a1])
+    if "experts" in low and len(shape) >= 3:
+        # (L, E, d, ff): experts over ``model``, the expert d_ff on ``data``;
+        # E is a stack dim, so divisibility is the only guard
+        def _div(dim, axis):
+            n = mesh.shape.get(axis, 0)
+            return axis if n and dim % n == 0 and dim >= n else None
+
+        e_ax = _div(shape[-3], "model")
+        if "down_proj" in low:
+            ff_ax = _div(shape[-2], "data")
+            return tuple([None] * (len(shape) - 3) + [e_ax, ff_ax, None])
+        ff_ax = _div(shape[-1], "data")
+        return tuple([None] * (len(shape) - 3) + [e_ax, None, ff_ax])
+    if "router_w" in low:
+        return ()  # replicated: every rank routes identically (EP dispatch)
+    for pat, (ax_m2, ax_m1) in _RULES:
+        if re.search(pat, low):
+            a2 = _guard(shape[-2], ax_m2, mesh)
+            a1 = _guard(shape[-1], ax_m1, mesh)
+            return tuple([None] * (len(shape) - 2) + [a2, a1])
+    return ()  # norms, biases, conv, ssm vectors: replicated
+
+
+def model_dim(spec: Spec, ndim: int) -> Optional[int]:
+    """The (non-negative) dim a spec splits over ``model``, or None."""
+    for i, a in enumerate(spec):
+        if a == "model":
+            return ndim - len(spec) + i
+    return None
+
+
+def tp_splits(tree, mesh) -> List[Optional[int]]:
+    """Per leaf of a tree of global shapes (tensors, or anything with a
+    ``.shape``), in flat order: the dim split over ``model``, or None
+    (every leaf None without a ``model`` extent above 1)."""
+    tp = mesh.shape.get("model", 1) if mesh is not None else 1
+    out = []
+    for path, leaf in flatten_with_path(tree):
+        shape = tuple(leaf.shape)
+        out.append(model_dim(param_spec(path, shape, mesh), len(shape)) if tp > 1 else None)
+    return out
+
+
+def local_block(x: torch.Tensor, dim: Optional[int], index: int, size: int) -> torch.Tensor:
+    """Block ``index`` of ``size`` along ``dim`` (x itself for None), in
+    storage of its own."""
+    if dim is None or size == 1:
+        return x
+    n = x.shape[dim] // size
+    return x.narrow(dim, index * n, n).clone()
+
+
+def shard_params(tree, mesh, splits: Optional[Sequence[Optional[int]]] = None):
+    """This process's blocks of a tree of global params (``tp_splits``)."""
+    splits = tp_splits(tree, mesh) if splits is None else splits
+    ax = mesh.model_axes()
+    return tree_unflatten(tree, [local_block(x, d, ax.index, ax.size)
+                                 for x, d in zip(tree_leaves(tree), splits)])
+
+
+def gather_params(tree, mesh, splits: Sequence[Optional[int]]):
+    """The global params from every process's blocks (``shard_params``'
+    inverse; ``splits`` from the global shapes)."""
+    ax = mesh.model_axes()
+    return tree_unflatten(tree, [x if d is None else ax.all_gather(x, dim=d)
+                                 for x, d in zip(tree_leaves(tree), splits)])
 
 
 def batch_rows(n: int, mesh) -> Tuple[int, int]:

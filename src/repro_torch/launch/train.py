@@ -51,29 +51,38 @@ adds the refresh update's spectrum to the history.  The run ends with a
         --device cpu --steps 8 --tau 2 --engine bucketed --svd-backend randomized \\
         --rank-schedule step:16:8 --ckpt-dir /path/to/ckpt
 
-Data parallel, one process per card: ``--mesh data,model`` (or
-``pod,data,model``; model 1) over the processes, ``--compressed-dp`` for
-the project-then-reduce step (``flat``, or ``--compressed-dp pod``),
+Data and tensor parallel, one process per card: ``--mesh data,model``
+(or ``pod,data,model``) over the processes, ``--compressed-dp`` for the
+project-then-reduce step (``flat``, or ``--compressed-dp pod``),
 ``--state-sharding zero`` for ZeRO state (``--state-shards`` defaults to
-the compressed axes' replica count).  Start the processes with torchrun,
-which sets ``RANK`` / ``WORLD_SIZE`` / ``MASTER_ADDR`` / ``MASTER_PORT``:
+the compressed axes' replica count).  A ``model`` extent above 1 runs the
+dense and MoE families tensor parallel (MoE: expert parallel), each
+process holding its blocks of the params and optimizer state
+(``train/step.py``); the bucketed engine with Adam or MSGD.  Start the
+processes with torchrun, which sets ``RANK`` / ``WORLD_SIZE`` /
+``MASTER_ADDR`` / ``MASTER_PORT``:
 
     PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \
         --arch llama3-8b --engine bucketed --svd-backend randomized \
         --mesh 4,1 --compressed-dp --state-sharding zero --steps 100
+    PYTHONPATH=src torchrun --nproc-per-node 8 -m repro_torch.launch.train \
+        --arch llama3-8b --engine bucketed --svd-backend randomized --mesh 4,2
+
 
 or one launcher per process with ``--coordinator`` (``host:port``, or a
 ``file://`` store), ``--num-processes`` and ``--process-id``.  The process
 group is NCCL on the card and gloo with ``--device cpu``; there is no
 fallback from one to the other, and a collective that fails or waits
-past ``GROUP_TIMEOUT`` raises.  Each process feeds the global batch
+past ``GROUP_TIMEOUT`` raises.  On the CPU a tensor-parallel world is
+gloo processes (``--mesh 1,2 --device cpu``, two launchers with
+``--coordinator``).  Each process feeds the global batch
 (``--batch``) and runs its own rows of it.
 
 Beyond the reference's flags, ``--svd-backend`` picks the refresh's SVD
 (the reference's default, exact, or randomized, whose power iterations
 run on the CUDA kernel), and ``--dist`` the synthetic corpus (bigram or
 zipf).  The heartbeat flags (``--heartbeat-timeout``, ``--stale-action``)
-wait for ROADMAP queue 1 item 11, second half: every process beats just
+wait for ROADMAP queue 1 item 11, second half (the fault harness): every process beats just
 before it checks, so no worker can go stale and the run's closing line
 has no stale-worker count; Fira's limiter keeps its default, as the
 reference's launcher has no flag for it either.
@@ -153,7 +162,8 @@ def main(argv=None) -> None:
     ap.add_argument("--collective-timeout", type=float, default=0.0,
                     help=">0: arm the step watchdog (a sync per step)")
     ap.add_argument("--mesh", default="",
-                    help="'data,model' or 'pod,data,model' (model 1) over the processes")
+                    help="'data,model' or 'pod,data,model' over the processes "
+                         "(model > 1: tensor parallel, dense and MoE)")
     ap.add_argument("--compressed-dp", nargs="?", const="flat", default="",
                     choices=("flat", "pod"),
                     help="project-then-reduce DP gradient compression (flat | pod)")

@@ -1,6 +1,15 @@
 """Shared layers, from ``src/repro/models/layers.py``: plain functions over
 parameter dicts whose names follow the JAX tree (``*_proj``, ``embed``,
 ``lm_head``, ``*_norm``, ``*_bias``).
+
+Under tensor parallelism (``models/parallel.py``: a step run with a
+``model`` extent above 1) ``apply_mlp`` is Megatron's column-parallel
+``gate``/``up`` and row-parallel ``down``, and ``chunked_cross_entropy``
+is vocab-parallel, wherever the name-based rules split those leaves (a
+leaf narrower than the given width is a block).  JAX's
+``manual_axis_names`` and ``shard_activations`` (``layers.py:180-253``)
+are placement hints for XLA with no arithmetic of their own: they have
+no counterpart here.
 """
 from __future__ import annotations
 
@@ -13,6 +22,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.rmsnorm import ops as rmsnorm_ops
+from repro_torch.models import parallel as par
 
 Params = Dict[str, object]
 
@@ -121,18 +131,27 @@ def init_mlp(
     return p
 
 
-def apply_mlp(params: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def apply_mlp(params: Params, x: torch.Tensor, cfg: ModelConfig,
+              d_ff: Optional[int] = None) -> torch.Tensor:
+    """The MLP of width ``d_ff`` (default ``cfg.d_ff``).  Under tensor
+    parallelism with ``up_proj`` a column block of that width, this
+    process's block of the hidden units, then one f32 all-reduce of the
+    partial outputs (``reduce_from_model``)."""
     # ``.to(dt)`` is a no-op on weights already cast for serving.
     dt = x.dtype
+    ax = par.model_axes()
+    split = ax is not None and params["up_proj"].shape[-1] != (d_ff or cfg.d_ff)
+    if split:
+        x = par.copy_to_model(x, ax)
     if cfg.mlp_kind == "swiglu":
         g = x @ params["gate_proj"].to(dt)
         u = x @ params["up_proj"].to(dt)
         h = F.silu(g.float()).to(dt) * u
-        return h @ params["down_proj"].to(dt)
-    # nemotron-4: squared ReLU, no gate
-    u = x @ params["up_proj"].to(dt)
-    h = torch.square(torch.relu(u.float())).to(dt)
-    return h @ params["down_proj"].to(dt)
+    else:  # nemotron-4: squared ReLU, no gate
+        u = x @ params["up_proj"].to(dt)
+        h = torch.square(torch.relu(u.float())).to(dt)
+    out = h @ params["down_proj"].to(dt)
+    return par.reduce_from_model(out.float(), ax).to(dt) if split else out
 
 
 # ---------------------------------------------------------------------------
@@ -149,18 +168,44 @@ def _xent_chunk(hc: torch.Tensor, lm_head: torch.Tensor, yc: torch.Tensor):
     return torch.sum((logz - picked) * mask), torch.sum(mask)
 
 
+def _xent_chunk_vocab_parallel(hc: torch.Tensor, lm_head: torch.Tensor, yc: torch.Tensor,
+                               ax) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``_xent_chunk`` with ``lm_head`` this process's (D, V / tp) block of
+    the vocab: each token's max, sum of exponentials and target logit in
+    f32, each reduced over ``model`` (the max without a gradient)."""
+    vl = lm_head.shape[-1]
+    logits = (par.copy_to_model(hc, ax) @ lm_head.to(hc.dtype)).float()
+    m = par.max_over_model(logits.amax(dim=-1), ax)
+    se = par.reduce_from_model(torch.exp(logits - m[..., None]).sum(dim=-1), ax)
+    logz = m + torch.log(se)
+    yl = yc.long() - ax.index * vl
+    mine = (yl >= 0) & (yl < vl)
+    picked = torch.gather(logits, -1, yl.clamp(0, vl - 1)[..., None])[..., 0]
+    picked = par.reduce_from_model(torch.where(mine, picked, torch.zeros_like(picked)), ax)
+    mask = (yc >= 0).float()
+    return torch.sum((logz - picked) * mask), torch.sum(mask)
+
+
 def chunked_cross_entropy(
     hidden: torch.Tensor,  # (B, S, D)
     lm_head: torch.Tensor,  # (D, V)
     labels: torch.Tensor,  # (B, S) int; -1 = masked
     chunk: int = 2048,
+    vocab: int = 0,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Mean NLL over non-masked tokens without materializing (B, S, V)
     logits: the sequence runs in chunks (the batch dim is kept), logits are
     f32, and each chunk is recomputed in backward (``checkpoint``) instead
     of storing its O(B x chunk x V) residuals.  Returns (mean_loss,
     n_tokens), as ``src/repro/models/layers.py:132-172``; the ragged last
-    chunk is sliced rather than padded with masked labels (same sums)."""
+    chunk is sliced rather than padded with masked labels (same sums).
+    Under tensor parallelism with ``lm_head`` narrower than ``vocab``,
+    each chunk is vocab-parallel (``_xent_chunk_vocab_parallel``)."""
+    ax = par.model_axes()
+    if ax is not None and vocab and lm_head.shape[-1] != vocab:
+        fn = lambda hc, w, yc: _xent_chunk_vocab_parallel(hc, w, yc, ax)  # noqa: E731
+    else:
+        fn = _xent_chunk
     s = hidden.shape[1]
     cs = min(chunk, s)
     total = hidden.new_zeros((), dtype=torch.float32)
@@ -169,9 +214,9 @@ def chunked_cross_entropy(
         hc = hidden[:, start:start + cs]
         yc = labels[:, start:start + cs]
         if torch.is_grad_enabled():
-            nll, n = checkpoint(_xent_chunk, hc, lm_head, yc, use_reentrant=False)
+            nll, n = checkpoint(fn, hc, lm_head, yc, use_reentrant=False)
         else:
-            nll, n = _xent_chunk(hc, lm_head, yc)
+            nll, n = fn(hc, lm_head, yc)
         total = total + nll
         count = count + n
     return total / torch.clamp(count, min=1.0), count

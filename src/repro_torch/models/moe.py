@@ -1,6 +1,7 @@
 """Mixture-of-Experts FFN (deepseek-moe-16b, olmoe-1b-7b), from
 ``src/repro/models/moe.py``: the local dropless path
-(``_apply_moe_local``, moe.py:76-126).
+(``_apply_moe_local``, moe.py:76-126) and the expert-parallel path
+(``_ep_local_fn`` / ``_apply_moe_ep``, moe.py:152-261).
 
   1. router scores in f32 -> softmax -> top-k experts per token, the
      weights renormalized (+1e-9),
@@ -16,8 +17,25 @@ products, one ``torch.matmul`` per expert whose group is not empty, on its
 contiguous row range.  The group sizes reach the host once per call (one
 sync per MoE layer), counted in ``HOST_SYNCS``.  DeepSeek's shared experts
 are fused into one dense SwiGLU of width ``n_shared_experts * d_ff``
-(always-active experts' outputs sum).  The expert-parallel path
-(moe.py:152-261) waits for ROADMAP queue 1 item 11, second half.
+(always-active experts' outputs sum).
+
+The expert-parallel path (``apply_moe_ep``) runs under tensor parallelism
+(``models/parallel.py``: a step with a ``model`` extent above 1), each
+process holding E / model experts (``launch/sharding.param_spec``'s
+``experts`` rule) and the replicated router: every process routes every
+token identically, keeps the (token, slot) pairs of its own experts up to
+a capacity of ``int(t k / E * moe_capacity_factor) + 1`` per expert (the
+position in each expert by a cumulative sum; later pairs are dropped, as
+in JAX), runs (E_loc, cap, d) batched products, adds its block of the
+shared experts' hidden units, and one f32 all-reduce over ``model`` sums
+the partial outputs.  The products are ``torch.bmm``, as JAX's are
+einsums outside any Pallas kernel.  The aux loss is the same on every
+process of ``model``; its mean over the data-parallel axes is the step's
+(each process's loss carries its own rows' aux, and the step averages
+the losses and the gradients).  Dropped pairs are counted on the device
+in ``EP_DROPS`` (``ep_drops()`` reads them).  FSDP of the expert ``d_ff`` over ``data`` (the rule's
+``data`` dim) and the SSM heads' sharding wait for ROADMAP queue 1 item
+11, second half: ``_shard_ssm_heads``, FSDP over data, the fault harness.
 """
 from __future__ import annotations
 
@@ -29,6 +47,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
+from repro_torch.models import parallel as par
 from repro_torch.models import transformer as tfm
 
 Params = Dict[str, Any]
@@ -36,6 +55,22 @@ Params = Dict[str, Any]
 # Host syncs for the group sizes, one per MoE layer call (see the module
 # docstring); reset and read by whoever measures them.
 HOST_SYNCS = [0]
+
+# The expert-parallel path's routed (token, slot) pairs and the pairs it
+# dropped past an expert's capacity, summed over its calls on this process
+# (each pair is counted once, by the process that owns its expert).  The
+# sums stay on the device, so counting adds no host sync to the step:
+# ``ep_drops()`` reads them (one sync), ``reset_ep_drops()`` zeroes them.
+EP_DROPS: Dict[str, Any] = {"routed": 0, "dropped": 0}
+
+
+def reset_ep_drops() -> None:
+    EP_DROPS.update(routed=0, dropped=0)
+
+
+def ep_drops() -> Dict[str, int]:
+    """``EP_DROPS`` read to the host: {"routed": n, "dropped": n}."""
+    return {k: int(v) for k, v in EP_DROPS.items()}
 
 
 def init_moe_mlp(
@@ -118,18 +153,105 @@ def apply_moe_local(p: Params, x: torch.Tensor, cfg: ModelConfig) -> Tuple[torch
     y = y.index_add(0, tok_sorted, ys.float() * w_sorted[:, None])
     out = y.to(dt).reshape(b, s, d)
     if "shared_mlp" in p:
-        out = out + L.apply_mlp(p["shared_mlp"], x, cfg.with_(mlp_kind="swiglu"))
+        out = out + L.apply_mlp(p["shared_mlp"], x, cfg.with_(mlp_kind="swiglu"),
+                                d_ff=cfg.n_shared_experts * cfg.d_ff)
+    return out, aux
+
+
+def ep_dispatch(top_i: torch.Tensor, e: int, e_loc: int, index: int, cap: int):
+    """The (token, slot) pairs an expert-parallel process keeps, from the
+    (T, k) routed experts: (keep (T*k,) bool, local expert (T*k,), slot in
+    its expert (T*k,), owned (T*k,) bool).  A pair's slot is its position
+    among its expert's pairs in (token, slot) order; pairs at or past
+    ``cap`` are dropped (``_ep_local_fn``)."""
+    flat_e = top_i.reshape(-1)
+    onehot = torch.nn.functional.one_hot(flat_e, e)
+    pos = ((torch.cumsum(onehot, dim=0) - onehot) * onehot).sum(dim=-1)
+    lo = index * e_loc
+    mine = (flat_e >= lo) & (flat_e < lo + e_loc)
+    return mine & (pos < cap), flat_e - lo, pos, mine
+
+
+def apply_moe_ep(p: Params, x: torch.Tensor, cfg: ModelConfig, ax) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x: (B, S, D) this process's rows -> (out (B, S, D), aux), the
+    expert-parallel path (module docstring) with ``p["experts"]`` this
+    process's (E_loc, ...) block of the experts."""
+    b, s, d = x.shape
+    t, k, e = b * s, cfg.moe_top_k, cfg.n_experts
+    dt = x.dtype
+    ew = p["experts"]
+    e_loc = ew["gate_proj"].shape[0]
+    if e_loc * ax.size != e:
+        raise ValueError(f"{e} experts do not split over a model axis of {ax.size}: "
+                         f"this process holds {e_loc}")
+    cap = int(t * k / e * cfg.moe_capacity_factor) + 1
+    xf = x.reshape(t, d)
+
+    scores = xf.float() @ p["router_w"].float()
+    probs = torch.softmax(scores, dim=-1)
+    top_w, top_i = torch.topk(probs, k, dim=-1)
+    top_w = top_w / (top_w.sum(dim=-1, keepdim=True) + 1e-9)
+    counts = torch.bincount(top_i.reshape(-1), minlength=e).float()  # routed load, pre-drop
+    aux = e * torch.sum(counts / (t * k) * probs.mean(dim=0))
+
+    keep, e_idx, pos, mine = ep_dispatch(top_i, e, e_loc, ax.index, cap)
+    EP_DROPS["routed"] = EP_DROPS["routed"] + mine.sum()  # on the device: no sync
+    EP_DROPS["dropped"] = EP_DROPS["dropped"] + (mine & ~keep).sum()
+    e_idx = torch.where(keep, e_idx, torch.full_like(e_idx, e_loc))  # overflow row
+    slot = torch.where(keep, pos, torch.full_like(pos, cap))  # overflow slot
+    flat_t = torch.arange(t, device=x.device).repeat_interleave(k)
+    # the weights enter this process's own experts only: their gradient
+    # is this process's part (``copy_to_model``)
+    flat_w = par.copy_to_model(top_w, ax).reshape(-1)
+    disp = torch.full((e_loc + 1, cap + 1), t, dtype=torch.long, device=x.device)
+    disp = disp.index_put((e_idx, slot), flat_t)[:e_loc, :cap]
+    wbuf = torch.zeros((e_loc + 1, cap + 1), dtype=torch.float32, device=x.device)
+    wbuf = wbuf.index_put((e_idx, slot), flat_w)[:e_loc, :cap]
+
+    xc = par.copy_to_model(xf, ax)
+    x_pad = torch.cat([xc, xc.new_zeros((1, d))], dim=0)
+    xs = x_pad[disp]  # (E_loc, cap, D)
+    gate = torch.bmm(xs, ew["gate_proj"].to(dt))
+    up = torch.bmm(xs, ew["up_proj"].to(dt))
+    h = F.silu(gate.float()).to(dt) * up
+    ys = torch.bmm(h, ew["down_proj"].to(dt))
+    out = torch.zeros((t + 1, d), dtype=torch.float32, device=x.device)
+    out = out.index_add(0, disp.reshape(-1), (ys * wbuf[..., None].to(dt)).reshape(-1, d).float())
+    out = out[:t]
+    shared_whole = None
+    if "shared_mlp" in p:
+        sm, width = p["shared_mlp"], cfg.n_shared_experts * cfg.d_ff
+        if sm["up_proj"].shape[-1] != width:
+            # this process's block of the fused shared experts' hidden units
+            g = xc @ sm["gate_proj"].to(dt)
+            u = xc @ sm["up_proj"].to(dt)
+            hsh = F.silu(g.float()).to(dt) * u
+            out = out + (hsh @ sm["down_proj"].to(dt)).float()
+        else:
+            # the rules left them whole: every process computes them
+            shared_whole = L.apply_mlp(sm, x, cfg.with_(mlp_kind="swiglu"), d_ff=width)
+    out = par.reduce_from_model(out, ax).to(dt).reshape(b, s, d)
+    if shared_whole is not None:
+        out = out + shared_whole
     return out, aux
 
 
 def apply_moe_mlp(p: Params, x: torch.Tensor, cfg: ModelConfig):
-    """The local dropless path; the expert-parallel dispatch over a mesh
-    comes with ROADMAP queue 1 item 11, second half."""
-    if torch.distributed.is_available() and torch.distributed.is_initialized() \
-            and torch.distributed.get_world_size() > 1:
+    """JAX's dispatch (moe.py:64-73): the expert-parallel path under a
+    ``model`` axis above 1 (``models/parallel.py``), the local dropless
+    path otherwise.  In a world of several processes the layer needs the
+    mesh of the step (``make_train_step(mesh=...)``) to tell which path
+    its params are cut for: without one it raises rather than run the
+    local path on a block of the experts (ROADMAP queue 1 item 11)."""
+    ax = par.model_axes()
+    if ax is not None:
+        return apply_moe_ep(p, x, cfg, ax)
+    if par.active_axes() is None and torch.distributed.is_available() \
+            and torch.distributed.is_initialized() and torch.distributed.get_world_size() > 1:
         raise NotImplementedError(
-            "MoE expert parallelism over a mesh is not yet ported to "
-            "repro_torch (ROADMAP queue 1 item 11, second half); run on one device")
+            "an MoE layer in a world of several processes runs under the mesh of its "
+            "step, make_train_step(mesh=...), which picks the expert-parallel or the "
+            "local path (ROADMAP queue 1 item 11)")
     return apply_moe_local(p, x, cfg)
 
 

@@ -22,8 +22,10 @@ numbers either way.
 Parameter naming: ``*_proj`` matrices are low-rank eligible; ``a_log``,
 ``dt_bias``, ``conv_*`` and the norm scale are excluded by name
 (``d_skip`` is not: see ROADMAP queue 3).  JAX's ``_shard_ssm_heads``, a
-sharding constraint on a mesh, has no counterpart until tensor
-parallelism (ROADMAP queue 1 item 11, second half).
+sharding constraint on a mesh, has no counterpart yet: tensor parallelism
+runs the dense and MoE families, and an SSM model with a ``model`` extent
+above 1 raises (ROADMAP queue 1 item 11, second half: `_shard_ssm_heads`,
+FSDP over data, the fault harness).
 """
 from __future__ import annotations
 

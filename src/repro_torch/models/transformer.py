@@ -6,7 +6,16 @@ the forward, loss, prefill and decode (MoE's routed experts).
 
 Parameters are plain dicts with the JAX tree's names and shapes; block
 leaves carry a leading (L,) axis, and the layers run as a Python loop over
-views of them.  Under ``cfg.remat == "block"`` each block is recomputed in
+views of them.
+
+Under tensor parallelism (``models/parallel.py``) each process holds the
+blocks the name-based rules give it (``launch/sharding.param_spec``):
+``embed_tokens`` is vocab-parallel, ``attn_sublayer`` computes this
+process's query heads and the KV heads their GQA groups read
+(``_attn_heads``), and ``loss_fn``'s ``lm_head`` is split on the vocab.
+The rules split columns, not heads, and leave narrow leaves whole: a leaf
+whose block is not this process's heads is gathered on use, and a whole
+leaf gives this process its columns.  Under ``cfg.remat == "block"`` each block is recomputed in
 backward (``torch.utils.checkpoint``), as the JAX scan body is
 (``transformer.py:232-233``).
 """
@@ -21,6 +30,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import layers as L
+from repro_torch.models import parallel as par
 
 Params = Dict[str, Any]
 
@@ -224,6 +234,73 @@ def project_qkv(p: Params, x: torch.Tensor, cfg: ModelConfig):
     )
 
 
+def _cols(w: torch.Tensor, full: int, lo: int, n: int, ax, dim: int = -1) -> torch.Tensor:
+    """Columns (``dim`` -1) or rows (-2) [lo, lo + n) of a leaf whose extent
+    along ``dim`` is ``full``, as this process uses them: its own block as
+    it is, else taken from the whole leaf (gathered first when it is a
+    block of other columns), whose gradient is then summed over the
+    processes (``copy_to_model``).  1-D leaves (biases) take ``dim`` -1."""
+    have = w.shape[dim]
+    if have != full and ax.index * have == lo and have == n:
+        return w
+    if have != full:
+        w = par.gather_from_model(w, ax, dim)
+    return par.copy_to_model(w, ax).narrow(dim, lo, n)
+
+
+def _attn_heads(cfg: ModelConfig, ax) -> Tuple[int, int, int, int]:
+    """(h0, h1, kv0, kv1): this process's query heads, an even block of
+    them, and the KV heads their GQA groups read."""
+    hl = cfg.n_heads // ax.size
+    h0 = ax.index * hl
+    g = cfg.n_heads // cfg.n_kv_heads
+    return h0, h0 + hl, h0 // g, (h0 + hl - 1) // g + 1
+
+
+def _attn_tp(p: Params, x: torch.Tensor, cfg: ModelConfig, ax, q_positions, kv_positions,
+             causal: bool, window: int, rope: bool):
+    """``attn_sublayer`` on this process's heads: q/k/v from its columns,
+    attention, its rows of ``o_proj``, one f32 all-reduce of the partial
+    outputs.  Returns this process's (k, v)."""
+    b, s, _ = x.shape
+    dt, hd = x.dtype, cfg.head_dim
+    h0, h1, kv0, kv1 = _attn_heads(cfg, ax)
+    hl, kvl = h1 - h0, kv1 - kv0
+    xc = par.copy_to_model(x, ax)
+    q = xc @ _cols(p["q_proj"], cfg.q_dim, h0 * hd, hl * hd, ax).to(dt)
+    k = xc @ _cols(p["k_proj"], cfg.kv_dim, kv0 * hd, kvl * hd, ax).to(dt)
+    v = xc @ _cols(p["v_proj"], cfg.kv_dim, kv0 * hd, kvl * hd, ax).to(dt)
+    if "q_bias" in p:
+        q = q + _cols(p["q_bias"], cfg.q_dim, h0 * hd, hl * hd, ax).to(dt)
+        k = k + _cols(p["k_bias"], cfg.kv_dim, kv0 * hd, kvl * hd, ax).to(dt)
+        v = v + _cols(p["v_bias"], cfg.kv_dim, kv0 * hd, kvl * hd, ax).to(dt)
+    q = q.reshape(b, s, hl, hd)
+    k = k.reshape(b, s, kvl, hd)
+    v = v.reshape(b, s, kvl, hd)
+    if rope:
+        q = L.apply_rope(q, q_positions, cfg.rope_theta)
+        k = L.apply_rope(k, q_positions, cfg.rope_theta)
+    g = cfg.n_heads // cfg.n_kv_heads
+    kv_of = [(h0 + j) // g - kv0 for j in range(hl)]
+    ka, va = k, v
+    if hl % kvl or kv_of != [j // (hl // kvl) for j in range(hl)]:
+        # the block's heads do not group evenly over its KV heads: each
+        # query head takes its own copy of its KV head
+        idx = torch.tensor(kv_of, device=k.device)
+        ka, va = k.index_select(2, idx), v.index_select(2, idx)
+    out = attn_lib.attention(
+        q, ka, va, q_positions, kv_positions,
+        causal=causal, window=window, impl=cfg.attn_impl,
+        chunk_q=cfg.attn_chunk_q, chunk_kv=cfg.attn_chunk_kv,
+    )
+    wo = _cols(p["o_proj"], cfg.q_dim, h0 * hd, hl * hd, ax, dim=-2)
+    out = out.reshape(b, s, hl * hd) @ wo.to(dt)
+    return par.reduce_from_model(out.float(), ax).to(dt), (k, v)
+
+
+_ATTN_LEAVES = (("q_proj", -1), ("k_proj", -1), ("v_proj", -1), ("o_proj", -2))
+
+
 def attn_sublayer(
     p: Params,
     x: torch.Tensor,  # (B, S, D) normed input
@@ -236,7 +313,20 @@ def attn_sublayer(
     rope: bool = True,
 ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """Self-attention; returns (attn_out (B,S,D), (k, v)) for cache fills.
-    ``rope=False`` leaves q and k unrotated (whisper's encoder)."""
+    ``rope=False`` leaves q and k unrotated (whisper's encoder).  Under
+    tensor parallelism the heads split evenly over ``model`` (``_attn_tp``);
+    where they do not divide, every process computes every head, with the
+    split leaves gathered (replicated work, the same numbers)."""
+    ax = par.model_axes()
+    if ax is not None:
+        if cfg.n_heads % ax.size == 0:
+            return _attn_tp(p, x, cfg, ax, q_positions, kv_positions, causal, window, rope)
+        full = {"q_proj": cfg.q_dim, "k_proj": cfg.kv_dim, "v_proj": cfg.kv_dim,
+                "o_proj": cfg.q_dim}
+        p = dict(p)
+        for name, dim in _ATTN_LEAVES:
+            if p[name].shape[dim] != full[name]:
+                p[name] = par.gather_from_model(p[name], ax, dim)
     b, s, _ = x.shape
     q, k, v = project_qkv(p, x, cfg)
     if rope:
@@ -283,7 +373,19 @@ def dense_block(
 
 
 def embed_tokens(params: Params, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    rows = params["embed"].index_select(0, tokens.reshape(-1).long())
+    """Embedding rows in ``cfg.dtype``.  Under tensor parallelism with
+    ``embed`` this process's block of the vocab: its rows for the tokens
+    it holds, zero for the others, summed over ``model`` in the param
+    dtype (exact: one term is not zero)."""
+    w = params["embed"]
+    ax = par.model_axes()
+    if ax is not None and w.shape[0] != cfg.vocab_size:
+        t = tokens.reshape(-1).long() - ax.index * w.shape[0]
+        mine = ((t >= 0) & (t < w.shape[0]))[:, None]
+        rows = w.index_select(0, t.clamp(0, w.shape[0] - 1))
+        rows = par.reduce_from_model(torch.where(mine, rows, torch.zeros_like(rows)), ax)
+    else:
+        rows = w.index_select(0, tokens.reshape(-1).long())
     return rows.reshape(*tokens.shape, -1).to(cfg.dtype)
 
 
@@ -343,7 +445,7 @@ def loss_fn(
         pad = torch.full(prefix.shape[:2], -1, dtype=labels.dtype, device=labels.device)
         labels = torch.cat([pad, labels], dim=1)
     loss, n_tok = L.chunked_cross_entropy(
-        h, lm_head_matrix(params, cfg), labels, cfg.loss_chunk
+        h, lm_head_matrix(params, cfg), labels, cfg.loss_chunk, vocab=cfg.vocab_size
     )
     aux = torch.as_tensor(aux, dtype=torch.float32, device=h.device)
     total = loss + aux_weight * aux / max(cfg.n_layers, 1) if aux_weight else loss

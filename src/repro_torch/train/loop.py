@@ -68,6 +68,14 @@ cadence, deferred metric fetch and subspace tracking.
     state takes the step's layout (``fns["place_state"]``); a replicated
     state is written by rank 0 alone; the processes meet at a barrier
     before they list the directory and before a rollback's load.
+  * **Tensor parallel** (a mesh with ``model`` above 1): the state holds
+    this process's blocks; a save gathers the global state on every
+    process (``fns["gather_state"]``) and the first process writes JAX's
+    canonical per-leaf format, and a load reads the global state and cuts
+    it (``fns["place_state"]``), so a tensor-parallel checkpoint resumes
+    on one process and in JAX, and a one-process checkpoint resumes under
+    tensor parallelism.  Rank schedules, the spectrum logger and
+    ``track_subspace`` read the optimizer's leaves whole and raise here.
 """
 from __future__ import annotations
 
@@ -161,9 +169,16 @@ def train_loop(
     canonicalize, localize = state_lib.checkpoint_converters(optimizer)
     mesh = step_fns.get("mesh")
     zero_axes = step_fns.get("zero_axes")  # this process holds a block of rows
+    tp = bool(step_fns.get("tp"))  # this process holds blocks of the leaves
     layout = optimizer.state_layout
     shard_spec = None
-    if train_cfg.sharded_checkpoint and layout is not None and layout.shards > 1:
+    if tp and (track_subspace or train_cfg.log_spectrum or optimizer.config.rank_schedule):
+        raise NotImplementedError(
+            "rank schedules, the spectrum logger and track_subspace under tensor "
+            "parallelism are not ported (ROADMAP queue 1 item 11, second half)")
+    if tp:
+        pass  # the canonical format, from the gathered state
+    elif train_cfg.sharded_checkpoint and layout is not None and layout.shards > 1:
         shard_spec = ckpt_lib.ShardSpec(
             num_shards=layout.shards, shard_ids=ckpt_lib.local_shard_ids(layout.shards),
             holds=zero_axes.index if zero_axes is not None else None)
@@ -215,7 +230,10 @@ def train_loop(
 
     def load_one(skel: TrainState, ck: int) -> TrainState:
         """One checkpoint into ``skel``; a canonical one into a state that
-        holds a block of rows loads the full stacks first."""
+        holds a block of rows loads the full stacks first, and a
+        tensor-parallel state loads the global state first."""
+        if tp:
+            return place(manager.load(step_fns["gather_state"](skel), step=ck))
         if zero_axes is not None and "sharded" not in ckpt_lib.checkpoint_format(
                 train_cfg.checkpoint_dir, ck):
             full = TrainState(skel.params, optimizer.init(skel.params)._replace(
@@ -294,6 +312,8 @@ def train_loop(
 
     def safe_save(cur_state: TrainState, s: int, blocking: bool) -> None:
         drain_save_error()  # an old failure must not eat this save
+        if tp:
+            cur_state = step_fns["gather_state"](cur_state)  # on every process
         try:
             manager.save(cur_state, s, blocking=blocking, meta=ckpt_meta())
         except Exception as e:

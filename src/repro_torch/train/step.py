@@ -25,7 +25,18 @@ reference's psum-then-divide):
   * ``compressed="pod"`` -- the same over the ``pod`` axis only, after a
     full-rank reduction over ``data`` within each pod.
 
-Params stay replicated.  With ``state_sharding="zero"`` (``state_shards``
+With a ``model`` extent above 1 the step is also tensor (and, for MoE,
+expert) parallel: each process holds its blocks of the params and of the
+optimizer state, cut by the name-based rules (``launch/sharding``), runs
+the model under its ``model`` axis (``models/parallel.use``: the layers'
+collectives) and the optimizer of its blocks
+(``core/lowrank.tensor_parallel_optimizer``).  The dense and MoE families
+run so; the SSM, hybrid, enc-dec and VLM ones raise.
+``fns["place_state"]`` cuts a global state into this process's blocks and
+``fns["gather_state"]`` returns the global state (the given optimizer's
+layout), which the loop's checkpoints hold.
+
+Without ``model``, params stay replicated.  With ``state_sharding="zero"`` (``state_shards``
 = the compressed axes' replica count) each process keeps only its rows of
 the padded bucket stacks (``shard_train_state``): the hot step
 reduce-scatters the R stacks and updates its rows (``update(...,
@@ -57,21 +68,29 @@ from repro_torch.core import buckets as buckets_lib
 from repro_torch.core import lowrank as lowrank_lib
 from repro_torch.launch import sharding as shd
 from repro_torch.launch.mesh import axes_size, batch_axes
+from repro_torch.models import parallel as par
 from repro_torch.train.state import TrainState
 
+# The families whose layers run tensor parallel (models/parallel.py).
+TP_FAMILIES = ("dense", "moe")
+TP_LEFT = ("tensor parallelism for the {family!r} family is not ported (ROADMAP queue 1 "
+           "item 11, second half: `_shard_ssm_heads`, FSDP over data, the fault harness)")
 
-def _value_and_grad(model, microbatch: int, accum_dtype=torch.float32):
+
+def _value_and_grad(model, microbatch: int, accum_dtype=torch.float32, model_axes=None):
     """(params, batch) -> ((loss, metrics), grads), with optional gradient
     accumulation.  Accumulation sums per-microbatch gradients in
     ``accum_dtype`` and returns them cast back to the param dtype; the
     global batch must divide evenly into microbatches (``step.py:83-89``);
-    ``microbatch >= batch`` is one microbatch, unaccumulated."""
+    ``microbatch >= batch`` is one microbatch, unaccumulated.  The forward
+    and backward run under ``model_axes`` (``models/parallel.use``)."""
 
     def single(params, batch):
         leaves = lowrank_lib.tree_leaves(params)
         req = [p.detach().requires_grad_(True) for p in leaves]
-        loss, metrics = model.loss(lowrank_lib.tree_unflatten(params, req), batch)
-        grads = torch.autograd.grad(loss, req)
+        with par.use(model_axes):
+            loss, metrics = model.loss(lowrank_lib.tree_unflatten(params, req), batch)
+            grads = torch.autograd.grad(loss, req)
         metrics = {k: v.detach() for k, v in metrics.items()}
         return (loss.detach(), metrics), lowrank_lib.tree_unflatten(params, grads)
 
@@ -188,6 +207,12 @@ def make_train_step(
     ``metrics["skipped"]``; ``metrics["bad_step"]`` is 1 for a non-finite
     loss or a skipped update.  ``watchdog`` waits for each call's result
     and records calls past its timeout (keyed by the call's ordinal)."""
+    global_optimizer = optimizer
+    tp = mesh is not None and mesh.tp > 1
+    if tp:
+        if model.cfg.family not in TP_FAMILIES:
+            raise NotImplementedError(TP_LEFT.format(family=model.cfg.family))
+        optimizer = lowrank_lib.tensor_parallel_optimizer(optimizer, mesh)
     compressed = "flat" if compressed is True else (compressed or "")
     if compressed not in ("", "flat", "pod"):
         raise ValueError(
@@ -215,7 +240,8 @@ def make_train_step(
             )
     micro = train_cfg.microbatch if train_cfg else 0
     accum_dtype = (train_cfg.accum_dtype if train_cfg else None) or torch.float32
-    vg = _value_and_grad(model, micro, accum_dtype)
+    vg = _value_and_grad(model, micro, accum_dtype,
+                         mesh.model_axes() if mesh is not None else None)
     skip_nonfinite = bool(recovery is not None and recovery.skip_nonfinite_updates)
     # the reductions: over every batch axis (metrics, verdicts, the standard
     # step's gradients), the compressed axes, and a pod's data axis
@@ -329,26 +355,36 @@ def make_train_step(
         fns = {k: guarded(f) for k, f in fns.items()}
     fns["watchdog"] = watchdog
     fns["mesh"] = mesh
+    fns["tp"] = tp
+    fns["optimizer"] = optimizer  # the one the steps run (this process's blocks)
+    splits = optimizer.tp.splits if tp else None
 
     def place_state(state: TrainState) -> TrainState:
-        """Full padded stacks -> the step's layout (this process's rows of a
-        ZeRO compressed step's stacks; the state itself otherwise)."""
-        if not local_rows:
+        """A global state (the given optimizer's layout, or canonical) ->
+        the step's layout: this process's blocks under tensor
+        parallelism, then its rows of a ZeRO compressed step's stacks."""
+        if not (tp or local_rows):
             return state
-        return shard_train_state(state, mesh, zero_dp_axes=shard_axes.names)[0]
+        return shard_train_state(state, mesh, zero_dp_axes=shard_axes.names if local_rows
+                                 else None, optimizer=global_optimizer)[0]
 
     def gather_state(state: TrainState) -> TrainState:
-        """The inverse of ``place_state``: every process's rows gathered."""
-        if not local_rows:
-            return state
-        full = buckets_lib.zero_gather_states(state.opt_state.buckets, shard_axes)
-        return state._replace(opt_state=state.opt_state._replace(buckets=full))
+        """The inverse of ``place_state``: every process's rows gathered,
+        then the blocks (the given optimizer's layout)."""
+        if local_rows:
+            full = buckets_lib.zero_gather_states(state.opt_state.buckets, shard_axes)
+            state = state._replace(opt_state=state.opt_state._replace(buckets=full))
+        if tp:
+            canon = lowrank_lib.tp_global_opt_state(optimizer, state.opt_state)
+            state = TrainState(shd.gather_params(state.params, mesh, splits),
+                               lowrank_lib.storage_opt_state(global_optimizer, canon))
+        return state
 
     fns["place_state"] = place_state
     fns["gather_state"] = gather_state
     # the axes whose block of rows this process's state holds (None: the
     # full stacks): the loop's shard-parallel checkpoints write that block
-    fns["zero_axes"] = shard_axes if local_rows else None
+    fns["zero_axes"] = shard_axes if local_rows and not tp else None
 
     def rebuild(new_optimizer: lowrank_lib.LowRankOptimizer) -> Dict[str, Callable]:
         """The same steps (mesh, mode, config, recovery, watchdog) around an
@@ -361,12 +397,22 @@ def make_train_step(
 
 
 def shard_train_state(state: TrainState, mesh, *,
-                      zero_dp_axes: Optional[Tuple[str, ...]] = None):
-    """(state, rows): with ``zero_dp_axes`` (a ZeRO optimizer's state), the
-    state holding only this process's rows of every padded bucket stack
-    (``launch/sharding.zero_state_rows``), each a copy of its own so the
-    full stacks can be freed, and those rows per bucket; else the state as
-    it is (params and the rest are replicated) and None."""
+                      zero_dp_axes: Optional[Tuple[str, ...]] = None, optimizer=None):
+    """(state, rows): under a ``model`` extent above 1, first this process's
+    blocks of a global state (``optimizer``, the global one, whose layout
+    or the canonical one ``state`` is in; the rules of
+    ``launch/sharding``); then with ``zero_dp_axes`` (a ZeRO optimizer's
+    state), the state holding only this process's rows of every padded
+    bucket stack (``launch/sharding.zero_state_rows``), each a copy of its
+    own so the full stacks can be freed, and those rows per bucket; else
+    the state as it is and None."""
+    if mesh is not None and mesh.tp > 1:
+        if optimizer is None:
+            raise ValueError("cutting a state into tensor-parallel blocks needs its optimizer")
+        local = lowrank_lib.tensor_parallel_optimizer(optimizer, mesh)
+        canon = lowrank_lib.canonical_opt_state(optimizer, state.opt_state)
+        state = TrainState(shd.shard_params(state.params, mesh, local.tp.splits),
+                           lowrank_lib.tp_local_opt_state(local, canon))
     if not zero_dp_axes:
         return state, None
     if not state.opt_state.buckets:

@@ -470,7 +470,7 @@ def test_resume_at_2_from_4_sharded_equals_replicated_save(worlds):
 
 def test_mesh_and_batch_rows():
     """The mesh's errors, and the batch rows and ZeRO rows of one process."""
-    with pytest.raises(NotImplementedError, match="item 11, second half"):
+    with pytest.raises(ValueError, match="2 places for 1 processes"):
         mesh_lib.make_mesh((1, 2))
     with pytest.raises(ValueError, match="places for 1 processes"):
         mesh_lib.make_mesh((2, 1))

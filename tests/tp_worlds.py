@@ -1,0 +1,249 @@
+"""The processes' side of ``test_torch_tensor_parallel.py``: spawned gloo
+worlds that run the port's tensor- and expert-parallel paths and save what
+each process computed.  This module imports no JAX, so the spawned
+processes do not: the parent hands them JAX's numbers (params, gradients,
+states, refresh draws, MoE inputs) as files.
+
+Rules of the worlds, as ``test_torch_distributed.py``'s: a ``file://``
+store under the test's temporary directory, one intra-op thread per
+process, a 60-s timeout on the process group.
+"""
+import os
+import shutil
+from datetime import timedelta
+
+import numpy as np
+import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
+
+from repro_torch import bridge
+from repro_torch.configs.base import TrainConfig
+from repro_torch.configs.registry import get_config
+from repro_torch.core import make_optimizer
+from repro_torch.core.lowrank import canonical_opt_state, tree_leaves, tree_unflatten
+from repro_torch.core.projectors import LeafDraws
+from repro_torch.data.synthetic import SyntheticDataConfig, SyntheticDataset
+from repro_torch.launch import mesh as mesh_lib
+from repro_torch.launch import sharding as shd
+from repro_torch.models import build_model
+from repro_torch.models import moe as moe_lib
+from repro_torch.models import parallel as par
+from repro_torch.train.loop import train_loop
+from repro_torch.train.state import TrainState
+from repro_torch.train.step import make_train_step
+
+TIMEOUT = timedelta(seconds=60)
+OPT_KW = dict(rank=8, tau=4, lr=2e-3, engine="bucketed", svd_backend="randomized")
+SEQ, BATCH, STEPS = 32, 4, 3  # refresh, hot, hot
+# The dense models: d 128 with 2 of 4 heads' KV (k_proj and v_proj, 64
+# columns, stay whole under the guard at TP 2: the mixed case), and d 256,
+# where every leaf splits.
+MODELS = {
+    "d128": dict(d_model=128, n_heads=4, n_kv_heads=2, head_dim=32, d_ff=256, n_layers=2),
+    "d256": dict(d_model=256, n_heads=4, n_kv_heads=4, head_dim=64, d_ff=512, n_layers=2),
+}
+
+
+def dense_cfg(name):
+    return get_config("llama3-8b", smoke=True).with_(dtype=torch.float32, **MODELS[name])
+
+
+def setup(name):
+    cfg = dense_cfg(name)
+    model = build_model(cfg, device="cpu")
+    params = model.init(torch.Generator().manual_seed(0))
+    data = SyntheticDataset(SyntheticDataConfig(vocab_size=cfg.vocab_size, seq_len=SEQ,
+                                                global_batch=BATCH), device="cpu")
+    return model, params, data
+
+
+def copy(tree):
+    return {k: copy(v) if isinstance(v, dict) else v.clone() for k, v in tree.items()}
+
+
+def optimizer(params, zero_shards=0, **kw):
+    z = dict(state_sharding="zero", state_shards=zero_shards) if zero_shards else {}
+    return make_optimizer("galore-sara-adam", params, **dict(OPT_KW, **kw), **z)
+
+
+def loss_and_grads(model, params, batch, axes):
+    """(loss, gradients) of ``model`` on ``params`` under ``axes``."""
+    leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
+    with par.use(axes):
+        loss, _ = model.loss(tree_unflatten(params, leaves), batch)
+        grads = torch.autograd.grad(loss, leaves)
+    return float(loss.detach()), tree_unflatten(params, list(grads))
+
+
+class RecordedDraws:
+    """A draw source that answers each leaf with draws recorded beforehand
+    (the parent's JAX draws of one refresh, at the global leaves'
+    shapes), so the processes draw JAX's numbers without importing it."""
+
+    device = "cpu"
+
+    def __init__(self, by_leaf, refreshes=0):
+        self.by_leaf, self.refreshes = by_leaf, refreshes
+
+    def split(self):
+        return RecordedDraws(self.by_leaf, self.refreshes + 1)
+
+    def leaf(self, leaf_idx, batch_shape, shapes, device=None):
+        return LeafDraws(*(None if x is None else torch.from_numpy(x)
+                           for x in self.by_leaf[leaf_idx]))
+
+
+# ---------------------------------------------------------------------------
+# the cases
+# ---------------------------------------------------------------------------
+
+
+def traj_case(mesh, case, ref_dir):
+    """3 steps from the seed's params through ``make_train_step(mesh=)``:
+    the gathered params and the bytes over ``model`` per step, the loss
+    and the gathered gradients of step 0, then one hot step from the
+    single-process state after step 1."""
+    model, params, data = setup(case["model"])
+    zero = case.get("zero", 0)
+    opt = optimizer(params, zero)
+    fns = make_train_step(model, opt, mesh=mesh, compressed=case.get("compressed", ""))
+    loss, grads = loss_and_grads(model, shd.shard_params(params, mesh), data.batch_at(0),
+                                 mesh.model_axes())
+    out = {"loss0": loss, "grads0": tree_leaves(shd.gather_params(
+        grads, mesh, fns["optimizer"].tp.splits)), "params": [], "comm": [], "losses": []}
+    state = fns["place_state"](TrainState(copy(params), opt.init(params)))
+    out["plan"] = [(b.d, b.n, b.rank, b.batch, b.split)
+                   for b in fns["optimizer"].bucket_plan.buckets]
+    for s in range(STEPS):
+        mesh_lib.comm_reset()
+        state, m = (fns["refresh_step"] if s == 0 else fns["step"])(state, data.batch_at(s))
+        out["comm"].append(mesh_lib.comm_snapshot())
+        out["losses"].append(float(m["loss"]))
+        out["params"].append(tree_leaves(fns["gather_state"](state).params))
+    out["canonical"] = canonical_opt_state(opt, fns["gather_state"](state).opt_state)
+    # the single-process state (a replicated optimizer's layout): placing
+    # it canonicalizes it first, so a ZeRO step takes it as it is
+    ref = torch.load(os.path.join(ref_dir, f"{case['model']}_1.pt"), weights_only=False)
+    st, _ = fns["step"](fns["place_state"](TrainState(ref["params"], ref["opt_state"])),
+                        data.batch_at(2))
+    out["hot_from_ref"] = tree_leaves(fns["gather_state"](st).params)
+    return out
+
+
+def jax_case(mesh, case, ref_dir):
+    """The d 128 model from JAX's params: the loss and gathered gradients on
+    JAX's batch, then the optimizer of this process's blocks on JAX's
+    gradients -- a refresh with JAX's draws, and a hot step from JAX's
+    post-refresh state carried across."""
+    src = torch.load(os.path.join(ref_dir, "jax.pt"), weights_only=False)
+    model = build_model(dense_cfg("d128"), device="cpu")
+    params = bridge.params_from_numpy(src["params"], "cpu")
+    ax = mesh.model_axes()
+    splits = shd.tp_splits(params, mesh)
+    batch = {k: torch.from_numpy(v) for k, v in src["batch"].items()}
+    loss, grads = loss_and_grads(model, shd.shard_params(params, mesh, splits), batch, ax)
+    opt = optimizer(params, lr=0.01, grad_clip_norm=1.0, tau=200)
+    fns = make_train_step(model, opt, mesh=mesh)
+    topt = fns["optimizer"]
+    state = TrainState(params, opt.init(params)._replace(draws=RecordedDraws(src["draws"])))
+    local = fns["place_state"](state)
+    g0 = shd.shard_params(bridge.params_from_numpy(src["grads0"], "cpu"), mesh, splits)
+    p1, s1, aux1 = topt.update(g0, local.opt_state, local.params, refresh=True, apply=True)
+    js1 = bridge.opt_state_from_numpy(opt, src["state1"], "cpu")
+    local1 = fns["place_state"](TrainState(bridge.params_from_numpy(src["params1"], "cpu"), js1))
+    g1 = shd.shard_params(bridge.params_from_numpy(src["grads1"], "cpu"), mesh, splits)
+    p2, _, aux2 = topt.update(g1, local1.opt_state, local1.params, refresh=False, apply=True)
+    return {"loss": loss, "grads": tree_leaves(shd.gather_params(grads, mesh, splits)),
+            "params1": tree_leaves(shd.gather_params(p1, mesh, splits)),
+            "params2": tree_leaves(shd.gather_params(p2, mesh, splits)),
+            "aux1": [float(aux1.grad_norm), float(aux1.update_norm),
+                     float(aux1.mean_refresh_overlap)],
+            "aux2": [float(aux2.grad_norm), float(aux2.update_norm)]}
+
+
+def loop_case(mesh, case, ref_dir):
+    """``train_loop`` of the d 256 model under tensor parallelism: 3 steps
+    writing a checkpoint at step 2 (``case["write"]``), or resuming a
+    one-process checkpoint from step 2 to 3 (``case["resume"]``)."""
+    model, params, data = setup("d256")
+    opt = optimizer(params)
+    fns = make_train_step(model, opt, mesh=mesh)
+    ck = case.get("write") or os.path.join(ref_dir, f"resume_{mesh.rank}")
+    if "resume" in case:
+        shutil.copytree(case["resume"], ck)
+    tc = TrainConfig(total_steps=STEPS, checkpoint_every=2 if "write" in case else 0,
+                     checkpoint_dir=ck, async_checkpoint=False)
+    res = train_loop(model, opt, data, tc, fns, log_every=1, handle_signals=False)
+    return {"losses": res.losses, "params": tree_leaves(fns["gather_state"](res.state).params)}
+
+
+def ep_case(mesh, case, ref_dir):
+    """The MoE layer's expert-parallel path on JAX's params and input
+    (``case["name"]`` in ``moe.npz``): this process's rows of the input
+    (its ``data`` index) and its experts, the layer's output rows, aux and
+    the (token, slot) pairs its experts dropped, by global token index."""
+    src = np.load(os.path.join(ref_dir, f"moe_{case['name']}.npz"))
+    cfg = get_config("deepseek-moe-16b", smoke=True).with_(
+        dtype=torch.float32, d_ff=int(src["d_ff"]), moe_capacity_factor=float(src["cf"]))
+    p = bridge.params_from_numpy({
+        "router_w": src["router_w"],
+        "experts": {k: src[f"experts_{k}"] for k in ("gate_proj", "up_proj", "down_proj")},
+        "shared_mlp": {k: src[f"shared_{k}"] for k in ("gate_proj", "up_proj", "down_proj")},
+    }, "cpu")
+    x = torch.from_numpy(src["x"])
+    lo, hi = shd.batch_rows(x.shape[0], mesh)
+    local = shd.shard_params(p, mesh)
+    ax = mesh.model_axes()
+    with torch.no_grad(), par.use(ax):
+        out, aux = moe_lib.apply_moe_mlp(local, x[lo:hi], cfg)
+        # the pairs this process's experts dropped, by (global token, slot)
+        t = (hi - lo) * x.shape[1]
+        xf = x[lo:hi].reshape(t, -1)
+        probs = torch.softmax(xf.float() @ p["router_w"].float(), dim=-1)
+        top_i = torch.topk(probs, cfg.moe_top_k, dim=-1)[1]
+        e_loc = cfg.n_experts // ax.size
+        cap = int(t * cfg.moe_top_k / cfg.n_experts * cfg.moe_capacity_factor) + 1
+        keep, _, _, mine = moe_lib.ep_dispatch(top_i, cfg.n_experts, e_loc, ax.index, cap)
+    pairs = torch.nonzero(mine & ~keep)[:, 0]
+    dropped = [(int(j) // cfg.moe_top_k + lo * x.shape[1], int(j) % cfg.moe_top_k)
+               for j in pairs]
+    return {"rows": (lo, hi), "out": out, "aux": float(aux), "dropped": dropped}
+
+
+CASES = {"traj": traj_case, "jax": jax_case, "loop": loop_case, "ep": ep_case}
+
+
+def world(rank, size, store, out_dir, ref_dir, plan):
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{store}", world_size=size,
+                            rank=rank, timeout=TIMEOUT)
+    try:
+        mesh = mesh_lib.make_mesh(tuple(plan["mesh"]))
+        out = {}
+        for name, case in plan["cases"].items():
+            out[name] = CASES[case["kind"]](mesh, case, ref_dir)
+            mesh_lib.barrier(mesh)
+        torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def spawn(tmp, ref_dir, plan):
+    """Start the world of ``plan`` (its processes run while the caller goes
+    on); the returned function waits for them and loads each process's
+    outputs."""
+    size = int(np.prod(plan["mesh"]))
+    out_dir = tmp / f"world_{'x'.join(map(str, plan['mesh']))}"
+    out_dir.mkdir()
+    ctx = mp.start_processes(world, args=(size, str(out_dir / "store"), str(out_dir), ref_dir,
+                                          plan), nprocs=size, join=False, start_method="spawn")
+
+    def finish():
+        while not ctx.join():
+            pass
+        return [torch.load(out_dir / f"rank{r}.pt", weights_only=False) for r in range(size)]
+
+    return finish
+
+
