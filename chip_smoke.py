@@ -35,9 +35,10 @@ failure raises and the script exits non-zero:
               and each kernel's launch count; then request 0's prefill and
               first decode-step logits on the paged kernel path against the
               static engine's ring cache with plain exact attention.
-4. train   -- full-width llama3-8b cut to 4 layers (f32 params, grads and
-              full-rank Adam state for all 32 layers come to ~75 GB before
-              activations), bf16 compute, on ``engine="bucketed"`` with
+4. train   -- full-width llama3-8b cut to 2 layers (``TRAIN_RUN_LAYERS``;
+              4, the kernel cases' plans, until the FSDP paths joined; f32
+              params, grads and full-rank Adam state for all 32 layers
+              come to ~75 GB before activations), bf16 compute, on ``engine="bucketed"`` with
               ``svd_backend="randomized"`` and the launcher's defaults
               (rank 512, tau 200, alpha 0.25, lr 0.01, warmup 100), seq
               512, batch 8, 3 steps through ``train_loop``: a refresh at
@@ -70,7 +71,7 @@ failure raises and the script exits non-zero:
               skip and one rollback counted, exact launch counts); then
               gated and ungated hot steps in turns from the final state,
               and the check's own device time.
-4c. train_rank_schedule -- ``galore-sara-adam`` at tau 2 with the schedule
+4c. train_rank_schedule -- ``galore-sara-adam`` as in 4 at tau 2 with the schedule
               ``step:512:256@0.5`` over 6 steps: the refresh at step 2
               re-buckets from rank 512 to 256 (one ``rebucket`` record),
               steps 3-5 run at 256; checks the plan at both ranks, the
@@ -134,12 +135,22 @@ failure raises and the script exits non-zero:
               against replicated and both against the single-process
               step, bytes against ``dp_comm_model``'s, exact launches,
               a NaN in one rank's share skipped by all.
+5c. train_tp -- two processes sharing the card over gloo (NCCL refuses
+              two ranks on one device), so no time here is a parallel
+              speed: llama3-8b at full width cut to 2 layers and
+              deepseek-moe-16b cut to 1, first tensor and expert parallel
+              on a (1, 2) mesh (paths ``train_tp``, ``train_tp_moe``),
+              then FSDP over ``data`` on a (2, 1) mesh of the same
+              processes (``train_fsdp``, ``train_fsdp_moe``): each against
+              the single-process run and its state (the constants at
+              ``TP_WORLD``).
 6. families -- the MoE, SSM and hybrid families at full width:
               ``family_kernels`` (flash at hymba's GQA 25/5, D 64, window
               1024, S 2048 and deepseek's MHA 16/16; paged decode at MHA
               16/16; RMSNorm at widths 1600, 2048 and 3200; kernels 4, 5
               and 9 on deepseek-moe-16b's 192-slice expert bucket at rank
-              256), ``serve_moe`` (deepseek-moe-16b, 28 layers, bf16 made
+              256), ``serve_moe`` (deepseek-moe-16b at 14 of its 28
+              layers, ``SERVE_MOE_LAYERS``, bf16 made
               leaf by leaf, through the paged engine on phase 3's trace;
               request 0's logits against the static exact path, the bar
               from the f32 model at the deepest depth that fits; host syncs
@@ -147,7 +158,7 @@ failure raises and the script exits non-zero:
               kernel 9 runs),
               ``train_ssm`` and ``serve_ssm`` (mamba2-370m, 48 layers; rank
               512: kernel 9 launches 0 times), ``train_hybrid`` and
-              ``serve_hybrid`` (hymba-1.5b cut to 8 of its 32 layers,
+              ``serve_hybrid`` (hymba-1.5b cut to 4 of its 32 layers,
               ``HYBRID_LAYERS``; seq 2048; prompts of
               1500 and 1100 tokens past its 1024 window).  The train paths
               run as phase 4 (galore-sara-adam, 3 steps) and first check
@@ -161,18 +172,19 @@ failure raises and the script exits non-zero:
               prefill at S 1600; paged decode at GQA 56/8 over
               ``PAGED_FILLS`` + 576; kernels 4, 5 and 9 on llava's mlp
               bucket, 4 and 5 on whisper's 1024 x 1024 bucket),
-              ``serve_vlm`` (llava-next-34b, 60 layers, 34.4 B params made
+              ``serve_vlm`` (llava-next-34b at 30 of its 60 layers,
+              ``SERVE_VLM_LAYERS``, made
               leaf by leaf in bf16, the init's peak printed; phase 3's trace
               with each request's own 576 seeded patch embeddings ahead of
               its prompt, in a pool of ``VLM_POOL_PAGES``; request 0's
               logits against the static exact path, the bar from the f32
               model at the deepest depth that fits), ``train_vlm`` (2
               layers, 448 text tokens after the patches, batch 4, rank 512),
-              ``serve_audio`` (whisper-medium cut to 12 + 12 of its 24 + 24
+              ``serve_audio`` (whisper-medium cut to 6 + 6 of its 24 + 24
               layers, ``AUDIO_LAYERS``, slot engine,
               each request's own 1500 frames, prompts of 4-64 tokens, 64
               new tokens, a ring of 448; every token against the static
-              engine's or a near-tie) and ``train_audio`` (12 + 12 layers, seq
+              engine's or a near-tie) and ``train_audio`` (6 + 6 layers, seq
               448, batch 8, rank 256: kernel 9 launches 0 times).  The
               train paths run as phase 6's, with the patches or frames in
               every batch.
@@ -353,7 +365,11 @@ PAGED_FILLS = [0, 129, 517, 1056]
 PAGED_BANDWIDTH_FILLS = [1024 + 64 * i for i in range(32)]
 
 # train phase: llama3-8b at full width, 4 layers, the launcher's defaults
+# (the plans below and the kernel cases' shapes); the TRAIN_RUNS paths and
+# train_rank_schedule run at TRAIN_RUN_LAYERS since the FSDP paths joined
+# (their refreshes were most of their ~12 s each; PERF.md §4)
 TRAIN_LAYERS = 4
+TRAIN_RUN_LAYERS = 2
 TRAIN_STEPS, TRAIN_SEQ, TRAIN_BATCH = 3, 512, 8
 TRAIN_OPT = dict(rank=512, tau=200, alpha=0.25, lr=0.01, grad_clip_norm=1.0,
                  engine="bucketed", svd_backend="randomized")
@@ -515,8 +531,9 @@ HYBRID_PROMPT_LENS = [1500, 128, 517, 1100, 255, 777, 64, 333]
 # as at full depth): the whole script ran 1038 s of its 1200 s at full
 # depth once the VLM and enc-dec paths joined, and hymba's two paths, whose
 # host-bound SSD chunk loop costs time per layer, took 147 s of it; 16
-# until the tensor-parallel phase joined (the two took 71.7 s at 16)
-HYBRID_LAYERS = 8
+# until the tensor-parallel phase joined (the two took 71.7 s at 16), 8
+# until the FSDP paths joined (35.4 s at 8)
+HYBRID_LAYERS = 4
 # A continuous-engine token may part from the static engine's only at a
 # near-tie.  The two engines run the same bf16 model but batch it
 # differently (4 slots against 1 row: other GEMM kernels, other roundings),
@@ -529,8 +546,10 @@ TIE_BAR_SIGMAS = 4
 # time limit once the data-parallel phase joined: its SARA refresh over the
 # 768-slice expert bucket took 52.9 s on the H100, NVIDIA H100 80GB HBM3,
 # 700.00 W, and the whole script 1051 s of its 1200; 2 until the
-# tensor-parallel phase joined, 37.9 s at 2); it serves at full depth
+# tensor-parallel phase joined, 37.9 s at 2); it served at full depth
+# until the FSDP paths joined (52.2 s), at 14 of 28 layers since
 MOE_TRAIN_LAYERS = 1
+SERVE_MOE_LAYERS = 14
 # rank 256 for moe and hybrid: SARA's pool (4 r) then leaves k' 1032 below
 # the narrow side of their leaves, so kernel 9 runs; at the launcher's 512
 # it spans every leaf's narrow side and the power iterations drop (as
@@ -545,9 +564,9 @@ FAMILY_TRAIN_RUNS = {
                    (1024, 4384, 512, 48, "any")]),
     # seq 2048 so attention reaches past the 1024 window (the same 4096 tokens)
     "train_hybrid": (HYBRID_ARCH, HYBRID_LAYERS, 2048, 2, 256,
-                     [(320, 1600, 256, 16, "any"), (1600, 1600, 256, 16, "any"),
-                      (1600, 3200, 256, 8, "any"), (1600, 5504, 256, 24, "any"),
-                      (1600, 6482, 256, 8, "any")]),
+                     [(320, 1600, 256, 8, "any"), (1600, 1600, 256, 8, "any"),
+                      (1600, 3200, 256, 4, "any"), (1600, 5504, 256, 12, "any"),
+                      (1600, 6482, 256, 4, "any")]),
 }
 PATH_KERNELS["serve_moe"] = SERVE_KERNELS
 PATH_KERNELS["train_moe"] = _TRAIN_COMMON + (UPDATE_KERNEL["adam"],)
@@ -564,14 +583,18 @@ PATH_KERNELS["train_hybrid"] = _TRAIN_COMMON + (UPDATE_KERNEL["adam"],)
 # (Whisper's text context).
 VLM_ARCH, AUDIO_ARCH = "llava-next-34b", "whisper-medium"
 VLM_POOL_PAGES = 250
+# llava serves at 30 of its 60 layers since the FSDP paths joined (full
+# depth, 65 GiB of bf16 weights, 27.3 s before)
+SERVE_VLM_LAYERS = 30
 AUDIO_PROMPT_LENS = [64, 4, 48, 17, 33, 8, 56, 25]
 AUDIO_NEW_TOKENS = 64
 AUDIO_MAX_SEQ = 448
-# whisper serves and trains cut to 12 of its 24 encoder and 24 decoder
+# whisper serves and trains cut to 6 of its 24 encoder and 24 decoder
 # layers (every layer's shapes as at full depth): at full depth its two
 # paths took 107 s of the script's 1051 s on the H100 (NVIDIA H100 80GB
-# HBM3, 700.00 W), too near the script's 1200-s limit
-AUDIO_LAYERS = 12
+# HBM3, 700.00 W), too near the script's 1200-s limit; 6 + 6 since the
+# FSDP paths joined (the two took 44.5 s at 12 + 12)
+AUDIO_LAYERS = 6
 LAYER_LAUNCHES["vlm"] = LAYER_LAUNCHES["dense"]
 # train_vlm: llava-next-34b cut to 2 layers (2.08 B params, near the 4
 # llama layers of phase 4), 448 text tokens after the 576 patches (1024
@@ -585,7 +608,7 @@ FAMILY_TRAIN_RUNS["train_vlm"] = (
     [(1024, 7168, 512, 4, "any"), (7168, 7168, 512, 5, "any"), (7168, 20480, 512, 6, "any")])
 FAMILY_TRAIN_RUNS["train_audio"] = (
     AUDIO_ARCH, AUDIO_LAYERS, 448, 8, 256,
-    [(1024, 1024, 256, 144, "any"), (1024, 4096, 256, 72, "any")])
+    [(1024, 1024, 256, 72, "any"), (1024, 4096, 256, 36, "any")])
 PATH_KERNELS["serve_vlm"] = SERVE_KERNELS
 PATH_KERNELS["train_vlm"] = _TRAIN_COMMON + (UPDATE_KERNEL["adam"],)
 PATH_KERNELS["serve_audio"] = ("rmsnorm", "flash_attention_fwd")
@@ -1773,11 +1796,12 @@ def train(cfg, optimizer: str = "galore-sara-adam", expect_buckets=TRAIN_BUCKETS
 PARITY_CHUNK = 64  # slices per plain-version call in hot_step_parity
 
 
-def hot_step_parity(path: str, model, opt, state, batch, dev: str = "cuda"):
+def hot_step_parity(path: str, model, opt, state, batch, dev: str = "cuda", grads=None):
     """One more hot step's stacks from ``state`` (bucket-native), bucket by
     bucket: R from the projection kernel, then the inner's fused update (W'
     and its state) from its kernel, each against its plain version on the
-    same inputs.  Returns one record per bucket."""
+    same inputs.  ``grads`` (flat, this process's) stands for the
+    gradients of ``model`` on ``batch``.  Returns one record per bucket."""
     from repro_torch.core import buckets as buckets_lib
     from repro_torch.core.lowrank import tree_leaves, tree_unflatten
     from repro_torch.kernels.galore_project import kernel as project_kernel
@@ -1791,10 +1815,13 @@ def hot_step_parity(path: str, model, opt, state, batch, dev: str = "cuda"):
     kernel_update = fused_update(inner, dev == "cuda")
     plain_update = fused_update(inner, False)
     flat_p = tree_leaves(state.params)
-    leaves = [p.detach().requires_grad_(True) for p in flat_p]
-    loss, _ = model.loss(tree_unflatten(state.params, leaves), batch)
-    flat_g = list(torch.autograd.grad(loss, leaves))
-    del leaves, loss
+    if grads is not None:
+        flat_g = list(grads)
+    else:
+        leaves = [p.detach().requires_grad_(True) for p in flat_p]
+        loss, _ = model.loss(tree_unflatten(state.params, leaves), batch)
+        flat_g = list(torch.autograd.grad(loss, leaves))
+        del leaves, loss
     parity = []
     for bk, bst in zip(opt.bucket_plan.buckets, state.opt_state.buckets):
         w = buckets_lib._gather(bk, flat_p)
@@ -1858,15 +1885,21 @@ def power_iter_calls(opt, shapes) -> int:
     if opt.state_layout is not None:
         # a stack too large for one refresh chain runs in chunks, each
         # with its own power iterations (projectors.refresh_chunk)
-        # a tensor-parallel bucket refreshes at its global leaves' (d, n)
-        # (``Bucket.global_dims``): gathered, or its columns of the sketch
+        # a tensor-parallel or FSDP bucket refreshes at its global leaves'
+        # (d, n) (``Bucket.global_dims``): gathered -- each process of the
+        # axis that cuts d its block of the slices, where they divide -- or
+        # its columns of the sketch
         def chunks(bk):
             if cfg.method not in ("dominant", "sara") or cfg.svd_backend != "randomized":
                 return 1
             d, n = bk.global_dims()
             k = bk.rank if cfg.method == "dominant" else min(d, cfg.sara_pool_factor * bk.rank)
             _, kp, _ = svd_lib.clamp_sketch(d, n, k, cfg.svd_oversample, 0)
-            return -(-bk.batch // proj_lib.refresh_chunk(bk.batch, d, n, kp))
+            b = bk.batch
+            for kind, size in ((bk.split, bk.tp), (bk.dsplit, bk.dp)):
+                if kind == "d" and size > 1 and b % size == 0:
+                    b //= size
+            return -(-b // proj_lib.refresh_chunk(b, d, n, kp))
         return sum(per_unit(*bk.global_dims(), bk.rank) * chunks(bk)
                    for bk in opt.bucket_plan.buckets)
     return sum(per_unit(min(shape[-2:]), max(shape[-2:]), spec.rank)
@@ -3209,10 +3242,14 @@ def paper_tables(smi: str, results=None, dev: str = "cuda", steps: int = TABLES_
 # ---------------------------------------------------------------------------
 
 
-def train_buckets(layers: int):
-    """``TRAIN_BUCKETS`` at ``layers`` layers: k/v and q/o two slices a
-    layer, the mlp three."""
-    return [(d, n, r, b * layers // TRAIN_LAYERS, side) for d, n, r, b, side in TRAIN_BUCKETS]
+def train_buckets(layers: int, plan=TRAIN_BUCKETS):
+    """A plan of ``TRAIN_LAYERS`` layers (``TRAIN_BUCKETS``, or
+    ``SPLIT_BUCKETS``) at ``layers`` layers: every bucket's slices scale
+    with the depth (k/v and q/o two a layer, the mlp three, or its two
+    sides two and one); None (per-leaf state) stays None."""
+    if plan is None:
+        return None
+    return [(d, n, r, b * layers // TRAIN_LAYERS, side) for d, n, r, b, side in plan]
 
 
 def _count_plain_dispatch() -> None:
@@ -4084,11 +4121,29 @@ TP_MOE_LAYERS = 1
 TP_MOE_CAPACITY = 8.0
 TP_MOE_LOSS_TOL = 1e-5
 TP_MOE_GRAD_RTOL = 1e-4
-TP_TIMEOUT_S = 420
+TP_TIMEOUT_S = 600
 TP_REFRESH_REL = 0.3
 TP_REFRESH_CARRY = "reproject"
 PATH_KERNELS["train_tp"] = _TRAIN_COMMON + (UPDATE_KERNEL["adam"],)
 PATH_KERNELS["train_tp_moe"] = _TRAIN_COMMON + (UPDATE_KERNEL["adam"],)
+# Phase 5d, paths ``train_fsdp`` and ``train_fsdp_moe``: FSDP over ``data``
+# (the standard step at a ``data`` extent above 1), run by ``train_tp``'s
+# own spawned world after its tensor-parallel runs, on a (TP_WORLD, 1) mesh
+# of the same gloo group: llama3-8b at full width cut to TP_LAYERS, the
+# runs and checks of ``train_tp``'s dense run against the same
+# single-process run and state (its loss gaps, the f32 hot and refresh
+# steps from its state, kernels 4, 5 and 9 against plain on every local
+# bucket -- kernel 9 on the "n" buckets' column blocks, the sketch route),
+# the bytes handed to ``@data`` in each hot step against
+# ``core.lowrank.fsdp_hot_comm_bytes``, and each step's
+# ``max_memory_allocated`` per process beside the single-process run's;
+# then deepseek-moe-16b at 1 layer on the local path with the expert d_ff
+# over ``data``: the step-0 loss and reduced gradients in f32 against one
+# process's run of the same rows in two microbatches (the router's aux
+# loss is per process, as JAX's per-shard pmean), then 3 bf16 steps with
+# exact launches.
+PATH_KERNELS["train_fsdp"] = _TRAIN_COMMON + (UPDATE_KERNEL["adam"],)
+PATH_KERNELS["train_fsdp_moe"] = _TRAIN_COMMON + (UPDATE_KERNEL["adam"],)
 
 
 def _launches_since(before) -> dict:
@@ -4158,12 +4213,12 @@ def _tp_refresh_optimizer(params, opt_kw):
         opt_kw["lr"], TRAIN_WARMUP, TP_STEPS), **dict(opt_kw, momentum_carry=TP_REFRESH_CARRY))
 
 
-def _tp_power_cases(opt, dev: str, rank: int) -> list:
-    """Kernel 9 on each "n" bucket's local block (B, d, n / model) with a
-    (B, d, k') basis at the k' of the bucket's global leaves (the split
-    refresh's first chunk), against the plain ``bmm(G, bmm(G^T, Q))``; each
-    case launches the kernel once (on the CPU, the rehearsal, the counted
-    plain dispatch)."""
+def _tp_power_cases(opt, dev: str, rank: int, fsdp: bool = False) -> list:
+    """Kernel 9 on each "n" bucket's local block (B, d, n / model; over
+    ``data`` with ``fsdp``) with a (B, d, k') basis at the k' of the
+    bucket's global leaves (the split refresh's first chunk), against the
+    plain ``bmm(G, bmm(G^T, Q))``; each case launches the kernel once (on
+    the CPU, the rehearsal, the counted plain dispatch)."""
     from repro_torch.core import projectors as proj_lib
     from repro_torch.core import svd as svd_lib
     from repro_torch.kernels.power_iter import ops as pi_ops
@@ -4174,7 +4229,7 @@ def _tp_power_cases(opt, dev: str, rank: int) -> list:
     gen = torch.Generator(device=dev).manual_seed(SEED + 13 + rank)
     out = []
     for bk in opt.bucket_plan.buckets:
-        if bk.split != "n":
+        if (bk.dsplit if fsdp else bk.split) != "n":
             continue
         d, n = bk.global_dims()
         pool = min(d, cfg.sara_pool_factor * bk.rank)
@@ -4187,28 +4242,31 @@ def _tp_power_cases(opt, dev: str, rank: int) -> list:
         before = counters.snapshot()
         got = pi_ops.power_iter_step(g, q)
         launches = _launches_since(before)
+        path = "train_fsdp" if fsdp else "train_tp"
         if launches != {"power_iter_batched": 1}:
-            raise AssertionError(f"train_tp power-iteration case: launches {launches}")
+            raise AssertionError(f"{path} power-iteration case: launches {launches}")
         label = f"B={b} d={bk.d} n={bk.n} (of {n}) k'={kp}"
-        err = check_close(f"train_tp power_iter {label}", got, power_iter_ref(g, q),
+        err = check_close(f"{path} power_iter {label}", got, power_iter_ref(g, q),
                           *TOL["power_iter_batched"]["float32"], rel_atol=True)
-        log(f"train_tp rank {rank} power_iter {label}: kernel vs plain max abs err {err}")
+        log(f"{path} rank {rank} power_iter {label}: kernel vs plain max abs err {err}")
         out.append({"case": label, "max_abs_err": err})
         del g, q, got
     return out
 
 
-def _tp_dense(rank: int, devname: str, mesh, shared, cpu_cfg, seq: int, batch: int):
-    """The dense run of one process of ``train_tp`` (see the constants);
-    ``shared`` holds the single-process run's state after step 1, its
-    params after one f32 hot step from it, and its low-rank leaves'
-    params after one f32 refresh step from it; ``cpu_cfg`` stands for
-    llama3-8b in a CPU rehearsal."""
+def _tp_dense(rank: int, devname: str, mesh, shared, cpu_cfg, seq: int, batch: int,
+              fsdp: bool = False):
+    """The dense run of one process of ``train_tp`` (see the constants), or
+    with ``fsdp`` of ``train_fsdp`` (``mesh`` (TP_WORLD, 1)); ``shared``
+    holds the single-process run's state after step 1, its params after
+    one f32 hot step from it, and its low-rank leaves' params after one
+    f32 refresh step from it; ``cpu_cfg`` stands for llama3-8b in a CPU
+    rehearsal."""
     from repro_torch.configs.base import TrainConfig
     from repro_torch.configs.registry import get_config
     from repro_torch.core import make_optimizer
     from repro_torch.core.buckets import tp_hot_comm_bytes
-    from repro_torch.core.lowrank import flatten_with_path, tree_leaves
+    from repro_torch.core.lowrank import flatten_with_path, fsdp_hot_comm_bytes, tree_leaves
     from repro_torch.core.schedules import cosine_with_warmup
     from repro_torch.data.synthetic import SyntheticDataConfig, SyntheticDataset
     from repro_torch.kernels import counters
@@ -4220,6 +4278,7 @@ def _tp_dense(rank: int, devname: str, mesh, shared, cpu_cfg, seq: int, batch: i
     from repro_torch.train.step import make_train_step
 
     on_card = torch.device(devname).type == "cuda"
+    path = "train_fsdp" if fsdp else "train_tp"
 
     def sync():
         if on_card:
@@ -4236,50 +4295,73 @@ def _tp_dense(rank: int, devname: str, mesh, shared, cpu_cfg, seq: int, batch: i
     opt = make_optimizer("galore-sara-adam", params, lr_schedule=cosine_with_warmup(
         opt_kw["lr"], TRAIN_WARMUP, TP_STEPS), **opt_kw)
     fns = make_train_step(model, opt, mesh=mesh, train_cfg=tc)
+    if fns["fsdp"] != fsdp:
+        raise AssertionError(f"{path} rank {rank}: the step on {mesh.shape} is FSDP: "
+                             f"{fns['fsdp']}")
     state = fns["place_state"](TrainState(params, opt.init(params)))
     del params
     lopt = fns["optimizer"]
-    plan = [(bk.d, bk.n, bk.rank, bk.batch, bk.split) for bk in lopt.bucket_plan.buckets]
+    plan = [(bk.d, bk.n, bk.rank, bk.batch, bk.split + bk.dsplit)
+            for bk in lopt.bucket_plan.buckets]
     if on_card:
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
-    ms, losses, comm, per_step = [], [], [], []
+    ms, losses, comm, per_step, peaks = [], [], [], [], []
     counters.reset()  # the main path's launches: the 3 steps
     for s in range(TP_STEPS):
         mesh_lib.comm_reset()
         before = counters.snapshot()
         sync()
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
         t = time.perf_counter()
         state, m = (fns["refresh_step"] if s == 0 else fns["step"])(state, batches[s])
         sync()
         ms.append((time.perf_counter() - t) * 1e3)
+        peaks.append(torch.cuda.max_memory_allocated() if on_card else 0)
         losses.append(float(m["loss"]))
         comm.append(mesh_lib.comm_snapshot())
         per_step.append(_launches_since(before))
     launches = counters.snapshot()
-    peak = torch.cuda.max_memory_allocated() if on_card else 0
+    peak = max(peaks)
     if not all(np.isfinite(losses)):
-        raise AssertionError(f"train_tp rank {rank}: losses {losses}")
+        raise AssertionError(f"{path} rank {rank}: losses {losses}")
     expect = _train_expect(cfg, lopt, TP_STEPS)
     if launches != expect:
-        raise AssertionError(f"train_tp rank {rank}: launches {launches} != {expect}")
-    act_bytes = torch.empty((), dtype=cfg.dtype).element_size()
-    want = tp_hot_comm_bytes(cfg, batch, seq, lopt.bucket_plan, act_bytes)
-    got = [c.get("all_reduce@model", 0) + c.get("all_gather@model", 0)
-           + c.get("reduce_scatter@model", 0) for c in comm]
-    if any(g != want for g in got[1:]):
-        raise AssertionError(f"train_tp rank {rank}: hot-step bytes over model {got[1:]} "
-                             f"!= {want} (the shapes' count)")
-    log(f"train_tp rank {rank}: llama3-8b {cfg.n_layers} layers, local plan {plan}; losses "
+        raise AssertionError(f"{path} rank {rank}: launches {launches} != {expect}")
+    if fsdp:
+        axis, want_bytes = "data", fsdp_hot_comm_bytes(lopt, cfg)
+        # every parameter leaf cut as param_spec says, over data
+        cut = [(p_, tuple(x.shape)) for (p_, x) in flatten_with_path(state.params)]
+        for (p_, local), like, (dd, _) in zip(cut, opt.likes, fns["splits"]):
+            full = list(like.shape)
+            if dd is not None:
+                full[dd] //= mesh.dp
+            if tuple(full) != local:
+                raise AssertionError(f"{path} rank {rank}: {p_} holds {local}, not {full}")
+    else:
+        act_bytes = torch.empty((), dtype=cfg.dtype).element_size()
+        axis, want_bytes = "model", tp_hot_comm_bytes(cfg, batch, seq, lopt.bucket_plan,
+                                                      act_bytes)
+    got = [sum(v for k, v in c.items() if k.endswith("@" + axis)) for c in comm]
+    if any(g != want_bytes for g in got[1:]):
+        raise AssertionError(f"{path} rank {rank}: hot-step bytes over {axis} {got[1:]} "
+                             f"!= {want_bytes} (the shapes' count)")
+    log(f"{path} rank {rank}: llama3-8b {cfg.n_layers} layers, local plan {plan}; losses "
         f"{losses}; refresh {ms[0]:.1f} ms, hot {[round(x, 1) for x in ms[1:]]} ms; "
-        f"max_memory_allocated {peak / 2**30:.2f} GiB; launches {launches}; hot-step bytes "
-        f"over model {got[1:]} (formula {want}), refresh step {got[0]}")
-    # each local bucket of one more hot step: kernel against plain; kernel 9
-    # on each "n" bucket's block at the split refresh's shapes
-    with par.use(mesh.model_axes()):
-        parity = hot_step_parity("train_tp", model, lopt, state, batches[TP_STEPS],
-                                 dev="cuda" if on_card else "cpu")
-    power = _tp_power_cases(lopt, devname, rank)
+        f"max_memory_allocated per step {[round(x / 2**30, 2) for x in peaks]} GiB; "
+        f"launches {launches}; hot-step bytes over {axis} {got[1:]} (formula {want_bytes}), "
+        f"refresh step {got[0]}")
+    # each local bucket of one more hot step: kernel against plain (under
+    # FSDP on the f32 hot step's own gradients below, which saves a pass
+    # whose gathers gloo stages through host memory); kernel 9 on each "n"
+    # bucket's block at the split refresh's shapes
+    parity = None
+    if not fsdp:
+        with par.use(mesh.model_axes()):
+            parity = hot_step_parity(path, model, lopt, state, batches[TP_STEPS],
+                                     dev="cuda" if on_card else "cpu")
+    power = _tp_power_cases(lopt, devname, rank, fsdp)
     # from the single-process run's state after step 1, which the parent
     # shares with the processes (CUDA IPC on the card), in f32 compute: one
     # hot step and one refresh step, this process's blocks against the
@@ -4289,48 +4371,74 @@ def _tp_dense(rank: int, devname: str, mesh, shared, cpu_cfg, seq: int, batch: i
         torch.cuda.empty_cache()
     model32 = build_model(cfg.with_(dtype=torch.float32), device=devname)
     fns32 = make_train_step(model32, opt, mesh=mesh, train_cfg=tc)
-    ax, splits = mesh.model_axes(), fns32["optimizer"].tp.splits
+    splits = fns32["splits"]
 
     def block(i, x):
-        return shd.local_block(x, splits[i], ax.index, ax.size)
+        return shd.block_of(x, splits[i], mesh)
 
     st = fns32["place_state"](TrainState(shared["params"], shared["opt_state"]))
-    out, _ = fns32["step"](st, batches[TP_STEPS])
-    mine = tree_leaves(out.params)
-    del out
-    hot = _blocks_within(f"train_tp rank {rank}: the f32 hot step from the single-process state",
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    if fsdp:
+        # the step's own two halves: its reduced gradients, the kernels
+        # against plain on them, then its update
+        _, _, grads = fns32["grads"](st, batches[TP_STEPS])
+        grad_peak = torch.cuda.max_memory_allocated() if on_card else 0
+        parity = hot_step_parity(path, model32, fns32["optimizer"], st, None,
+                                 dev="cuda" if on_card else "cpu", grads=tree_leaves(grads))
+        if on_card:  # the step's peak: its gradients', then its update's
+            torch.cuda.reset_peak_memory_stats()
+        mine, _, _ = fns32["optimizer"].update(grads, st.opt_state, st.params, refresh=False,
+                                               apply=True)
+        peak32 = {"hot": max(grad_peak, torch.cuda.max_memory_allocated() if on_card else 0)}
+        mine = tree_leaves(mine)
+        del grads
+    else:
+        out, _ = fns32["step"](st, batches[TP_STEPS])
+        peak32 = {"hot": torch.cuda.max_memory_allocated() if on_card else 0}
+        mine = tree_leaves(out.params)
+        del out
+    hot = _blocks_within(f"{path} rank {rank}: the f32 hot step from the single-process state",
                          mine, [block(i, x) for i, x in enumerate(shared["hot"])])
     del mine
     del st
     fns32 = make_train_step(model32, _tp_refresh_optimizer(shared["params"], opt_kw), mesh=mesh,
                             train_cfg=tc)
-    out, _ = fns32["refresh_step"](
-        fns32["place_state"](TrainState(shared["params"], shared["opt_state"])),
-        batches[TP_STEPS])
+    st = fns32["place_state"](TrainState(shared["params"], shared["opt_state"]))
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    out, _ = fns32["refresh_step"](st, batches[TP_STEPS])
+    peak32["refresh"] = torch.cuda.max_memory_allocated() if on_card else 0
+    del st
     mine = tree_leaves(out.params)
     del out, fns32
     want, paths = shared["refreshed"], [p for p, _ in flatten_with_path(shared["params"])]
     low = sorted(want)
     refreshed = _steps_within(
-        f"train_tp rank {rank}: the f32 refresh step from the single-process state",
+        f"{path} rank {rank}: the f32 refresh step from the single-process state",
         [mine[i] for i in low], [block(i, want[i]) for i in low],
         [block(i, x) for i, x in enumerate(tree_leaves(shared["params"])) if i in low],
         [paths[i] for i in low])
     del mine
-    log(f"train_tp rank {rank}: from the single-process state in f32, tensor parallel against "
-        f"one process: hot step {hot}, refresh step (low-rank leaves) {refreshed}")
+    log(f"{path} rank {rank}: from the single-process state in f32, against one process: "
+        f"hot step {hot}, refresh step (low-rank leaves) {refreshed}; max_memory_allocated "
+        f"{ {k: round(v / 2**30, 2) for k, v in peak32.items()} } GiB")
     mesh_lib.barrier(mesh)
     if on_card:
         torch.cuda.empty_cache()
     return {"plan": plan, "losses": losses, "ms": ms, "max_memory_allocated": peak,
+            "peaks": peaks, "peaks_f32": peak32,
             "launches": launches, "expected": expect, "per_step": per_step,
-            "hot_bytes": got[1:], "refresh_bytes": got[0], "hot_bytes_formula": want,
+            "hot_bytes": got[1:], "refresh_bytes": got[0], "hot_bytes_formula": want_bytes,
             "parity": parity, "power_iter_cases": power, "hot_from_same_state": hot,
             "refresh_from_same_state": refreshed}
 
 
-def _tp_moe(rank: int, devname: str, mesh, cfg, seq: int, batch: int, opt_kw):
-    """The MoE run of one process of ``train_tp`` (see the constants)."""
+def _tp_moe(rank: int, devname: str, mesh, cfg, seq: int, batch: int, opt_kw,
+            fsdp: bool = False):
+    """The MoE run of one process of ``train_tp`` (see the constants), or
+    with ``fsdp`` of ``train_fsdp`` (``mesh`` (TP_WORLD, 1): the local
+    path, the expert d_ff over ``data``)."""
     from repro_torch.configs.base import TrainConfig
     from repro_torch.core import make_optimizer
     from repro_torch.core.lowrank import flatten_with_path, tree_leaves, tree_unflatten
@@ -4349,36 +4457,60 @@ def _tp_moe(rank: int, devname: str, mesh, cfg, seq: int, batch: int, opt_kw):
     data = SyntheticDataset(SyntheticDataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
                                                 global_batch=batch), device=devname)
 
-    def loss_and_grads(model, params, axes):
+    def loss_and_grads(model, params, axes, batch=None):
         leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
         with par.use(axes):
-            loss, _ = model.loss(tree_unflatten(params, leaves), data.batch_at(0))
+            loss, _ = model.loss(tree_unflatten(params, leaves),
+                                 data.batch_at(0) if batch is None else batch)
             grads = torch.autograd.grad(loss, leaves)
         return float(loss.detach()), tree_unflatten(params, list(grads))
 
+    path = "train_fsdp moe" if fsdp else "train_tp moe"
     # capacity factor 8, f32: the expert-parallel step-0 loss and gradients
-    # against one process's local path
+    # against one process's local path; under FSDP the step's own reduced
+    # gradients and the processes' mean loss against one process's run of
+    # the same rows in TP_WORLD microbatches
     model8 = build_model(cfg.with_(moe_capacity_factor=TP_MOE_CAPACITY, dtype=torch.float32),
                          device=devname)
     params = model8.init(torch.Generator(device=devname).manual_seed(SEED))
-    splits = shd.tp_splits(params, mesh)
     moe_lib.reset_ep_drops()
-    loss_tp, grads_tp = loss_and_grads(model8, shd.shard_params(params, mesh, splits),
-                                       mesh.model_axes())
+    if fsdp:
+        gopt = make_optimizer("galore-sara-adam", params, **dict(TRAIN_OPT, **opt_kw))
+        gfns = make_train_step(model8, gopt, mesh=mesh)
+        splits = gfns["splits"]
+        loss_tp, _, grads_tp = gfns["grads"](TrainState(shd.shard_params(params, mesh, splits),
+                                                        None), data.batch_at(0))
+        loss_tp = float(mesh.data_axes().all_reduce_scalars(loss_tp.reshape(1))[0]) / mesh.dp
+        del gfns, gopt
+    else:
+        splits = shd.tp_splits(params, mesh)
+        loss_tp, grads_tp = loss_and_grads(model8, shd.shard_params(params, mesh, splits),
+                                           mesh.model_axes())
     drops8 = moe_lib.ep_drops()
     grads_tp = shd.gather_params(grads_tp, mesh, splits)
     out = {"ep_loss": loss_tp, "drops_cf8": drops8}
     if rank == 0:
-        loss_1, grads_1 = loss_and_grads(model8, params, mesh_lib.single_device_mesh().model_axes())
+        one = mesh_lib.single_device_mesh().model_axes()
+        if fsdp:
+            # the same rows in microbatches of one process's rows
+            rows = batch // mesh.dp
+            parts = [loss_and_grads(model8, params, one,
+                                    {k: v[i:i + rows] for k, v in data.batch_at(0).items()})
+                     for i in range(0, batch, rows)]
+            loss_1 = sum(x for x, _ in parts) / len(parts)
+            grads_1 = tree_unflatten(params, [sum(gs) / len(parts) for gs in zip(
+                *[tree_leaves(g) for _, g in parts])])
+            del parts
+        else:
+            loss_1, grads_1 = loss_and_grads(model8, params, one)
         if abs(loss_1 - loss_tp) > TP_MOE_LOSS_TOL:
-            raise AssertionError(f"train_tp moe: expert-parallel loss {loss_tp} against the "
-                                 f"local path's {loss_1}")
+            raise AssertionError(f"{path}: loss {loss_tp} against one process's {loss_1}")
         worst = 0.0
-        for (path, a), b in zip(flatten_with_path(grads_tp), tree_leaves(grads_1)):
+        for (leaf, a), b in zip(flatten_with_path(grads_tp), tree_leaves(grads_1)):
             scale = float(b.abs().max())
             err = float((a - b).abs().max())
             if err > TP_MOE_GRAD_RTOL * scale:
-                raise AssertionError(f"train_tp moe: gradient {path} {err} apart (largest "
+                raise AssertionError(f"{path}: gradient {leaf} {err} apart (largest "
                                      f"|g| {scale})")
             worst = max(worst, err / max(scale, 1e-30))
         out.update(local_loss=loss_1, grad_rel_err=worst)
@@ -4393,6 +4525,9 @@ def _tp_moe(rank: int, devname: str, mesh, cfg, seq: int, batch: int, opt_kw):
     opt = make_optimizer("galore-sara-adam", params, lr_schedule=cosine_with_warmup(
         TRAIN_OPT["lr"], TRAIN_WARMUP, TP_STEPS), **dict(TRAIN_OPT, **opt_kw))
     fns = make_train_step(model, opt, mesh=mesh, train_cfg=TrainConfig(total_steps=TP_STEPS))
+    if fns["fsdp"] != fsdp:
+        raise AssertionError(f"{path} rank {rank}: the step on {mesh.shape} is FSDP: "
+                             f"{fns['fsdp']}")
     state = fns["place_state"](TrainState(params, opt.init(params)))
     del params
     if on_card:
@@ -4409,16 +4544,16 @@ def _tp_moe(rank: int, devname: str, mesh, cfg, seq: int, batch: int, opt_kw):
         ms.append((time.perf_counter() - t) * 1e3)
     launches = counters.snapshot()
     if not all(np.isfinite(losses)):
-        raise AssertionError(f"train_tp moe rank {rank}: losses {losses}")
+        raise AssertionError(f"{path} rank {rank}: losses {losses}")
     expect = _train_expect(cfg, fns["optimizer"], TP_STEPS)
     if launches != expect:
-        raise AssertionError(f"train_tp moe rank {rank}: launches {launches} != {expect}")
+        raise AssertionError(f"{path} rank {rank}: launches {launches} != {expect}")
     drops = moe_lib.ep_drops()
     out.update(losses=losses, ms=ms, drops=drops, launches=launches, expected=expect,
                max_memory_allocated=torch.cuda.max_memory_allocated() if on_card else 0,
-               plan=[(bk.d, bk.n, bk.rank, bk.batch, bk.split)
+               plan=[(bk.d, bk.n, bk.rank, bk.batch, bk.split + bk.dsplit)
                      for bk in fns["optimizer"].bucket_plan.buckets])
-    log(f"train_tp moe rank {rank}: {cfg.arch_id} {cfg.n_layers} layer(s), capacity "
+    log(f"{path} rank {rank}: {cfg.arch_id} {cfg.n_layers} layer(s), capacity "
         f"{TP_MOE_CAPACITY}: step-0 loss {loss_tp} (local path {out.get('local_loss')}), "
         f"gradients {out.get('grad_rel_err')} of their largest apart, drops {drops8}; at "
         f"{cfg.moe_capacity_factor}: losses {losses}, {ms} ms, dropped "
@@ -4456,6 +4591,12 @@ def _tp_worker(rank: int, world: int, out_dir: str, dev: str, shared, dense, moe
         log(f"train_tp rank {rank}: gloo group up, mesh {mesh.shape} on {devname}")
         out = {"rank": rank, "dense": _tp_dense(rank, devname, mesh, shared, *dense)}
         out["moe"] = _tp_moe(rank, devname, mesh, *moe)
+        # the same processes as FSDP over data (paths train_fsdp, train_fsdp_moe)
+        t = time.perf_counter()
+        fsdp_mesh = mesh_lib.make_mesh((world, 1))
+        out["fsdp"] = _tp_dense(rank, devname, fsdp_mesh, shared, *dense, fsdp=True)
+        out["fsdp_moe"] = _tp_moe(rank, devname, fsdp_mesh, *moe, fsdp=True)
+        out["fsdp_s"] = time.perf_counter() - t
         (Path(out_dir) / f"rank{rank}.json").write_text(json.dumps(out, default=str))
     finally:
         dist.destroy_process_group()
@@ -4528,14 +4669,16 @@ def _tp_main(out_json: str, dev: str, dense, moe) -> None:
     fns = make_train_step(model, opt, train_cfg=tc)
     state = TrainState(params, opt.init(params))
     del params
-    ref_losses, ref_ms = [], []
+    ref_losses, ref_ms, ref_peaks = [], [], []
     for s in range(TP_STEPS):
         if on_card:
             torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
         t = time.perf_counter()
         state, m = (fns["refresh_step"] if s == 0 else fns["step"])(state, data.batch_at(s))
         ref_losses.append(float(m["loss"]))
         ref_ms.append((time.perf_counter() - t) * 1e3)
+        ref_peaks.append(torch.cuda.max_memory_allocated() if on_card else 0)
         if s == 1:
             state1 = state
     del state, fns
@@ -4597,14 +4740,16 @@ def _tp_main(out_json: str, dev: str, dense, moe) -> None:
     finally:
         shutil.rmtree(out_dir, ignore_errors=True)
     Path(out_json).write_text(json.dumps({"ranks": ranks, "ref_losses": ref_losses,
-                                          "ref_ms": ref_ms, "self_rel": self_rel}, default=str))
+                                          "ref_ms": ref_ms, "ref_peaks": ref_peaks,
+                                          "self_rel": self_rel}, default=str))
 
 
 def train_tp(smi: str, dev: str = "cuda", dense=None, moe=None):
-    """Phase 5c (paths ``train_tp`` and ``train_tp_moe``, see the
-    constants): ``_tp_main`` in a process of its own, then the checks
-    across its ranks.  Returns the two paths' runs.  ``dense`` / ``moe``
-    override the configs for a CPU rehearsal."""
+    """Phases 5c and 5d (paths ``train_tp``, ``train_tp_moe``,
+    ``train_fsdp`` and ``train_fsdp_moe``, see the constants): ``_tp_main``
+    in a process of its own, then the checks across its ranks.  Returns the
+    four paths' runs.  ``dense`` / ``moe`` override the configs for a CPU
+    rehearsal."""
     from repro_torch.configs.registry import get_config
 
     dense = dense or (None, TRAIN_SEQ, TRAIN_BATCH)
@@ -4626,13 +4771,21 @@ def train_tp(smi: str, dev: str = "cuda", dense=None, moe=None):
     out_json.unlink()
     ranks, ref_losses, ref_ms = got["ranks"], got["ref_losses"], got["ref_ms"]
     self_rel = sorted(got["self_rel"].values())
-    gaps = [abs(a - b) for a, b in zip(ranks[0]["dense"]["losses"], ref_losses)]
-    if max(gaps) > TP_LOSS_GAP:
-        raise AssertionError(f"train_tp: losses {ranks[0]['dense']['losses']} against the "
-                             f"single-process {ref_losses}: gaps {gaps} > {TP_LOSS_GAP}")
+    gaps, fsdp_gaps = ([abs(a - b) for a, b in zip(ranks[0][k]["losses"], ref_losses)]
+                       for k in ("dense", "fsdp"))
+    for k, g in (("dense", gaps), ("fsdp", fsdp_gaps)):
+        if max(g) > TP_LOSS_GAP:
+            raise AssertionError(f"train_tp {k}: losses {ranks[0][k]['losses']} against the "
+                                 f"single-process {ref_losses}: gaps {g} > {TP_LOSS_GAP}")
     for r in ranks[1:]:
         if r["dense"]["losses"] != ranks[0]["dense"]["losses"]:
             raise AssertionError(f"train_tp: the processes' losses differ {r['dense']['losses']}")
+    for k in ("fsdp", "fsdp_moe"):
+        # each process's loss is its own rows' (the metrics are averaged in
+        # the step): the same numbers on every process
+        if any(r[k]["losses"] != ranks[0][k]["losses"] for r in ranks[1:]):
+            raise AssertionError(f"train_fsdp: the processes' {k} losses differ "
+                                 f"{[r[k]['losses'] for r in ranks]}")
     if sum(r["moe"]["drops_cf8"]["dropped"] for r in ranks):
         raise AssertionError(f"train_tp moe: pairs dropped at capacity {TP_MOE_CAPACITY}: "
                              f"{[r['moe']['drops_cf8'] for r in ranks]}")
@@ -4650,11 +4803,31 @@ def train_tp(smi: str, dev: str = "cuda", dense=None, moe=None):
         f"step ms {[r['dense']['ms'][1:] for r in ranks]}; moe dropped share at "
         f"{moe[0].moe_capacity_factor}: {dropped / max(routed, 1):.4f} ({dropped} of {routed}), "
         f"launches per process {[r['moe']['launches'] for r in ranks]}")
+    ref_peaks = got["ref_peaks"]
+    gib = lambda x: round(x / 2**30, 2)  # noqa: E731
+    log(f"train_fsdp ({smi}; {TP_WORLD} processes sharing one card over gloo, so the times "
+        f"are not an FSDP speed): {head['fsdp_s']:.1f} s; loss gaps {fsdp_gaps} against the "
+        f"single-process run; f32 from one state, per process: hot step "
+        f"{[r['fsdp']['hot_from_same_state'] for r in ranks]}, refresh step "
+        f"{[r['fsdp']['refresh_from_same_state'] for r in ranks]}; max_memory_allocated per "
+        f"step (refresh, hot, hot), per process "
+        f"{[[gib(x) for x in r['fsdp']['peaks']] for r in ranks]} GiB against the "
+        f"single-process run's {[gib(x) for x in ref_peaks]} GiB; f32 from one state "
+        f"{[{k: gib(v) for k, v in r['fsdp']['peaks_f32'].items()} for r in ranks]} GiB; "
+        f"hot-step bytes over data {head['fsdp']['hot_bytes']} (formula "
+        f"{head['fsdp']['hot_bytes_formula']}); moe step-0 loss {head['fsdp_moe']['ep_loss']} "
+        f"(one process in microbatches {head['fsdp_moe'].get('local_loss')}), gradients "
+        f"{head['fsdp_moe'].get('grad_rel_err')} of their largest apart; moe losses "
+        f"{head['fsdp_moe']['losses']}, launches per process "
+        f"{[r['fsdp_moe']['launches'] for r in ranks]}")
     dense_run = {"launches": head["dense"]["launches"], "ranks": ranks, "ref_losses": ref_losses,
                  "ref_ms": ref_ms, "loss_gaps": gaps, "refresh_self_rel": self_rel, "card": smi}
     moe_run = {"launches": head["moe"]["launches"], "moe_drop_share": dropped / max(routed, 1),
                "card": smi}
-    return dense_run, moe_run
+    fsdp_run = {"launches": head["fsdp"]["launches"], "loss_gaps": fsdp_gaps,
+                "ref_peaks": ref_peaks, "seconds": head["fsdp_s"], "card": smi}
+    fsdp_moe_run = {"launches": head["fsdp_moe"]["launches"], "card": smi}
+    return dense_run, moe_run, fsdp_run, fsdp_moe_run
 
 
 PHASES = ("kernels", "serve", "train", "train_recovery", "train_rank_schedule", "resume",
@@ -4717,9 +4890,11 @@ def main(argv=None) -> int:
     if "serve" in only:  # full width and depth, bf16
         runs["serve"] = phase("serve", lambda: serve(get_config("llama3-8b")))
     cfg_train = get_config("llama3-8b").with_(n_layers=TRAIN_LAYERS)
+    cfg_runs = cfg_train.with_(n_layers=TRAIN_RUN_LAYERS)
     if "train" in only:
         for path, (optimizer, plan, _, opt_kw) in TRAIN_RUNS.items():
-            runs[path] = phase(path, lambda: train(cfg_train, optimizer, plan, opt_kw=opt_kw))
+            runs[path] = phase(path, lambda: train(
+                cfg_runs, optimizer, train_buckets(TRAIN_RUN_LAYERS, plan), opt_kw=opt_kw))
     if "train_recovery" in only:
         # at 1 layer: the gate's cost is its in-phase turns, not a
         # difference with train's 4-layer hot steps
@@ -4727,8 +4902,8 @@ def main(argv=None) -> int:
             cfg_train.with_(n_layers=RECOVERY_LAYERS), smi, None,
             expect_buckets=train_buckets(RECOVERY_LAYERS)))
     if "train_rank_schedule" in only:
-        runs["train_rank_schedule"] = phase("train_rank_schedule",
-                                            lambda: train_rank_schedule(cfg_train, smi))
+        runs["train_rank_schedule"] = phase("train_rank_schedule", lambda: train_rank_schedule(
+            cfg_runs, smi, expect_buckets=train_buckets(TRAIN_RUN_LAYERS)))
     if "resume" in only:
         runs["resume"], runs["serve_ckpt"] = phase("resume", lambda: resume(
             cfg_train.with_(n_layers=RESUME_LAYERS), smi,
@@ -4737,12 +4912,13 @@ def main(argv=None) -> int:
         runs["train_dp"] = phase("train_dp", lambda: train_dp(
             cfg_train.with_(n_layers=DP_LAYERS), smi, expect_buckets=train_buckets(DP_LAYERS)))
     if "train_tp" in only:
-        runs["train_tp"], runs["train_tp_moe"] = phase("train_tp", lambda: train_tp(smi))
+        (runs["train_tp"], runs["train_tp_moe"], runs["train_fsdp"],
+         runs["train_fsdp_moe"]) = phase("train_tp", lambda: train_tp(smi))
     if "family_kernels" in only:
         cases += phase("family_kernels", lambda: family_kernel_cases(results))
     if "serve_moe" in only:  # deepseek-moe-16b at full width and depth
-        runs["serve_moe"] = phase("serve_moe", lambda: serve(get_config(MOE_ARCH),
-                                                             profile_ticks=4))
+        runs["serve_moe"] = phase("serve_moe", lambda: serve(
+            cut_depth(get_config(MOE_ARCH), SERVE_MOE_LAYERS), profile_ticks=4))
     for path in ("train_moe", "train_ssm", "train_hybrid"):
         if path in only:
             runs[path] = phase(path, lambda: family_train(path, smi))
@@ -4756,10 +4932,11 @@ def main(argv=None) -> int:
         cases += phase("encdec_vlm_kernels", lambda: encdec_vlm_kernel_cases(results))
     if "serve_vlm" in only:  # llava-next-34b at full width and depth, bf16
         runs["serve_vlm"] = phase("serve_vlm", lambda: serve(
-            get_config(VLM_ARCH), profile_ticks=4, pool_pages=VLM_POOL_PAGES))
+            cut_depth(get_config(VLM_ARCH), SERVE_VLM_LAYERS), profile_ticks=4,
+            pool_pages=VLM_POOL_PAGES))
     if "train_vlm" in only:
         runs["train_vlm"] = phase("train_vlm", lambda: family_train("train_vlm", smi))
-    if "serve_audio" in only:  # whisper-medium at full width, 12 + 12 layers, bf16
+    if "serve_audio" in only:  # whisper-medium at full width, 6 + 6 layers, bf16
         runs["serve_audio"] = phase("serve_audio", lambda: serve_slots(
             cut_depth(get_config(AUDIO_ARCH), AUDIO_LAYERS), AUDIO_PROMPT_LENS,
             new_tokens=AUDIO_NEW_TOKENS, max_seq_len=AUDIO_MAX_SEQ))

@@ -39,7 +39,16 @@ refresh of a "d" bucket gathers its gradient and projector stacks over
 ``model`` and refreshes redundantly; an "n" bucket under the randomized
 SVD takes the sketch route (``svd.randomized_svd_stacked(split=)``: the
 kernel on the local block, its products summed over ``model``), and
-gathers under the other methods.  ``dp_comm_model`` and
+gathers under the other methods.
+
+FSDP over ``data`` (the standard step at a ``data`` extent above 1)
+cuts the leaves the same way on a second axis: ``Bucket.dsplit`` is the
+canonical dim split over ``data`` ("d", "n" or ""; the rules never split
+a stack dim over it), and a bucket may be cut on both axes, on a
+different dim by each.  A "d" bucket over ``data`` sums its partial R
+over ``data``; a refresh gathers over ``data`` where the bucket is "d"
+there, and takes the sketch route over ``data`` where it is "n" (then
+over ``model`` a "d" bucket gathers first).  ``dp_comm_model`` and
 ``sharded_ckpt_model`` are the reference's host models of the bytes those
 steps hand to the collectives and write per checkpoint writer.  The rest
 of the modeled accounting waits for the benchmark slice (ROADMAP queue 1
@@ -88,6 +97,10 @@ class Bucket(NamedTuple):
     tp: int = 1
     # a "b" bucket's leaves' leading dim split over ``model`` (the experts)
     lead_split: int = -1
+    # FSDP: the canonical dim split over ``data`` ("d", "n" or "") and the
+    # ``data`` extent
+    dsplit: str = ""
+    dp: int = 1
 
     @property
     def batch(self) -> int:
@@ -95,8 +108,20 @@ class Bucket(NamedTuple):
 
     def global_dims(self) -> Tuple[int, int]:
         """(d, n) of the global leaves the blocks are cut from."""
-        return (self.d * self.tp if self.split == "d" else self.d,
-                self.n * self.tp if self.split == "n" else self.n)
+        d, n = self.d, self.n
+        for kind, size in ((self.split, self.tp), (self.dsplit, self.dp)):
+            d, n = (d * size, n) if kind == "d" else (d, n * size) if kind == "n" else (d, n)
+        return d, n
+
+    def cuts(self, tp_axes=None, fsdp_axes=None) -> List[Tuple[str, Any]]:
+        """(kind, axes) of each axis that cuts a canonical dim of the
+        bucket's leaves ("d" or "n"), ``data`` first; an axis given as None
+        is left out."""
+        out = []
+        for kind, ax in ((self.dsplit, fsdp_axes), (self.split, tp_axes)):
+            if ax is not None and kind in ("d", "n"):
+                out.append((kind, ax))
+        return out
 
 
 class BucketPlan(NamedTuple):
@@ -121,7 +146,8 @@ def tp_kind(side: str, split: Optional[int], ndim: int) -> str:
 
 def build_bucket_plan(flat_specs: Sequence, flat_params: Sequence, *,
                       split_sides: bool = False, tp_splits: Optional[Sequence] = None,
-                      tp: int = 1) -> BucketPlan:
+                      tp: int = 1, dp_splits: Optional[Sequence] = None,
+                      dp: int = 1) -> BucketPlan:
     """Static bucketing: group low-rank leaves by (d, n, rank, dtype), in the
     sorted key order of the JAX plan.  The rank is clamped to d here.
     ``split_sides`` adds the side to the key and stamps it on the bucket
@@ -129,7 +155,8 @@ def build_bucket_plan(flat_specs: Sequence, flat_params: Sequence, *,
     ``flat_params`` are this process's blocks, ``tp_splits`` the dim each
     global leaf splits over a ``model`` axis of ``tp`` (None: whole), the
     specs (side, rank) the global leaves'; the kind of split
-    (``tp_kind``) joins the key, and the rank clamps to the global d."""
+    (``tp_kind``) joins the key, and the rank clamps to the global d.
+    ``dp_splits`` / ``dp`` are the same over ``data`` (FSDP)."""
     groups: Dict[Tuple, List[BucketEntry]] = {}
     for i, (spec, leaf) in enumerate(zip(flat_specs, flat_params)):
         if not spec.lowrank:
@@ -138,6 +165,8 @@ def build_bucket_plan(flat_specs: Sequence, flat_params: Sequence, *,
         d_c, n_c = (m, n) if spec.side == "left" else (n, m)
         split = tp_splits[i] if tp_splits is not None and tp > 1 else None
         kind = tp_kind(spec.side, split, len(leaf.shape))
+        dkind = tp_kind(spec.side, dp_splits[i] if dp_splits is not None and dp > 1 else None,
+                        len(leaf.shape))
         if spec.rank < 1:
             raise ValueError(
                 f"bucket plan: leaf {i} ({spec.path!r}, shape "
@@ -147,18 +176,19 @@ def build_bucket_plan(flat_specs: Sequence, flat_params: Sequence, *,
         b = 1
         for s in leaf.shape[:-2]:
             b *= s
-        gd = d_c * tp if kind == "d" else d_c
+        gd = d_c * (tp if kind == "d" else 1) * (dp if dkind == "d" else 1)
         key = (d_c, n_c, min(spec.rank, gd), _dtype_name(leaf.dtype))
         if split_sides:
             key = key + (spec.side,)
-        if kind:
-            key = key + ("tp", kind, split if kind == "b" else -1)
+        if kind or dkind:
+            key = key + ("tp", kind, dkind, split if kind == "b" else -1)
         groups.setdefault(key, []).append(BucketEntry(i, spec.side, b))
     buckets = tuple(
         Bucket(d=k[0], n=k[1], rank=k[2], entries=tuple(es),
                side=k[4] if split_sides else "any",
-               split=k[-2] if "tp" in k else "", tp=tp if "tp" in k else 1,
-               lead_split=k[-1] if "tp" in k else -1)
+               split=k[-3] if "tp" in k else "", tp=tp if "tp" in k and k[-3] else 1,
+               lead_split=k[-1] if "tp" in k else -1,
+               dsplit=k[-2] if "tp" in k else "", dp=dp if "tp" in k and k[-2] else 1)
         for k, es in sorted(groups.items(), key=lambda kv: kv[0])
     )
     covered = frozenset(e.leaf_idx for bk in buckets for e in bk.entries)
@@ -272,18 +302,22 @@ def build_state_layout(
     return StateLayout(plan, inner_name, has_v, templates, projector_dtype, shards)
 
 
-def init_bucket_states(layout: StateLayout, device, tp_index: int = 0) -> Tuple[BucketState, ...]:
+def init_bucket_states(layout: StateLayout, device, tp_index: int = 0,
+                       dp_index: int = 0) -> Tuple[BucketState, ...]:
     """Eye projectors (the first refresh installs the real ones) and zero
     moments, stacked (quantized zeros for adam8bit: the codes and scales
     of ``inner.adam8bit().init``); padded to the ZeRO rows when
     ``layout.shards > 1`` (``zero_pad_states``).  A "d" bucket's projector
-    is process ``tp_index``'s rows of the global eye."""
+    is process ``tp_index``'s rows of the global eye (``dp_index``'s where
+    the bucket is "d" over ``data``)."""
     out = []
     for bucket in layout.plan.buckets:
         B, d, n, r = bucket.batch, bucket.d, bucket.n, bucket.rank
         eye = torch.eye(bucket.global_dims()[0], r, dtype=layout.projector_dtype, device=device)
         if bucket.split == "d":
             eye = eye[tp_index * d:(tp_index + 1) * d]
+        elif bucket.dsplit == "d":
+            eye = eye[dp_index * d:(dp_index + 1) * d]
         proj = eye.expand(B, d, r).clone()
         z = torch.zeros((B, r, n), dtype=torch.float32, device=device)
         if layout.inner_name == "adam8bit":
@@ -585,27 +619,30 @@ def bucketed_all_finite(plan: BucketPlan, flat_grads: Sequence[torch.Tensor]
             for bucket in plan.buckets]
 
 
-def _tp_reduce_r(bucket: Bucket, r_g: torch.Tensor, tp_axes) -> torch.Tensor:
-    """A "d" bucket's partial R summed over ``model``, in place."""
-    if tp_axes is not None and bucket.split == "d":
-        tp_axes.all_reduce_(r_g)
+def _tp_reduce_r(bucket: Bucket, r_g: torch.Tensor, tp_axes, fsdp_axes=None) -> torch.Tensor:
+    """A "d" bucket's partial R summed over the axis that cuts its d
+    (``model`` or, under FSDP, ``data``), in place."""
+    for kind, ax in bucket.cuts(tp_axes, fsdp_axes):
+        if kind == "d":
+            ax.all_reduce_(r_g)
     return r_g
 
 
 def bucketed_project_grads(plan: BucketPlan, bucket_states: Sequence[BucketState],
                            flat_grads: Sequence[torch.Tensor],
                            projectors: Optional[Sequence[torch.Tensor]] = None,
-                           tp_axes=None) -> Tuple[torch.Tensor, ...]:
+                           tp_axes=None, fsdp_axes=None) -> Tuple[torch.Tensor, ...]:
     """One f32 (B, r, n) R-space stack per bucket, R = P^T G from the bucket
     projector stacks (the projection kernel on the card): the hot payload
     of the project-then-reduce step, one contiguous buffer per bucket.
     ``projectors`` overrides the (B, d, r) stacks (the ZeRO step passes the
     gathered full projectors, ``zero_gather_projectors``).  Under tensor
-    parallelism (``tp_axes``) a "d" bucket's R is summed over ``model``."""
+    parallelism (``tp_axes``) a "d" bucket's R is summed over ``model``
+    (over ``data`` under FSDP, ``fsdp_axes``)."""
     if projectors is None:
         projectors = [bst.projector for bst in bucket_states]
     return tuple(_tp_reduce_r(bucket, update_ops.bucketed_project(_gather(bucket, flat_grads), p),
-                              tp_axes)
+                              tp_axes, fsdp_axes)
                  for bucket, p in zip(plan.buckets, projectors))
 
 
@@ -637,6 +674,7 @@ def bucketed_update(
     stacked_params: Optional[Sequence[torch.Tensor]] = None,
     out_stacked: bool = False,
     tp_axes=None,
+    fsdp_axes=None,
 ) -> Tuple[Any, Tuple[BucketState, ...], List[torch.Tensor]]:
     """Run every bucket against its storage-layout state.  Returns
     ({leaf_idx: new param (apply) or update}, new bucket states,
@@ -650,7 +688,8 @@ def bucketed_update(
     W' stacks back unscattered (``out_stacked``) for its all-gather: every
     fused update works row by row, so a block goes through the same
     kernels.  Under tensor parallelism (``tp_axes``) a "d" bucket's R is
-    summed over ``model`` between the projection and the update."""
+    summed over ``model`` between the projection and the update (over
+    ``data`` under FSDP, ``fsdp_axes``)."""
     lr_alpha = lr * cfg.alpha
     lr_wd = lr * cfg.weight_decay if cfg.weight_decay else 0.0
     ik = cfg.inner_kwargs()
@@ -662,7 +701,8 @@ def bucketed_update(
         w = stacked_params[bi] if stacked_params is not None else _gather(bucket, flat_params)
         p = bst.projector
         g = stacked_grads[bi] if stacked_grads is not None else _gather(bucket, flat_grads)
-        r_g = g if projected else _tp_reduce_r(bucket, update_ops.bucketed_project(g, p), tp_axes)
+        r_g = g if projected else _tp_reduce_r(bucket, update_ops.bucketed_project(g, p),
+                                               tp_axes, fsdp_axes)
         del g
         if cfg.inner == "msgd":
             w_new, m_new = update_ops.bucketed_msgd_update(
@@ -755,7 +795,8 @@ def bucketed_refresh(
     stacked_refresh_fn=None,  # (g_stack, draws, old_p_stack, rank) -> stack
     stacked_grads: Optional[Sequence[torch.Tensor]] = None,
     tp_axes=None,
-    split_refresh_fn=None,  # (g_stack, draws, old_p_stack, rank, n_full) -> stack
+    split_refresh_fn=None,  # (g_stack, draws, old_p_stack, rank, n_full, axes) -> stack
+    fsdp_axes=None,
 ) -> Tuple[Tuple[BucketState, ...], List[torch.Tensor]]:
     """Refresh the projectors of one refresh ``group`` in the bucket stacks.
 
@@ -777,6 +818,9 @@ def bucketed_refresh(
     refreshes them whole and keeps its rows of the new projectors; an "n"
     bucket refreshes through ``split_refresh_fn`` on its own columns (the
     sketch route) where one is given, and gathers its gradients otherwise.
+    Under FSDP (``fsdp_axes``) the same holds over ``data``, which comes
+    first: a bucket cut on both axes gathers over the one that cuts its d
+    and takes the sketch route over the one that cuts its n.
     The draws are the global leaves' on every process.
     Returns (new bucket states, per-leaf overlap diagnostics)."""
     new_states: List[BucketState] = []
@@ -788,15 +832,18 @@ def bucketed_refresh(
         new_slices: Dict[int, torch.Tensor] = {}
         stack = stacked_grads[bi] if stacked_grads is not None else None
         proj = bst.projector
-        split = bucket.split if tp_axes is not None else ""
-        sketch = hot and split == "n" and split_refresh_fn is not None
-        if hot and split in ("d", "n"):
-            if stack is None:
-                stack = _gather(bucket, flat_grads)
-            if not sketch:
-                stack = tp_axes.all_gather(stack, dim=1 if split == "d" else 2)
-            if split == "d":
-                proj = tp_axes.all_gather(proj, dim=1)
+        cuts = bucket.cuts(tp_axes, fsdp_axes) if hot else []
+        d_axes = [ax for kind, ax in cuts if kind == "d"]
+        sketch = next((ax for kind, ax in cuts if kind == "n"), None) \
+            if split_refresh_fn is not None else None
+        if cuts and stack is None:
+            stack = _gather(bucket, flat_grads)
+        for kind, ax in cuts:
+            if kind == "d":
+                stack = ax.all_gather(stack, dim=1)
+                proj = ax.all_gather(proj, dim=1)
+            elif ax is not sketch:
+                stack = ax.all_gather(stack, dim=2)
         if hot and stacked_refresh_fn is not None:
             if stack is not None:
                 g_stack = _slice_entries(bucket, stack, hot)
@@ -806,13 +853,23 @@ def bucketed_refresh(
             per = [entry_draws(draws, e, layout.templates[e.leaf_idx], bucket, pcfg, device,
                                tp_index) for e in hot]
             stacked = LeafDraws(*(_cat(list(parts)) for parts in zip(*per)))
-            if sketch:
+            # the gather route: each process of the axis that cut d refreshes
+            # its block of the slices, and the new projectors are gathered
+            share = d_axes[0] if d_axes and sketch is None \
+                and g_stack.shape[0] % d_axes[0].size == 0 else None
+            if share is not None:
+                rows = g_stack.shape[0] // share.size
+                cut = slice(share.index * rows, (share.index + 1) * rows)
+                new_stack = stacked_refresh_fn(
+                    g_stack[cut], LeafDraws(*(None if x is None else x[cut] for x in stacked)),
+                    old_stack[cut], bucket.rank)
+                new_stack = share.all_gather(new_stack.to(bst.projector.dtype).contiguous())
+            elif sketch is not None:
                 # this process's rows of the global sketch
-                n = bucket.n
-                stacked = stacked._replace(
-                    omega=stacked.omega[:, tp_index * n:(tp_index + 1) * n])
+                n, i = bucket.n, sketch.index
+                stacked = stacked._replace(omega=stacked.omega[:, i * n:(i + 1) * n])
                 new_stack = split_refresh_fn(g_stack, stacked, old_stack, bucket.rank,
-                                             bucket.global_dims()[1])
+                                             bucket.global_dims()[1], sketch)
             else:
                 new_stack = stacked_refresh_fn(g_stack, stacked, old_stack, bucket.rank)
             new_stack = new_stack.to(bst.projector.dtype)
@@ -867,9 +924,9 @@ def bucketed_refresh(
                 c = torch.einsum("bdn,bdo->bno", new_proj, proj)
                 m2 = torch.einsum("bno,bok->bnk", c, m).to(m.dtype)
                 m = _select_slices(bucket, refreshed, m2, m)
-        if split == "d" and hot:
+        for ax in d_axes:
             # this process's rows of the whole refreshed projectors
-            new_proj = new_proj[:, tp_index * bucket.d:(tp_index + 1) * bucket.d].contiguous()
+            new_proj = new_proj[:, ax.index * bucket.d:(ax.index + 1) * bucket.d].contiguous()
         new_states.append(BucketState(new_proj, m, v, ms_, vs_))
     return tuple(new_states), overlaps
 

@@ -382,10 +382,28 @@ def build_specs(
 class TPPlan(NamedTuple):
     """Tensor parallelism of an optimizer: the ``model`` axis
     (``launch/mesh.DPAxes``) and, per leaf in flat order, the dim of the
-    global leaf split over it (None: whole)."""
+    global leaf split over it (None: whole); under FSDP the same over
+    ``data`` (``data_axes`` None: no FSDP)."""
 
     axes: Any
     splits: Tuple[Optional[int], ...]
+    data_axes: Any = None
+    data_splits: Optional[Tuple[Optional[int], ...]] = None
+
+    def pairs(self) -> List[Tuple[Optional[int], Optional[int]]]:
+        """Per leaf, (``data`` dim, ``model`` dim): ``launch/sharding``'s
+        ``param_splits``."""
+        ds = self.data_splits or (None,) * len(self.splits)
+        return list(zip(ds, self.splits))
+
+    def leaf_axes(self, i: int) -> Tuple[Any, ...]:
+        """The axes leaf ``i`` is split over, ``data`` first."""
+        out = ()
+        if self.data_splits is not None and self.data_splits[i] is not None:
+            out += (self.data_axes,)
+        if self.splits[i] is not None:
+            out += (self.axes,)
+        return out
 
 
 class LowRankOptimizer(NamedTuple):
@@ -412,26 +430,30 @@ def _global_norm(leaves: Sequence[torch.Tensor]) -> torch.Tensor:
     return torch.sqrt(sum(torch.sum(torch.square(x.float())) for x in leaves))
 
 
-def _tp_norm(values: Sequence[torch.Tensor], flags: Sequence[bool], shard_axes, n_rows: int,
-             tp_axes, squared: bool = False) -> torch.Tensor:
-    """The global norm under tensor parallelism: the squares of the blocks
-    of split tensors (``flags``) summed over ``model``, the whole ones
+def _tp_norm(values: Sequence[torch.Tensor], split_axes: Sequence[Tuple[Any, ...]], shard_axes,
+             n_rows: int, order: Sequence[Any], squared: bool = False) -> torch.Tensor:
+    """The global norm of blocks: the squares of each value summed over
+    every axis that splits it (``split_axes``, per value), whole ones
     counted once; the first ``n_rows`` values are a ZeRO shard's rows,
-    summed over ``shard_axes`` first.  ``values`` are tensors, or their
-    squared norms with ``squared``."""
+    summed over ``shard_axes`` too.  One scalar collective per axis, in
+    ``order`` (``shard_axes`` first): the values that still need an axis
+    are summed over it and then join those of the same remaining axes.
+    ``values`` are tensors, or their squared norms with ``squared``."""
     sqs = [v if squared else torch.sum(torch.square(v.float())) for v in values]
+    groups: Dict[Tuple[Any, ...], torch.Tensor] = {}
+    for i, (q, axs) in enumerate(zip(sqs, split_axes)):
+        key = ((shard_axes,) if shard_axes is not None and i < n_rows else ()) + tuple(axs)
+        groups[key] = groups[key] + q if key in groups else q
+    for ax in ((shard_axes,) if shard_axes is not None else ()) + tuple(order):
+        keys = [k for k in groups if any(a is ax for a in k)]
+        if not keys:
+            continue
+        vec = ax.all_reduce_scalars(torch.stack([groups.pop(k).reshape(()) for k in keys]))
+        for j, k in enumerate(keys):
+            rest = tuple(a for a in k if a is not ax)
+            groups[rest] = groups[rest] + vec[j] if rest in groups else vec[j]
     zero = torch.zeros((), dtype=torch.float32, device=sqs[0].device)
-
-    def total(lo, hi, want):
-        return sum((q for q, f in zip(sqs[lo:hi], flags[lo:hi]) if f == want), zero)
-
-    rows_split, rows_whole = total(0, n_rows, True), total(0, n_rows, False)
-    if shard_axes is not None:
-        rows = shard_axes.all_reduce_scalars(torch.stack([rows_split, rows_whole]))
-        rows_split, rows_whole = rows[0], rows[1]
-    split = tp_axes.all_reduce_scalars(
-        (rows_split + total(n_rows, len(sqs), True)).reshape(1))[0]
-    return torch.sqrt(split + rows_whole + total(n_rows, len(sqs), False))
+    return torch.sqrt(sum(groups.values(), zero))
 
 
 def _safe_ratio(num: torch.Tensor, den: torch.Tensor) -> torch.Tensor:
@@ -479,15 +501,20 @@ def make_lowrank_optimizer(
     return _assemble(cfg, specs, tree_leaves(params_like))
 
 
-def tensor_parallel_optimizer(optimizer: "LowRankOptimizer", mesh) -> "LowRankOptimizer":
+def tensor_parallel_optimizer(optimizer: "LowRankOptimizer", mesh,
+                              fsdp: bool = False) -> "LowRankOptimizer":
     """The optimizer of this process's blocks under ``mesh``'s ``model``
-    axis (module docstring): the global optimizer's specs, its leaves cut
-    by ``launch/sharding.param_spec``.  The optimizer itself where the
-    axis has extent 1."""
+    axis (module docstring) and, with ``fsdp``, its ``data`` axis: the
+    global optimizer's specs, its leaves cut by
+    ``launch/sharding.param_spec``.  The optimizer itself where no leaf is
+    cut."""
     from repro_torch.launch import sharding as shd
 
     ax = mesh.model_axes()
-    if ax.size == 1:
+    dax = mesh.data_axes() if fsdp else None
+    pairs = [shd.leaf_splits(spec.path, tuple(like.shape), mesh, fsdp)
+             for spec, like in zip(optimizer.specs, optimizer.likes)]
+    if ax.size == 1 and all(dd is None for dd, _ in pairs):
         return optimizer
     cfg = optimizer.config
     if cfg.engine != "bucketed" or cfg.inner not in ("adam", "msgd") or cfg.fira:
@@ -498,15 +525,16 @@ def tensor_parallel_optimizer(optimizer: "LowRankOptimizer", mesh) -> "LowRankOp
     if cfg.rank_schedule:
         raise NotImplementedError("rank schedules under tensor parallelism are not ported "
                                   "(ROADMAP queue 1 item 11, second half)")
-    splits, likes = [], []
-    for spec, like in zip(optimizer.specs, optimizer.likes):
+    likes = []
+    for (dd, md), like in zip(pairs, optimizer.likes):
         shape = tuple(like.shape)
-        d = shd.model_dim(shd.param_spec(spec.path, shape, mesh), len(shape))
-        splits.append(d)
-        if d is not None:
-            shape = shape[:d] + (shape[d] // ax.size,) + shape[d + 1:]
+        for d, size in ((dd, dax.size if dax is not None else 1), (md, ax.size)):
+            if d is not None:
+                shape = shape[:d] + (shape[d] // size,) + shape[d + 1:]
         likes.append(buckets_lib._Like(shape, like.dtype))
-    out = _assemble(cfg, optimizer.specs, likes, TPPlan(ax, tuple(splits)))
+    plan = TPPlan(ax, tuple(md for _, md in pairs), dax,
+                  tuple(dd for dd, _ in pairs) if fsdp else None)
+    out = _assemble(cfg, optimizer.specs, likes, plan)
     if out.state_layout is None:
         raise NotImplementedError("tensor parallelism needs bucket-native state")
     return out
@@ -523,6 +551,19 @@ def _assemble(cfg: OptimizerConfig, specs: List[LeafSpec], flat_like: Sequence,
     likes = tuple(buckets_lib._Like(tuple(x.shape), x.dtype) for x in flat_like)
     tp_axes = tp.axes if tp is not None else None
     tp_split = tp.splits if tp is not None else (None,) * len(specs)
+    fsdp_axes = tp.data_axes if tp is not None else None
+    dp_split = tp.data_splits if tp is not None and tp.data_splits else (None,) * len(specs)
+    # the axes that split some leaf, in the norms' reduction order
+    norm_axes = tuple(a for a in (fsdp_axes, tp_axes) if a is not None)
+
+    def bucket_axes(bk, projected: bool) -> Tuple[Any, ...]:
+        """The axes a bucket's stack is split over: its R stack is whole
+        over an axis that cuts its d once reduced (``projected``)."""
+        out = ()
+        for kind, ax in ((bk.dsplit, fsdp_axes), (bk.split, tp_axes)):
+            if ax is not None and (kind in ("n", "b") or (kind == "d" and not projected)):
+                out += (ax,)
+        return out
 
     bucket_plan = None
     state_layout = None
@@ -533,6 +574,7 @@ def _assemble(cfg: OptimizerConfig, specs: List[LeafSpec], flat_like: Sequence,
             specs, flat_like,
             split_sides=cfg.inner in buckets_lib.SIDE_HOMOGENEOUS_INNERS,
             tp_splits=tp_split, tp=tp_axes.size if tp_axes is not None else 1,
+            dp_splits=dp_split, dp=fsdp_axes.size if fsdp_axes is not None else 1,
         )
         # bucket-native storage only where the fused engine covers every hot
         # step of every low-rank leaf: Adafactor (no fused update) and Fira
@@ -580,7 +622,8 @@ def _assemble(cfg: OptimizerConfig, specs: List[LeafSpec], flat_like: Sequence,
                 ))
         bucket_states = (
             buckets_lib.init_bucket_states(state_layout, device,
-                                           tp_axes.index if tp_axes is not None else 0)
+                                           tp_axes.index if tp_axes is not None else 0,
+                                           fsdp_axes.index if fsdp_axes is not None else 0)
             if state_layout is not None else ()
         )
         return LowRankOptState(
@@ -618,15 +661,14 @@ def _assemble(cfg: OptimizerConfig, specs: List[LeafSpec], flat_like: Sequence,
             inner_state = inner_state._replace(m=m2.to(m.dtype))
         return LeafState(projector=new_p, inner=inner_state), overlap
 
-    def _split_flags(stacked_in: bool, projected: bool) -> List[bool]:
+    def _split_flags(stacked_in: bool, projected: bool) -> List[Tuple[Any, ...]]:
         """Per gradient tensor handed to the update (the leaves, or the
-        bucket stacks then the rest): is it a block of a tensor split over
-        ``model``?  A "d" bucket's R stack is whole once reduced."""
+        bucket stacks then the rest): the axes it is a block over.  A "d"
+        bucket's R stack is whole once reduced."""
         if stacked_in:
-            return ([bk.split in ("n", "b") or (bk.split == "d" and not projected)
-                     for bk in bucket_plan.buckets]
-                    + [tp_split[i] is not None for i in rest_indices])
-        return [x is not None for x in tp_split]
+            return ([bucket_axes(bk, projected) for bk in bucket_plan.buckets]
+                    + [tp.leaf_axes(i) for i in rest_indices])
+        return [tp.leaf_axes(i) for i in range(len(specs))]
 
     def update(
         grads: PyTree,
@@ -744,10 +786,10 @@ def _assemble(cfg: OptimizerConfig, specs: List[LeafSpec], flat_like: Sequence,
             flat_g = tree_leaves(grads)
             stacked_g = None
             every_g = flat_g
-        if tp_axes is not None:
+        if tp is not None:
             gnorm = _tp_norm(every_g, _split_flags(stacked_in, projected),
                              shard_axes if shard_local and not refresh else None,
-                             len(stacked_g) if stacked_in else 0, tp_axes)
+                             len(stacked_g) if stacked_in else 0, norm_axes)
         elif shard_local and not refresh:
             # disjoint blocks of rows: the global norm is the summed local
             # squares (pad rows are zero) plus the replicated rest's
@@ -764,9 +806,9 @@ def _assemble(cfg: OptimizerConfig, specs: List[LeafSpec], flat_like: Sequence,
             # The norm is the same number on every process; a shard's own
             # check of its rows is summed across them, so all agree.
             bad = not bool(torch.isfinite(gnorm)) and not bool(buckets_lib.all_finite(every_g))
-            if (shard_local or tp_axes is not None) and not bool(torch.isfinite(gnorm)):
+            if (shard_local or tp is not None) and not bool(torch.isfinite(gnorm)):
                 flag = torch.full((1,), float(bad), device=gnorm.device)
-                for ax in (shard_axes if shard_local else None, tp_axes):
+                for ax in (shard_axes if shard_local else None,) + norm_axes:
                     if ax is not None:
                         flag = ax.all_reduce_scalars(flag)
                 bad = bool(flag[0] > 0)
@@ -807,17 +849,18 @@ def _assemble(cfg: OptimizerConfig, specs: List[LeafSpec], flat_like: Sequence,
                         )
 
                 split_fn = None
-                if tp_axes is not None and pcfg.method in ("dominant", "sara") \
+                if tp is not None and pcfg.method in ("dominant", "sara") \
                         and pcfg.svd_backend == "randomized":
-                    def split_fn(gs, leaf_draws, old_ps, rank, n_total):
+                    def split_fn(gs, leaf_draws, old_ps, rank, n_total, axes):
                         return proj_lib.refresh_projector_stacked_split(
-                            gs, leaf_draws, pcfg, rank=rank, n_total=n_total, axes=tp_axes)
+                            gs, leaf_draws, pcfg, rank=rank, n_total=n_total, axes=axes)
 
                 new_buckets, bucket_overlaps = buckets_lib.bucketed_refresh(
                     state_layout, state.buckets, specs, flat_g, draws,
                     pcfg, _refresh_fn, group=g_now,
                     momentum_carry=cfg.momentum_carry, stacked_refresh_fn=stacked_fn,
                     stacked_grads=stacked_g, tp_axes=tp_axes, split_refresh_fn=split_fn,
+                    fsdp_axes=fsdp_axes,
                 )
                 overlaps.extend(bucket_overlaps)
             if shard_local and not refresh:
@@ -827,7 +870,7 @@ def _assemble(cfg: OptimizerConfig, specs: List[LeafSpec], flat_like: Sequence,
                 out_stacks, new_buckets, bucket_norm_sq = buckets_lib.bucketed_update(
                     bucket_plan, cfg, new_buckets, flat_g, flat_p, step, lr, apply=apply,
                     projected=projected, stacked_grads=stacked_g, stacked_params=local_w,
-                    out_stacked=True, tp_axes=tp_axes,
+                    out_stacked=True, tp_axes=tp_axes, fsdp_axes=fsdp_axes,
                 )
                 del local_w
                 full_stacks = buckets_lib.zero_gather_stacks(state_layout, out_stacks,
@@ -839,6 +882,7 @@ def _assemble(cfg: OptimizerConfig, specs: List[LeafSpec], flat_like: Sequence,
                 fused, new_buckets, bucket_norm_sq = buckets_lib.bucketed_update(
                     bucket_plan, cfg, new_buckets, flat_g, flat_p, step, lr, apply=apply,
                     projected=projected, stacked_grads=stacked_g, tp_axes=tp_axes,
+                    fsdp_axes=fsdp_axes,
                 )
         del stacked_g
 
@@ -888,13 +932,14 @@ def _assemble(cfg: OptimizerConfig, specs: List[LeafSpec], flat_like: Sequence,
             new_leaves.append(LeafState(proj, inner_state))
 
         zero = torch.zeros((), dtype=torch.float32, device=gnorm.device)
-        if tp_axes is not None:
-            # blocks of split leaves summed over ``model``, whole leaves once
-            flags = [bk.split != "" for bk in bucket_plan.buckets] if bucket_norm_sq else []
-            flags += [tp_split[i] is not None for i in range(len(specs)) if i not in fused]
+        if tp is not None:
+            # blocks of split leaves summed over their axes, whole leaves once
+            flags = [bucket_axes(bk, False) for bk in bucket_plan.buckets] \
+                if bucket_norm_sq else []
+            flags += [tp.leaf_axes(i) for i in range(len(specs)) if i not in fused]
             unorm = _tp_norm(list(bucket_norm_sq) + norm_sq, flags,
                              shard_axes if shard_local and not refresh else None,
-                             len(bucket_norm_sq), tp_axes, squared=True)
+                             len(bucket_norm_sq), norm_axes, squared=True)
         else:
             bucket_sq = sum(bucket_norm_sq, zero)
             if shard_local and not refresh:
@@ -1020,9 +1065,11 @@ def project_grads_stacked(optimizer: LowRankOptimizer, grads: PyTree, state: Low
         else:
             projectors = [bst.projector
                           for bst in buckets_lib.zero_unpad_states(layout, state.buckets)]
+    tp = optimizer.tp
     stacks = buckets_lib.bucketed_project_grads(
         layout.plan, state.buckets, flat_g, projectors=projectors,
-        tp_axes=optimizer.tp.axes if optimizer.tp is not None else None)
+        tp_axes=tp.axes if tp is not None else None,
+        fsdp_axes=tp.data_axes if tp is not None else None)
     return StackedGrads(buckets=stacks, rest=_rest(optimizer, flat_g))
 
 
@@ -1102,31 +1149,80 @@ def _map_tp_leaf(spec: LeafSpec, st: LeafState, split: Optional[int], ndim: int,
     return LeafState(proj, inner)
 
 
+def _tp_cuts(optimizer: LowRankOptimizer):
+    """(axes, per-leaf split dims) of each axis of a
+    ``tensor_parallel_optimizer``: ``model``, then ``data`` under FSDP."""
+    tp = optimizer.tp
+    out = [(tp.axes, tp.splits)]
+    if tp.data_axes is not None:
+        out.append((tp.data_axes, tp.data_splits))
+    return out
+
+
 def tp_global_opt_state(optimizer: LowRankOptimizer, state: LowRankOptState) -> LowRankOptState:
     """This process's state of a ``tensor_parallel_optimizer`` -> the global
-    canonical per-leaf state, gathered over ``model`` (every process gets
-    it; the collectives run in leaf order on every process)."""
+    canonical per-leaf state, gathered over ``model``, then over ``data``
+    under FSDP (every process gets it; the collectives run in leaf order on
+    every process)."""
     canon = canonical_opt_state(optimizer, state)
-    ax, splits = optimizer.tp.axes, optimizer.tp.splits
-    leaves = [_map_tp_leaf(spec, st, d, len(like.shape),
-                           lambda x, dim: ax.all_gather(x, dim=dim))
-              for spec, st, d, like in zip(optimizer.specs, canon.leaves, splits, optimizer.likes)]
+    leaves = list(canon.leaves)
+    for ax, splits in _tp_cuts(optimizer):
+        leaves = [_map_tp_leaf(spec, st, d, len(like.shape),
+                               lambda x, dim, ax=ax: ax.all_gather(x, dim=dim))
+                  for spec, st, d, like in zip(optimizer.specs, leaves, splits, optimizer.likes)]
     return canon._replace(leaves=leaves)
 
 
 def tp_local_opt_state(optimizer: LowRankOptimizer, state: LowRankOptState) -> LowRankOptState:
     """The global canonical per-leaf state -> this process's blocks in the
     storage layout of ``optimizer`` (a ``tensor_parallel_optimizer``)."""
-    ax, splits = optimizer.tp.axes, optimizer.tp.splits
+    leaves = list(state.leaves)
+    for ax, splits in _tp_cuts(optimizer):
+        def block(x, dim, ax=ax):
+            n = x.shape[dim] // ax.size
+            return x.narrow(dim, ax.index * n, n).clone()
 
-    def block(x, dim):
-        n = x.shape[dim] // ax.size
-        return x.narrow(dim, ax.index * n, n).clone()
-
-    leaves = [_map_tp_leaf(spec, st, d, len(like.shape), block)
-              for spec, st, d, like in zip(optimizer.specs, state.leaves, splits, optimizer.likes)]
+        leaves = [_map_tp_leaf(spec, st, d, len(like.shape), block)
+                  for spec, st, d, like in zip(optimizer.specs, leaves, splits, optimizer.likes)]
     return storage_opt_state(optimizer, LowRankOptState(
         step=state.step, draws=state.draws, leaves=leaves, buckets=()))
+
+
+def fsdp_hot_comm_bytes(optimizer: LowRankOptimizer, cfg, whole_over_data: bool = True) -> int:
+    """Bytes one process hands the ``data`` collectives (``<kind>@data``)
+    in a hot step of the FSDP step (``train/step.py``) of a dense or MoE
+    model (``cfg``: ``remat``, ``tie_embeddings``) under ``optimizer``,
+    the ``tensor_parallel_optimizer`` of its blocks, counted from the
+    shapes:
+
+      each leaf split over ``data``: its gathered bytes (this process's
+        block times the ``data`` extent) in the all-gather where it is
+        used -- a block leaf in the layer's forward and again in its
+        recomputation under ``remat="block"``, ``embed`` and ``lm_head``
+        once (a tied ``embed`` twice) -- and in the reduce-scatter of its
+        gradient, once per gather that reaches the loss outside a
+        recomputation;
+      each leaf whole over ``data``: its gradient's all-reduce, counted
+        under ``@data`` only where the batch axes are ``data`` alone
+        (``whole_over_data``; with ``pod`` it is ``@pod+data``);
+      each bucket whose d ``data`` cuts: its partial R, f32 (B, r, n).
+
+    No counterpart in the reference (its collectives are GSPMD's);
+    ``launch/mesh.COMM`` counts what the step hands them."""
+    tp = optimizer.tp
+    dp = tp.data_axes.size
+    total = 0
+    for spec, like, dsplit in zip(optimizer.specs, optimizer.likes, tp.data_splits):
+        nbytes = int(np.prod(like.shape)) * torch.empty((), dtype=like.dtype).element_size()
+        if dsplit is None:
+            total += nbytes if whole_over_data else 0
+            continue
+        block = spec.path.startswith("['blocks']")
+        uses = 2 if spec.path == "['embed']" and cfg.tie_embeddings else 1
+        gathers = uses * (2 if block and cfg.remat == "block" else 1)
+        total += (gathers + uses) * nbytes * dp
+    return total + sum(bk.batch * bk.rank * bk.n * 4 for bk in optimizer.bucket_plan.buckets
+                       if bk.dsplit == "d")
 
 
 # ---------------------------------------------------------------------------

@@ -3,21 +3,27 @@
 A mesh names the axes (pod, data, model) of the processes, one card each,
 in row-major order: the process of rank ``r`` sits at the coordinates of
 ``r`` in the mesh's shape.  ``pod`` and ``data`` are the data-parallel
-axes; ``model`` is tensor (and expert) parallelism.  ``Mesh.axes(names)``
-is one set of those axes as a process group (``DPAxes``): this process's
+axes, and the standard step also splits params over ``data`` (FSDP);
+``model`` is tensor (and expert) parallelism.  ``Mesh.axes(names)`` is
+one set of those axes as a process group (``DPAxes``): this process's
 index along them, their extent, and the collectives the train step and
-the model's tensor-parallel layers (``models/parallel.py``) hand their
-tensors to; ``Mesh.model_axes()`` is the ``model`` axis alone.  The
+the model's parallel layers (``models/parallel.py``) hand their tensors
+to; ``Mesh.model_axes()`` and ``Mesh.data_axes()`` are the ``model`` and
+the ``data`` axis alone.  The
 collectives count the bytes they are handed in ``COMM`` (``comm_reset`` /
 ``comm_snapshot``), the figure ``core/buckets.dp_comm_model`` models for
 the data-parallel axes.
 
 On gloo only ``all_reduce`` and ``broadcast`` take CUDA tensors (the
-backend table of ``torch.distributed``): an axes object of a gloo group
-stages its other collectives of CUDA tensors through host memory, chosen
-by the group's backend when the mesh is made, and counts them as the same
-collective.  That is how two processes share one card (NCCL refuses two
-ranks on one device).
+backend table of ``torch.distributed``), and its ``all_gather`` and
+``reduce_scatter`` run at a third to a half of its broadcast's and
+all-reduce's rate: an axes object of a gloo group (chosen by the group's
+backend when the mesh is made) runs ``all_gather`` as one ``broadcast``
+per process into its block of the output, and ``reduce_scatter`` as
+broadcasts of each block to its owner, who sums them (one per pair of
+processes: at 2 processes the least that must move), on CUDA tensors as
+they are, and counts them as the collective they stand for.  That is how two processes
+share one card (NCCL refuses two ranks on one device).
 
 The mesh uses the default process group, so the caller starts it first
 (``launch/train.maybe_init_distributed``; NCCL for CUDA tensors, gloo for
@@ -63,7 +69,8 @@ class DPAxes:
     scattered stacks), ``size`` their extent.  ``group`` None means no
     process group (a one-process mesh): every collective is then the
     identity and counts nothing.  ``stage`` (a gloo group) runs
-    ``reduce_scatter`` and ``all_gather`` of CUDA tensors on host copies."""
+    ``reduce_scatter`` and ``all_gather`` through gloo's ``broadcast``
+    (module docstring)."""
 
     def __init__(self, names: Tuple[str, ...], size: int, index: int, group=None,
                  stage: bool = False):
@@ -101,21 +108,38 @@ class DPAxes:
         dist.all_reduce(out, op=dist.ReduceOp.SUM, group=self.group)
         return out
 
-    def reduce_scatter(self, t: torch.Tensor) -> torch.Tensor:
-        """Sum ``t`` over the axes and keep this process's block of rows
-        (``t.shape[0]`` must divide by ``size``)."""
+    def reduce_scatter(self, t: torch.Tensor, dim: int = 0) -> torch.Tensor:
+        """Sum ``t`` over the axes and keep this process's block along
+        ``dim`` (0: its block of rows; ``t.shape[dim]`` must divide by
+        ``size``)."""
         if self.group is None:
             return t
-        if t.shape[0] % self.size:
-            raise ValueError(f"reduce_scatter: {t.shape[0]} rows over {self.size} processes")
+        dim = dim % t.dim()
+        if t.shape[dim] % self.size:
+            raise ValueError(f"reduce_scatter: {t.shape[dim]} rows over {self.size} processes")
         self._count("reduce_scatter", t.numel() * t.element_size())
-        src = t.contiguous()
-        staged = self.stage and src.is_cuda
-        if staged:
-            src = src.cpu()
-        out = src.new_empty((src.shape[0] // self.size,) + tuple(src.shape[1:]))
-        dist.reduce_scatter_tensor(out, src, op=dist.ReduceOp.SUM, group=self.group)
-        return out.to(t.device) if staged else out
+        src = t.movedim(dim, 0).contiguous()
+        n = src.shape[0] // self.size
+        if self.stage:
+            # each block's owner receives it from every other process in
+            # turn (one broadcast each) and sums it onto its own, in rank
+            # order
+            ranks = dist.get_process_group_ranks(self.group)
+            blocks = src.split(n)
+            out = blocks[self.index].clone()
+            buf = torch.empty_like(out)
+            for owner in range(self.size):
+                for sender in range(self.size):
+                    if sender == owner:
+                        continue
+                    x = blocks[owner] if sender == self.index else buf
+                    dist.broadcast(x, src=ranks[sender], group=self.group)
+                    if owner == self.index:
+                        out += buf
+        else:
+            out = src.new_empty((n,) + tuple(src.shape[1:]))
+            dist.reduce_scatter_tensor(out, src, op=dist.ReduceOp.SUM, group=self.group)
+        return out.movedim(0, dim).contiguous() if dim else out
 
     def all_gather(self, t: torch.Tensor, dim: int = 0) -> torch.Tensor:
         """Every process's ``t`` concatenated along ``dim`` (0: stacked
@@ -124,14 +148,16 @@ class DPAxes:
             return t
         dim = dim % t.dim()
         src = t.movedim(dim, 0).contiguous()
-        staged = self.stage and src.is_cuda
-        if staged:
-            src = src.cpu()
-        out = src.new_empty((src.shape[0] * self.size,) + tuple(src.shape[1:]))
+        n = src.shape[0]
+        out = src.new_empty((n * self.size,) + tuple(src.shape[1:]))
         self._count("all_gather", out.numel() * out.element_size())
-        dist.all_gather_into_tensor(out, src, group=self.group)
-        if staged:
-            out = out.to(t.device)
+        if self.stage:
+            out[self.index * n:(self.index + 1) * n].copy_(src)
+            ranks = dist.get_process_group_ranks(self.group)
+            for i, block in enumerate(out.split(n)):
+                dist.broadcast(block, src=ranks[i], group=self.group)
+        else:
+            dist.all_gather_into_tensor(out, src, group=self.group)
         return out.movedim(0, dim).contiguous() if dim else out
 
 
@@ -188,6 +214,19 @@ class Mesh:
     def model_axes(self) -> DPAxes:
         """The ``model`` axis as a ``DPAxes`` (extent 1 without one)."""
         return self.axes(("model",))
+
+    @property
+    def dp(self) -> int:
+        """The ``data`` extent (1 without the axis)."""
+        return self.shape.get("data", 1)
+
+    def data_axes(self) -> DPAxes:
+        """The ``data`` axis alone as a ``DPAxes`` (extent 1 without one):
+        the group FSDP gathers its blocks over and reduce-scatters their
+        gradients over (``models/parallel.gather_from_data``)."""
+        if "data" not in self.axis_names:
+            return DPAxes(("data",), 1, 0)
+        return self.axes(("data",))
 
 
 def _world() -> Tuple[int, int]:

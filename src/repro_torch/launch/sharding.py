@@ -8,11 +8,13 @@ ranges:
   * ``param_spec`` -- the name-based rules (``_RULES``, ``RULE_OVERRIDES``,
     ``_guard``, the ``experts`` rule, the replicated ``router_w``), as a
     tuple of axis names or None per dim (the ``PartitionSpec``'s entries).
-    ``tp_splits`` reads from it the dim each leaf splits over ``model``;
-    ``shard_params`` cuts this process's blocks and ``gather_params``
-    joins them again.  The dims the rules put on ``data`` are recorded in
-    the spec but not split: the port runs no FSDP yet (ROADMAP queue 1
-    item 11, second half).
+    ``tp_splits`` reads from it the dim each leaf splits over ``model``,
+    ``param_splits`` the pair (``data`` dim, ``model`` dim) the standard
+    step's FSDP cuts (``train/step.py``: every dense and MoE leaf the rules
+    put on ``data``, gathered where it is used); ``shard_params`` cuts this
+    process's blocks over both axes and ``gather_params`` joins them
+    again.  The compressed steps keep params whole over ``data``, and
+    ``pod`` splits nothing.
 
   * ``batch_rows`` / ``shard_batch`` -- ``batch_spec``: dim 0 of the global
     batch splits evenly over the batch axes (pod, data) when it divides;
@@ -105,12 +107,34 @@ def param_spec(path: str, shape: Tuple[int, ...], mesh) -> Spec:
     return ()  # norms, biases, conv, ssm vectors: replicated
 
 
-def model_dim(spec: Spec, ndim: int) -> Optional[int]:
-    """The (non-negative) dim a spec splits over ``model``, or None."""
+def model_dim(spec: Spec, ndim: int, axis: str = "model") -> Optional[int]:
+    """The (non-negative) dim a spec splits over ``axis``, or None."""
     for i, a in enumerate(spec):
-        if a == "model":
+        if a == axis:
             return ndim - len(spec) + i
     return None
+
+
+# Per leaf, the dims of its global shape split over ``data`` and over
+# ``model`` (None: whole along that axis).
+Splits = Tuple[Optional[int], Optional[int]]
+
+
+def leaf_splits(path: str, shape: Tuple[int, ...], mesh, fsdp: bool = True) -> Splits:
+    """(``data`` dim, ``model`` dim) of one leaf: each only where its
+    axis has an extent above 1, the ``data`` one only with ``fsdp``."""
+    spec = param_spec(path, shape, mesh)
+    ddim = model_dim(spec, len(shape), "data") if fsdp and mesh.shape.get("data", 1) > 1 \
+        else None
+    mdim = model_dim(spec, len(shape)) if mesh.shape.get("model", 1) > 1 else None
+    return ddim, mdim
+
+
+def param_splits(tree, mesh, fsdp: bool = True) -> List[Splits]:
+    """``leaf_splits`` of every leaf of a tree of global shapes, in flat
+    order."""
+    return [leaf_splits(path, tuple(leaf.shape), mesh, fsdp)
+            for path, leaf in flatten_with_path(tree)]
 
 
 def tp_splits(tree, mesh) -> List[Optional[int]]:
@@ -134,20 +158,42 @@ def local_block(x: torch.Tensor, dim: Optional[int], index: int, size: int) -> t
     return x.narrow(dim, index * n, n).clone()
 
 
-def shard_params(tree, mesh, splits: Optional[Sequence[Optional[int]]] = None):
-    """This process's blocks of a tree of global params (``tp_splits``)."""
+def _pair(split) -> Splits:
+    """A ``tp_splits`` entry (the ``model`` dim) or a ``param_splits`` pair
+    as a pair."""
+    return split if isinstance(split, tuple) else (None, split)
+
+
+def block_of(x: torch.Tensor, split, mesh) -> torch.Tensor:
+    """This process's block of one global leaf: its ``data`` block along
+    the first dim of ``split``, its ``model`` block along the second."""
+    ddim, mdim = _pair(split)
+    dax, max_ = mesh.data_axes(), mesh.model_axes()
+    return local_block(local_block(x, ddim, dax.index, dax.size), mdim, max_.index, max_.size)
+
+
+def shard_params(tree, mesh, splits: Optional[Sequence] = None):
+    """This process's blocks of a tree of global params; ``splits`` are
+    ``tp_splits`` (its ``model`` blocks, the default) or ``param_splits``
+    (its blocks over both axes)."""
     splits = tp_splits(tree, mesh) if splits is None else splits
-    ax = mesh.model_axes()
-    return tree_unflatten(tree, [local_block(x, d, ax.index, ax.size)
-                                 for x, d in zip(tree_leaves(tree), splits)])
+    return tree_unflatten(tree, [block_of(x, d, mesh) for x, d in zip(tree_leaves(tree), splits)])
 
 
-def gather_params(tree, mesh, splits: Sequence[Optional[int]]):
+def gather_params(tree, mesh, splits: Sequence):
     """The global params from every process's blocks (``shard_params``'
-    inverse; ``splits`` from the global shapes)."""
-    ax = mesh.model_axes()
-    return tree_unflatten(tree, [x if d is None else ax.all_gather(x, dim=d)
-                                 for x, d in zip(tree_leaves(tree), splits)])
+    inverse; ``splits`` from the global shapes): gathered over ``model``,
+    then over ``data``."""
+    dax, max_ = mesh.data_axes(), mesh.model_axes()
+    out = []
+    for x, split in zip(tree_leaves(tree), splits):
+        ddim, mdim = _pair(split)
+        if mdim is not None:
+            x = max_.all_gather(x, dim=mdim)
+        if ddim is not None:
+            x = dax.all_gather(x, dim=ddim)
+        out.append(x)
+    return tree_unflatten(tree, out)
 
 
 def batch_rows(n: int, mesh) -> Tuple[int, int]:

@@ -56,8 +56,10 @@ Data and tensor parallel, one process per card: ``--mesh data,model``
 project-then-reduce step (``flat``, or ``--compressed-dp pod``),
 ``--state-sharding zero`` for ZeRO state (``--state-shards`` defaults to
 the compressed axes' replica count).  A ``model`` extent above 1 runs the
-dense and MoE families tensor parallel (MoE: expert parallel), each
-process holding its blocks of the params and optimizer state
+dense and MoE families tensor parallel (MoE: expert parallel), and a
+``data`` extent above 1 without ``--compressed-dp`` runs them FSDP over
+``data`` (the reference's standard step), each process holding its
+blocks of the params and optimizer state
 (``train/step.py``); the bucketed engine with Adam or MSGD.  Start the
 processes with torchrun, which sets ``RANK`` / ``WORLD_SIZE`` /
 ``MASTER_ADDR`` / ``MASTER_PORT``:
@@ -73,9 +75,11 @@ or one launcher per process with ``--coordinator`` (``host:port``, or a
 ``file://`` store), ``--num-processes`` and ``--process-id``.  The process
 group is NCCL on the card and gloo with ``--device cpu``; there is no
 fallback from one to the other, and a collective that fails or waits
-past ``GROUP_TIMEOUT`` raises.  On the CPU a tensor-parallel world is
-gloo processes (``--mesh 1,2 --device cpu``, two launchers with
-``--coordinator``).  Each process feeds the global batch
+past ``GROUP_TIMEOUT`` raises.  On the CPU a tensor-parallel or FSDP
+world is gloo processes (``--mesh 1,2`` or ``--mesh 2,1 --device cpu``,
+two launchers with ``--coordinator``; the smoke llama's widths leave
+every leaf whole over ``data``, the MoE smoke configs split their expert
+``d_ff``).  Each process feeds the global batch
 (``--batch``) and runs its own rows of it.
 
 Beyond the reference's flags, ``--svd-backend`` picks the refresh's SVD
@@ -90,6 +94,7 @@ reference's launcher has no flag for it either.
 from __future__ import annotations
 
 import argparse
+import math
 import os
 from datetime import timedelta
 
@@ -163,7 +168,8 @@ def main(argv=None) -> None:
                     help=">0: arm the step watchdog (a sync per step)")
     ap.add_argument("--mesh", default="",
                     help="'data,model' or 'pod,data,model' over the processes "
-                         "(model > 1: tensor parallel, dense and MoE)")
+                         "(model > 1: tensor parallel, dense and MoE; data > 1 without "
+                         "--compressed-dp: FSDP over data, dense and MoE)")
     ap.add_argument("--compressed-dp", nargs="?", const="flat", default="",
                     choices=("flat", "pod"),
                     help="project-then-reduce DP gradient compression (flat | pod)")
@@ -266,6 +272,10 @@ def main(argv=None) -> None:
         )
     fns = make_train_step(model, opt, mesh=mesh, train_cfg=tc, compressed=args.compressed_dp,
                           recovery=recovery, watchdog=watchdog)
+    if fns["fsdp"]:
+        local = sum(math.prod(like.shape) for like in fns["optimizer"].likes)
+        print(f"[train] FSDP over data: this process holds {local / 1e6:.1f}M of the "
+              f"{n_params / 1e6:.1f}M params")
     try:
         res = train_loop(model, opt, data, tc, fns, log_every=max(args.steps // 20, 1),
                          recovery=recovery)

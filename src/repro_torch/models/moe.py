@@ -33,9 +33,17 @@ einsums outside any Pallas kernel.  The aux loss is the same on every
 process of ``model``; its mean over the data-parallel axes is the step's
 (each process's loss carries its own rows' aux, and the step averages
 the losses and the gradients).  Dropped pairs are counted on the device
-in ``EP_DROPS`` (``ep_drops()`` reads them).  FSDP of the expert ``d_ff`` over ``data`` (the rule's
-``data`` dim) and the SSM heads' sharding wait for ROADMAP queue 1 item
-11, second half: ``_shard_ssm_heads``, FSDP over data, the fault harness.
+in ``EP_DROPS`` (``ep_drops()`` reads them).
+
+Under FSDP (the standard step at a ``data`` extent above 1) each process
+holds its ``data`` block of the expert ``d_ff`` (the ``experts`` rule's
+``data`` dim) and of the shared experts' leaves; the layer's params come
+here already gathered over ``data`` (``transformer.dense_block`` calls
+``parallel.gather_layer``), on the local path at a ``model`` extent of 1
+and on the expert-parallel path above it, as JAX's ``_ep_local_fn``
+gathers them (moe.py:167-172), and their gradients go back
+reduce-scattered over ``data``.  JAX takes the EP path at a ``model``
+extent of 1 too, the port does not (ROADMAP queue 3).
 """
 from __future__ import annotations
 

@@ -24,8 +24,10 @@ Parameter naming: ``*_proj`` matrices are low-rank eligible; ``a_log``,
 (``d_skip`` is not: see ROADMAP queue 3).  JAX's ``_shard_ssm_heads``, a
 sharding constraint on a mesh, has no counterpart yet: tensor parallelism
 runs the dense and MoE families, and an SSM model with a ``model`` extent
-above 1 raises (ROADMAP queue 1 item 11, second half: `_shard_ssm_heads`,
-FSDP over data, the fault harness).
+above 1 raises, and at a ``data`` extent above 1 the standard step keeps
+an SSM model's params whole (no FSDP; ROADMAP queue 1 item 11, second
+half: `_shard_ssm_heads`, then tensor parallelism and FSDP for the other
+families, the fault harness).
 """
 from __future__ import annotations
 

@@ -18,6 +18,14 @@ whose block is not this process's heads is gathered on use, and a whole
 leaf gives this process its columns.  Under ``cfg.remat == "block"`` each block is recomputed in
 backward (``torch.utils.checkpoint``), as the JAX scan body is
 (``transformer.py:232-233``).
+
+Under FSDP (``models/parallel.DataShards``: the standard step at a
+``data`` extent above 1) each process holds its ``data`` block of every
+leaf the rules put on ``data``: ``dense_block`` gathers its layer's
+blocks first (``parallel.gather_layer``), inside the recomputed region,
+and ``embed_tokens`` and ``lm_head_matrix`` gather ``embed`` and
+``lm_head`` where they use them; each gradient comes back as this
+process's block of the sum over ``data``.
 """
 from __future__ import annotations
 
@@ -185,9 +193,10 @@ def serving_params(params: Params, cfg: ModelConfig) -> Params:
 
 
 def lm_head_matrix(params: Params, cfg: ModelConfig) -> torch.Tensor:
+    """The (d, vocab) output matrix, whole over ``data`` (FSDP)."""
     if cfg.tie_embeddings:
-        return params["embed"].T
-    return params["lm_head"]
+        return par.gather_leaf(params["embed"], "['embed']").T
+    return par.gather_leaf(params["lm_head"], "['lm_head']")
 
 
 def layer_params(blocks: Params, i: int) -> Params:
@@ -356,7 +365,9 @@ def dense_block(
     kv_positions: torch.Tensor,
     mlp_fn=default_mlp_fn,
 ):
-    """Pre-norm attention + MLP; returns (x, (k, v), aux)."""
+    """Pre-norm attention + MLP; returns (x, (k, v), aux).  Under FSDP the
+    layer's ``data`` blocks are gathered here (module docstring)."""
+    p = par.gather_layer(p)
     h = L.rmsnorm(x, p["attn_norm"], cfg.rms_eps)
     attn_out, kv = attn_sublayer(
         p, h, cfg, positions, kv_positions, window=cfg.attn_window
@@ -376,8 +387,9 @@ def embed_tokens(params: Params, tokens: torch.Tensor, cfg: ModelConfig) -> torc
     """Embedding rows in ``cfg.dtype``.  Under tensor parallelism with
     ``embed`` this process's block of the vocab: its rows for the tokens
     it holds, zero for the others, summed over ``model`` in the param
-    dtype (exact: one term is not zero)."""
-    w = params["embed"]
+    dtype (exact: one term is not zero).  Under FSDP the table is
+    gathered over ``data`` first."""
+    w = par.gather_leaf(params["embed"], "['embed']")
     ax = par.model_axes()
     if ax is not None and w.shape[0] != cfg.vocab_size:
         t = tokens.reshape(-1).long() - ax.index * w.shape[0]

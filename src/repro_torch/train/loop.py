@@ -68,13 +68,14 @@ cadence, deferred metric fetch and subspace tracking.
     state takes the step's layout (``fns["place_state"]``); a replicated
     state is written by rank 0 alone; the processes meet at a barrier
     before they list the directory and before a rollback's load.
-  * **Tensor parallel** (a mesh with ``model`` above 1): the state holds
-    this process's blocks; a save gathers the global state on every
+  * **Tensor parallel and FSDP** (a mesh with ``model`` above 1, or the
+    standard step at ``data`` above 1): the state holds this process's
+    blocks; a save gathers the global state on every
     process (``fns["gather_state"]``) and the first process writes JAX's
     canonical per-leaf format, and a load reads the global state and cuts
     it (``fns["place_state"]``), so a tensor-parallel checkpoint resumes
     on one process and in JAX, and a one-process checkpoint resumes under
-    tensor parallelism.  Rank schedules, the spectrum logger and
+    tensor parallelism or FSDP at any ``data`` extent.  Rank schedules, the spectrum logger and
     ``track_subspace`` read the optimizer's leaves whole and raise here.
 """
 from __future__ import annotations
@@ -175,7 +176,7 @@ def train_loop(
     if tp and (track_subspace or train_cfg.log_spectrum or optimizer.config.rank_schedule):
         raise NotImplementedError(
             "rank schedules, the spectrum logger and track_subspace under tensor "
-            "parallelism are not ported (ROADMAP queue 1 item 11, second half)")
+            "parallelism or FSDP are not ported (ROADMAP queue 1 item 11, second half)")
     if tp:
         pass  # the canonical format, from the gathered state
     elif train_cfg.sharded_checkpoint and layout is not None and layout.shards > 1:

@@ -32,11 +32,25 @@ the model under its ``model`` axis (``models/parallel.use``: the layers'
 collectives) and the optimizer of its blocks
 (``core/lowrank.tensor_parallel_optimizer``).  The dense and MoE families
 run so; the SSM, hybrid, enc-dec and VLM ones raise.
+
+The standard step (``compressed=""``) of a dense or MoE model at a
+``data`` extent above 1 is FSDP over ``data`` as well, the reference's
+standard step (``src/repro/train/step.py:5-7``): each process holds its
+``data`` block of every leaf the rules put on ``data`` (and of its
+optimizer state), the model gathers a block where it is used
+(``models/parallel.DataShards``) and the block's gradient comes back
+reduce-scattered, summed over ``data``: the step divides it by the batch
+replica count and sums it over ``pod``, while the leaves whole over
+``data`` are averaged over (pod, data) as before.  The compressed steps
+keep the params whole over ``data``, as the reference's do; the SSM,
+hybrid, enc-dec and VLM families keep the replicated standard step (a
+placement the reference does not share, ROADMAP queue 1 item 11); ZeRO
+state on the FSDP step raises.
 ``fns["place_state"]`` cuts a global state into this process's blocks and
 ``fns["gather_state"]`` returns the global state (the given optimizer's
 layout), which the loop's checkpoints hold.
 
-Without ``model``, params stay replicated.  With ``state_sharding="zero"`` (``state_shards``
+Outside these, params stay replicated.  With ``state_sharding="zero"`` (``state_shards``
 = the compressed axes' replica count) each process keeps only its rows of
 the padded bucket stacks (``shard_train_state``): the hot step
 reduce-scatters the R stacks and updates its rows (``update(...,
@@ -74,21 +88,27 @@ from repro_torch.train.state import TrainState
 # The families whose layers run tensor parallel (models/parallel.py).
 TP_FAMILIES = ("dense", "moe")
 TP_LEFT = ("tensor parallelism for the {family!r} family is not ported (ROADMAP queue 1 "
-           "item 11, second half: `_shard_ssm_heads`, FSDP over data, the fault harness)")
+           "item 11, second half: `_shard_ssm_heads`, then tensor parallelism and FSDP for "
+           "the other families, the fault harness)")
+FSDP_ZERO = ("state_sharding='zero' on the FSDP step (the standard step at a data extent "
+             "above 1) is not ported (ROADMAP queue 1 item 11, second half): use "
+             "compressed='flat' or 'pod' for ZeRO state")
 
 
-def _value_and_grad(model, microbatch: int, accum_dtype=torch.float32, model_axes=None):
+def _value_and_grad(model, microbatch: int, accum_dtype=torch.float32, model_axes=None,
+                    data_shards=None):
     """(params, batch) -> ((loss, metrics), grads), with optional gradient
     accumulation.  Accumulation sums per-microbatch gradients in
     ``accum_dtype`` and returns them cast back to the param dtype; the
     global batch must divide evenly into microbatches (``step.py:83-89``);
     ``microbatch >= batch`` is one microbatch, unaccumulated.  The forward
-    and backward run under ``model_axes`` (``models/parallel.use``)."""
+    and backward run under ``model_axes`` and ``data_shards``
+    (``models/parallel.use``)."""
 
     def single(params, batch):
         leaves = lowrank_lib.tree_leaves(params)
         req = [p.detach().requires_grad_(True) for p in leaves]
-        with par.use(model_axes):
+        with par.use(model_axes, data_shards):
             loss, metrics = model.loss(lowrank_lib.tree_unflatten(params, req), batch)
             grads = torch.autograd.grad(loss, req)
         metrics = {k: v.detach() for k, v in metrics.items()}
@@ -208,12 +228,20 @@ def make_train_step(
     loss or a skipped update.  ``watchdog`` waits for each call's result
     and records calls past its timeout (keyed by the call's ordinal)."""
     global_optimizer = optimizer
-    tp = mesh is not None and mesh.tp > 1
-    if tp:
-        if model.cfg.family not in TP_FAMILIES:
-            raise NotImplementedError(TP_LEFT.format(family=model.cfg.family))
-        optimizer = lowrank_lib.tensor_parallel_optimizer(optimizer, mesh)
     compressed = "flat" if compressed is True else (compressed or "")
+    if mesh is not None and mesh.tp > 1 and model.cfg.family not in TP_FAMILIES:
+        raise NotImplementedError(TP_LEFT.format(family=model.cfg.family))
+    # FSDP over data: the standard step of the families whose layers gather
+    fsdp = (mesh is not None and not compressed and mesh.shape.get("data", 1) > 1
+            and model.cfg.family in TP_FAMILIES)
+    if fsdp and optimizer.config.state_sharding == "zero":
+        raise NotImplementedError(FSDP_ZERO)
+    if (mesh is not None and mesh.tp > 1) or fsdp:
+        optimizer = lowrank_lib.tensor_parallel_optimizer(optimizer, mesh, fsdp=fsdp)
+    # this process holds blocks of the leaves (over model, data or both)
+    tp = optimizer.tp is not None
+    data_split = tp and optimizer.tp.data_axes is not None and any(
+        d is not None for d in optimizer.tp.data_splits)
     if compressed not in ("", "flat", "pod"):
         raise ValueError(
             f"unknown compressed mode {compressed!r}: expected "
@@ -240,12 +268,22 @@ def make_train_step(
             )
     micro = train_cfg.microbatch if train_cfg else 0
     accum_dtype = (train_cfg.accum_dtype if train_cfg else None) or torch.float32
+    shards = None
+    if data_split:
+        shards = par.DataShards(optimizer.tp.data_axes, {
+            spec.path: d - len(like.shape) for spec, like, d in zip(
+                global_optimizer.specs, global_optimizer.likes, optimizer.tp.data_splits)
+            if d is not None})
     vg = _value_and_grad(model, micro, accum_dtype,
-                         mesh.model_axes() if mesh is not None else None)
+                         mesh.model_axes() if mesh is not None else None, shards)
     skip_nonfinite = bool(recovery is not None and recovery.skip_nonfinite_updates)
     # the reductions: over every batch axis (metrics, verdicts, the standard
     # step's gradients), the compressed axes, and a pod's data axis
     all_dp = mesh.axes(batch_axes(mesh)) if mesh is not None else None
+    # FSDP: the gradients of the leaves split over data come back summed
+    # over it, and are summed over pod only; the others over (pod, data)
+    pod = mesh.axes(("pod",)) if data_split and "pod" in mesh.axis_names else None
+    dsplit = [d is not None for d in optimizer.tp.data_splits] if data_split else None
     red = intra = None
     if compressed:
         red = mesh.axes(("pod",)) if compressed == "pod" else all_dp
@@ -285,10 +323,26 @@ def make_train_step(
         out_metrics["bad_step"] = bad
         return TrainState(params, opt_state), out_metrics
 
-    def step_fn(state: TrainState, batch, *, refresh: bool, group: int = 0):
+    def reduced_loss_and_grads(state: TrainState, batch):
+        """(this process's loss, its metrics, the gradients averaged over
+        the batch axes as the standard step's update takes them)."""
         loss, metrics, grads = local_loss_and_grads(state, batch)
-        if all_dp is not None and all_dp.group is not None:
+        if dsplit is not None:
+            flat = lowrank_lib.tree_leaves(grads)
+            n = float(all_dp.size)
+            _mean_([g for g, s in zip(flat, dsplit) if not s], all_dp, n)
+            split = [g for g, s in zip(flat, dsplit) if s]
+            if pod is not None and pod.group is not None:
+                _mean_(split, pod, n)
+            else:
+                for g in split:
+                    g.div_(n)
+        elif all_dp is not None and all_dp.group is not None:
             _mean_(lowrank_lib.tree_leaves(grads), all_dp, float(all_dp.size))
+        return loss, metrics, grads
+
+    def step_fn(state: TrainState, batch, *, refresh: bool, group: int = 0):
+        loss, metrics, grads = reduced_loss_and_grads(state, batch)
         params, opt_state, aux = optimizer.update(
             grads, state.opt_state, state.params, refresh=refresh,
             group=group, apply=True, skip_nonfinite=skip_nonfinite,
@@ -355,18 +409,22 @@ def make_train_step(
         fns = {k: guarded(f) for k, f in fns.items()}
     fns["watchdog"] = watchdog
     fns["mesh"] = mesh
+    # the standard step's gradients alone (not under a compressed mode)
+    fns["grads"] = reduced_loss_and_grads
     fns["tp"] = tp
+    fns["fsdp"] = data_split
     fns["optimizer"] = optimizer  # the one the steps run (this process's blocks)
-    splits = optimizer.tp.splits if tp else None
+    splits = optimizer.tp.pairs() if tp else None
+    fns["splits"] = splits  # per leaf (data dim, model dim): launch/sharding.param_splits
 
     def place_state(state: TrainState) -> TrainState:
         """A global state (the given optimizer's layout, or canonical) ->
-        the step's layout: this process's blocks under tensor
-        parallelism, then its rows of a ZeRO compressed step's stacks."""
+        the step's layout: this process's blocks under tensor parallelism
+        and FSDP, then its rows of a ZeRO compressed step's stacks."""
         if not (tp or local_rows):
             return state
         return shard_train_state(state, mesh, zero_dp_axes=shard_axes.names if local_rows
-                                 else None, optimizer=global_optimizer)[0]
+                                 else None, optimizer=global_optimizer, fsdp=fsdp)[0]
 
     def gather_state(state: TrainState) -> TrainState:
         """The inverse of ``place_state``: every process's rows gathered,
@@ -397,22 +455,24 @@ def make_train_step(
 
 
 def shard_train_state(state: TrainState, mesh, *,
-                      zero_dp_axes: Optional[Tuple[str, ...]] = None, optimizer=None):
-    """(state, rows): under a ``model`` extent above 1, first this process's
-    blocks of a global state (``optimizer``, the global one, whose layout
-    or the canonical one ``state`` is in; the rules of
-    ``launch/sharding``); then with ``zero_dp_axes`` (a ZeRO optimizer's
+                      zero_dp_axes: Optional[Tuple[str, ...]] = None, optimizer=None,
+                      fsdp: bool = False):
+    """(state, rows): under a ``model`` extent above 1 (or FSDP, ``fsdp``),
+    first this process's blocks of a global state (``optimizer``, the
+    global one, whose layout or the canonical one ``state`` is in; the
+    rules of ``launch/sharding``); then with ``zero_dp_axes`` (a ZeRO optimizer's
     state), the state holding only this process's rows of every padded
     bucket stack (``launch/sharding.zero_state_rows``), each a copy of its
     own so the full stacks can be freed, and those rows per bucket; else
     the state as it is and None."""
-    if mesh is not None and mesh.tp > 1:
+    if mesh is not None and (mesh.tp > 1 or fsdp):
         if optimizer is None:
             raise ValueError("cutting a state into tensor-parallel blocks needs its optimizer")
-        local = lowrank_lib.tensor_parallel_optimizer(optimizer, mesh)
-        canon = lowrank_lib.canonical_opt_state(optimizer, state.opt_state)
-        state = TrainState(shd.shard_params(state.params, mesh, local.tp.splits),
-                           lowrank_lib.tp_local_opt_state(local, canon))
+        local = lowrank_lib.tensor_parallel_optimizer(optimizer, mesh, fsdp=fsdp)
+        if local.tp is not None:
+            canon = lowrank_lib.canonical_opt_state(optimizer, state.opt_state)
+            state = TrainState(shd.shard_params(state.params, mesh, local.tp.pairs()),
+                               lowrank_lib.tp_local_opt_state(local, canon))
     if not zero_dp_axes:
         return state, None
     if not state.opt_state.buckets:

@@ -360,6 +360,50 @@ def test_power_iter_kernel_matches_plain_on_gpu(shape, dtype):
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5 * float(want.abs().max()))
 
 
+# FSDP's local blocks at a ``data`` extent of 2 (B, d, n, r): a "d" bucket's
+# rows (llama3-8b's mlp, d 4096 / 2, n cut to fit a test), deepseek's
+# expert d_ff block (1408 / 2 = 704, ragged against the 64-row tile), an
+# "n" bucket's columns (k/v, n 4096 / 2), and a small ragged row block
+FSDP_SHAPES = {"mlp_rows": (2, 2048, 1792, 64), "expert_rows": (4, 704, 2048, 64),
+               "kv_cols": (2, 1024, 2048, 64), "ragged_rows": (3, 88, 200, 24)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", list(FSDP_SHAPES))
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_project_and_adam_kernels_on_fsdp_blocks_on_gpu(shape, dtype):
+    """Kernels 4 and 5 on FSDP's local blocks: R = P^T G of a row block
+    (the partial sum the step all-reduces over ``data``) and the fused
+    update of the block's W from the reduced R."""
+    _require_card()
+    w, p, rg, m, v = _opt_inputs(5, FSDP_SHAPES[shape], dtype)
+    torch.testing.assert_close(galore_project_batched(w, p), project_ref(w, p),
+                               rtol=1e-5, atol=1e-5 * float(project_ref(w, p).abs().max()))
+    got = lowrank_adam_update_batched(w, p, rg, m, v, 3, 0.0025, 1e-3)
+    want = lowrank_adam_update_ref(w, p, rg, m, v, b1=0.9, b2=0.999, eps=1e-8,
+                                   step=3, lr_alpha=0.0025, lr_wd=1e-3)
+    assert got[0].dtype == w.dtype
+    torch.testing.assert_close(got[0].float(), want[0].float(), **TOL[dtype])
+    for a, b in zip(got[1:], want[1:]):
+        torch.testing.assert_close(a, b, **TOL["float32"])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(2, 1024, 2048, 72), (3, 176, 100, 40)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_power_iter_kernel_on_fsdp_blocks_on_gpu(shape, dtype):
+    """Kernel 9 on an FSDP block: the sketch route's G (G^T Q) on this
+    process's columns of an "n" bucket (k/v at (2, 1)), and a ragged one."""
+    _require_card()
+    b, m, n, kp = shape
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    g = (0.1 * torch.randn(b, m, n, generator=gen, device="cuda")).to(TORCH[dtype])
+    q = torch.linalg.qr(torch.randn(b, m, kp, generator=gen, device="cuda"))[0].contiguous()
+    want = power_iter_ref(g, q)
+    torch.testing.assert_close(power_iter_batched(g, q), want, rtol=1e-5,
+                               atol=1e-5 * float(want.abs().max()))
+
+
 @pytest.mark.gpu
 def test_optimizer_wrappers_count_launches_and_reject_bad_inputs_on_gpu():
     _require_card()

@@ -146,17 +146,19 @@ def jax_case(mesh, case, ref_dir):
     opt = optimizer(params, lr=0.01, grad_clip_norm=1.0, tau=200)
     fns = make_train_step(model, opt, mesh=mesh)
     topt = fns["optimizer"]
+    # the optimizer's blocks: over both axes where the step is FSDP too
+    blocks = fns["splits"]
     state = TrainState(params, opt.init(params)._replace(draws=RecordedDraws(src["draws"])))
     local = fns["place_state"](state)
-    g0 = shd.shard_params(bridge.params_from_numpy(src["grads0"], "cpu"), mesh, splits)
+    g0 = shd.shard_params(bridge.params_from_numpy(src["grads0"], "cpu"), mesh, blocks)
     p1, s1, aux1 = topt.update(g0, local.opt_state, local.params, refresh=True, apply=True)
     js1 = bridge.opt_state_from_numpy(opt, src["state1"], "cpu")
     local1 = fns["place_state"](TrainState(bridge.params_from_numpy(src["params1"], "cpu"), js1))
-    g1 = shd.shard_params(bridge.params_from_numpy(src["grads1"], "cpu"), mesh, splits)
+    g1 = shd.shard_params(bridge.params_from_numpy(src["grads1"], "cpu"), mesh, blocks)
     p2, _, aux2 = topt.update(g1, local1.opt_state, local1.params, refresh=False, apply=True)
     return {"loss": loss, "grads": tree_leaves(shd.gather_params(grads, mesh, splits)),
-            "params1": tree_leaves(shd.gather_params(p1, mesh, splits)),
-            "params2": tree_leaves(shd.gather_params(p2, mesh, splits)),
+            "params1": tree_leaves(shd.gather_params(p1, mesh, blocks)),
+            "params2": tree_leaves(shd.gather_params(p2, mesh, blocks)),
             "aux1": [float(aux1.grad_norm), float(aux1.update_norm),
                      float(aux1.mean_refresh_overlap)],
             "aux2": [float(aux2.grad_norm), float(aux2.update_norm)]}
