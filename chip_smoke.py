@@ -35,8 +35,9 @@ failure raises and the script exits non-zero:
               and each kernel's launch count; then request 0's prefill and
               first decode-step logits on the paged kernel path against the
               static engine's ring cache with plain exact attention.
-4. train   -- full-width llama3-8b cut to 2 layers (``TRAIN_RUN_LAYERS``;
-              4, the kernel cases' plans, until the FSDP paths joined; f32
+4. train   -- full-width llama3-8b cut to 1 layer (``TRAIN_RUN_LAYERS``;
+              4, the kernel cases' plans, until the FSDP paths joined, 2
+              until the other families' TP and FSDP paths joined; f32
               params, grads and full-rank Adam state for all 32 layers
               come to ~75 GB before activations), bf16 compute, on ``engine="bucketed"`` with
               ``svd_backend="randomized"`` and the launcher's defaults
@@ -137,28 +138,35 @@ failure raises and the script exits non-zero:
               a NaN in one rank's share skipped by all.
 5c. train_tp -- two processes sharing the card over gloo (NCCL refuses
               two ranks on one device), so no time here is a parallel
-              speed: llama3-8b at full width cut to 2 layers and
+              speed: llama3-8b at full width cut to 1 layer and
               deepseek-moe-16b cut to 1, first tensor and expert parallel
               on a (1, 2) mesh (paths ``train_tp``, ``train_tp_moe``),
               then FSDP over ``data`` on a (2, 1) mesh of the same
               processes (``train_fsdp``, ``train_fsdp_moe``): each against
               the single-process run and its state (the constants at
               ``TP_WORLD``).
+5e. train_tp_families -- the same, for mamba2-370m, hymba-1.5b,
+              whisper-medium and llava-next-34b at full width and 1 layer
+              (1 + 1): paths ``train_tp_<family>`` at (1, 2) and
+              ``train_fsdp_<family>`` at (2, 1), and mamba2's whole-mixer
+              route at (1, 2), ``train_tp_ssm_whole`` (the constants at
+              ``TPF_RUNS``).
 6. families -- the MoE, SSM and hybrid families at full width:
               ``family_kernels`` (flash at hymba's GQA 25/5, D 64, window
               1024, S 2048 and deepseek's MHA 16/16; paged decode at MHA
               16/16; RMSNorm at widths 1600, 2048 and 3200; kernels 4, 5
               and 9 on deepseek-moe-16b's 192-slice expert bucket at rank
-              256), ``serve_moe`` (deepseek-moe-16b at 14 of its 28
+              256), ``serve_moe`` (deepseek-moe-16b at 7 of its 28
               layers, ``SERVE_MOE_LAYERS``, bf16 made
               leaf by leaf, through the paged engine on phase 3's trace;
               request 0's logits against the static exact path, the bar
               from the f32 model at the deepest depth that fits; host syncs
               per step), ``train_moe`` (1 layer, rank 256:
               kernel 9 runs),
-              ``train_ssm`` and ``serve_ssm`` (mamba2-370m, 48 layers; rank
+              ``train_ssm`` and ``serve_ssm`` (mamba2-370m at 24 of its 48
+              layers, ``SSM_LAYERS``; rank
               512: kernel 9 launches 0 times), ``train_hybrid`` and
-              ``serve_hybrid`` (hymba-1.5b cut to 4 of its 32 layers,
+              ``serve_hybrid`` (hymba-1.5b cut to 2 of its 32 layers,
               ``HYBRID_LAYERS``; seq 2048; prompts of
               1500 and 1100 tokens past its 1024 window).  The train paths
               run as phase 4 (galore-sara-adam, 3 steps) and first check
@@ -172,19 +180,19 @@ failure raises and the script exits non-zero:
               prefill at S 1600; paged decode at GQA 56/8 over
               ``PAGED_FILLS`` + 576; kernels 4, 5 and 9 on llava's mlp
               bucket, 4 and 5 on whisper's 1024 x 1024 bucket),
-              ``serve_vlm`` (llava-next-34b at 30 of its 60 layers,
+              ``serve_vlm`` (llava-next-34b at 15 of its 60 layers,
               ``SERVE_VLM_LAYERS``, made
               leaf by leaf in bf16, the init's peak printed; phase 3's trace
               with each request's own 576 seeded patch embeddings ahead of
               its prompt, in a pool of ``VLM_POOL_PAGES``; request 0's
               logits against the static exact path, the bar from the f32
-              model at the deepest depth that fits), ``train_vlm`` (2
-              layers, 448 text tokens after the patches, batch 4, rank 512),
-              ``serve_audio`` (whisper-medium cut to 6 + 6 of its 24 + 24
+              model at the deepest depth that fits), ``train_vlm`` (1
+              layer, 448 text tokens after the patches, batch 4, rank 512),
+              ``serve_audio`` (whisper-medium cut to 3 + 3 of its 24 + 24
               layers, ``AUDIO_LAYERS``, slot engine,
               each request's own 1500 frames, prompts of 4-64 tokens, 64
               new tokens, a ring of 448; every token against the static
-              engine's or a near-tie) and ``train_audio`` (6 + 6 layers, seq
+              engine's or a near-tie) and ``train_audio`` (3 + 3 layers, seq
               448, batch 8, rank 256: kernel 9 launches 0 times).  The
               train paths run as phase 6's, with the patches or frames in
               every batch.
@@ -367,9 +375,10 @@ PAGED_BANDWIDTH_FILLS = [1024 + 64 * i for i in range(32)]
 # train phase: llama3-8b at full width, 4 layers, the launcher's defaults
 # (the plans below and the kernel cases' shapes); the TRAIN_RUNS paths and
 # train_rank_schedule run at TRAIN_RUN_LAYERS since the FSDP paths joined
-# (their refreshes were most of their ~12 s each; PERF.md §4)
+# (their refreshes were most of their ~12 s each; PERF.md §4): 2 layers,
+# 1 since the other families' TP and FSDP paths joined
 TRAIN_LAYERS = 4
-TRAIN_RUN_LAYERS = 2
+TRAIN_RUN_LAYERS = 1
 TRAIN_STEPS, TRAIN_SEQ, TRAIN_BATCH = 3, 512, 8
 TRAIN_OPT = dict(rank=512, tau=200, alpha=0.25, lr=0.01, grad_clip_norm=1.0,
                  engine="bucketed", svd_backend="randomized")
@@ -471,8 +480,8 @@ DP_STEPS = 3
 # at 2 of phase 4's 4 layers: the script passed the 900 s it keeps to (half
 # its 1200-s limit, with room for the card's spread) once train_tp joined,
 # and depth is what this phase can lose (its checks are per bucket and per
-# step)
-DP_LAYERS = 2
+# step); 1 since the other families' TP and FSDP paths joined
+DP_LAYERS = 1
 DP_OPT = dict(TRAIN_OPT, grad_clip_norm=0.0)
 DP_ZERO_SHARDS = 4
 DP_RESTORE_SHARDS = (2, 8)
@@ -527,13 +536,14 @@ MOE_ARCH, SSM_ARCH, HYBRID_ARCH = "deepseek-moe-16b", "mamba2-370m", "hymba-1.5b
 # hymba's serving trace: two prompts past its 1024-token window, so prefill
 # keeps the window's tail and the ring wraps in decode
 HYBRID_PROMPT_LENS = [1500, 128, 517, 1100, 255, 777, 64, 333]
-# hymba serves and trains cut to 8 of its 32 layers (every layer's shapes
+# hymba serves and trains cut to HYBRID_LAYERS of its 32 layers (every layer's shapes
 # as at full depth): the whole script ran 1038 s of its 1200 s at full
 # depth once the VLM and enc-dec paths joined, and hymba's two paths, whose
 # host-bound SSD chunk loop costs time per layer, took 147 s of it; 16
 # until the tensor-parallel phase joined (the two took 71.7 s at 16), 8
-# until the FSDP paths joined (35.4 s at 8)
-HYBRID_LAYERS = 4
+# until the FSDP paths joined (35.4 s at 8), 4 until the other families'
+# TP and FSDP paths joined (16.5 s at 4)
+HYBRID_LAYERS = 2
 # A continuous-engine token may part from the static engine's only at a
 # near-tie.  The two engines run the same bf16 model but batch it
 # differently (4 slots against 1 row: other GEMM kernels, other roundings),
@@ -547,9 +557,13 @@ TIE_BAR_SIGMAS = 4
 # 768-slice expert bucket took 52.9 s on the H100, NVIDIA H100 80GB HBM3,
 # 700.00 W, and the whole script 1051 s of its 1200; 2 until the
 # tensor-parallel phase joined, 37.9 s at 2); it served at full depth
-# until the FSDP paths joined (52.2 s), at 14 of 28 layers since
+# until the FSDP paths joined (52.2 s), at 14 of 28 layers until the other
+# families' TP and FSDP paths joined, at 7 since (15.5 s at 7, 8.8 s at 4)
 MOE_TRAIN_LAYERS = 1
-SERVE_MOE_LAYERS = 14
+SERVE_MOE_LAYERS = 7
+# mamba2-370m serves and trains at 24 of its 48 layers since the other
+# families' TP and FSDP paths joined (the two took 39.1 s at 48)
+SSM_LAYERS = 24
 # rank 256 for moe and hybrid: SARA's pool (4 r) then leaves k' 1032 below
 # the narrow side of their leaves, so kernel 9 runs; at the launcher's 512
 # it spans every leaf's narrow side and the power iterations drop (as
@@ -559,14 +573,16 @@ FAMILY_TRAIN_RUNS = {
     "train_moe": (MOE_ARCH, MOE_TRAIN_LAYERS, TRAIN_SEQ, TRAIN_BATCH, 256,
                   [(1408, 2048, 256, 192, "any"), (2048, 2048, 256, 4, "any"),
                    (2048, 2816, 256, 3, "any")]),
-    "train_ssm": (SSM_ARCH, None, TRAIN_SEQ, TRAIN_BATCH, 512,
-                  [(32, 48, 32, 1, "any"), (1024, 2048, 512, 48, "any"),
-                   (1024, 4384, 512, 48, "any")]),
+    # d_skip's (L, 32) leaf, then out_proj and in_proj, one a layer
+    "train_ssm": (SSM_ARCH, SSM_LAYERS, TRAIN_SEQ, TRAIN_BATCH, 512,
+                  [(min(SSM_LAYERS, 32), max(SSM_LAYERS, 32), min(SSM_LAYERS, 32), 1, "any"),
+                   (1024, 2048, 512, SSM_LAYERS, "any"), (1024, 4384, 512, SSM_LAYERS, "any")]),
     # seq 2048 so attention reaches past the 1024 window (the same 4096 tokens)
+    # per layer: k/v, q/o, out_proj, the mlp, in_proj
     "train_hybrid": (HYBRID_ARCH, HYBRID_LAYERS, 2048, 2, 256,
-                     [(320, 1600, 256, 8, "any"), (1600, 1600, 256, 8, "any"),
-                      (1600, 3200, 256, 4, "any"), (1600, 5504, 256, 12, "any"),
-                      (1600, 6482, 256, 4, "any")]),
+                     [(d, n, 256, b * HYBRID_LAYERS, "any") for d, n, b in (
+                         (320, 1600, 2), (1600, 1600, 2), (1600, 3200, 1), (1600, 5504, 3),
+                         (1600, 6482, 1))]),
 }
 PATH_KERNELS["serve_moe"] = SERVE_KERNELS
 PATH_KERNELS["train_moe"] = _TRAIN_COMMON + (UPDATE_KERNEL["adam"],)
@@ -583,9 +599,10 @@ PATH_KERNELS["train_hybrid"] = _TRAIN_COMMON + (UPDATE_KERNEL["adam"],)
 # (Whisper's text context).
 VLM_ARCH, AUDIO_ARCH = "llava-next-34b", "whisper-medium"
 VLM_POOL_PAGES = 250
-# llava serves at 30 of its 60 layers since the FSDP paths joined (full
-# depth, 65 GiB of bf16 weights, 27.3 s before)
-SERVE_VLM_LAYERS = 30
+# llava serves at 15 of its 60 layers since the other families' TP and
+# FSDP paths joined (30 since the FSDP paths joined; at full depth, 65 GiB
+# of bf16 weights, it took 27.3 s; 5.7 s at 8)
+SERVE_VLM_LAYERS = 15
 AUDIO_PROMPT_LENS = [64, 4, 48, 17, 33, 8, 56, 25]
 AUDIO_NEW_TOKENS = 64
 AUDIO_MAX_SEQ = 448
@@ -593,22 +610,24 @@ AUDIO_MAX_SEQ = 448
 # layers (every layer's shapes as at full depth): at full depth its two
 # paths took 107 s of the script's 1051 s on the H100 (NVIDIA H100 80GB
 # HBM3, 700.00 W), too near the script's 1200-s limit; 6 + 6 since the
-# FSDP paths joined (the two took 44.5 s at 12 + 12)
-AUDIO_LAYERS = 6
+# FSDP paths joined (the two took 44.5 s at 12 + 12), 3 + 3 since the other
+# families' TP and FSDP paths joined (25.4 s at 6 + 6)
+AUDIO_LAYERS = 3
 LAYER_LAUNCHES["vlm"] = LAYER_LAUNCHES["dense"]
-# train_vlm: llava-next-34b cut to 2 layers (2.08 B params, near the 4
-# llama layers of phase 4), 448 text tokens after the 576 patches (1024
+# train_vlm: llava-next-34b cut to 1 layer (2 until the other families' TP
+# and FSDP paths joined), 448 text tokens after the 576 patches (1024
 # positions), batch 4; rank 512 (k' 2056 < 7168: kernel 9 runs), and the 2-D
 # patch_in_proj joins q and o's bucket.  train_audio: whisper-medium at
 # ``AUDIO_LAYERS``, 448 decoder tokens and 1500 frames, batch 8; rank 256,
 # whose sara sketch k' 1032 spans the 1024-wide narrow side of every leaf,
 # so the power iterations drop (kernel 9: 0 launches).
 FAMILY_TRAIN_RUNS["train_vlm"] = (
-    VLM_ARCH, 2, 448, 4, 512,
-    [(1024, 7168, 512, 4, "any"), (7168, 7168, 512, 5, "any"), (7168, 20480, 512, 6, "any")])
+    VLM_ARCH, 1, 448, 4, 512,
+    [(1024, 7168, 512, 2, "any"), (7168, 7168, 512, 3, "any"), (7168, 20480, 512, 3, "any")])
+# per encoder and decoder layer: q/k/v/o and the cross q/k/v/o; the mlps
 FAMILY_TRAIN_RUNS["train_audio"] = (
     AUDIO_ARCH, AUDIO_LAYERS, 448, 8, 256,
-    [(1024, 1024, 256, 72, "any"), (1024, 4096, 256, 36, "any")])
+    [(1024, 1024, 256, 12 * AUDIO_LAYERS, "any"), (1024, 4096, 256, 6 * AUDIO_LAYERS, "any")])
 PATH_KERNELS["serve_vlm"] = SERVE_KERNELS
 PATH_KERNELS["train_vlm"] = _TRAIN_COMMON + (UPDATE_KERNEL["adam"],)
 PATH_KERNELS["serve_audio"] = ("rmsnorm", "flash_attention_fwd")
@@ -627,8 +646,8 @@ PATH_NEVER = {"train_ssm": ("power_iter_batched", "flash_attention_fwd"),
 # overlaps, so fig2's first and last three differ).  25 steps, not the
 # harness's 150: on the H100 (700 W) full Adam took ~95 ms a hot step and a
 # SARA refresh ~1.25 s, and the 16 runs took the phase ~370 s at 150
-# steps, 181 s at 60 and 118 s at 35 (the whole script 1062 s of its
-# 1200).  Its depth stays 8: at 4 layers embed's and lm_head's full Adam
+# steps, 181 s at 60, 118 s at 35, 95-112 s at 25 and 78.8 s at 15 (tau 3).
+# Its depth stays 8: at 4 layers embed's and lm_head's full Adam
 # state lifts GaLore's state / param ratio to 1.6235, past the path's 1.6
 # bar (on the H100, NVIDIA H100 80GB HBM3, 700.00 W).  lr 1e-3, the
 # paper's full-Adam rate at this size, not the harness's CPU default of
@@ -2815,7 +2834,9 @@ def family_kernel_cases(results):
     against its plain version, timed beside its bound and library call:
     flash at hymba's D 64, GQA 25/5, window 1024, S 2048 (training, B 2)
     and deepseek's MHA 16/16 at D 128 (serving prefill); paged decode at
-    MHA 16/16; RMSNorm at widths 1600, 2048 and 3200; kernels 4, 5 and 9
+    MHA 16/16; RMSNorm at widths 1600, 2048 and 3200, and on half of
+    mamba2's and hymba's gated-norm rows with the whole row's sum of
+    squares (the head-parallel mixer's); kernels 4, 5 and 9
     on deepseek's 384-slice expert bucket (d 1408, n 2048) at rank 256
     (k' 1032)."""
     from repro_torch.kernels.flash_attention.kernel import flash_attention_fwd
@@ -2853,6 +2874,29 @@ def family_kernel_cases(results):
             "plain_ms": device_ms(lambda: rmsnorm_ref(x, scale, 1e-5)),
             "library_ms": device_ms(lambda: F.rms_norm(x, (width,), scale_lib, 1e-5)),
             "bound_ms": b_ms, "bound_by": b_by})
+    # the gated norm of the SSM mixer on a process's heads at TP 2: its
+    # half of the channels with the whole row's f32 sum of squares (mamba2
+    # 1024 of 2048, hymba 1600 of 3200; 4096 tokens a step).  No library
+    # call takes a given sum of squares
+    for rows, width, full in ((4096, 1024, 2048), (4096, 1600, 3200)):
+        xf = randn(rows, full, dtype=bf16)
+        x = xf[:, :width].contiguous()
+        scale = 1.0 + randn(width, scale=0.1)
+        ss = torch.sum(xf.float() ** 2, dim=-1, keepdim=True)
+        got = rmsnorm(x, scale, 1e-5, ss=ss, width=full)
+        want = rmsnorm_ref(x, scale, 1e-5, ss=ss, width=full)
+        whole = rmsnorm_ref(xf, torch.cat([scale, torch.ones(full - width, device=dev)]), 1e-5)
+        err = check_close(f"rmsnorm ({rows},{width} of {full})", got, want,
+                          *TOL["rmsnorm"]["bfloat16"])
+        check_close(f"rmsnorm ({rows},{width} of {full}) against the whole row", got,
+                    whole[:, :width], *TOL["rmsnorm"]["bfloat16"])
+        b_ms, b_by = bound(2 * rows * width * 2 + width * 4 + rows * 4, 3 * rows * width,
+                           "bfloat16")
+        record("rmsnorm", f"({rows},{width} of {full}, given sum of squares)", bf16, err, {
+            "ms": device_ms(lambda: rmsnorm(x, scale, 1e-5, ss=ss, width=full)),
+            "call_ms": call_ms(lambda: rmsnorm(x, scale, 1e-5, ss=ss, width=full)),
+            "plain_ms": device_ms(lambda: rmsnorm_ref(x, scale, 1e-5, ss=ss, width=full)),
+            "library_ms": None, "bound_ms": b_ms, "bound_by": b_by})
 
     # (label, B, S, H, KVH, D, window): SDPA with the window as a boolean
     # mask is the library call that computes the same function
@@ -4080,7 +4124,7 @@ def train_dp(cfg, smi: str, dev: str = "cuda", world: int = 0,
 # on cuda:0) over gloo, on a file store under ``build/``: NCCL refuses two
 # ranks on one device, and ranks as threads of one process would block in
 # backward's collectives on the autograd engine's one device thread.  The
-# dense run: llama3-8b at full width cut to ``TP_LAYERS`` layers, seq 512,
+# dense run: llama3-8b at full width cut to ``TP_LAYERS`` layer(s), seq 512,
 # global batch 8, bf16 compute, ``TRAIN_OPT``, 3 steps; its losses against
 # the single-process run of the same steps (made in the parent first)
 # within ``TP_LOSS_GAP``: bf16 rounds each process's partial outputs before
@@ -4114,7 +4158,7 @@ def train_dp(cfg, smi: str, dev: str = "cuda", world: int = 0,
 # dropped; at the config's 1.25, 3 steps in bf16 with exact launch counts
 # per rank (path ``train_tp_moe``), finite, the dropped share printed.
 TP_WORLD = 2
-TP_LAYERS = 2
+TP_LAYERS = 1  # 2 until the other families' TP and FSDP paths joined
 TP_STEPS = 3
 TP_LOSS_GAP = 1e-3
 TP_MOE_LAYERS = 1
@@ -4213,7 +4257,7 @@ def _tp_refresh_optimizer(params, opt_kw):
         opt_kw["lr"], TRAIN_WARMUP, TP_STEPS), **dict(opt_kw, momentum_carry=TP_REFRESH_CARRY))
 
 
-def _tp_power_cases(opt, dev: str, rank: int, fsdp: bool = False) -> list:
+def _tp_power_cases(opt, dev: str, rank: int, fsdp: bool = False, path=None) -> list:
     """Kernel 9 on each "n" bucket's local block (B, d, n / model; over
     ``data`` with ``fsdp``) with a (B, d, k') basis at the k' of the
     bucket's global leaves (the split refresh's first chunk), against the
@@ -4242,7 +4286,7 @@ def _tp_power_cases(opt, dev: str, rank: int, fsdp: bool = False) -> list:
         before = counters.snapshot()
         got = pi_ops.power_iter_step(g, q)
         launches = _launches_since(before)
-        path = "train_fsdp" if fsdp else "train_tp"
+        path = path or ("train_fsdp" if fsdp else "train_tp")
         if launches != {"power_iter_batched": 1}:
             raise AssertionError(f"{path} power-iteration case: launches {launches}")
         label = f"B={b} d={bk.d} n={bk.n} (of {n}) k'={kp}"
@@ -4255,30 +4299,32 @@ def _tp_power_cases(opt, dev: str, rank: int, fsdp: bool = False) -> list:
 
 
 def _tp_dense(rank: int, devname: str, mesh, shared, cpu_cfg, seq: int, batch: int,
-              fsdp: bool = False):
+              fsdp: bool = False, opt_kw=None, path=None):
     """The dense run of one process of ``train_tp`` (see the constants), or
     with ``fsdp`` of ``train_fsdp`` (``mesh`` (TP_WORLD, 1)); ``shared``
     holds the single-process run's state after step 1, its params after
     one f32 hot step from it, and its low-rank leaves' params after one
     f32 refresh step from it; ``cpu_cfg`` stands for llama3-8b in a CPU
-    rehearsal."""
+    rehearsal.  ``train_tp_families`` runs its models through it too
+    (``cpu_cfg`` the model's config, ``opt_kw`` its optimizer's, ``path``
+    the path's name)."""
     from repro_torch.configs.base import TrainConfig
     from repro_torch.configs.registry import get_config
     from repro_torch.core import make_optimizer
-    from repro_torch.core.buckets import tp_hot_comm_bytes
-    from repro_torch.core.lowrank import flatten_with_path, fsdp_hot_comm_bytes, tree_leaves
+    from repro_torch.core.lowrank import (flatten_with_path, fsdp_hot_comm_bytes, tree_leaves,
+                                          tree_unflatten)
     from repro_torch.core.schedules import cosine_with_warmup
     from repro_torch.data.synthetic import SyntheticDataConfig, SyntheticDataset
     from repro_torch.kernels import counters
     from repro_torch.launch import mesh as mesh_lib
     from repro_torch.launch import sharding as shd
-    from repro_torch.models import build_model
-    from repro_torch.models import parallel as par
+    from repro_torch.models import build_model, tp_hot_comm_bytes
+    from repro_torch.models import ssm as ssm_lib
     from repro_torch.train.state import TrainState
     from repro_torch.train.step import make_train_step
 
     on_card = torch.device(devname).type == "cuda"
-    path = "train_fsdp" if fsdp else "train_tp"
+    path = path or ("train_fsdp" if fsdp else "train_tp")
 
     def sync():
         if on_card:
@@ -4288,10 +4334,15 @@ def _tp_dense(rank: int, devname: str, mesh, shared, cpu_cfg, seq: int, batch: i
     model = build_model(cfg, device=devname)
     data = SyntheticDataset(SyntheticDataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
                                                 global_batch=batch), device=devname)
+    if cfg.family in ("vlm", "audio"):
+        data = PrefixData(data, cfg, devname)
     batches = [data.batch_at(s) for s in range(TP_STEPS + 1)]
     tc = TrainConfig(total_steps=TP_STEPS, seed=SEED)
     params = model.init(torch.Generator(device=devname).manual_seed(SEED))
-    opt_kw = dict(TRAIN_OPT) if on_card else dict(TRAIN_OPT, rank=8, svd_oversample=4)
+    if opt_kw is None:
+        opt_kw = dict(TRAIN_OPT) if on_card else dict(TRAIN_OPT, rank=8, svd_oversample=4)
+    head_tp = cfg.family in ("ssm", "hybrid") and mesh.tp > 1 and ssm_lib.head_parallel(
+        cfg, mesh.tp)
     opt = make_optimizer("galore-sara-adam", params, lr_schedule=cosine_with_warmup(
         opt_kw["lr"], TRAIN_WARMUP, TP_STEPS), **opt_kw)
     fns = make_train_step(model, opt, mesh=mesh, train_cfg=tc)
@@ -4322,10 +4373,14 @@ def _tp_dense(rank: int, devname: str, mesh, shared, cpu_cfg, seq: int, batch: i
         losses.append(float(m["loss"]))
         comm.append(mesh_lib.comm_snapshot())
         per_step.append(_launches_since(before))
+        if s == 0:
+            # every step-0 gradient finite: their norm over every block is
+            grad_norm0 = float(m["grad_norm"])
     launches = counters.snapshot()
     peak = max(peaks)
-    if not all(np.isfinite(losses)):
-        raise AssertionError(f"{path} rank {rank}: losses {losses}")
+    if not all(np.isfinite(losses)) or not np.isfinite(grad_norm0):
+        raise AssertionError(f"{path} rank {rank}: losses {losses}, step-0 gradient norm "
+                             f"{grad_norm0}")
     expect = _train_expect(cfg, lopt, TP_STEPS)
     if launches != expect:
         raise AssertionError(f"{path} rank {rank}: launches {launches} != {expect}")
@@ -4342,30 +4397,26 @@ def _tp_dense(rank: int, devname: str, mesh, shared, cpu_cfg, seq: int, batch: i
     else:
         act_bytes = torch.empty((), dtype=cfg.dtype).element_size()
         axis, want_bytes = "model", tp_hot_comm_bytes(cfg, batch, seq, lopt.bucket_plan,
-                                                      act_bytes)
+                                                      act_bytes, tp=mesh.tp)
     got = [sum(v for k, v in c.items() if k.endswith("@" + axis)) for c in comm]
     if any(g != want_bytes for g in got[1:]):
         raise AssertionError(f"{path} rank {rank}: hot-step bytes over {axis} {got[1:]} "
                              f"!= {want_bytes} (the shapes' count)")
-    log(f"{path} rank {rank}: llama3-8b {cfg.n_layers} layers, local plan {plan}; losses "
+    log(f"{path} rank {rank}: {cfg.arch_id} {cfg.n_layers} layers, local plan {plan}; losses "
         f"{losses}; refresh {ms[0]:.1f} ms, hot {[round(x, 1) for x in ms[1:]]} ms; "
         f"max_memory_allocated per step {[round(x / 2**30, 2) for x in peaks]} GiB; "
         f"launches {launches}; hot-step bytes over {axis} {got[1:]} (formula {want_bytes}), "
         f"refresh step {got[0]}")
-    # each local bucket of one more hot step: kernel against plain (under
-    # FSDP on the f32 hot step's own gradients below, which saves a pass
-    # whose gathers gloo stages through host memory); kernel 9 on each "n"
-    # bucket's block at the split refresh's shapes
-    parity = None
-    if not fsdp:
-        with par.use(mesh.model_axes()):
-            parity = hot_step_parity(path, model, lopt, state, batches[TP_STEPS],
-                                     dev="cuda" if on_card else "cpu")
-    power = _tp_power_cases(lopt, devname, rank, fsdp)
+    # kernel 9 on each "n" bucket's block at the split refresh's shapes
+    power = _tp_power_cases(lopt, devname, rank, fsdp, path)
     # from the single-process run's state after step 1, which the parent
     # shares with the processes (CUDA IPC on the card), in f32 compute: one
     # hot step and one refresh step, this process's blocks against the
-    # parent's own steps from it, cut to the same blocks
+    # parent's own steps from it, cut to the same blocks.  The parent's two
+    # steps take the same state and batch, so the ranks' share one pass:
+    # the step's reduced gradients there (which saves passes whose
+    # collectives gloo stages through host memory), each local bucket's
+    # kernels against plain on them, then each step's update
     del state, fns
     if on_card:
         torch.cuda.empty_cache()
@@ -4376,42 +4427,37 @@ def _tp_dense(rank: int, devname: str, mesh, shared, cpu_cfg, seq: int, batch: i
     def block(i, x):
         return shd.block_of(x, splits[i], mesh)
 
+    def peak_now():
+        return torch.cuda.max_memory_allocated() if on_card else 0
+
     st = fns32["place_state"](TrainState(shared["params"], shared["opt_state"]))
     if on_card:
         torch.cuda.reset_peak_memory_stats()
-    if fsdp:
-        # the step's own two halves: its reduced gradients, the kernels
-        # against plain on them, then its update
-        _, _, grads = fns32["grads"](st, batches[TP_STEPS])
-        grad_peak = torch.cuda.max_memory_allocated() if on_card else 0
-        parity = hot_step_parity(path, model32, fns32["optimizer"], st, None,
-                                 dev="cuda" if on_card else "cpu", grads=tree_leaves(grads))
-        if on_card:  # the step's peak: its gradients', then its update's
-            torch.cuda.reset_peak_memory_stats()
-        mine, _, _ = fns32["optimizer"].update(grads, st.opt_state, st.params, refresh=False,
-                                               apply=True)
-        peak32 = {"hot": max(grad_peak, torch.cuda.max_memory_allocated() if on_card else 0)}
-        mine = tree_leaves(mine)
-        del grads
-    else:
-        out, _ = fns32["step"](st, batches[TP_STEPS])
-        peak32 = {"hot": torch.cuda.max_memory_allocated() if on_card else 0}
-        mine = tree_leaves(out.params)
-        del out
+    _, _, grads = fns32["grads"](st, batches[TP_STEPS])
+    grads, grad_peak = tree_leaves(grads), peak_now()
+    parity = hot_step_parity(path, model32, fns32["optimizer"], st, None,
+                             dev="cuda" if on_card else "cpu", grads=grads)
+    if on_card:  # each step's peak: its gradients', then its update's
+        torch.cuda.reset_peak_memory_stats()
+    # on a copy of the gradients: an update may scale its own in place
+    mine, _, _ = fns32["optimizer"].update(tree_unflatten(st.params, [g.clone() for g in grads]),
+                                           st.opt_state, st.params, refresh=False, apply=True)
+    peak32 = {"hot": max(grad_peak, peak_now())}
+    mine = tree_leaves(mine)
     hot = _blocks_within(f"{path} rank {rank}: the f32 hot step from the single-process state",
                          mine, [block(i, x) for i, x in enumerate(shared["hot"])])
-    del mine
-    del st
-    fns32 = make_train_step(model32, _tp_refresh_optimizer(shared["params"], opt_kw), mesh=mesh,
-                            train_cfg=tc)
-    st = fns32["place_state"](TrainState(shared["params"], shared["opt_state"]))
+    del mine, st, fns32
+    ropt = make_train_step(model32, _tp_refresh_optimizer(shared["params"], opt_kw), mesh=mesh,
+                           train_cfg=tc)
+    st = ropt["place_state"](TrainState(shared["params"], shared["opt_state"]))
     if on_card:
         torch.cuda.reset_peak_memory_stats()
-    out, _ = fns32["refresh_step"](st, batches[TP_STEPS])
-    peak32["refresh"] = torch.cuda.max_memory_allocated() if on_card else 0
-    del st
-    mine = tree_leaves(out.params)
-    del out, fns32
+    out, _, _ = ropt["optimizer"].update(tree_unflatten(st.params, grads), st.opt_state,
+                                         st.params, refresh=True, apply=True)
+    peak32["refresh"] = max(grad_peak, peak_now())
+    del st, grads, ropt
+    mine = tree_leaves(out)
+    del out
     want, paths = shared["refreshed"], [p for p, _ in flatten_with_path(shared["params"])]
     low = sorted(want)
     refreshed = _steps_within(
@@ -4427,6 +4473,7 @@ def _tp_dense(rank: int, devname: str, mesh, shared, cpu_cfg, seq: int, batch: i
     if on_card:
         torch.cuda.empty_cache()
     return {"plan": plan, "losses": losses, "ms": ms, "max_memory_allocated": peak,
+            "grad_norm0": grad_norm0, "head_tp": head_tp,
             "peaks": peaks, "peaks_f32": peak32,
             "launches": launches, "expected": expect, "per_step": per_step,
             "hot_bytes": got[1:], "refresh_bytes": got[0], "hot_bytes_formula": want_bytes,
@@ -4628,64 +4675,53 @@ def _ipc_tree(x, on_card: bool):
             torch.cuda.memory._set_allocator_settings("expandable_segments:True")
 
 
-def _tp_main(out_json: str, dev: str, dense, moe) -> None:
-    """The process that ``train_tp`` spawns: the single-process dense run
-    and its f32 hot and refresh steps from its state after step 1, then
-    ``TP_WORLD`` processes (``_tp_worker``) on the one card, sharing that
-    state and those steps' params with them by CUDA IPC; their summaries and its own go to
-    ``out_json``.  A process of its own, so that everything it shared is
-    freed when it ends (CUDA IPC keeps a producer's shared memory until its
-    consumers' references are counted down, which exiting consumers do not
-    reliably do).  Fails if a rank fails or outlives ``TP_TIMEOUT_S``."""
-    sys.path.insert(0, str(ROOT / "src"))
+def _one_process_ref(cfg, seq: int, batch: int, opt_kw, dev: str, yardstick: bool = False):
+    """The single-process run of ``TP_STEPS`` steps of ``cfg``'s model
+    (``train_tp``'s and ``train_tp_families``' reference), then from its
+    state after step 1 the params of one f32 hot step and of one f32
+    refresh step: (``shared``, shared with the ranks by CUDA IPC on the
+    card; the run's losses, ms and peaks).  ``yardstick``: also one process
+    against itself, the same refresh step with its gradient summed in two
+    microbatches, read as the ranks' steps are (``_steps_within``)."""
     from repro_torch.configs.base import TrainConfig
-    from repro_torch.configs.registry import get_config
     from repro_torch.core import make_optimizer
     from repro_torch.core.lowrank import tree_leaves
     from repro_torch.core.schedules import cosine_with_warmup
     from repro_torch.data.synthetic import SyntheticDataConfig, SyntheticDataset
-    from repro_torch.device import resolve_device
     from repro_torch.models import build_model
     from repro_torch.train.state import TrainState
     from repro_torch.train.step import make_train_step
 
     on_card = torch.device(dev).type == "cuda"
-    if on_card:
-        torch.cuda.set_device(0)
-        resolve_device("cuda")
-    else:
-        torch.set_num_threads(1)
-    cfg = dense[0] or get_config("llama3-8b").with_(n_layers=TP_LAYERS)
-    seq, batch = dense[1], dense[2]
-    # the single-process run of the same steps
     model = build_model(cfg, device=dev)
     data = SyntheticDataset(SyntheticDataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
                                                 global_batch=batch), device=dev)
+    if cfg.family in ("vlm", "audio"):
+        data = PrefixData(data, cfg, dev)
     params = model.init(torch.Generator(device=dev).manual_seed(SEED))
-    opt_kw = dict(TRAIN_OPT) if on_card else dict(TRAIN_OPT, rank=8, svd_oversample=4)
     opt = make_optimizer("galore-sara-adam", params, lr_schedule=cosine_with_warmup(
         opt_kw["lr"], TRAIN_WARMUP, TP_STEPS), **opt_kw)
     tc = TrainConfig(total_steps=TP_STEPS, seed=SEED)
     fns = make_train_step(model, opt, train_cfg=tc)
     state = TrainState(params, opt.init(params))
     del params
-    ref_losses, ref_ms, ref_peaks = [], [], []
+    ref = {"losses": [], "ms": [], "peaks": []}
     for s in range(TP_STEPS):
         if on_card:
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
         t = time.perf_counter()
         state, m = (fns["refresh_step"] if s == 0 else fns["step"])(state, data.batch_at(s))
-        ref_losses.append(float(m["loss"]))
-        ref_ms.append((time.perf_counter() - t) * 1e3)
-        ref_peaks.append(torch.cuda.max_memory_allocated() if on_card else 0)
+        ref["losses"].append(float(m["loss"]))
+        ref["ms"].append((time.perf_counter() - t) * 1e3)
+        ref["peaks"].append(torch.cuda.max_memory_allocated() if on_card else 0)
         if s == 1:
             state1 = state
     del state, fns
     # its state after step 1, and the params of one f32 hot step and of one
     # f32 refresh step from it (the low-rank leaves: the refresh changes
     # no other): shared with the processes (CUDA IPC; this process keeps
-    # them alive until they end)
+    # them alive until they are done with them)
     shared = {"params": _ipc_tree(state1.params, on_card),
               "opt_state": _ipc_tree(state1.opt_state, on_card)}
     del state1
@@ -4699,21 +4735,48 @@ def _tp_main(out_json: str, dev: str, dense, moe) -> None:
     shared["refreshed"] = _ipc_tree({i: x for i, x in enumerate(tree_leaves(one.params))
                                      if opt.specs[i].lowrank}, on_card)
     del one
-    # the bar's yardstick: one process against itself, the same refresh
-    # step with its gradient summed in another order (two microbatches),
-    # read as the processes' steps are (``_steps_within``)
-    two, _ = make_train_step(model32, _tp_refresh_optimizer(shared["params"], opt_kw),
-                             train_cfg=TrainConfig(total_steps=TP_STEPS, seed=SEED,
-                                                   microbatch=batch // 2))["refresh_step"](
-        st, data.batch_at(TP_STEPS))
-    flat2, flat0 = tree_leaves(two.params), tree_leaves(shared["params"])
-    self_rel = {i: float(torch.linalg.vector_norm(flat2[i] - x)
-                         / torch.linalg.vector_norm(x - flat0[i]))
-                for i, x in shared["refreshed"].items()}
-    del two, flat2, flat0
+    ref["self_rel"] = {}
+    if yardstick:
+        two, _ = make_train_step(model32, _tp_refresh_optimizer(shared["params"], opt_kw),
+                                 train_cfg=TrainConfig(total_steps=TP_STEPS, seed=SEED,
+                                                       microbatch=batch // 2))["refresh_step"](
+            st, data.batch_at(TP_STEPS))
+        flat2, flat0 = tree_leaves(two.params), tree_leaves(shared["params"])
+        ref["self_rel"] = {i: float(torch.linalg.vector_norm(flat2[i] - x)
+                                    / torch.linalg.vector_norm(x - flat0[i]))
+                           for i, x in shared["refreshed"].items()}
+        del two, flat2, flat0
     del opt, model, model32, st
     if on_card:
         torch.cuda.empty_cache()
+    return shared, ref
+
+
+def _tp_main(out_json: str, dev: str, dense, moe) -> None:
+    """The process that ``train_tp`` spawns: the single-process dense run
+    and its f32 hot and refresh steps from its state after step 1, then
+    ``TP_WORLD`` processes (``_tp_worker``) on the one card, sharing that
+    state and those steps' params with them by CUDA IPC; their summaries and its own go to
+    ``out_json``.  A process of its own, so that everything it shared is
+    freed when it ends (CUDA IPC keeps a producer's shared memory until its
+    consumers' references are counted down, which exiting consumers do not
+    reliably do).  Fails if a rank fails or outlives ``TP_TIMEOUT_S``."""
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.configs.registry import get_config
+    from repro_torch.device import resolve_device
+
+    on_card = torch.device(dev).type == "cuda"
+    if on_card:
+        torch.cuda.set_device(0)
+        resolve_device("cuda")
+    else:
+        torch.set_num_threads(1)
+    cfg = dense[0] or get_config("llama3-8b").with_(n_layers=TP_LAYERS)
+    seq, batch = dense[1], dense[2]
+    opt_kw = dict(TRAIN_OPT) if on_card else dict(TRAIN_OPT, rank=8, svd_oversample=4)
+    shared, ref = _one_process_ref(cfg, seq, batch, opt_kw, dev, yardstick=True)
+    ref_losses, ref_ms, ref_peaks, self_rel = (ref[k] for k in ("losses", "ms", "peaks",
+                                                                 "self_rel"))
     log(f"train_tp: the single-process run, losses {ref_losses}, {ref_ms} ms")
     out_dir = fresh_dir("train_tp")
     out_dir.mkdir()
@@ -4830,8 +4893,243 @@ def train_tp(smi: str, dev: str = "cuda", dense=None, moe=None):
     return dense_run, moe_run, fsdp_run, fsdp_moe_run
 
 
+# Phase 5e, paths ``train_tp_{ssm,ssm_whole,hybrid,audio,vlm}`` and
+# ``train_fsdp_{ssm,hybrid,audio,vlm}``: the SSM, hybrid, enc-dec and VLM
+# families tensor parallel at (1, TP_WORLD) and FSDP at (TP_WORLD, 1), two
+# processes sharing the card over gloo as ``train_tp``'s, each model at
+# full width and ``TPF_LAYERS`` layer(s) (whisper 1 + 1), ``TRAIN_OPT``'s
+# galore-sara-adam at its ``FAMILY_TRAIN_RUNS`` rank, seq and batch, 3
+# steps.  mamba2-370m and hymba-1.5b with ``ssm_head_tp``: 16 and 25 SSD
+# heads a process (hymba's 25 attention heads do not divide 2: its
+# attention runs gathered and replicated); ``ssm_whole`` is mamba2 as the
+# registry configures it (``ssm_head_tp`` off), whose mixer runs whole
+# from the gathered ``in_proj`` with ``out_proj`` row-parallel, at TP only
+# (at a ``model`` extent of 1 its FSDP path is ``ssm``'s).  Each path runs ``_tp_dense``'s
+# checks against one process's run from the same state (``_one_process_ref``,
+# made in the phase's process first): the f32 hot step within
+# ``DP_HOT_TOL``, the f32 refresh step under ``TP_REFRESH_CARRY`` within
+# ``TP_REFRESH_REL`` per block, the step-0 gradients finite (their norm over
+# every block), exact launches per rank, the hot step's bytes over
+# ``model`` or ``data`` equal to ``tp_hot_comm_bytes`` /
+# ``fsdp_hot_comm_bytes``, kernels 4 and 5 against plain on every local
+# bucket and kernel 9 on the "n" buckets' column blocks, and the peak
+# memory a process beside one process's.  The processes are spawned once
+# and take the families in turn (the smallest first) through queues; the
+# next family's one-process reference is made while they run a family
+# (its step times then share the card with theirs), and each family's
+# shared state is freed once they are done with it.
+TPF_LAYERS = 1
+# family: (its single-card path, config overrides, meshes)
+TPF_RUNS = {"ssm": ("train_ssm", dict(ssm_head_tp=True), ("tp", "fsdp")),
+            "ssm_whole": ("train_ssm", {}, ("tp",)),
+            "hybrid": ("train_hybrid", dict(ssm_head_tp=True), ("tp", "fsdp")),
+            "audio": ("train_audio", {}, ("tp", "fsdp")),
+            "vlm": ("train_vlm", {}, ("tp", "fsdp"))}
+for _fam, (_path, _, _kinds) in TPF_RUNS.items():
+    # the SSM's paths launch no flash kernel; kernel 9 where a sketch does
+    # not span a leaf's narrow side (counted exactly by power_iter_calls)
+    for _kind in _kinds:
+        PATH_KERNELS[f"train_{_kind}_{_fam}"] = tuple(
+            k for k in PATH_KERNELS[_path] if k != "power_iter_batched")
+
+
+def tpf_run(fam: str):
+    """(config, seq, batch, optimizer overrides) of a family of
+    ``train_tp_families`` at full width."""
+    from repro_torch.configs.registry import get_config
+
+    path, extra, _ = TPF_RUNS[fam]
+    arch, _, seq, batch, rank, _ = FAMILY_TRAIN_RUNS[path]
+    return cut_depth(get_config(arch), TPF_LAYERS).with_(**extra), seq, batch, dict(rank=rank)
+
+
+def _tpf_worker(rank: int, world: int, out_dir: str, dev: str, inbox, outbox) -> None:
+    """One process of ``train_tp_families``: for each (family, run, shared
+    state) from ``inbox`` until None, the family's tensor-parallel path on a
+    (1, world) mesh and its FSDP path on a (world, 1) mesh of one gloo
+    group (``_tp_dense``), its summary to ``outbox`` (or the failure, then
+    it exits)."""
+    from datetime import timedelta
+
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.device import resolve_device
+    from repro_torch.launch import mesh as mesh_lib
+
+    if dev == "cuda":
+        torch.cuda.set_device(0)
+        resolve_device("cuda")
+        devname = "cuda:0"
+    else:
+        torch.set_num_threads(1)
+        _count_plain_dispatch()
+        devname = "cpu"
+    dist.init_process_group("gloo", init_method=f"file://{out_dir}/store", world_size=world,
+                            rank=rank, timeout=timedelta(seconds=TP_TIMEOUT_S))
+    try:
+        meshes = {"tp": mesh_lib.make_mesh((1, world)), "fsdp": mesh_lib.make_mesh((world, 1))}
+        while True:
+            item = inbox.get()
+            if item is None:
+                break
+            fam, (cfg, seq, batch, opt_kw), shared = item
+            out = {}
+            try:
+                for kind in TPF_RUNS[fam][2]:
+                    mesh = meshes[kind]
+                    t = time.perf_counter()
+                    out[kind] = _tp_dense(rank, devname, mesh, shared, cfg, seq, batch,
+                                          fsdp=kind == "fsdp", opt_kw=opt_kw,
+                                          path=f"train_{kind}_{fam}")
+                    out[kind]["seconds"] = time.perf_counter() - t
+            except BaseException as e:
+                outbox.put((rank, fam, None, f"{type(e).__name__}: {e}"))
+                raise
+            finally:
+                del shared, item
+                if dev == "cuda":
+                    torch.cuda.empty_cache()
+            outbox.put((rank, fam, json.dumps(out, default=str), None))
+    finally:
+        dist.destroy_process_group()
+
+
+def _tpf_main(out_json: str, dev: str, runs) -> None:
+    """The process that ``train_tp_families`` spawns: ``TP_WORLD``
+    processes (``_tpf_worker``), then for each family of ``runs`` ({family:
+    (config, seq, batch, optimizer overrides)}) the single-process
+    reference (``_one_process_ref``) shared with them, their summaries
+    collected; everything to ``out_json``.  Fails if a rank fails or a
+    family outlives ``TP_TIMEOUT_S``."""
+    import queue
+
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.device import resolve_device
+
+    on_card = torch.device(dev).type == "cuda"
+    if on_card:
+        torch.cuda.set_device(0)
+        resolve_device("cuda")
+    else:
+        torch.set_num_threads(1)
+    out_dir = fresh_dir("train_tp_families")
+    out_dir.mkdir()
+    ctx = torch.multiprocessing.get_context("spawn")
+    inboxes, outbox = [ctx.Queue() for _ in range(TP_WORLD)], ctx.Queue()
+    procs = [ctx.Process(target=_tpf_worker, args=(r, TP_WORLD, str(out_dir),
+                                                   "cuda" if on_card else "cpu", inboxes[r],
+                                                   outbox))
+             for r in range(TP_WORLD)]
+    for p in procs:
+        p.start()
+    got = {}
+
+    def reference(fam):
+        cfg, seq, batch, extra = runs[fam]
+        opt_kw = dict(TRAIN_OPT, **extra) if on_card else dict(TRAIN_OPT, rank=8,
+                                                                svd_oversample=4)
+        t = time.perf_counter()
+        shared, ref = _one_process_ref(cfg, seq, batch, opt_kw, dev)
+        ref["seconds"] = time.perf_counter() - t
+        log(f"train_tp_families {fam}: the single-process run, losses {ref['losses']}, "
+            f"{ref['ms']} ms, {ref['seconds']:.1f} s")
+        return (cfg, seq, batch, opt_kw), shared, ref
+
+    try:
+        fams = list(runs)
+        nxt = reference(fams[0])
+        for i, fam in enumerate(fams):
+            run, shared, ref = nxt
+            for box in inboxes:
+                box.put((fam, run, shared))
+            # the next family's reference while the ranks run this one (the
+            # ranks wait on gloo's host staging most of the time)
+            nxt = reference(fams[i + 1]) if i + 1 < len(fams) else None
+            ranks = {}
+            deadline = time.monotonic() + TP_TIMEOUT_S
+            while len(ranks) < TP_WORLD:
+                try:
+                    r, f, summary, err = outbox.get(timeout=5.0)
+                except queue.Empty:
+                    if time.monotonic() > deadline or not all(p.is_alive() for p in procs):
+                        raise AssertionError(
+                            f"train_tp_families {fam}: ranks ended with "
+                            f"{[p.exitcode for p in procs]} or outlived {TP_TIMEOUT_S} s")
+                    continue
+                if err is not None:
+                    raise AssertionError(f"train_tp_families {f} rank {r}: {err}")
+                ranks[r] = json.loads(summary)
+            del shared, run
+            if on_card:
+                torch.cuda.empty_cache()
+            got[fam] = {"ref": ref, "ranks": [ranks[r] for r in range(TP_WORLD)]}
+        for box in inboxes:
+            box.put(None)
+        for p in procs:
+            p.join(60)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+        shutil.rmtree(out_dir, ignore_errors=True)
+    Path(out_json).write_text(json.dumps(got, default=str))
+
+
+def train_tp_families(smi: str, dev: str = "cuda", runs=None):
+    """Phase 5e (paths ``train_tp_<family>`` and ``train_fsdp_<family>``, see
+    the constants): ``_tpf_main`` in a process of its own, then the checks
+    across its ranks.  Returns {path: run}.  ``runs`` overrides the
+    families' (config, seq, batch, optimizer overrides) for a CPU
+    rehearsal (its keys those of ``TPF_RUNS``, whose meshes they take)."""
+    runs = runs or {fam: tpf_run(fam) for fam in TPF_RUNS}
+    out_json = fresh_dir("train_tp_families.json")
+    proc = torch.multiprocessing.get_context("spawn").Process(
+        target=_tpf_main, args=(str(out_json), dev, runs))
+    proc.start()
+    proc.join(len(runs) * TP_TIMEOUT_S + 120)
+    if proc.is_alive():
+        proc.kill()
+        proc.join()
+        raise AssertionError("train_tp_families: the phase's process was killed at its limit")
+    if proc.exitcode:
+        raise AssertionError(f"train_tp_families: the phase's process ended with "
+                             f"{proc.exitcode}")
+    got = json.loads(out_json.read_text())
+    out_json.unlink()
+    gib = lambda x: round(x / 2**30, 2)  # noqa: E731
+    out = {}
+    for fam, res in got.items():
+        ref, ranks = res["ref"], res["ranks"]
+        for kind in TPF_RUNS[fam][2]:
+            path = f"train_{kind}_{fam}"
+            head = ranks[0][kind]
+            gaps = [abs(a - b) for a, b in zip(head["losses"], ref["losses"])]
+            if max(gaps) > TP_LOSS_GAP:
+                raise AssertionError(f"{path}: losses {head['losses']} against the "
+                                     f"single-process {ref['losses']}: gaps {gaps}")
+            if any(r[kind]["losses"] != head["losses"] for r in ranks[1:]):
+                raise AssertionError(f"{path}: the processes' losses differ "
+                                     f"{[r[kind]['losses'] for r in ranks]}")
+            log(f"{path} ({smi}; {TP_WORLD} processes sharing one card over gloo, so the "
+                f"times are not a parallel speed): {runs[fam][0].arch_id}, {head['seconds']:.1f} "
+                f"s; loss gaps {gaps}; step ms per rank {[r[kind]['ms'] for r in ranks]} "
+                f"against one process's {ref['ms']}; hot-step bytes {head['hot_bytes']} "
+                f"(formula {head['hot_bytes_formula']}); max_memory_allocated per step per "
+                f"rank {[[gib(x) for x in r[kind]['peaks']] for r in ranks]} GiB against one "
+                f"process's {[gib(x) for x in ref['peaks']]}; f32 from one state: hot "
+                f"{[r[kind]['hot_from_same_state'] for r in ranks]}, refresh (largest) "
+                f"{[max(b['rel'] for b in r[kind]['refresh_from_same_state']) for r in ranks]}")
+            out[path] = {"launches": head["launches"], "loss_gaps": gaps, "card": smi,
+                         "seconds": head["seconds"], "ref_ms": ref["ms"],
+                         "ref_peaks": ref["peaks"], "ref_seconds": ref["seconds"],
+                         "ranks": [r[kind] for r in ranks]}
+    return out
+
+
 PHASES = ("kernels", "serve", "train", "train_recovery", "train_rank_schedule", "resume",
-          "train_dp", "train_tp", "family_kernels", "serve_moe", "train_moe", "serve_ssm", "train_ssm",
+          "train_dp", "train_tp", "train_tp_families", "family_kernels", "serve_moe", "train_moe", "serve_ssm", "train_ssm",
           "serve_hybrid", "train_hybrid", "encdec_vlm_kernels", "serve_vlm", "train_vlm",
           "serve_audio", "train_audio", "tables")
 
@@ -4914,6 +5212,8 @@ def main(argv=None) -> int:
     if "train_tp" in only:
         (runs["train_tp"], runs["train_tp_moe"], runs["train_fsdp"],
          runs["train_fsdp_moe"]) = phase("train_tp", lambda: train_tp(smi))
+    if "train_tp_families" in only:
+        runs.update(phase("train_tp_families", lambda: train_tp_families(smi)))
     if "family_kernels" in only:
         cases += phase("family_kernels", lambda: family_kernel_cases(results))
     if "serve_moe" in only:  # deepseek-moe-16b at full width and depth
@@ -4925,7 +5225,8 @@ def main(argv=None) -> int:
         serve_path = path.replace("train", "serve")
         if path == "train_moe" or serve_path not in only:
             continue
-        cfg, lens = (get_config(SSM_ARCH), PROMPT_LENS) if path == "train_ssm" else \
+        cfg, lens = (cut_depth(get_config(SSM_ARCH), SSM_LAYERS), PROMPT_LENS) \
+            if path == "train_ssm" else \
             (get_config(HYBRID_ARCH).with_(n_layers=HYBRID_LAYERS), HYBRID_PROMPT_LENS)
         runs[serve_path] = phase(serve_path, lambda: serve_slots(cfg, lens))
     if "encdec_vlm_kernels" in only:
@@ -4936,7 +5237,7 @@ def main(argv=None) -> int:
             pool_pages=VLM_POOL_PAGES))
     if "train_vlm" in only:
         runs["train_vlm"] = phase("train_vlm", lambda: family_train("train_vlm", smi))
-    if "serve_audio" in only:  # whisper-medium at full width, 6 + 6 layers, bf16
+    if "serve_audio" in only:  # whisper-medium at full width, AUDIO_LAYERS + AUDIO_LAYERS, bf16
         runs["serve_audio"] = phase("serve_audio", lambda: serve_slots(
             cut_depth(get_config(AUDIO_ARCH), AUDIO_LAYERS), AUDIO_PROMPT_LENS,
             new_tokens=AUDIO_NEW_TOKENS, max_seq_len=AUDIO_MAX_SEQ))

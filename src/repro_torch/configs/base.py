@@ -45,6 +45,7 @@ class ModelConfig:
     ssm_expand: int = 2
     ssm_head_dim: int = 64
     ssm_chunk: int = 64
+    ssm_head_tp: bool = False  # SSD heads split over ``model`` (models/ssm.py)
 
     # --- hybrid (hymba) ---
     attn_window: int = 0  # 0 = global attention; >0 = sliding window

@@ -1154,36 +1154,3 @@ def dp_comm_model(
         out["modeled_state_bytes_peak"] = max(b for _, b in seg_bytes)
         out["modeled_state_bytes_avg"] = sum(w * b for w, b in seg_bytes) / wsum
     return out
-
-
-def tp_hot_comm_bytes(cfg, rows: int, seq: int, plan: BucketPlan, act_bytes: int) -> int:
-    """Bytes one process hands the ``model`` collectives in a hot step of a
-    dense model (``cfg``: d_model, n_layers, loss_chunk) whose attention
-    heads, MLP, embedding and vocab all split on block boundaries, with
-    block recomputation (``remat="block"``), for ``rows`` of ``seq``
-    tokens and a compute dtype of ``act_bytes``; ``plan`` is this
-    process's (``Bucket.split``):
-
-      per layer: the attention's and the MLP's f32 all-reduce of their
-        partial outputs in forward, the attention's again in the block's
-        recomputation (the recomputation stops after the last tensor the
-        backward saves, before the MLP's reduction), and the two
-        ``copy_to_model`` all-reduces of the input's gradient in backward
-        (compute dtype): 3 x 4 + 2 x act_bytes per hidden element;
-      the embedding: one f32 all-reduce of the rows;
-      the cross-entropy, per chunk: the max, the sum of exponentials and the
-        target logit (f32, one per token), in forward and in the chunk's
-        recomputation, and its input's gradient in backward;
-      the optimizer: each "d" bucket's partial R, f32 (B, r, n).
-
-    No counterpart in the reference (its collectives are GSPMD's);
-    ``launch/mesh.COMM`` counts what the step hands them."""
-    d, nl = cfg.d_model, cfg.n_layers
-    act = rows * seq * d
-    layers = nl * act * (3 * 4 + 2 * act_bytes)
-    embed = act * 4
-    cs = min(cfg.loss_chunk, seq)
-    xent = sum(6 * rows * min(cs, seq - lo) * 4 + rows * min(cs, seq - lo) * d * act_bytes
-               for lo in range(0, seq, cs))
-    partial_r = sum(bk.batch * bk.rank * bk.n * 4 for bk in plan.buckets if bk.split == "d")
-    return layers + embed + xent + partial_r

@@ -1190,16 +1190,18 @@ def tp_local_opt_state(optimizer: LowRankOptimizer, state: LowRankOptState) -> L
 
 def fsdp_hot_comm_bytes(optimizer: LowRankOptimizer, cfg, whole_over_data: bool = True) -> int:
     """Bytes one process hands the ``data`` collectives (``<kind>@data``)
-    in a hot step of the FSDP step (``train/step.py``) of a dense or MoE
-    model (``cfg``: ``remat``, ``tie_embeddings``) under ``optimizer``,
+    in a hot step of the FSDP step (``train/step.py``) of a model of any
+    family (``cfg``: ``remat``, ``tie_embeddings``) under ``optimizer``,
     the ``tensor_parallel_optimizer`` of its blocks, counted from the
     shapes:
 
       each leaf split over ``data``: its gathered bytes (this process's
         block times the ``data`` extent) in the all-gather where it is
         used -- a block leaf in the layer's forward and again in its
-        recomputation under ``remat="block"``, ``embed`` and ``lm_head``
-        once (a tied ``embed`` twice) -- and in the reduce-scatter of its
+        recomputation under ``remat="block"`` (the decoder's ``blocks`` and
+        whisper's ``enc_blocks``), ``embed``, ``lm_head`` and llava's
+        ``patch_in_proj`` once (a tied ``embed`` twice) -- and in the
+        reduce-scatter of its
         gradient, once per gather that reaches the loss outside a
         recomputation;
       each leaf whole over ``data``: its gradient's all-reduce, counted
@@ -1217,7 +1219,7 @@ def fsdp_hot_comm_bytes(optimizer: LowRankOptimizer, cfg, whole_over_data: bool 
         if dsplit is None:
             total += nbytes if whole_over_data else 0
             continue
-        block = spec.path.startswith("['blocks']")
+        block = spec.path.startswith(("['blocks']", "['enc_blocks']"))
         uses = 2 if spec.path == "['embed']" and cfg.tie_embeddings else 1
         gathers = uses * (2 if block and cfg.remat == "block" else 1)
         total += (gathers + uses) * nbytes * dp

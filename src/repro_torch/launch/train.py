@@ -55,12 +55,12 @@ Data and tensor parallel, one process per card: ``--mesh data,model``
 (or ``pod,data,model``) over the processes, ``--compressed-dp`` for the
 project-then-reduce step (``flat``, or ``--compressed-dp pod``),
 ``--state-sharding zero`` for ZeRO state (``--state-shards`` defaults to
-the compressed axes' replica count).  A ``model`` extent above 1 runs the
-dense and MoE families tensor parallel (MoE: expert parallel), and a
-``data`` extent above 1 without ``--compressed-dp`` runs them FSDP over
-``data`` (the reference's standard step), each process holding its
-blocks of the params and optimizer state
-(``train/step.py``); the bucketed engine with Adam or MSGD.  Start the
+the compressed axes' replica count).  A ``model`` extent above 1 runs
+every family tensor parallel (MoE: expert parallel), and a ``data``
+extent above 1 without ``--compressed-dp`` runs it FSDP over ``data``
+(the reference's standard step), each process holding its blocks of the
+params and optimizer state (``train/step.py``); the bucketed engine with
+Adam or MSGD.  Start the
 processes with torchrun, which sets ``RANK`` / ``WORLD_SIZE`` /
 ``MASTER_ADDR`` / ``MASTER_PORT``:
 
@@ -79,7 +79,8 @@ past ``GROUP_TIMEOUT`` raises.  On the CPU a tensor-parallel or FSDP
 world is gloo processes (``--mesh 1,2`` or ``--mesh 2,1 --device cpu``,
 two launchers with ``--coordinator``; the smoke llama's widths leave
 every leaf whole over ``data``, the MoE smoke configs split their expert
-``d_ff``).  Each process feeds the global batch
+``d_ff``, and the smoke mamba2 splits ``in_proj`` and ``out_proj`` over
+``model``).  Each process feeds the global batch
 (``--batch``) and runs its own rows of it.
 
 Beyond the reference's flags, ``--svd-backend`` picks the refresh's SVD
@@ -168,8 +169,8 @@ def main(argv=None) -> None:
                     help=">0: arm the step watchdog (a sync per step)")
     ap.add_argument("--mesh", default="",
                     help="'data,model' or 'pod,data,model' over the processes "
-                         "(model > 1: tensor parallel, dense and MoE; data > 1 without "
-                         "--compressed-dp: FSDP over data, dense and MoE)")
+                         "(model > 1: tensor parallel; data > 1 without --compressed-dp: "
+                         "FSDP over data)")
     ap.add_argument("--compressed-dp", nargs="?", const="flat", default="",
                     choices=("flat", "pod"),
                     help="project-then-reduce DP gradient compression (flat | pod)")

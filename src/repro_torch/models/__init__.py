@@ -1,3 +1,3 @@
-from repro_torch.models.model_zoo import Model, build_model, count_params
+from repro_torch.models.model_zoo import Model, build_model, count_params, tp_hot_comm_bytes
 
-__all__ = ["Model", "build_model", "count_params"]
+__all__ = ["Model", "build_model", "count_params", "tp_hot_comm_bytes"]

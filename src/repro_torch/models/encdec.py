@@ -12,6 +12,18 @@ decoder tokens against Sk frames (``models/attention.py``).
 
 Decode caches the decoder's self-attention ring and the per-layer cross
 K/V, computed once from the encoder output at prefill.
+
+Under tensor parallelism both stacks' self-attention and MLP are the
+dense ones (``transformer.attn_sublayer``, ``layers.apply_mlp``), and the
+cross-attention runs on this process's heads (``transformer._attn_tp``:
+``cross_q`` from the decoder through its columns, ``cross_k`` and
+``cross_v`` from the encoder's output, ``cross_o`` row-parallel with one
+f32 all-reduce), or gathered and replicated where the heads do not divide
+the ``model`` extent.  whisper's odd vocabulary keeps ``embed`` and
+``lm_head`` whole over ``model``.  Under FSDP each block gathers its layer
+first (``parallel.gather_layer``, under ``['enc_blocks']`` or
+``['blocks']``), inside the recomputed region, and the loss gathers
+``lm_head`` (``transformer.lm_head_matrix``).
 """
 from __future__ import annotations
 
@@ -25,6 +37,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import layers as L
+from repro_torch.models import parallel as par
 from repro_torch.models import transformer as tfm
 
 Params = Dict[str, Any]
@@ -86,6 +99,7 @@ def init_params(gen: torch.Generator, cfg: ModelConfig, device: DeviceLike = "cu
 
 
 def _enc_block(p: Params, x: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor):
+    p = par.gather_layer(p, "['enc_blocks']")
     hn = L.rmsnorm(x, p["attn_norm"], cfg.rms_eps)
     attn_out, _ = tfm.attn_sublayer(p, hn, cfg, positions, positions, causal=False, rope=False)
     x = x + attn_out
@@ -112,9 +126,19 @@ def encode(params: Params, cfg: ModelConfig, frame_embeds: torch.Tensor) -> torc
 def _cross_sublayer(p: Params, x: torch.Tensor, cfg: ModelConfig, enc_out=None,
                     cross_kv=None):
     """Cross-attention: q from the decoder, k and v from the encoder output
-    (or ``cross_kv``, cached); returns (out (B, S, D), (k, v))."""
+    (or ``cross_kv``, cached); returns (out (B, S, D), (k, v)).  Under
+    tensor parallelism (``enc_out`` given) on this process's heads, or
+    with the split leaves gathered (module docstring)."""
     b, s, _ = x.shape
     dt = x.dtype
+    ax = par.model_axes()
+    if ax is not None and cross_kv is None:
+        if cfg.n_heads % ax.size == 0:  # no mask: the positions do not enter
+            qpos = torch.zeros((b, s), dtype=torch.int32, device=x.device)
+            kpos = torch.zeros((b, enc_out.shape[1]), dtype=torch.int32, device=x.device)
+            return tfm._attn_tp(p, x, cfg, ax, qpos, kpos, False, 0, False, kv_x=enc_out,
+                                prefix="cross_")
+        p = tfm.gathered_attn_leaves(p, cfg, ax, prefix="cross_")
     q = (x @ p["cross_q_proj"].to(dt)).reshape(b, s, cfg.n_heads, cfg.head_dim)
     if cross_kv is None:
         f = enc_out.shape[1]
@@ -135,6 +159,7 @@ def _cross_sublayer(p: Params, x: torch.Tensor, cfg: ModelConfig, enc_out=None,
 
 def _dec_block(p: Params, x: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor,
                enc_out: torch.Tensor):
+    p = par.gather_layer(p)
     hn = L.rmsnorm(x, p["attn_norm"], cfg.rms_eps)
     attn_out, kv = tfm.attn_sublayer(p, hn, cfg, positions, positions)
     x = x + attn_out
@@ -174,9 +199,24 @@ def decoder_hidden(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
 def loss_fn(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor]):
     enc_out = encode(params, cfg, batch["frame_embeds"])
     h, _ = decoder_hidden(params, cfg, batch["tokens"], enc_out)
-    loss, n_tok = L.chunked_cross_entropy(h, params["lm_head"], batch["labels"],
-                                          cfg.loss_chunk)
+    loss, n_tok = L.chunked_cross_entropy(h, tfm.lm_head_matrix(params, cfg), batch["labels"],
+                                          cfg.loss_chunk, vocab=cfg.vocab_size)
     return loss, {"loss": loss, "tokens": n_tok}
+
+
+def tp_comm_bytes(cfg: ModelConfig, rows: int, seq: int, tp: int, act_bytes: int) -> int:
+    """whisper's bytes over ``model`` in a hot step (``models.tp_hot_comm_bytes``):
+    per decoder layer the self-attention, the cross-attention (plus its
+    encoder input's gradient) and the MLP; per encoder layer the attention
+    and the MLP over the frames."""
+    tok, frames = rows * seq, rows * cfg.enc_frames
+    dec = (tfm.tp_attn_bytes(cfg, tok, tp, act_bytes, bias=cfg.qkv_bias)
+           + tfm.tp_attn_bytes(cfg, tok, tp, act_bytes, kv_tok=frames)
+           + tfm.tp_mlp_bytes(cfg, tok, tp, act_bytes))
+    enc = (tfm.tp_attn_bytes(cfg, frames, tp, act_bytes, bias=cfg.qkv_bias)
+           + tfm.tp_mlp_bytes(cfg, frames, tp, act_bytes))
+    return (cfg.n_layers * dec + cfg.n_enc_layers * enc
+            + tfm.tp_lm_bytes(cfg, rows, seq, tp, act_bytes))
 
 
 def init_cache(cfg: ModelConfig, batch: int, capacity: int, *, device) -> EncDecCache:
@@ -203,7 +243,7 @@ def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     cache = tfm.init_kv_cache(cfg, b, capacity or s, device=h.device)
     positions = torch.arange(s, dtype=torch.int32, device=h.device).expand(b, s)
     base = tfm._fill_cache_from_kvs(cache, (k_self, v_self), positions)
-    logits = h[:, -1].float() @ params["lm_head"].float()
+    logits = h[:, -1].float() @ tfm.lm_head_matrix(params, cfg).float()
     return logits, EncDecCache(k=base.k, v=base.v, pos=base.pos, cross_k=cross_k,
                                cross_v=cross_v, next_pos=base.next_pos)
 
@@ -238,6 +278,6 @@ def decode_step(params: Params, cfg: ModelConfig, cache: EncDecCache, token: tor
         hn = L.rmsnorm(h, p["mlp_norm"], cfg.rms_eps)
         h = h + L.apply_mlp(p["mlp"], hn, cfg)
     h = L.rmsnorm(h, params["final_norm"], cfg.rms_eps)
-    logits = h[:, 0].float() @ params["lm_head"].float()
+    logits = h[:, 0].float() @ tfm.lm_head_matrix(params, cfg).float()
     return logits, EncDecCache(k=k_all, v=v_all, pos=new_pos, cross_k=cache.cross_k,
                                cross_v=cache.cross_v, next_pos=cache.next_pos + 1)

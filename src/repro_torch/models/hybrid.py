@@ -6,6 +6,13 @@ Attention is sliding-window (``cfg.attn_window``): the KV cache is a ring
 of ``attn_window`` positions, and the SSM half carries unbounded context
 in O(1) state.  Decode writes the ring with a where-mask and attends over
 it with exact attention, as JAX does (hybrid.py:159-214).
+
+Under tensor parallelism the attention half goes through
+``transformer.attn_sublayer`` (on this process's heads, or gathered and
+replicated where the heads do not divide the ``model`` extent) and the
+SSM half through ``ssm.apply_ssm_mixer`` (head-parallel or the whole
+mixer); under FSDP ``_block`` gathers its layer first, inside the
+recomputed region.
 """
 from __future__ import annotations
 
@@ -17,6 +24,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import layers as L
+from repro_torch.models import parallel as par
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models import transformer as tfm
 
@@ -47,6 +55,7 @@ def _block(p: Params, x: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor
     """One hybrid block; with ``collect_cache`` also (k, v) and the
     layer's SSM cache (final state, conv tail from the last K-1 normed
     inputs, hybrid.py:88-98)."""
+    p = par.gather_layer(p)
     hn = L.rmsnorm(x, p["attn_norm"], cfg.rms_eps)
     attn_out, kv = tfm.attn_sublayer(p, hn, cfg, positions, positions, window=cfg.attn_window)
     if collect_cache:
@@ -91,9 +100,19 @@ def loss_fn(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor]):
     """Next-token loss: (loss, {"loss", "tokens"}), as JAX's (no aux)."""
     h, _ = forward_hidden(params, cfg, batch["tokens"])
     loss, n_tok = L.chunked_cross_entropy(
-        h, tfm.lm_head_matrix(params, cfg), batch["labels"], cfg.loss_chunk
-    )
+        h, tfm.lm_head_matrix(params, cfg), batch["labels"], cfg.loss_chunk,
+        vocab=cfg.vocab_size)
     return loss, {"loss": loss, "tokens": n_tok}
+
+
+def tp_comm_bytes(cfg: ModelConfig, rows: int, seq: int, tp: int, act_bytes: int) -> int:
+    """hymba's bytes over ``model`` in a hot step (``models.tp_hot_comm_bytes``):
+    per layer the attention, the mixer and the MLP."""
+    tok = rows * seq
+    return (cfg.n_layers * (tfm.tp_attn_bytes(cfg, tok, tp, act_bytes)
+                            + ssm_lib.tp_mixer_bytes(cfg, tok, tp, act_bytes, rec_out=True)
+                            + tfm.tp_mlp_bytes(cfg, tok, tp, act_bytes))
+            + tfm.tp_lm_bytes(cfg, rows, seq, tp, act_bytes))
 
 
 def init_cache(cfg: ModelConfig, batch: int, capacity: int = 0, *, device) -> HybridCache:

@@ -72,10 +72,12 @@ def embed_init(
 # ---------------------------------------------------------------------------
 
 
-def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5,
+            ss: Optional[torch.Tensor] = None, width: Optional[int] = None) -> torch.Tensor:
     # The Triton kernel for CUDA tensors, the plain version for CPU tensors
-    # (kernels/rmsnorm/ops.py); identical numerics.
-    return rmsnorm_ops.rmsnorm(x, scale, eps)
+    # (kernels/rmsnorm/ops.py); identical numerics.  ``ss``: each row's sum
+    # of squares over ``width`` channels, when x holds only some of them.
+    return rmsnorm_ops.rmsnorm(x, scale, eps, ss, width)
 
 
 # ---------------------------------------------------------------------------

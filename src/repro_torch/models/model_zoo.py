@@ -112,6 +112,34 @@ def build_model(cfg: ModelConfig, device: DeviceLike = "cuda") -> Model:
     )
 
 
+def tp_hot_comm_bytes(cfg: ModelConfig, rows: int, seq: int, plan, act_bytes: int,
+                      tp: int = 2) -> int:
+    """Bytes one process hands the ``model`` collectives in a hot step of a
+    model of ``cfg`` (any family but MoE, whose expert exchange is not
+    counted here) at a ``model`` extent of ``tp``, with block recomputation
+    (``remat="block"``), for ``rows`` of ``seq`` tokens and a compute dtype
+    of ``act_bytes``; ``plan`` is this process's bucket plan
+    (``Bucket.split``).  A leaf splits where ``launch/sharding``'s guard
+    splits it (``parallel.splits_over_model``); the count assumes a split
+    attention leaf falls on this process's heads.  Every all-reduce counts
+    its input, every all-gather its output; a block's recomputation re-runs
+    its collectives up to the last tensor its backward saves, so the
+    reduction that ends a block (the MLP's, or mamba2's ``out_proj``) runs
+    once.  The family module's ``tp_comm_bytes`` counts its layers, from
+    ``transformer.tp_attn_bytes``, ``tp_mlp_bytes`` and ``tp_lm_bytes`` and
+    ``ssm.tp_mixer_bytes``; then the optimizer's: each "d" bucket's partial
+    R, f32 (B, r, n).
+
+    No counterpart in the reference (its collectives are GSPMD's);
+    ``launch/mesh.COMM`` counts what the step hands them."""
+    libs = {"dense": tfm, "vlm": vlm_lib, "audio": encdec_lib, "hybrid": hybrid_lib,
+            "ssm": ssm_lib}
+    if cfg.family not in libs:
+        raise NotImplementedError(f"the {cfg.family} family's bytes over model are not counted")
+    layers = libs[cfg.family].tp_comm_bytes(cfg, rows, seq, tp, act_bytes)
+    return layers + sum(bk.batch * bk.rank * bk.n * 4 for bk in plan.buckets if bk.split == "d")
+
+
 def count_params(params: Any) -> int:
     """Elements over every leaf of a params tree (nested dicts of tensors)."""
     if isinstance(params, dict):

@@ -181,3 +181,10 @@ def max_over_model(x: torch.Tensor, axes) -> torch.Tensor:
     x = x.detach().contiguous().clone()
     return x if axes is None else axes.all_reduce_(x, op="max")
 
+
+def splits_over_model(n: int, tp: int) -> bool:
+    """Whether ``launch/sharding``'s guard splits a dim of ``n`` over a
+    ``model`` extent of ``tp`` (the shape counts' test of a leaf)."""
+    from repro_torch.launch.sharding import MIN_SHARD_EXTENT
+
+    return n % tp == 0 and n // tp >= MIN_SHARD_EXTENT

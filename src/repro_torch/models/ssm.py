@@ -21,13 +21,23 @@ numbers either way.
 
 Parameter naming: ``*_proj`` matrices are low-rank eligible; ``a_log``,
 ``dt_bias``, ``conv_*`` and the norm scale are excluded by name
-(``d_skip`` is not: see ROADMAP queue 3).  JAX's ``_shard_ssm_heads``, a
-sharding constraint on a mesh, has no counterpart yet: tensor parallelism
-runs the dense and MoE families, and an SSM model with a ``model`` extent
-above 1 raises, and at a ``data`` extent above 1 the standard step keeps
-an SSM model's params whole (no FSDP; ROADMAP queue 1 item 11, second
-half: `_shard_ssm_heads`, then tensor parallelism and FSDP for the other
-families, the fault harness).
+(``d_skip`` is not: see ROADMAP queue 3).
+
+Under tensor parallelism (``models/parallel.py``) the mixer takes one of
+two routes.  With ``cfg.ssm_head_tp`` and the heads dividing the
+``model`` extent -- where JAX's ``_shard_ssm_heads`` puts ``xh``, ``dt``
+and ``y`` on ``model`` (ssm.py:158-190) -- each process runs the SSD on
+its ``H / model`` heads (``_mixer_heads``): its heads' ``z``, ``x`` and
+``dt`` columns of ``in_proj`` (gathered first: the rules' column blocks
+do not fall on the ``[z | x | B | C | dt]`` boundaries), the shared ``B``
+and ``C`` whole, the conv over its channels, the per-head leaves narrowed,
+the gated RMSNorm's sum of squares all-reduced over ``model`` (it spans
+every head) and handed to the RMSNorm kernel, and ``out_proj``'s rows of
+its heads, the partial outputs summed in f32.  Otherwise every process runs the whole mixer from the
+gathered ``in_proj``, as replicated work with the same numbers, and
+multiplies by its own rows of a split ``out_proj`` (summed the same way).
+Under FSDP ``_block`` gathers its layer first (``parallel.gather_layer``),
+inside the recomputed region.
 """
 from __future__ import annotations
 
@@ -40,6 +50,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
+from repro_torch.models import parallel as par
 from repro_torch.models import transformer as tfm
 
 Params = Dict[str, Any]
@@ -168,6 +179,110 @@ def ssd_chunked(
     return y[:, :s].to(x.dtype), state
 
 
+def _take(w: torch.Tensor, full: int, ranges, ax) -> torch.Tensor:
+    """The columns ``ranges`` ((start, width) pairs) of a leaf whose last
+    dim is ``full``, side by side: gathered over ``model`` first when it is
+    a block, its gradient summed over the processes (``copy_to_model``)."""
+    if w.shape[-1] != full:
+        w = par.gather_from_model(w, ax, -1)
+    w = par.copy_to_model(w, ax)
+    return torch.cat([w.narrow(-1, lo, n) for lo, n in ranges], dim=-1)
+
+
+def _rmsnorm_over_model(y: torch.Tensor, scale: torch.Tensor, width: int, eps: float,
+                        ax) -> torch.Tensor:
+    """``L.rmsnorm`` over ``width`` channels of which this process holds
+    ``y``'s: the sum of squares in f32 all-reduced over ``model`` (its
+    gradient summed over the processes too: every process's outputs read
+    it), then the kernel on this process's channels with that sum."""
+    y32 = y.float()
+    ss = par.reduce_from_model(torch.sum(y32 * y32, dim=-1, keepdim=True), ax)
+    return L.rmsnorm(y, scale.contiguous(), eps, ss=par.copy_to_model(ss, ax), width=width)
+
+
+def _mixer_heads(p: Params, u: torch.Tensor, cfg: ModelConfig, ax, init_state,
+                 return_state: bool):
+    """``apply_ssm_mixer`` on this process's ``H / model`` heads (module
+    docstring); ``init_state`` is global and the state returned this
+    process's heads'."""
+    dims = ssm_dims(cfg)
+    h, pdim, n, d_inner = dims["n_heads"], dims["p"], dims["n"], dims["d_inner"]
+    hl = h // ax.size
+    h0 = ax.index * hl
+    c0, cw = h0 * pdim, hl * pdim  # this process's channels of d_inner
+    dt_ = u.dtype
+    w_in = _take(p["in_proj"], 2 * d_inner + 2 * n + h,
+                 [(c0, cw), (d_inner + c0, cw), (2 * d_inner, 2 * n),
+                  (2 * d_inner + 2 * n + h0, hl)], ax)
+    zxbcdt = par.copy_to_model(u, ax) @ w_in.to(dt_)
+    z, x, b_mat, c_mat, dt_raw = torch.split(zxbcdt, [cw, cw, n, n, hl], dim=-1)
+    conv = [(c0, cw), (d_inner, 2 * n)]  # its x channels, then B and C
+    xbc = _causal_conv(torch.cat([x, b_mat, c_mat], dim=-1),
+                       _take(p["conv_w"], dims["conv_dim"], conv, ax).to(dt_),
+                       _take(p["conv_b"], dims["conv_dim"], conv, ax).to(dt_))
+    x, b_mat, c_mat = torch.split(xbc, [cw, n, n], dim=-1)
+    bsz, s, _ = x.shape
+    xh = x.reshape(bsz, s, hl, pdim)
+    dt = _softplus(dt_raw.float() + tfm._cols(p["dt_bias"], h, h0, hl, ax))
+    a = -torch.exp(tfm._cols(p["a_log"], h, h0, hl, ax))
+    if init_state is not None:
+        init_state = init_state[:, h0:h0 + hl]
+    y, state = ssd_chunked(xh, dt, a, b_mat, c_mat, cfg.ssm_chunk, init_state=init_state)
+    d_skip = tfm._cols(p["d_skip"], h, h0, hl, ax)
+    y = y + xh.float().to(dt_) * d_skip.to(dt_)[None, None, :, None]
+    y = y.reshape(bsz, s, cw)
+    y = y * F.silu(z.float()).to(dt_)
+    y = _rmsnorm_over_model(y, tfm._cols(p["ssm_norm_scale"], d_inner, c0, cw, ax), d_inner,
+                            cfg.rms_eps, ax)
+    wo = tfm._cols(p["out_proj"], d_inner, c0, cw, ax, dim=-2)
+    out = par.reduce_from_model((y @ wo.to(dt_)).float(), ax).to(dt_)
+    if return_state:
+        return out, state
+    return out
+
+
+def head_parallel(cfg: ModelConfig, tp: int) -> bool:
+    """Whether the mixer runs on a process's heads at a ``model`` extent of
+    ``tp`` above 1: ``cfg.ssm_head_tp`` and the heads dividing it, as
+    JAX's ``_shard_ssm_heads`` constrains them."""
+    return cfg.ssm_head_tp and ssm_dims(cfg)["n_heads"] % tp == 0
+
+
+def tp_mixer_bytes(cfg: ModelConfig, n_tok: int, tp: int, act_bytes: int,
+                   rec_out: bool) -> int:
+    """One mixer over ``n_tok`` tokens (``models.tp_hot_comm_bytes``).  On
+    this process's heads: its input's gradient; ``in_proj`` gathered
+    (forward and recomputation) where split, and its gradient all-reduced;
+    the gradients of ``conv_w``, ``conv_b``, ``a_log``, ``dt_bias``,
+    ``d_skip`` and the norm's scale all-reduced; the gated norm's f32 sum of
+    squares, one per token, in forward, recomputation and backward;
+    ``out_proj``'s f32 reduction (again in the recomputation where
+    ``rec_out``: hymba's MLP ends its block), and its gradient where whole.
+    The whole mixer: ``in_proj`` gathered where split (forward and
+    recomputation); where ``out_proj`` splits, the input's gradient of its
+    rows (T x d_inner, compute dtype) and its reduction."""
+    dims = ssm_dims(cfg)
+    d, d_inner, h, n = cfg.d_model, dims["d_inner"], dims["n_heads"], dims["n"]
+    pb = cfg.param_dtype.itemsize
+    in_dim = 2 * d_inner + 2 * n + h
+    split_in = par.splits_over_model(in_dim, tp)
+    out = n_tok * d * 4 * (2 if rec_out else 1)
+    if head_parallel(cfg, tp):
+        total = n_tok * d * act_bytes + d * in_dim * pb * (3 if split_in else 1)
+        total += pb * ((_CONV_K + 1) * dims["conv_dim"] + 3 * h + d_inner) + 3 * n_tok * 4
+        return total + out + (0 if par.splits_over_model(d_inner, tp) else d_inner * d * pb)
+    total = 2 * d * in_dim * pb if split_in else 0
+    if par.splits_over_model(d_inner, tp):
+        total += n_tok * d_inner * act_bytes + out
+    return total
+
+
+def tp_comm_bytes(cfg: ModelConfig, rows: int, seq: int, tp: int, act_bytes: int) -> int:
+    """mamba2's bytes over ``model`` in a hot step (``models.tp_hot_comm_bytes``)."""
+    return (cfg.n_layers * tp_mixer_bytes(cfg, rows * seq, tp, act_bytes, rec_out=False)
+            + tfm.tp_lm_bytes(cfg, rows, seq, tp, act_bytes))
+
+
 def apply_ssm_mixer(
     p: Params,
     u: torch.Tensor,  # (B, S, D) normed input
@@ -178,6 +293,13 @@ def apply_ssm_mixer(
 ):
     dims = ssm_dims(cfg)
     h, pdim, n, d_inner = dims["n_heads"], dims["p"], dims["n"], dims["d_inner"]
+    ax = par.model_axes()
+    if ax is not None:
+        if head_parallel(cfg, ax.size):
+            return _mixer_heads(p, u, cfg, ax, init_state, return_state)
+        in_dim = 2 * d_inner + 2 * n + h
+        if p["in_proj"].shape[-1] != in_dim:  # the whole mixer: in_proj gathered
+            p = dict(p, in_proj=par.gather_from_model(p["in_proj"], ax, -1))
     dt_ = u.dtype
     zxbcdt = u @ p["in_proj"].to(dt_)
     z, x, b_mat, c_mat, dt_raw = _split_in_proj(zxbcdt, cfg)
@@ -193,7 +315,14 @@ def apply_ssm_mixer(
     y = y.reshape(bsz, s, d_inner)
     y = y * F.silu(z.float()).to(dt_)
     y = L.rmsnorm(y, p["ssm_norm_scale"], cfg.rms_eps)
-    out = y @ p["out_proj"].to(dt_)
+    w_out = p["out_proj"]
+    if ax is not None and w_out.shape[-2] != d_inner:
+        # this process's rows of out_proj, the partial outputs summed in f32
+        r = w_out.shape[-2]
+        y = par.copy_to_model(y, ax).narrow(-1, ax.index * r, r)
+        out = par.reduce_from_model((y @ w_out.to(dt_)).float(), ax).to(dt_)
+    else:
+        out = y @ w_out.to(dt_)
     if return_state:
         return out, state
     return out
@@ -288,6 +417,7 @@ def init_params(gen: torch.Generator, cfg: ModelConfig, device="cuda", *, servin
 
 
 def _block(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    p = par.gather_layer(p)
     normed = L.rmsnorm(x, p["ssm_norm"], cfg.rms_eps)
     return x + apply_ssm_mixer(p["mixer"], normed, cfg)
 
@@ -304,8 +434,8 @@ def loss_fn(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor]):
     """Next-token loss: (loss, {"loss", "tokens"}), as JAX's (no aux)."""
     h = forward_hidden(params, cfg, batch["tokens"])
     loss, n_tok = L.chunked_cross_entropy(
-        h, tfm.lm_head_matrix(params, cfg), batch["labels"], cfg.loss_chunk
-    )
+        h, tfm.lm_head_matrix(params, cfg), batch["labels"], cfg.loss_chunk,
+        vocab=cfg.vocab_size)
     return loss, {"loss": loss, "tokens": n_tok}
 
 

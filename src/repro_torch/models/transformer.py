@@ -15,8 +15,11 @@ process's query heads and the KV heads their GQA groups read
 (``_attn_heads``), and ``loss_fn``'s ``lm_head`` is split on the vocab.
 The rules split columns, not heads, and leave narrow leaves whole: a leaf
 whose block is not this process's heads is gathered on use, and a whole
-leaf gives this process its columns.  Under ``cfg.remat == "block"`` each block is recomputed in
-backward (``torch.utils.checkpoint``), as the JAX scan body is
+leaf gives this process its columns.  The SSM, hybrid, enc-dec and VLM
+families build on these (``ssm.py``, ``hybrid.py``, ``encdec.py``'s
+cross-attention through ``_attn_tp``, ``vlm.py``'s adapter).  Under
+``cfg.remat == "block"`` each block is recomputed in backward
+(``torch.utils.checkpoint``), as the JAX scan body is
 (``transformer.py:232-233``).
 
 Under FSDP (``models/parallel.DataShards``: the standard step at a
@@ -267,25 +270,30 @@ def _attn_heads(cfg: ModelConfig, ax) -> Tuple[int, int, int, int]:
 
 
 def _attn_tp(p: Params, x: torch.Tensor, cfg: ModelConfig, ax, q_positions, kv_positions,
-             causal: bool, window: int, rope: bool):
+             causal: bool, window: int, rope: bool, kv_x: Optional[torch.Tensor] = None,
+             prefix: str = ""):
     """``attn_sublayer`` on this process's heads: q/k/v from its columns,
     attention, its rows of ``o_proj``, one f32 all-reduce of the partial
-    outputs.  Returns this process's (k, v)."""
+    outputs.  Returns this process's (k, v).  ``kv_x`` (k and v's source)
+    and ``prefix`` (the leaves' names) make it whisper's cross-attention:
+    ``cross_{q,k,v,o}_proj``, k and v from the encoder's output."""
     b, s, _ = x.shape
     dt, hd = x.dtype, cfg.head_dim
     h0, h1, kv0, kv1 = _attn_heads(cfg, ax)
     hl, kvl = h1 - h0, kv1 - kv0
     xc = par.copy_to_model(x, ax)
-    q = xc @ _cols(p["q_proj"], cfg.q_dim, h0 * hd, hl * hd, ax).to(dt)
-    k = xc @ _cols(p["k_proj"], cfg.kv_dim, kv0 * hd, kvl * hd, ax).to(dt)
-    v = xc @ _cols(p["v_proj"], cfg.kv_dim, kv0 * hd, kvl * hd, ax).to(dt)
-    if "q_bias" in p:
-        q = q + _cols(p["q_bias"], cfg.q_dim, h0 * hd, hl * hd, ax).to(dt)
-        k = k + _cols(p["k_bias"], cfg.kv_dim, kv0 * hd, kvl * hd, ax).to(dt)
-        v = v + _cols(p["v_bias"], cfg.kv_dim, kv0 * hd, kvl * hd, ax).to(dt)
+    kc = xc if kv_x is None else par.copy_to_model(kv_x, ax)
+    sk = kc.shape[1]
+    q = xc @ _cols(p[prefix + "q_proj"], cfg.q_dim, h0 * hd, hl * hd, ax).to(dt)
+    k = kc @ _cols(p[prefix + "k_proj"], cfg.kv_dim, kv0 * hd, kvl * hd, ax).to(dt)
+    v = kc @ _cols(p[prefix + "v_proj"], cfg.kv_dim, kv0 * hd, kvl * hd, ax).to(dt)
+    if prefix + "q_bias" in p:
+        q = q + _cols(p[prefix + "q_bias"], cfg.q_dim, h0 * hd, hl * hd, ax).to(dt)
+        k = k + _cols(p[prefix + "k_bias"], cfg.kv_dim, kv0 * hd, kvl * hd, ax).to(dt)
+        v = v + _cols(p[prefix + "v_bias"], cfg.kv_dim, kv0 * hd, kvl * hd, ax).to(dt)
     q = q.reshape(b, s, hl, hd)
-    k = k.reshape(b, s, kvl, hd)
-    v = v.reshape(b, s, kvl, hd)
+    k = k.reshape(b, sk, kvl, hd)
+    v = v.reshape(b, sk, kvl, hd)
     if rope:
         q = L.apply_rope(q, q_positions, cfg.rope_theta)
         k = L.apply_rope(k, q_positions, cfg.rope_theta)
@@ -302,12 +310,25 @@ def _attn_tp(p: Params, x: torch.Tensor, cfg: ModelConfig, ax, q_positions, kv_p
         causal=causal, window=window, impl=cfg.attn_impl,
         chunk_q=cfg.attn_chunk_q, chunk_kv=cfg.attn_chunk_kv,
     )
-    wo = _cols(p["o_proj"], cfg.q_dim, h0 * hd, hl * hd, ax, dim=-2)
+    wo = _cols(p[prefix + "o_proj"], cfg.q_dim, h0 * hd, hl * hd, ax, dim=-2)
     out = out.reshape(b, s, hl * hd) @ wo.to(dt)
     return par.reduce_from_model(out.float(), ax).to(dt), (k, v)
 
 
 _ATTN_LEAVES = (("q_proj", -1), ("k_proj", -1), ("v_proj", -1), ("o_proj", -2))
+
+
+def gathered_attn_leaves(p: Params, cfg: ModelConfig, ax, prefix: str = "") -> Params:
+    """``p`` with each of the attention's ``prefix + {q,k,v,o}_proj`` that is
+    a block over ``model`` gathered whole: the replicated route where the
+    heads do not divide the extent (the same numbers on every process)."""
+    full = {"q_proj": cfg.q_dim, "k_proj": cfg.kv_dim, "v_proj": cfg.kv_dim,
+            "o_proj": cfg.q_dim}
+    p = dict(p)
+    for name, dim in _ATTN_LEAVES:
+        if p[prefix + name].shape[dim] != full[name]:
+            p[prefix + name] = par.gather_from_model(p[prefix + name], ax, dim)
+    return p
 
 
 def attn_sublayer(
@@ -330,12 +351,7 @@ def attn_sublayer(
     if ax is not None:
         if cfg.n_heads % ax.size == 0:
             return _attn_tp(p, x, cfg, ax, q_positions, kv_positions, causal, window, rope)
-        full = {"q_proj": cfg.q_dim, "k_proj": cfg.kv_dim, "v_proj": cfg.kv_dim,
-                "o_proj": cfg.q_dim}
-        p = dict(p)
-        for name, dim in _ATTN_LEAVES:
-            if p[name].shape[dim] != full[name]:
-                p[name] = par.gather_from_model(p[name], ax, dim)
+        p = gathered_attn_leaves(p, cfg, ax)
     b, s, _ = x.shape
     q, k, v = project_qkv(p, x, cfg)
     if rope:
@@ -376,6 +392,68 @@ def dense_block(
     h = L.rmsnorm(x, p["mlp_norm"], cfg.rms_eps)
     mlp_out, aux = mlp_fn(p, h, cfg)
     return x + mlp_out, kv, aux
+
+
+# ---------------------------------------------------------------------------
+# Bytes over ``model`` in a hot step: each family module's ``tp_comm_bytes``
+# (``models.tp_hot_comm_bytes`` says what is counted and how)
+# ---------------------------------------------------------------------------
+
+
+def tp_attn_bytes(cfg: ModelConfig, n_tok: int, tp: int, act_bytes: int, kv_tok: int = 0,
+                  bias: bool = False) -> int:
+    """One attention sub-layer over ``n_tok`` tokens (``kv_tok`` encoder
+    rows for whisper's cross-attention): on this process's heads, the
+    partial outputs' f32 all-reduce twice (forward, recomputation), the
+    inputs' gradients and each whole leaf's; where the heads do not
+    divide, each split leaf gathered twice."""
+    pb = cfg.param_dtype.itemsize
+    d, hd, qd, kvd = cfg.d_model, cfg.head_dim, cfg.q_dim, cfg.kv_dim
+    leaves = ((d * qd, qd), (d * kvd, kvd), (d * kvd, kvd), (qd * d, qd))
+    if cfg.n_heads % tp:
+        return sum(2 * size * pb for size, dim in leaves if par.splits_over_model(dim, tp))
+    hl, g = cfg.n_heads // tp, cfg.n_heads // cfg.n_kv_heads
+    for i in range(tp):  # this process's KV heads, against its block of k and v
+        kv0, kv1 = i * hl // g, (i * hl + hl - 1) // g + 1
+        if par.splits_over_model(kvd, tp) and (kv0 * hd != i * kvd // tp
+                                               or (kv1 - kv0) * hd != kvd // tp):
+            raise NotImplementedError("the count assumes split k/v blocks on the heads")
+    total = n_tok * d * (2 * 4 + act_bytes) + kv_tok * d * act_bytes
+    total += sum(size * pb for size, dim in leaves if not par.splits_over_model(dim, tp))
+    return total + (pb * (qd + 2 * kvd) if bias else 0)
+
+
+def tp_mlp_bytes(cfg: ModelConfig, n_tok: int, tp: int, act_bytes: int) -> int:
+    """The MLP where ``d_ff`` splits: the f32 reduction and the input's
+    gradient."""
+    split = cfg.mlp_kind != "none" and par.splits_over_model(cfg.d_ff, tp)
+    return n_tok * cfg.d_model * (4 + act_bytes) if split else 0
+
+
+def tp_lm_bytes(cfg: ModelConfig, rows: int, seq: int, tp: int, act_bytes: int,
+                hidden: int = 0) -> int:
+    """Where the vocab splits: the embedding's f32 reduction of ``rows`` x
+    ``seq`` token rows, and the cross-entropy's over ``hidden`` positions a
+    row (``seq`` by default), per chunk: the max, the sum of exponentials
+    and the target logit (f32, one per token) in forward and in the
+    chunk's recomputation, and its input's gradient."""
+    if not par.splits_over_model(cfg.vocab_size, tp):
+        return 0
+    d, hidden = cfg.d_model, hidden or seq
+    cs = min(cfg.loss_chunk, hidden)
+    return rows * seq * d * cfg.param_dtype.itemsize + sum(
+        6 * rows * min(cs, hidden - lo) * 4 + rows * min(cs, hidden - lo) * d * act_bytes
+        for lo in range(0, hidden, cs))
+
+
+def tp_comm_bytes(cfg: ModelConfig, rows: int, seq: int, tp: int, act_bytes: int,
+                  prefix_len: int = 0) -> int:
+    """The dense family's (and, with ``prefix_len`` rows of prefix
+    embeddings, llava's decoder)."""
+    pos = rows * (seq + prefix_len)
+    return (cfg.n_layers * (tp_attn_bytes(cfg, pos, tp, act_bytes, bias=cfg.qkv_bias)
+                            + tp_mlp_bytes(cfg, pos, tp, act_bytes))
+            + tp_lm_bytes(cfg, rows, seq, tp, act_bytes, hidden=seq + prefix_len))
 
 
 # ---------------------------------------------------------------------------

@@ -7,6 +7,11 @@ A learned ``patch_in_proj`` adapter (the multimodal projector's last
 linear) maps the embeddings into the residual stream; the rest is the
 dense transformer, with the patches ahead of the text in the sequence and
 in the KV cache.  Loss is next-token on the text positions only.
+
+Under tensor parallelism ``patch_in_proj`` is column-parallel: each
+process multiplies by its columns and the outputs are gathered over
+``model`` (in the compute dtype); under FSDP the leaf is gathered over
+``data`` where it is used.  The rest is the dense model's.
 """
 from __future__ import annotations
 
@@ -16,6 +21,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
+from repro_torch.models import parallel as par
 from repro_torch.models import transformer as tfm
 
 Params = Dict[str, Any]
@@ -31,7 +37,22 @@ def init_params(gen: torch.Generator, cfg: ModelConfig, device="cuda", *, servin
 
 
 def _adapt(params: Params, patch_embeds: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    return patch_embeds.to(cfg.dtype) @ params["patch_in_proj"].to(cfg.dtype)
+    w = par.gather_leaf(params["patch_in_proj"], "['patch_in_proj']")
+    out = patch_embeds.to(cfg.dtype) @ w.to(cfg.dtype)
+    ax = par.model_axes()
+    if ax is not None and w.shape[-1] != cfg.d_model:
+        out = par.gather_from_model(out, ax, -1)  # this process's columns of the output
+    return out
+
+
+def tp_comm_bytes(cfg: ModelConfig, rows: int, seq: int, tp: int, act_bytes: int) -> int:
+    """llava's bytes over ``model`` in a hot step (``models.tp_hot_comm_bytes``):
+    the adapter's output gathered (compute dtype) where ``patch_in_proj``
+    splits, then the decoder over the patches and the text."""
+    d = cfg.d_model
+    adapter = rows * cfg.n_patches * d * act_bytes if par.splits_over_model(d, tp) else 0
+    return adapter + tfm.tp_comm_bytes(cfg, rows, seq, tp, act_bytes,
+                                       prefix_len=cfg.n_patches)
 
 
 def loss_fn(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor]):

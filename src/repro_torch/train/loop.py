@@ -176,7 +176,8 @@ def train_loop(
     if tp and (track_subspace or train_cfg.log_spectrum or optimizer.config.rank_schedule):
         raise NotImplementedError(
             "rank schedules, the spectrum logger and track_subspace under tensor "
-            "parallelism or FSDP are not ported (ROADMAP queue 1 item 11, second half)")
+            "parallelism or FSDP are not ported: each process holds blocks of the leaves "
+            "(ROADMAP queue 1 item 11, second half, the rest)")
     if tp:
         pass  # the canonical format, from the gathered state
     elif train_cfg.sharded_checkpoint and layout is not None and layout.shards > 1:

@@ -30,22 +30,22 @@ expert) parallel: each process holds its blocks of the params and of the
 optimizer state, cut by the name-based rules (``launch/sharding``), runs
 the model under its ``model`` axis (``models/parallel.use``: the layers'
 collectives) and the optimizer of its blocks
-(``core/lowrank.tensor_parallel_optimizer``).  The dense and MoE families
-run so; the SSM, hybrid, enc-dec and VLM ones raise.
+(``core/lowrank.tensor_parallel_optimizer``).  Every family runs so: the
+dense and MoE layers, the SSM mixer on its heads (``cfg.ssm_head_tp``) or
+whole, hymba's two halves, whisper's cross-attention and llava's adapter
+(``models/ssm.py``, ``hybrid.py``, ``encdec.py``, ``vlm.py``).
 
-The standard step (``compressed=""``) of a dense or MoE model at a
-``data`` extent above 1 is FSDP over ``data`` as well, the reference's
-standard step (``src/repro/train/step.py:5-7``): each process holds its
-``data`` block of every leaf the rules put on ``data`` (and of its
+The standard step (``compressed=""``) at a ``data`` extent above 1 is FSDP
+over ``data`` as well, the reference's standard step
+(``src/repro/train/step.py:5-7``), for every family: each process holds
+its ``data`` block of every leaf the rules put on ``data`` (and of its
 optimizer state), the model gathers a block where it is used
 (``models/parallel.DataShards``) and the block's gradient comes back
 reduce-scattered, summed over ``data``: the step divides it by the batch
 replica count and sums it over ``pod``, while the leaves whole over
 ``data`` are averaged over (pod, data) as before.  The compressed steps
-keep the params whole over ``data``, as the reference's do; the SSM,
-hybrid, enc-dec and VLM families keep the replicated standard step (a
-placement the reference does not share, ROADMAP queue 1 item 11); ZeRO
-state on the FSDP step raises.
+keep the params whole over ``data``, as the reference's do; ZeRO state
+on the FSDP step raises (``FSDP_ZERO``).
 ``fns["place_state"]`` cuts a global state into this process's blocks and
 ``fns["gather_state"]`` returns the global state (the given optimizer's
 layout), which the loop's checkpoints hold.
@@ -85,11 +85,6 @@ from repro_torch.launch.mesh import axes_size, batch_axes
 from repro_torch.models import parallel as par
 from repro_torch.train.state import TrainState
 
-# The families whose layers run tensor parallel (models/parallel.py).
-TP_FAMILIES = ("dense", "moe")
-TP_LEFT = ("tensor parallelism for the {family!r} family is not ported (ROADMAP queue 1 "
-           "item 11, second half: `_shard_ssm_heads`, then tensor parallelism and FSDP for "
-           "the other families, the fault harness)")
 FSDP_ZERO = ("state_sharding='zero' on the FSDP step (the standard step at a data extent "
              "above 1) is not ported (ROADMAP queue 1 item 11, second half): use "
              "compressed='flat' or 'pod' for ZeRO state")
@@ -229,11 +224,8 @@ def make_train_step(
     and records calls past its timeout (keyed by the call's ordinal)."""
     global_optimizer = optimizer
     compressed = "flat" if compressed is True else (compressed or "")
-    if mesh is not None and mesh.tp > 1 and model.cfg.family not in TP_FAMILIES:
-        raise NotImplementedError(TP_LEFT.format(family=model.cfg.family))
-    # FSDP over data: the standard step of the families whose layers gather
-    fsdp = (mesh is not None and not compressed and mesh.shape.get("data", 1) > 1
-            and model.cfg.family in TP_FAMILIES)
+    # FSDP over data: the standard step at a data extent above 1
+    fsdp = mesh is not None and not compressed and mesh.shape.get("data", 1) > 1
     if fsdp and optimizer.config.state_sharding == "zero":
         raise NotImplementedError(FSDP_ZERO)
     if (mesh is not None and mesh.tp > 1) or fsdp:

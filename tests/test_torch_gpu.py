@@ -127,6 +127,12 @@ def test_rmsnorm_kernel_matches_plain_on_gpu(dtype):
         scale = 1 + 0.1 * torch.randn(4096, generator=g, device="cuda")
         got = rmsnorm_kernel(x, scale)
         torch.testing.assert_close(got.float(), rmsnorm_ref(x, scale).float(), **TOL[dtype])
+        # a block of the row's channels with the whole row's sum of squares
+        ss = torch.sum(x.float() ** 2, dim=-1, keepdim=True)
+        got = rmsnorm_kernel(x[:, :1024].contiguous(), scale[:1024].contiguous(), ss=ss,
+                             width=4096)
+        torch.testing.assert_close(got.float(), rmsnorm_ref(x, scale).float()[:, :1024],
+                                   **TOL[dtype])
 
 
 @pytest.mark.gpu

@@ -75,6 +75,25 @@ def test_rmsnorm_plain_matches_jax(shape, dtype):
     np.testing.assert_allclose(_np(got), _np(pallas), **TOL[dtype])
 
 
+@pytest.mark.parametrize("parts", [2, 4])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rmsnorm_plain_with_a_given_sum_of_squares_matches_jax(parts, dtype):
+    """A row split into ``parts`` blocks of channels, each normalized with
+    the whole row's f32 sum of squares (the SSM mixer's gated norm on a
+    process's heads), is the whole row's RMSNorm, side by side."""
+    rng = np.random.default_rng(2)
+    x = (rng.standard_normal((3, 5, 128)) * 2.0).astype(np.float32)
+    scale = (1.0 + 0.1 * rng.standard_normal(128)).astype(np.float32)
+    jx, tx = _pair(x, dtype)
+    ts = torch.from_numpy(scale)
+    ss = torch.sum(tx.float() ** 2, dim=-1, keepdim=True)
+    got = torch.cat([rms_ops.rmsnorm(xp, sp, 1e-5, ss=ss, width=128)
+                     for xp, sp in zip(tx.chunk(parts, -1), ts.chunk(parts))], dim=-1)
+    assert got.dtype == TORCH[dtype]
+    want = jax_rmsnorm_ref(jx, jnp.asarray(scale), 1e-5)
+    np.testing.assert_allclose(_np(got), _np(want), **TOL[dtype])
+
+
 def test_rmsnorm_dispatch_takes_plain_version_on_cpu():
     x = torch.randn(6, 32, generator=torch.Generator().manual_seed(0))
     scale = torch.linspace(0.5, 1.5, 32)

@@ -37,7 +37,7 @@ Bars:
     and the dropped (token, slot) pairs equal; at 8 (no drops) within
     ``EP_TOL`` of the port's local path;
   * bit-equal where the arithmetic is the same: the bytes handed to the
-    ``model`` collectives against ``core.buckets.tp_hot_comm_bytes``, the
+    ``model`` collectives against ``models.tp_hot_comm_bytes``, the
     processes' params against each other, and the launcher's printed
     losses at ``--mesh 1,2`` and ``--mesh 2,2`` against the one-process
     launcher's.
@@ -73,7 +73,7 @@ from repro_torch.core import make_optimizer
 from repro_torch.core.lowrank import tree_leaves
 from repro_torch.launch import mesh as mesh_lib
 from repro_torch.launch import sharding as shd
-from repro_torch.models import build_model
+from repro_torch.models import build_model, tp_hot_comm_bytes
 from repro_torch.models import moe as moe_lib
 from repro_torch.train import checkpoint as ckpt_lib
 from repro_torch.train import state as state_lib
@@ -99,6 +99,17 @@ JAX_OPT_KW = dict(rank=8, tau=200, lr=0.01, grad_clip_norm=1.0, engine="bucketed
                   svd_backend="randomized")
 MESHES = {(1, 2): ("data", "model"), (2, 2): ("data", "model"), (1, 4): ("data", "model"),
           (16, 16): ("data", "model"), (2, 16, 16): ("pod", "data", "model")}
+# the SSM, hybrid, enc-dec and VLM families' leaves at full width that
+# ``test_param_spec_matches_jax`` must meet
+_SSM_LEAVES = ("in_proj", "out_proj", "conv_w", "conv_b", "d_skip", "a_log", "dt_bias",
+               "ssm_norm_scale")
+FAMILY_LEAVES = {
+    "mamba2-370m": [f"['blocks']['mixer']['{n}']" for n in _SSM_LEAVES],
+    "hymba-1.5b": [f"['blocks']['ssm_mixer']['{n}']" for n in _SSM_LEAVES],
+    "whisper-medium": [f"['blocks']['cross_{n}_proj']" for n in "qkvo"]
+    + ["['embed']", "['lm_head']", "['enc_blocks']['q_proj']"],
+    "llava-next-34b": ["['patch_in_proj']"],
+}
 # the MoE layer's cases: (capacity factor, expert d_ff); d_ff 32 leaves the
 # fused shared experts (64 wide) whole at TP 2, 64 splits them
 EP_CASES = {"cf8_ff32": (8.0, 32), "cf8_ff64": (8.0, 64), "cf1.25_ff32": (1.25, 32),
@@ -138,12 +149,22 @@ def test_param_spec_matches_jax(arch_shapes, shape):
     mesh = types.SimpleNamespace(shape=dict(zip(MESHES[shape], shape)),
                                  axis_names=MESHES[shape])
     n = 0
+    seen = {arch: set() for arch in FAMILY_LEAVES}
     for arch, leaves in arch_shapes.items():
         for path, gshape in leaves:
             want = tuple(jax_shd.param_spec(path, gshape, mesh))
             assert shd.param_spec(path, gshape, mesh) == want, (arch, path, gshape)
             n += 1
+            if arch in seen:
+                seen[arch].add(path)
     assert n > 100  # every leaf of the ten archs
+    # the SSM, hybrid, enc-dec and VLM families' own leaves at full width
+    for arch, paths in FAMILY_LEAVES.items():
+        assert set(paths) <= seen[arch], (arch, set(paths) - seen[arch])
+    # whisper's odd vocabulary (51865) keeps embed and lm_head whole over model
+    dims = dict(arch_shapes["whisper-medium"])
+    for path in ("['embed']", "['lm_head']"):
+        assert "model" not in shd.param_spec(path, dims[path], mesh)
 
 
 # ---------------------------------------------------------------------------
@@ -340,7 +361,7 @@ def test_tp_world_matches_the_single_process_step(worlds, world, case):
                                         (4, "d256_flat_zero"), (4, "d256_standard")])
 def test_hot_step_bytes_over_model_equal_the_shape_count(worlds, world, case):
     """Each hot step hands the ``model`` collectives the bytes that
-    ``buckets_lib.tp_hot_comm_bytes`` counts from the shapes (the layers'
+    ``models.tp_hot_comm_bytes`` counts from the shapes (the layers'
     activations, the embedding, the cross-entropy and the "d" buckets'
     partial R), on every process."""
     cfg = W.dense_cfg("d256")
@@ -350,7 +371,7 @@ def test_hot_step_bytes_over_model_equal_the_shape_count(worlds, world, case):
         plan = buckets_lib.BucketPlan(tuple(
             buckets_lib.Bucket(d, n, rk, (buckets_lib.BucketEntry(0, "left", b),), split=sp,
                                tp=2) for d, n, rk, b, sp in r[case]["plan"]), frozenset())
-        want = buckets_lib.tp_hot_comm_bytes(cfg, rows, W.SEQ, plan, 4)
+        want = tp_hot_comm_bytes(cfg, rows, W.SEQ, plan, 4)
         for c in r[case]["comm"][1:]:
             assert c.get("all_reduce@model", 0) + c.get("all_gather@model", 0) == want
 
@@ -500,15 +521,21 @@ def test_launcher_runs_a_tp_world(launcher_runs, mesh):
 @pytest.mark.parametrize("arch", ["mamba2-370m", "hymba-1.5b", "whisper-medium",
                                   "llava-next-34b"])
 def test_other_families_raise_naming_what_is_left(arch):
-    """ssm, hybrid, enc-dec and VLM with a ``model`` extent above 1 raise,
-    naming item 11's second half."""
+    """ssm, hybrid, enc-dec and VLM build a tensor-parallel step with a
+    ``model`` extent above 1 (the optimizer of this process's blocks, some
+    leaf split over ``model``); what is left of item 11's second half,
+    ZeRO state on the FSDP step, raises naming it."""
     cfg = get_config(arch, smoke=True).with_(dtype=torch.float32)
     model = build_model(cfg, device="cpu")
     params = model.init(torch.Generator().manual_seed(0))
     opt = make_optimizer("galore-sara-adam", params, rank=8, engine="bucketed")
-    mesh = mesh_lib.Mesh(("data", "model"), (1, 2))
-    with pytest.raises(NotImplementedError, match="item 11, second half: `_shard_ssm_heads`"):
-        make_train_step(model, opt, mesh=mesh)
+    fns = make_train_step(model, opt, mesh=mesh_lib.Mesh(("data", "model"), (1, 2)))
+    assert fns["tp"] and fns["optimizer"] is not opt
+    assert any(m is not None for _, m in fns["splits"])
+    zopt = make_optimizer("galore-sara-adam", params, rank=8, engine="bucketed",
+                          state_sharding="zero", state_shards=2)
+    with pytest.raises(NotImplementedError, match="item 11, second half"):
+        make_train_step(model, zopt, mesh=mesh_lib.Mesh(("data", "model"), (2, 1)))
 
 
 def test_mesh_model_axis_and_blocks():

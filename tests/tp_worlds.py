@@ -1,6 +1,7 @@
-"""The processes' side of ``test_torch_tensor_parallel.py``: spawned gloo
-worlds that run the port's tensor- and expert-parallel paths and save what
-each process computed.  This module imports no JAX, so the spawned
+"""The processes' side of ``test_torch_tensor_parallel.py`` and
+``test_torch_family_parallel.py``: spawned gloo worlds that run the port's
+tensor-, expert- and FSDP-parallel paths and save what each process
+computed.  This module imports no JAX, so the spawned
 processes do not: the parent hands them JAX's numbers (params, gradients,
 states, refresh draws, MoE inputs) as files.
 
@@ -10,6 +11,7 @@ process, a 60-s timeout on the process group.
 """
 import os
 import shutil
+import time
 from datetime import timedelta
 
 import numpy as np
@@ -21,12 +23,13 @@ from repro_torch import bridge
 from repro_torch.configs.base import TrainConfig
 from repro_torch.configs.registry import get_config
 from repro_torch.core import make_optimizer
-from repro_torch.core.lowrank import canonical_opt_state, tree_leaves, tree_unflatten
+from repro_torch.core.lowrank import (canonical_opt_state, fsdp_hot_comm_bytes, tree_leaves,
+                                      tree_unflatten)
 from repro_torch.core.projectors import LeafDraws
 from repro_torch.data.synthetic import SyntheticDataConfig, SyntheticDataset
 from repro_torch.launch import mesh as mesh_lib
 from repro_torch.launch import sharding as shd
-from repro_torch.models import build_model
+from repro_torch.models import build_model, tp_hot_comm_bytes
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import parallel as par
 from repro_torch.train.loop import train_loop
@@ -213,7 +216,110 @@ def ep_case(mesh, case, ref_dir):
     return {"rows": (lo, hi), "out": out, "aux": float(aux), "dropped": dropped}
 
 
-CASES = {"traj": traj_case, "jax": jax_case, "loop": loop_case, "ep": ep_case}
+# ---------------------------------------------------------------------------
+# the SSM, hybrid, enc-dec and VLM families (test_torch_family_parallel.py)
+# ---------------------------------------------------------------------------
+
+# Widths at which the guard (``MIN_SHARD_EXTENT`` 64) splits each matrix
+# over ``model`` in some world and over ``data`` in another, and keeps
+# some leaf whole, 1 layer (whisper 1 + 1), f32:
+#   ssm: 8 SSD heads of 32, in_proj 536 columns: at 2 a process's block of
+#     268 ends 12 columns into x (at 4, 134); head-parallel at 2 and 4;
+#   ssm_whole: the same without ``ssm_head_tp``: the whole mixer;
+#   ssm_h6: 6 heads of 64: head-parallel at 2 (in_proj's block of 396 ends
+#     12 columns into x), the whole mixer at 4 (6 heads do not divide it),
+#     in_proj (792) and out_proj's 384 rows split there;
+#   hybrid: hymba's shape: 5 query heads over 1 KV head (the heads divide
+#     neither 2 nor 4: the gathered attention; k and v whole), 10 SSM
+#     heads: head-parallel at 2, the whole mixer at 4, where in_proj's
+#     666 columns stay whole as hymba's 6482 do;
+#   audio: whisper with an odd vocabulary (513: embed and lm_head whole over
+#     model, split over data), 4 heads: q/k/v/o split at 2, whole at 4;
+#   vlm: llava with 4 heads over 2 KV heads (k and v whole at 2) and 8
+#     patches; patch_in_proj splits at 2, whole at 4.
+FAMILY_MODELS = {
+    "ssm": ("mamba2-370m", dict(d_model=128, ssm_head_dim=32, ssm_state=8, ssm_head_tp=True)),
+    "ssm_whole": ("mamba2-370m", dict(d_model=128, ssm_head_dim=32, ssm_state=8)),
+    "ssm_h6": ("mamba2-370m", dict(d_model=192, ssm_head_dim=64, ssm_state=9,
+                                   ssm_head_tp=True)),
+    "hybrid": ("hymba-1.5b", dict(d_model=160, n_heads=5, n_kv_heads=1, head_dim=64, d_ff=256,
+                                  ssm_head_dim=32, ssm_state=8, ssm_head_tp=True)),
+    "audio": ("whisper-medium", dict(d_model=128, n_heads=4, n_kv_heads=4, head_dim=32,
+                                     d_ff=256, vocab_size=513, n_enc_layers=1)),
+    "vlm": ("llava-next-34b", dict(d_model=128, n_heads=4, n_kv_heads=2, head_dim=32,
+                                   d_ff=256)),
+}
+
+
+def family_cfg(name):
+    arch, kw = FAMILY_MODELS[name]
+    return get_config(arch, smoke=True).with_(dtype=torch.float32, n_layers=1, **kw)
+
+
+def family_case(mesh, case, ref_dir):
+    """One family's model from JAX's params (``fam_<model>.pt``, written by
+    the parent with JAX's batches and refresh draws): the step's reduced
+    step-0 gradients, 3 steps of ``make_train_step(mesh=)`` (the gathered
+    params, losses and bytes per collective each step, the counts of the
+    shapes), then from the one-process state after step 1 the step's
+    reduced gradients and the update of this process's blocks on them (a
+    hot step isolated from the gradients' rounding)."""
+    name = case["model"]
+    src = torch.load(os.path.join(ref_dir, f"fam_{name}.pt"), weights_only=False)
+    cfg = family_cfg(name)
+    model = build_model(cfg, device="cpu")
+    params = bridge.params_from_numpy(src["params"], "cpu")
+    batches = [{k: torch.from_numpy(v) for k, v in b.items()} for b in src["batches"]]
+    opt = optimizer(params)
+    fns = make_train_step(model, opt, mesh=mesh)
+    lopt = fns["optimizer"]
+    init = opt.init(params)._replace(draws=RecordedDraws(src["draws"]))
+    state = fns["place_state"](TrainState(copy(params), init))
+    _, _, grads = fns["grads"](state, batches[0])
+    rows = BATCH // (mesh.dp * mesh.shape.get("pod", 1))
+    out = {"fsdp": fns["fsdp"], "tp": mesh.tp, "params": [], "comm": [], "losses": [],
+           "grads0": tree_leaves(shd.gather_params(grads, mesh, fns["splits"])),
+           "local": [tuple(x.shape) for x in tree_leaves(state.params)],
+           "model_formula": tp_hot_comm_bytes(cfg, rows, SEQ, lopt.bucket_plan, 4, tp=mesh.tp)
+           if mesh.tp > 1 else 0,
+           "data_formula": fsdp_hot_comm_bytes(lopt, cfg) if fns["fsdp"] else 0}
+    del grads
+    for s in range(STEPS):
+        mesh_lib.comm_reset()
+        state, m = (fns["refresh_step"] if s == 0 else fns["step"])(state, batches[s])
+        out["comm"].append(mesh_lib.comm_snapshot())
+        out["losses"].append(float(m["loss"]))
+        out["params"].append(tree_leaves(fns["gather_state"](state).params))
+    ref = torch.load(os.path.join(ref_dir, f"fam_{name}_1.pt"), weights_only=False)
+    st = fns["place_state"](TrainState(ref["params"], ref["opt_state"]))
+    _, _, grads = fns["grads"](st, batches[2])
+    hot, _, _ = lopt.update(grads, st.opt_state, st.params, refresh=False, apply=True)
+    out["hot_grads"] = tree_leaves(shd.gather_params(grads, mesh, fns["splits"]))
+    out["hot_from_ref"] = tree_leaves(shd.gather_params(hot, mesh, fns["splits"]))
+    return out
+
+
+def family_loop_case(mesh, case, ref_dir):
+    """``train_loop`` of the ``ssm`` model on the seed's params: 2 steps
+    writing the gathered checkpoint at step 2 into ``case["write"]``; the
+    gathered params and canonical optimizer state there."""
+    cfg = family_cfg("ssm")
+    model = build_model(cfg, device="cpu")
+    params = model.init(torch.Generator().manual_seed(0))
+    data = SyntheticDataset(SyntheticDataConfig(vocab_size=cfg.vocab_size, seq_len=SEQ,
+                                                global_batch=BATCH), device="cpu")
+    opt = optimizer(params)
+    fns = make_train_step(model, opt, mesh=mesh)
+    tc = TrainConfig(total_steps=2, checkpoint_every=2, checkpoint_dir=case["write"],
+                     async_checkpoint=False)
+    res = train_loop(model, opt, data, tc, fns, log_every=1, handle_signals=False)
+    state = fns["gather_state"](res.state)
+    return {"fsdp": fns["fsdp"], "losses": res.losses, "params": tree_leaves(state.params),
+            "canonical": canonical_opt_state(opt, state.opt_state)}
+
+
+CASES = {"traj": traj_case, "jax": jax_case, "loop": loop_case, "ep": ep_case,
+         "family": family_case, "family_loop": family_loop_case}
 
 
 def world(rank, size, store, out_dir, ref_dir, plan):
@@ -231,19 +337,25 @@ def world(rank, size, store, out_dir, ref_dir, plan):
         dist.destroy_process_group()
 
 
-def spawn(tmp, ref_dir, plan):
+def spawn(tmp, ref_dir, plan, timeout_s=None):
     """Start the world of ``plan`` (its processes run while the caller goes
-    on); the returned function waits for them and loads each process's
-    outputs."""
+    on); the returned function waits for them (with ``timeout_s``, at most
+    that long from the start: then it kills them and fails) and loads each
+    process's outputs."""
     size = int(np.prod(plan["mesh"]))
     out_dir = tmp / f"world_{'x'.join(map(str, plan['mesh']))}"
     out_dir.mkdir()
     ctx = mp.start_processes(world, args=(size, str(out_dir / "store"), str(out_dir), ref_dir,
                                           plan), nprocs=size, join=False, start_method="spawn")
+    deadline = None if timeout_s is None else time.monotonic() + timeout_s
 
     def finish():
-        while not ctx.join():
-            pass
+        while not ctx.join(timeout=None if deadline is None
+                           else max(deadline - time.monotonic(), 0.1)):
+            if deadline is not None and time.monotonic() > deadline:
+                for p in ctx.processes:
+                    p.kill()
+                raise AssertionError(f"the {plan['mesh']} world outlived {timeout_s} s")
         return [torch.load(out_dir / f"rank{r}.pt", weights_only=False) for r in range(size)]
 
     return finish
