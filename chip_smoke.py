@@ -151,22 +151,29 @@ failure raises and the script exits non-zero:
               ``train_fsdp_<family>`` at (2, 1), and mamba2's whole-mixer
               route at (1, 2), ``train_tp_ssm_whole`` (the constants at
               ``TPF_RUNS``).
+5f. train_tp_inners -- the same two processes' world for qwen2-1.5b at
+              full width and 1 layer: every optimizer under tensor
+              parallelism at (1, 2) (paths ``train_tp_<optimizer>``), the
+              loop under a rank schedule with the spectrum logger and
+              ``track_subspace`` (``train_tp_loop``), and ZeRO state on the
+              FSDP step at (2, 1) (``train_fsdp_zero``,
+              ``train_fsdp_zero_adam8bit``); the constants at ``TPI_RUNS``.
 6. families -- the MoE, SSM and hybrid families at full width:
               ``family_kernels`` (flash at hymba's GQA 25/5, D 64, window
               1024, S 2048 and deepseek's MHA 16/16; paged decode at MHA
               16/16; RMSNorm at widths 1600, 2048 and 3200; kernels 4, 5
               and 9 on deepseek-moe-16b's 192-slice expert bucket at rank
-              256), ``serve_moe`` (deepseek-moe-16b at 7 of its 28
+              256), ``serve_moe`` (deepseek-moe-16b at 3 of its 28
               layers, ``SERVE_MOE_LAYERS``, bf16 made
               leaf by leaf, through the paged engine on phase 3's trace;
               request 0's logits against the static exact path, the bar
               from the f32 model at the deepest depth that fits; host syncs
               per step), ``train_moe`` (1 layer, rank 256:
               kernel 9 runs),
-              ``train_ssm`` and ``serve_ssm`` (mamba2-370m at 24 of its 48
+              ``train_ssm`` and ``serve_ssm`` (mamba2-370m at 16 of its 48
               layers, ``SSM_LAYERS``; rank
               512: kernel 9 launches 0 times), ``train_hybrid`` and
-              ``serve_hybrid`` (hymba-1.5b cut to 2 of its 32 layers,
+              ``serve_hybrid`` (hymba-1.5b cut to 1 of its 32 layers,
               ``HYBRID_LAYERS``; seq 2048; prompts of
               1500 and 1100 tokens past its 1024 window).  The train paths
               run as phase 4 (galore-sara-adam, 3 steps) and first check
@@ -180,7 +187,7 @@ failure raises and the script exits non-zero:
               prefill at S 1600; paged decode at GQA 56/8 over
               ``PAGED_FILLS`` + 576; kernels 4, 5 and 9 on llava's mlp
               bucket, 4 and 5 on whisper's 1024 x 1024 bucket),
-              ``serve_vlm`` (llava-next-34b at 15 of its 60 layers,
+              ``serve_vlm`` (llava-next-34b at 6 of its 60 layers,
               ``SERVE_VLM_LAYERS``, made
               leaf by leaf in bf16, the init's peak printed; phase 3's trace
               with each request's own 576 seeded patch embeddings ahead of
@@ -188,11 +195,11 @@ failure raises and the script exits non-zero:
               logits against the static exact path, the bar from the f32
               model at the deepest depth that fits), ``train_vlm`` (1
               layer, 448 text tokens after the patches, batch 4, rank 512),
-              ``serve_audio`` (whisper-medium cut to 3 + 3 of its 24 + 24
+              ``serve_audio`` (whisper-medium cut to 1 + 1 of its 24 + 24
               layers, ``AUDIO_LAYERS``, slot engine,
               each request's own 1500 frames, prompts of 4-64 tokens, 64
               new tokens, a ring of 448; every token against the static
-              engine's or a near-tie) and ``train_audio`` (3 + 3 layers, seq
+              engine's or a near-tie) and ``train_audio`` (1 + 1 layers, seq
               448, batch 8, rank 256: kernel 9 launches 0 times).  The
               train paths run as phase 6's, with the patches or frames in
               every batch.
@@ -542,8 +549,9 @@ HYBRID_PROMPT_LENS = [1500, 128, 517, 1100, 255, 777, 64, 333]
 # host-bound SSD chunk loop costs time per layer, took 147 s of it; 16
 # until the tensor-parallel phase joined (the two took 71.7 s at 16), 8
 # until the FSDP paths joined (35.4 s at 8), 4 until the other families'
-# TP and FSDP paths joined (16.5 s at 4)
-HYBRID_LAYERS = 2
+# TP and FSDP paths joined (16.5 s at 4), 2 until every optimizer's TP and
+# FSDP paths joined (14.6 s at 2 on a card whose whole script ran 1223 s)
+HYBRID_LAYERS = 1
 # A continuous-engine token may part from the static engine's only at a
 # near-tie.  The two engines run the same bf16 model but batch it
 # differently (4 slots against 1 row: other GEMM kernels, other roundings),
@@ -558,12 +566,16 @@ TIE_BAR_SIGMAS = 4
 # 700.00 W, and the whole script 1051 s of its 1200; 2 until the
 # tensor-parallel phase joined, 37.9 s at 2); it served at full depth
 # until the FSDP paths joined (52.2 s), at 14 of 28 layers until the other
-# families' TP and FSDP paths joined, at 7 since (15.5 s at 7, 8.8 s at 4)
+# families' TP and FSDP paths joined, at 7 until every optimizer's TP and
+# FSDP paths joined (15.5 s at 7, 8.8 s at 4; 19.7 s at 7 on a card whose
+# whole script ran 1223 s), at 3 since
 MOE_TRAIN_LAYERS = 1
-SERVE_MOE_LAYERS = 7
-# mamba2-370m serves and trains at 24 of its 48 layers since the other
-# families' TP and FSDP paths joined (the two took 39.1 s at 48)
-SSM_LAYERS = 24
+SERVE_MOE_LAYERS = 3
+# mamba2-370m serves and trains at 16 of its 48 layers since every
+# optimizer's TP and FSDP paths joined (24 until then; the two took 39.1 s
+# at 48, 28.4 s at 24 on a card whose whole script ran 1223 s); not below
+# 16, where d_skip's (L, 32) leaf leaves the low-rank plan (min_dim 16)
+SSM_LAYERS = 16
 # rank 256 for moe and hybrid: SARA's pool (4 r) then leaves k' 1032 below
 # the narrow side of their leaves, so kernel 9 runs; at the launcher's 512
 # it spans every leaf's narrow side and the power iterations drop (as
@@ -599,10 +611,11 @@ PATH_KERNELS["train_hybrid"] = _TRAIN_COMMON + (UPDATE_KERNEL["adam"],)
 # (Whisper's text context).
 VLM_ARCH, AUDIO_ARCH = "llava-next-34b", "whisper-medium"
 VLM_POOL_PAGES = 250
-# llava serves at 15 of its 60 layers since the other families' TP and
-# FSDP paths joined (30 since the FSDP paths joined; at full depth, 65 GiB
-# of bf16 weights, it took 27.3 s; 5.7 s at 8)
-SERVE_VLM_LAYERS = 15
+# llava serves at 6 of its 60 layers since every optimizer's TP and FSDP
+# paths joined (15 until then, 30 until the other families' joined; at full
+# depth, 65 GiB of bf16 weights, it took 27.3 s; 5.7 s at 8, 11.9 s at 15
+# on a card whose whole script ran 1223 s)
+SERVE_VLM_LAYERS = 6
 AUDIO_PROMPT_LENS = [64, 4, 48, 17, 33, 8, 56, 25]
 AUDIO_NEW_TOKENS = 64
 AUDIO_MAX_SEQ = 448
@@ -611,8 +624,10 @@ AUDIO_MAX_SEQ = 448
 # paths took 107 s of the script's 1051 s on the H100 (NVIDIA H100 80GB
 # HBM3, 700.00 W), too near the script's 1200-s limit; 6 + 6 since the
 # FSDP paths joined (the two took 44.5 s at 12 + 12), 3 + 3 since the other
-# families' TP and FSDP paths joined (25.4 s at 6 + 6)
-AUDIO_LAYERS = 3
+# families' TP and FSDP paths joined (25.4 s at 6 + 6), 1 + 1 since every
+# optimizer's TP and FSDP paths joined (17.3 s at 3 + 3 on a card whose
+# whole script ran 1223 s)
+AUDIO_LAYERS = 1
 LAYER_LAUNCHES["vlm"] = LAYER_LAUNCHES["dense"]
 # train_vlm: llava-next-34b cut to 1 layer (2 until the other families' TP
 # and FSDP paths joined), 448 text tokens after the 576 patches (1024
@@ -1328,6 +1343,119 @@ def update_kernel_cases(results, dev: str = "cuda", plans=None, main_dn=(4096, 1
     return cases
 
 
+# Kernel 8 on a block of rows cut over processes (8-bit Adam's free dim
+# under tensor parallelism or FSDP): (B, d, local n, r) of 'left' blocks
+# whose edges fall inside a chunk -- n 4480 is qwen2-1.5b's mlp block at a
+# model extent of 2 (``train_tp_inners``), 192 and 320 the CPU tests'
+# widths, two blocks a row
+CUT_8BIT_CASES = [(2, 1536, 4480, 384), (2, 128, 192, 64), (2, 128, 320, 64)]
+
+
+class GivenAbsmax:
+    """The ``reduce`` of kernel 8's cut rows in one process: hands back the
+    whole chunks' absmax of the new moments (m's, then v's, in the order
+    the update asks; the same version's whole-row absmax), after checking
+    the pieces it is given against them: never above, and equal on every
+    chunk the block holds whole."""
+
+    def __init__(self, m_abs, v_abs, whole):
+        self.wants, self.whole, self.seen = [m_abs, v_abs], whole, []
+
+    def __call__(self, am):
+        want = self.wants[len(self.seen) % 2]
+        self.seen.append(am)
+        if bool((am > want).any()) or not torch.equal(am[..., self.whole],
+                                                      want[..., self.whole]):
+            raise AssertionError("kernel 8's absmax launch: a piece above its chunk's "
+                                 "absmax, or a whole chunk's not its own")
+        return want.clone()
+
+
+def cut_adam8bit_cases(results, dev: str = "cuda"):
+    """Kernel 8 with a chunk offset and given scales (``CUT_8BIT_CASES``,
+    f32 and bf16 W): each block of a row of two against the plain version
+    with the same offset and scales, and against the kernel's whole row
+    (one process's), whose codes and scales the block's must be (codes
+    within one step).  The straddling chunks' absmax comes from
+    ``GivenAbsmax``, each version's from its own whole-row update (at
+    offset 0 every chunk is whole)."""
+    from repro_torch.kernels.lowrank_update import quantize as qz
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 17)
+    kernel, plain = fused_update("adam8bit", dev == "cuda"), fused_update("adam8bit", False)
+    ikw, name = INNER_KW["adam8bit"], UPDATE_KERNEL["adam8bit"]
+    step, lr_alpha = 3, 0.01 * 0.25
+    cases = []
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=dev) * scale
+
+    for b, d, n, r in CUT_8BIT_CASES:
+        total = 2 * n
+        p = torch.linalg.qr(randn(b, d, r))[0].contiguous()
+        rg = randn(b, r, total)
+        mc, ms = qz.quantize_stacked(randn(b, r, total, scale=0.1), "left", signed=True)
+        vc, vs = qz.quantize_stacked(randn(b, r, total, scale=0.1) ** 2, "left", signed=False)
+
+        def whole_row(fn, w):
+            seen = []
+            out = fn(w, p, rg, (mc, ms, vc, vs), step, lr_alpha, 0.0, "left", dict(
+                ikw, reduce=lambda am: (seen.append(am.clone()), am)[1]))
+            return out, seen
+
+        for dtype in (torch.float32, torch.bfloat16):
+            dn = str(dtype).split(".")[-1]
+            w = randn(b, d, total, scale=0.02).to(dtype)
+            whole, k_abs = whole_row(kernel, w)
+            _, p_abs = whole_row(plain, w)
+            for j in range(2):
+                lo, hi = j * n, (j + 1) * n
+                c0, c1 = lo // qz.QBLOCK, qz.num_blocks(hi)
+                qoff = lo % qz.QBLOCK
+                # the chunks this block holds whole
+                held = [c for c in range(c0, c1) if c * qz.QBLOCK >= lo
+                        and min((c + 1) * qz.QBLOCK, total) <= hi]
+                state = (mc[..., lo:hi].contiguous(), ms[..., c0:c1].contiguous(),
+                         vc[..., lo:hi].contiguous(), vs[..., c0:c1].contiguous())
+                args = [w[..., lo:hi].contiguous(), p, rg[..., lo:hi].contiguous(), state, step,
+                        lr_alpha, 0.0, "left"]
+                label = f"B={b} d={d} n={n} of {total} r={r} block {j} (offset {qoff})"
+
+                def given(whole_abs):
+                    return GivenAbsmax(whole_abs[0][..., c0:c1], whole_abs[1][..., c0:c1],
+                                       [c - c0 for c in held])
+
+                got = kernel(*args, dict(ikw, qoff=qoff, reduce=given(k_abs)))
+                want = plain(*args, dict(ikw, qoff=qoff, reduce=given(p_abs)))
+                if dev == "cuda":
+                    torch.cuda.synchronize()
+                errs = check_update("adam8bit", f"cut {label} {dn}", got, want, dn)
+                # one process's whole row, cut to the block
+                one = (whole[0][..., lo:hi], whole[1][..., lo:hi], whole[2][..., c0:c1],
+                       whole[3][..., lo:hi], whole[4][..., c0:c1])
+                errs["one_process"] = check_update("adam8bit", f"cut {label} {dn} vs one process",
+                                                   got, one, dn)
+                err = max(v for v in errs.values() if isinstance(v, float))
+                es = w.element_size()
+                nbytes = 2 * b * d * n * es + 4 * (b * d * r + b * r * n) + 4 * b * r * n \
+                    + 4 * 4 * state[1].numel()
+                b_ms, b_by = bound(nbytes, 2 * b * d * r * n + 12 * b * r * n, "float32")
+                timing = {"bound_ms": b_ms, "bound_by": b_by}
+                if dev == "cuda":
+                    timing = timed_case(
+                        lambda: kernel(*args, dict(ikw, qoff=qoff, reduce=given(k_abs))),
+                        lambda: plain(*args, dict(ikw, qoff=qoff, reduce=given(p_abs))),
+                        None, b_ms, b_by, 5)
+                record_case(cases, results, name, f"cut rows {label}", dtype, err, False, timing)
+                log(f"adam8bit cut {label} {dn}: {errs}")
+                del got, want, args, state
+            del w, whole, k_abs, p_abs
+        del p, rg, mc, ms, vc, vs
+        if dev == "cuda":
+            torch.cuda.empty_cache()
+    return cases
+
+
 # ---------------------------------------------------------------------------
 # phase 3: serve full-width llama3-8b through the continuous engine
 # ---------------------------------------------------------------------------
@@ -1815,12 +1943,18 @@ def train(cfg, optimizer: str = "galore-sara-adam", expect_buckets=TRAIN_BUCKETS
 PARITY_CHUNK = 64  # slices per plain-version call in hot_step_parity
 
 
-def hot_step_parity(path: str, model, opt, state, batch, dev: str = "cuda", grads=None):
+def hot_step_parity(path: str, model, opt, state, batch, dev: str = "cuda", grads=None,
+                    zero_axes=None):
     """One more hot step's stacks from ``state`` (bucket-native), bucket by
     bucket: R from the projection kernel, then the inner's fused update (W'
     and its state) from its kernel, each against its plain version on the
     same inputs.  ``grads`` (flat, this process's) stands for the
-    gradients of ``model`` on ``batch``.  Returns one record per bucket."""
+    gradients of ``model`` on ``batch``.  ``zero_axes`` (ZeRO state on the
+    FSDP step, ``StateLayout.zero_rows``): a bucket of rows has its R
+    reduce-scattered into this process's rows as the step does
+    (``buckets._zero_rows_r``), and both versions run the split schedule
+    (``gather``): W' on every row of the block, the moments on the rows.
+    Returns one record per bucket."""
     from repro_torch.core import buckets as buckets_lib
     from repro_torch.core.lowrank import tree_leaves, tree_unflatten
     from repro_torch.kernels.galore_project import kernel as project_kernel
@@ -1842,7 +1976,14 @@ def hot_step_parity(path: str, model, opt, state, batch, dev: str = "cuda", grad
         flat_g = list(torch.autograd.grad(loss, leaves))
         del leaves, loss
     parity = []
-    for bk, bst in zip(opt.bucket_plan.buckets, state.opt_state.buckets):
+    tp = opt.tp
+    zero_rows = opt.state_layout.zero_rows if zero_axes is not None else ()
+    for bi, (bk, bst) in enumerate(zip(opt.bucket_plan.buckets, state.opt_state.buckets)):
+        # a bucket whose n a process axis cuts: Adam-mini's row sums and
+        # 8-bit Adam's straddling chunks over it (both versions alike)
+        kw = dict(ikw, **buckets_lib._cut_kwargs(
+            inner, bk, tp.axes if tp is not None else None,
+            tp.data_axes if tp is not None else None))
         w = buckets_lib._gather(bk, flat_p)
         g = buckets_lib._gather(bk, flat_g)
         if dev == "cuda":
@@ -1855,14 +1996,20 @@ def hot_step_parity(path: str, model, opt, state, batch, dev: str = "cuda", grad
         errs = {"R": check_close(f"{path} {label} R", r_k, r_p,
                                  *TOL["galore_project_batched"]["float32"], rel_atol=True)}
         del r_k
+        if zero_rows and zero_rows[bi]:
+            r_p, kw["gather"] = buckets_lib._zero_rows_r(
+                bk, r_p, tp.axes if tp is not None else None, zero_axes, opt.state_layout)
+            label += f" rows {r_p.shape[0]}"
         args = (w, bst.projector, r_p, bucket_state(inner, bst), step, lr_alpha, lr_wd,
-                bk.side, ikw)
+                bk.side, kw)
         got = kernel_update(*args)  # on the whole stack
         # the plain version in chunks of slices (each slice's update is its
         # own): its f32 temporaries for all 384 slices of an expert bucket
-        # would not fit beside the kernel's output
-        for lo in range(0, bk.batch, PARITY_CHUNK):
-            cut = lambda x: x[lo:lo + PARITY_CHUNK] if torch.is_tensor(x) else x  # noqa: E731
+        # would not fit beside the kernel's output.  The split schedule in
+        # one call: its gather spans every row
+        chunk = bk.batch if "gather" in kw else PARITY_CHUNK
+        for lo in range(0, bk.batch, chunk):
+            cut = lambda x: x[lo:lo + chunk] if torch.is_tensor(x) else x  # noqa: E731
             want = plain_update(*(tuple(map(cut, a)) if isinstance(a, tuple) else cut(a)
                                   for a in args))
             for k, e in check_update(inner, f"{path} {label} [{lo}:]", tuple(map(cut, got)),
@@ -3308,7 +3455,8 @@ def _count_plain_dispatch() -> None:
     for mod, fn, name in ((rn_ops, "rmsnorm", "rmsnorm"),
                           (fa_ops, "flash_attention", "flash_attention_fwd"),
                           (up_ops, "bucketed_project", "galore_project_batched"),
-                          (up_ops, "bucketed_adam_update", UPDATE_KERNEL["adam"]),
+                          *((up_ops, f"bucketed_{i}_update", UPDATE_KERNEL[i])
+                            for i in ("adam", "msgd", "adam_mini", "adam8bit")),
                           (pi_ops, "power_iter_step", "power_iter_batched")):
         def counted(*a, _f=getattr(mod, fn), _n=name, **k):
             counters.bump(_n)
@@ -4168,6 +4316,18 @@ TP_MOE_GRAD_RTOL = 1e-4
 TP_TIMEOUT_S = 600
 TP_REFRESH_REL = 0.3
 TP_REFRESH_CARRY = "reproject"
+# 8-bit Adam has no reproject (its first moment is codes: it keeps the
+# moments, as JAX's), so a step after a refresh turns with the new singular
+# vectors' signs; under "reset" it does not, and its refresh check resets
+# (measured under "keep": 1.04-1.13 of the step on every leaf, the H100)
+TP_REFRESH_CARRY_8BIT = "reset"
+# qwen2's key bias has a gradient of exactly zero (softmax is invariant to
+# a shift of one query's scores), so what reaches it is the rounding of the
+# reduction order, and Adam normalizes that to a step of ~lr in any
+# direction: there ``_tp_dense``'s f32 hot step from one state is held to
+# one step's largest move, lr, instead of DP_HOT_TOL (measured on the CPU:
+# 6.2e-5 off at lr 0.01, the optimizer on the same gradients bit-equal)
+NOISE_LEAVES = ("['blocks']['k_bias']",)
 PATH_KERNELS["train_tp"] = _TRAIN_COMMON + (UPDATE_KERNEL["adam"],)
 PATH_KERNELS["train_tp_moe"] = _TRAIN_COMMON + (UPDATE_KERNEL["adam"],)
 # Phase 5d, paths ``train_fsdp`` and ``train_fsdp_moe``: FSDP over ``data``
@@ -4198,15 +4358,21 @@ def _launches_since(before) -> dict:
     return {k: v - before.get(k, 0) for k, v in now.items() if v != before.get(k, 0)}
 
 
-def _train_expect(cfg, opt, steps: int) -> dict:
-    """Exact launches of ``steps`` bucketed Adam steps (the first a
-    refresh) of ``cfg``'s model under the optimizer ``opt`` (this process's
-    buckets), as ``train`` counts them."""
+def _train_expect(cfg, opt, steps: int, shapes=(), refreshes: int = 1) -> dict:
+    """Exact launches of ``steps`` steps (the first a refresh) of ``cfg``'s
+    model under the optimizer ``opt`` (this process's blocks), as ``train``
+    counts them: the model's norms and attention, kernel 4 and the inner's
+    update once per bucket a step on bucket-native state (none on per-leaf
+    state: plain products), kernel 9 as ``power_iter_calls`` counts
+    ``refreshes`` refreshes (``shapes``: the params' global shapes, read on
+    per-leaf state only)."""
     (fwd_n, fwd_a), (rem_n, rem_a) = forward_launches(cfg)
-    nb = len(opt.bucket_plan.buckets)
     expect = {"rmsnorm": steps * (fwd_n + rem_n), "flash_attention_fwd": steps * (fwd_a + rem_a),
-              "galore_project_batched": steps * nb, UPDATE_KERNEL["adam"]: steps * nb,
-              "power_iter_batched": power_iter_calls(opt, [])}
+              "power_iter_batched": refreshes * power_iter_calls(opt, shapes)}
+    if opt.state_layout is not None:
+        nb = len(opt.bucket_plan.buckets)
+        expect["galore_project_batched"] = steps * nb
+        expect[UPDATE_KERNEL[opt.config.inner]] = steps * nb
     return {k: v for k, v in expect.items() if v}
 
 
@@ -4224,6 +4390,21 @@ def _blocks_within(what: str, got, want, tol=DP_HOT_TOL) -> dict:
         out.update(max_abs_err=max(out["max_abs_err"], top),
                    share_over_atol=max(out["share_over_atol"], off))
     return out
+
+
+def _codes_within(what: str, got_state, want_state) -> dict:
+    """8-bit codes of two canonical states (this process's blocks) at most
+    one step apart; returns the largest step and the share off by one."""
+    worst, off, n = 0, 0, 0
+    for a, b in zip(got_state.leaves, want_state.leaves):
+        if not hasattr(a.inner, "m_codes"):
+            continue
+        for x, y in ((a.inner.m_codes, b.inner.m_codes), (a.inner.v_codes, b.inner.v_codes)):
+            d = (x.int() - y.int()).abs()
+            worst, off, n = max(worst, int(d.max())), off + int((d > 0).sum()), n + d.numel()
+    if worst > 1:
+        raise AssertionError(f"{what}: 8-bit codes {worst} apart")
+    return {"largest_step": worst, "share_off_by_one": off / max(n, 1)}
 
 
 def _steps_within(what: str, got, want, start, names) -> list:
@@ -4247,14 +4428,16 @@ def _steps_within(what: str, got, want, start, names) -> list:
     return out
 
 
-def _tp_refresh_optimizer(params, opt_kw):
+def _tp_refresh_optimizer(params, opt_kw, optimizer: str = "galore-sara-adam"):
     """The dense run's optimizer with ``TP_REFRESH_CARRY`` for the f32
-    refresh step from one state (see the constants)."""
+    refresh step from one state (8-bit Adam: ``TP_REFRESH_CARRY_8BIT``;
+    see the constants)."""
     from repro_torch.core import make_optimizer
     from repro_torch.core.schedules import cosine_with_warmup
 
-    return make_optimizer("galore-sara-adam", params, lr_schedule=cosine_with_warmup(
-        opt_kw["lr"], TRAIN_WARMUP, TP_STEPS), **dict(opt_kw, momentum_carry=TP_REFRESH_CARRY))
+    carry = TP_REFRESH_CARRY_8BIT if "adam8bit" in optimizer else TP_REFRESH_CARRY
+    return make_optimizer(optimizer, params, lr_schedule=cosine_with_warmup(
+        opt_kw["lr"], TRAIN_WARMUP, TP_STEPS), **dict(opt_kw, momentum_carry=carry))
 
 
 def _tp_power_cases(opt, dev: str, rank: int, fsdp: bool = False, path=None) -> list:
@@ -4298,21 +4481,32 @@ def _tp_power_cases(opt, dev: str, rank: int, fsdp: bool = False, path=None) -> 
     return out
 
 
-def _tp_dense(rank: int, devname: str, mesh, shared, cpu_cfg, seq: int, batch: int,
-              fsdp: bool = False, opt_kw=None, path=None):
+def _tp_dense(rank: int, devname: str, mesh, get_shared, cpu_cfg, seq: int, batch: int,
+              fsdp: bool = False, opt_kw=None, path=None, optimizer: str = "galore-sara-adam"):
     """The dense run of one process of ``train_tp`` (see the constants), or
-    with ``fsdp`` of ``train_fsdp`` (``mesh`` (TP_WORLD, 1)); ``shared``
-    holds the single-process run's state after step 1, its params after
-    one f32 hot step from it, and its low-rank leaves' params after one
-    f32 refresh step from it; ``cpu_cfg`` stands for llama3-8b in a CPU
-    rehearsal.  ``train_tp_families`` runs its models through it too
-    (``cpu_cfg`` the model's config, ``opt_kw`` its optimizer's, ``path``
-    the path's name)."""
+    with ``fsdp`` of ``train_fsdp`` (``mesh`` (TP_WORLD, 1)); ``get_shared()``
+    returns the single-process run's state after step 1, its params after
+    one f32 hot step and its low-rank leaves' params after one f32 refresh
+    step from it (it may wait for the parent to make them: the 3 steps run
+    first); ``cpu_cfg`` stands for llama3-8b in a CPU rehearsal.
+    ``train_tp_families`` and ``train_tp_inners`` run their paths through it
+    too (``cpu_cfg`` the model's config, ``optimizer`` with ``opt_kw``,
+    ``path`` the path's name).  Bucket-native state takes kernel 4 and the
+    inner's update against plain on every local bucket (on ZeRO's rows, the
+    split schedule), a SARA refresh kernel 9 on the "n" buckets' blocks, an
+    Adam or MSGD hot step its bytes against the shapes' count; per-leaf
+    state (the reference engine, Fira, Adafactor) none of those.  8-bit
+    Adam's codes after the f32 hot step are held within one step of one
+    process's (``shared["hot_state"]``); ZeRO state (``state_sharding=
+    "zero"``, FSDP) against the replicated FSDP step from the same state
+    and gradients (``DP_ZERO_TOL``), with both states' bytes."""
     from repro_torch.configs.base import TrainConfig
     from repro_torch.configs.registry import get_config
+    from repro_torch.core import buckets as buckets_lib
     from repro_torch.core import make_optimizer
-    from repro_torch.core.lowrank import (flatten_with_path, fsdp_hot_comm_bytes, tree_leaves,
-                                          tree_unflatten)
+    from repro_torch.core.lowrank import (canonical_opt_state, flatten_with_path,
+                                          fsdp_hot_comm_bytes, state_memory_bytes,
+                                          tp_local_opt_state, tree_leaves, tree_unflatten)
     from repro_torch.core.schedules import cosine_with_warmup
     from repro_torch.data.synthetic import SyntheticDataConfig, SyntheticDataset
     from repro_torch.kernels import counters
@@ -4330,6 +4524,9 @@ def _tp_dense(rank: int, devname: str, mesh, shared, cpu_cfg, seq: int, batch: i
         if on_card:
             torch.cuda.synchronize()
 
+    def peak_now():
+        return torch.cuda.max_memory_allocated() if on_card else 0
+
     cfg = cpu_cfg or get_config("llama3-8b").with_(n_layers=TP_LAYERS)
     model = build_model(cfg, device=devname)
     data = SyntheticDataset(SyntheticDataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
@@ -4339,24 +4536,28 @@ def _tp_dense(rank: int, devname: str, mesh, shared, cpu_cfg, seq: int, batch: i
     batches = [data.batch_at(s) for s in range(TP_STEPS + 1)]
     tc = TrainConfig(total_steps=TP_STEPS, seed=SEED)
     params = model.init(torch.Generator(device=devname).manual_seed(SEED))
+    shapes = [tuple(p.shape) for p in tree_leaves(params)]
     if opt_kw is None:
         opt_kw = dict(TRAIN_OPT) if on_card else dict(TRAIN_OPT, rank=8, svd_oversample=4)
+    zero = opt_kw.get("state_sharding") == "zero"
+    rows = mesh.data_axes() if zero else None
     head_tp = cfg.family in ("ssm", "hybrid") and mesh.tp > 1 and ssm_lib.head_parallel(
         cfg, mesh.tp)
-    opt = make_optimizer("galore-sara-adam", params, lr_schedule=cosine_with_warmup(
-        opt_kw["lr"], TRAIN_WARMUP, TP_STEPS), **opt_kw)
+    sched = cosine_with_warmup(opt_kw["lr"], TRAIN_WARMUP, TP_STEPS)
+    opt = make_optimizer(optimizer, params, lr_schedule=sched, **opt_kw)
     fns = make_train_step(model, opt, mesh=mesh, train_cfg=tc)
-    if fns["fsdp"] != fsdp:
-        raise AssertionError(f"{path} rank {rank}: the step on {mesh.shape} is FSDP: "
-                             f"{fns['fsdp']}")
+    if fns["fsdp"] != fsdp or not fns["tp"]:
+        raise AssertionError(f"{path} rank {rank}: the step on {mesh.shape}: fsdp "
+                             f"{fns['fsdp']}, blocks {fns['tp']}")
     state = fns["place_state"](TrainState(params, opt.init(params)))
     del params
+    state_bytes = state_memory_bytes(state.opt_state)
     lopt = fns["optimizer"]
-    plan = [(bk.d, bk.n, bk.rank, bk.batch, bk.split + bk.dsplit)
-            for bk in lopt.bucket_plan.buckets]
+    native = lopt.state_layout is not None
+    plan = ([(bk.d, bk.n, bk.rank, bk.batch, bk.side, bk.split + bk.dsplit)
+             for bk in lopt.bucket_plan.buckets] if native else None)
     if on_card:
         torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
     ms, losses, comm, per_step, peaks = [], [], [], [], []
     counters.reset()  # the main path's launches: the 3 steps
     for s in range(TP_STEPS):
@@ -4369,7 +4570,7 @@ def _tp_dense(rank: int, devname: str, mesh, shared, cpu_cfg, seq: int, batch: i
         state, m = (fns["refresh_step"] if s == 0 else fns["step"])(state, batches[s])
         sync()
         ms.append((time.perf_counter() - t) * 1e3)
-        peaks.append(torch.cuda.max_memory_allocated() if on_card else 0)
+        peaks.append(peak_now())
         losses.append(float(m["loss"]))
         comm.append(mesh_lib.comm_snapshot())
         per_step.append(_launches_since(before))
@@ -4377,15 +4578,17 @@ def _tp_dense(rank: int, devname: str, mesh, shared, cpu_cfg, seq: int, batch: i
             # every step-0 gradient finite: their norm over every block is
             grad_norm0 = float(m["grad_norm"])
     launches = counters.snapshot()
-    peak = max(peaks)
     if not all(np.isfinite(losses)) or not np.isfinite(grad_norm0):
         raise AssertionError(f"{path} rank {rank}: losses {losses}, step-0 gradient norm "
                              f"{grad_norm0}")
-    expect = _train_expect(cfg, lopt, TP_STEPS)
+    expect = _train_expect(cfg, lopt, TP_STEPS, shapes)
     if launches != expect:
         raise AssertionError(f"{path} rank {rank}: launches {launches} != {expect}")
+    # the shapes' count covers the hot step of Adam's and MSGD's buckets (no
+    # other inner's collectives, no ZeRO rows)
+    counted = native and lopt.config.inner in ("adam", "msgd") and not zero
     if fsdp:
-        axis, want_bytes = "data", fsdp_hot_comm_bytes(lopt, cfg)
+        axis, want_bytes = "data", fsdp_hot_comm_bytes(lopt, cfg) if counted else None
         # every parameter leaf cut as param_spec says, over data
         cut = [(p_, tuple(x.shape)) for (p_, x) in flatten_with_path(state.params)]
         for (p_, local), like, (dd, _) in zip(cut, opt.likes, fns["splits"]):
@@ -4396,19 +4599,21 @@ def _tp_dense(rank: int, devname: str, mesh, shared, cpu_cfg, seq: int, batch: i
                 raise AssertionError(f"{path} rank {rank}: {p_} holds {local}, not {full}")
     else:
         act_bytes = torch.empty((), dtype=cfg.dtype).element_size()
-        axis, want_bytes = "model", tp_hot_comm_bytes(cfg, batch, seq, lopt.bucket_plan,
-                                                      act_bytes, tp=mesh.tp)
+        axis, want_bytes = "model", tp_hot_comm_bytes(
+            cfg, batch, seq, lopt.bucket_plan, act_bytes, tp=mesh.tp) if counted else None
     got = [sum(v for k, v in c.items() if k.endswith("@" + axis)) for c in comm]
-    if any(g != want_bytes for g in got[1:]):
+    if counted and any(g != want_bytes for g in got[1:]):
         raise AssertionError(f"{path} rank {rank}: hot-step bytes over {axis} {got[1:]} "
                              f"!= {want_bytes} (the shapes' count)")
-    log(f"{path} rank {rank}: {cfg.arch_id} {cfg.n_layers} layers, local plan {plan}; losses "
-        f"{losses}; refresh {ms[0]:.1f} ms, hot {[round(x, 1) for x in ms[1:]]} ms; "
-        f"max_memory_allocated per step {[round(x / 2**30, 2) for x in peaks]} GiB; "
+    log(f"{path} rank {rank}: {cfg.arch_id} {cfg.n_layers} layers, {optimizer} on "
+        f"{mesh.shape}, local plan {plan}; losses {losses}; refresh {ms[0]:.1f} ms, hot "
+        f"{[round(x, 1) for x in ms[1:]]} ms; max_memory_allocated per step "
+        f"{[round(x / 2**30, 2) for x in peaks]} GiB; state {state_bytes / 2**30:.3f} GiB; "
         f"launches {launches}; hot-step bytes over {axis} {got[1:]} (formula {want_bytes}), "
         f"refresh step {got[0]}")
     # kernel 9 on each "n" bucket's block at the split refresh's shapes
-    power = _tp_power_cases(lopt, devname, rank, fsdp, path)
+    power = (_tp_power_cases(lopt, devname, rank, fsdp, path)
+             if native and lopt.config.method == "sara" else [])
     # from the single-process run's state after step 1, which the parent
     # shares with the processes (CUDA IPC on the card), in f32 compute: one
     # hot step and one refresh step, this process's blocks against the
@@ -4422,42 +4627,80 @@ def _tp_dense(rank: int, devname: str, mesh, shared, cpu_cfg, seq: int, batch: i
         torch.cuda.empty_cache()
     model32 = build_model(cfg.with_(dtype=torch.float32), device=devname)
     fns32 = make_train_step(model32, opt, mesh=mesh, train_cfg=tc)
-    splits = fns32["splits"]
+    splits, lopt32 = fns32["splits"], fns32["optimizer"]
+    shared = get_shared()
 
     def block(i, x):
         return shd.block_of(x, splits[i], mesh)
-
-    def peak_now():
-        return torch.cuda.max_memory_allocated() if on_card else 0
 
     st = fns32["place_state"](TrainState(shared["params"], shared["opt_state"]))
     if on_card:
         torch.cuda.reset_peak_memory_stats()
     _, _, grads = fns32["grads"](st, batches[TP_STEPS])
     grads, grad_peak = tree_leaves(grads), peak_now()
-    parity = hot_step_parity(path, model32, fns32["optimizer"], st, None,
-                             dev="cuda" if on_card else "cpu", grads=grads)
+    parity = (hot_step_parity(path, model32, lopt32, st, None, dev="cuda" if on_card else "cpu",
+                              grads=grads, zero_axes=rows) if native else [])
     if on_card:  # each step's peak: its gradients', then its update's
         torch.cuda.reset_peak_memory_stats()
     # on a copy of the gradients: an update may scale its own in place
-    mine, _, _ = fns32["optimizer"].update(tree_unflatten(st.params, [g.clone() for g in grads]),
-                                           st.opt_state, st.params, refresh=False, apply=True)
+    mine, mst, _ = lopt32.update(tree_unflatten(st.params, [g.clone() for g in grads]),
+                                 st.opt_state, st.params, refresh=False, apply=True,
+                                 shard_axes=rows)
     peak32 = {"hot": max(grad_peak, peak_now())}
     mine = tree_leaves(mine)
+    noise = [p_ in NOISE_LEAVES for p_, _ in flatten_with_path(shared["params"])]
+    want = [block(i, x) for i, x in enumerate(shared["hot"])]
     hot = _blocks_within(f"{path} rank {rank}: the f32 hot step from the single-process state",
-                         mine, [block(i, x) for i, x in enumerate(shared["hot"])])
+                         [x for x, z in zip(mine, noise) if not z],
+                         [x for x, z in zip(want, noise) if not z])
+    if any(noise):
+        hot["noise_leaves"] = _blocks_within(
+            f"{path} rank {rank}: the f32 hot step's zero-gradient leaves",
+            [x for x, z in zip(mine, noise) if z], [x for x, z in zip(want, noise) if z],
+            dict(atol=opt_kw["lr"], share=0.0, cap=opt_kw["lr"]))["max_abs_err"]
+    del want
+    out = {}
+    if "hot_state" in shared:
+        if zero:
+            mst = mst._replace(buckets=buckets_lib.zero_unpad_states(
+                lopt32.state_layout, buckets_lib.zero_gather_states(
+                    mst.buckets, rows, lopt32.state_layout)))
+        out["codes"] = _codes_within(f"{path} rank {rank}", canonical_opt_state(lopt32, mst),
+                                     canonical_opt_state(lopt32, tp_local_opt_state(
+                                         lopt32, shared["hot_state"])))
+    del mst
+    if zero:
+        # the replicated FSDP step from the same state and gradients
+        ropt = make_optimizer(optimizer, shared["params"], lr_schedule=sched,
+                              **{k: v for k, v in opt_kw.items()
+                                 if k not in ("state_sharding", "state_shards")})
+        rfns = make_train_step(model32, ropt, mesh=mesh, train_cfg=tc)
+        rst = rfns["place_state"](TrainState(shared["params"], shared["opt_state"]))
+        out.update(zero_state_bytes=state_bytes,
+                   replicated_state_bytes=state_memory_bytes(rst.opt_state))
+        rep, _, _ = rfns["optimizer"].update(tree_unflatten(rst.params, [g.clone() for g in grads]),
+                                            rst.opt_state, rst.params, refresh=False, apply=True)
+        out["zero_vs_replicated"] = max(float((a - b).abs().max())
+                                        for a, b in zip(mine, tree_leaves(rep)))
+        if out["zero_vs_replicated"] > DP_ZERO_TOL:
+            raise AssertionError(f"{path} rank {rank}: the ZeRO hot step "
+                                 f"{out['zero_vs_replicated']} from the replicated one")
+        if not out["zero_state_bytes"] < out["replicated_state_bytes"]:
+            raise AssertionError(f"{path} rank {rank}: ZeRO holds {state_bytes} state bytes, "
+                                 f"replicated {out['replicated_state_bytes']}")
+        del rep, rst, rfns, ropt
     del mine, st, fns32
-    ropt = make_train_step(model32, _tp_refresh_optimizer(shared["params"], opt_kw), mesh=mesh,
-                           train_cfg=tc)
+    ropt = make_train_step(model32, _tp_refresh_optimizer(shared["params"], opt_kw, optimizer),
+                           mesh=mesh, train_cfg=tc)
     st = ropt["place_state"](TrainState(shared["params"], shared["opt_state"]))
     if on_card:
         torch.cuda.reset_peak_memory_stats()
-    out, _, _ = ropt["optimizer"].update(tree_unflatten(st.params, grads), st.opt_state,
-                                         st.params, refresh=True, apply=True)
+    res, _, _ = ropt["optimizer"].update(tree_unflatten(st.params, grads), st.opt_state,
+                                         st.params, refresh=True, apply=True, shard_axes=rows)
     peak32["refresh"] = max(grad_peak, peak_now())
     del st, grads, ropt
-    mine = tree_leaves(out)
-    del out
+    mine = tree_leaves(res)
+    del res
     want, paths = shared["refreshed"], [p for p, _ in flatten_with_path(shared["params"])]
     low = sorted(want)
     refreshed = _steps_within(
@@ -4465,20 +4708,21 @@ def _tp_dense(rank: int, devname: str, mesh, shared, cpu_cfg, seq: int, batch: i
         [mine[i] for i in low], [block(i, want[i]) for i in low],
         [block(i, x) for i, x in enumerate(tree_leaves(shared["params"])) if i in low],
         [paths[i] for i in low])
-    del mine
+    del mine, shared
     log(f"{path} rank {rank}: from the single-process state in f32, against one process: "
-        f"hot step {hot}, refresh step (low-rank leaves) {refreshed}; max_memory_allocated "
-        f"{ {k: round(v / 2**30, 2) for k, v in peak32.items()} } GiB")
+        f"hot step {hot}, refresh step (largest) {max(r['rel'] for r in refreshed)}, {out}; "
+        f"max_memory_allocated { {k: round(v / 2**30, 2) for k, v in peak32.items()} } GiB")
     mesh_lib.barrier(mesh)
     if on_card:
         torch.cuda.empty_cache()
-    return {"plan": plan, "losses": losses, "ms": ms, "max_memory_allocated": peak,
-            "grad_norm0": grad_norm0, "head_tp": head_tp,
-            "peaks": peaks, "peaks_f32": peak32,
-            "launches": launches, "expected": expect, "per_step": per_step,
-            "hot_bytes": got[1:], "refresh_bytes": got[0], "hot_bytes_formula": want_bytes,
-            "parity": parity, "power_iter_cases": power, "hot_from_same_state": hot,
-            "refresh_from_same_state": refreshed}
+    return dict(out, arch=cfg.arch_id, plan=plan, losses=losses, ms=ms,
+                max_memory_allocated=max(peaks),
+                grad_norm0=grad_norm0, head_tp=head_tp, peaks=peaks, peaks_f32=peak32,
+                state_bytes=state_bytes, launches=launches, expected=expect,
+                per_step=per_step, hot_bytes=got[1:], refresh_bytes=got[0],
+                hot_bytes_formula=want_bytes, parity=parity,
+                power_iter_cases=power, hot_from_same_state=hot,
+                refresh_from_same_state=refreshed)
 
 
 def _tp_moe(rank: int, devname: str, mesh, cfg, seq: int, batch: int, opt_kw,
@@ -4636,12 +4880,12 @@ def _tp_worker(rank: int, world: int, out_dir: str, dev: str, shared, dense, moe
     try:
         mesh = mesh_lib.make_mesh((1, world))
         log(f"train_tp rank {rank}: gloo group up, mesh {mesh.shape} on {devname}")
-        out = {"rank": rank, "dense": _tp_dense(rank, devname, mesh, shared, *dense)}
+        out = {"rank": rank, "dense": _tp_dense(rank, devname, mesh, lambda: shared, *dense)}
         out["moe"] = _tp_moe(rank, devname, mesh, *moe)
         # the same processes as FSDP over data (paths train_fsdp, train_fsdp_moe)
         t = time.perf_counter()
         fsdp_mesh = mesh_lib.make_mesh((world, 1))
-        out["fsdp"] = _tp_dense(rank, devname, fsdp_mesh, shared, *dense, fsdp=True)
+        out["fsdp"] = _tp_dense(rank, devname, fsdp_mesh, lambda: shared, *dense, fsdp=True)
         out["fsdp_moe"] = _tp_moe(rank, devname, fsdp_mesh, *moe, fsdp=True)
         out["fsdp_s"] = time.perf_counter() - t
         (Path(out_dir) / f"rank{rank}.json").write_text(json.dumps(out, default=str))
@@ -4675,17 +4919,20 @@ def _ipc_tree(x, on_card: bool):
             torch.cuda.memory._set_allocator_settings("expandable_segments:True")
 
 
-def _one_process_ref(cfg, seq: int, batch: int, opt_kw, dev: str, yardstick: bool = False):
+def _one_process_ref(cfg, seq: int, batch: int, opt_kw, dev: str, yardstick: bool = False,
+                     optimizer: str = "galore-sara-adam", hot_state: bool = False):
     """The single-process run of ``TP_STEPS`` steps of ``cfg``'s model
-    (``train_tp``'s and ``train_tp_families``' reference), then from its
-    state after step 1 the params of one f32 hot step and of one f32
-    refresh step: (``shared``, shared with the ranks by CUDA IPC on the
-    card; the run's losses, ms and peaks).  ``yardstick``: also one process
-    against itself, the same refresh step with its gradient summed in two
+    (``train_tp``'s, ``train_tp_families``' and ``train_tp_inners``'
+    reference) under ``optimizer``, then from its state after step 1 the
+    params of one f32 hot step and of one f32 refresh step: (``shared``,
+    shared with the ranks by CUDA IPC on the card; the run's losses, ms
+    and peaks).  ``hot_state``: ``shared["hot_state"]``, the canonical
+    optimizer state after the f32 hot step, too.  ``yardstick``: also one process against
+    itself, the same refresh step with its gradient summed in two
     microbatches, read as the ranks' steps are (``_steps_within``)."""
     from repro_torch.configs.base import TrainConfig
     from repro_torch.core import make_optimizer
-    from repro_torch.core.lowrank import tree_leaves
+    from repro_torch.core.lowrank import canonical_opt_state, tree_leaves
     from repro_torch.core.schedules import cosine_with_warmup
     from repro_torch.data.synthetic import SyntheticDataConfig, SyntheticDataset
     from repro_torch.models import build_model
@@ -4699,7 +4946,7 @@ def _one_process_ref(cfg, seq: int, batch: int, opt_kw, dev: str, yardstick: boo
     if cfg.family in ("vlm", "audio"):
         data = PrefixData(data, cfg, dev)
     params = model.init(torch.Generator(device=dev).manual_seed(SEED))
-    opt = make_optimizer("galore-sara-adam", params, lr_schedule=cosine_with_warmup(
+    opt = make_optimizer(optimizer, params, lr_schedule=cosine_with_warmup(
         opt_kw["lr"], TRAIN_WARMUP, TP_STEPS), **opt_kw)
     tc = TrainConfig(total_steps=TP_STEPS, seed=SEED)
     fns = make_train_step(model, opt, train_cfg=tc)
@@ -4729,8 +4976,10 @@ def _one_process_ref(cfg, seq: int, batch: int, opt_kw, dev: str, yardstick: boo
     st = TrainState(shared["params"], shared["opt_state"])
     one, _ = make_train_step(model32, opt, train_cfg=tc)["step"](st, data.batch_at(TP_STEPS))
     shared["hot"] = _ipc_tree(tree_leaves(one.params), on_card)
+    if hot_state:
+        shared["hot_state"] = _ipc_tree(canonical_opt_state(opt, one.opt_state), on_card)
     del one
-    one, _ = make_train_step(model32, _tp_refresh_optimizer(shared["params"], opt_kw),
+    one, _ = make_train_step(model32, _tp_refresh_optimizer(shared["params"], opt_kw, optimizer),
                              train_cfg=tc)["refresh_step"](st, data.batch_at(TP_STEPS))
     shared["refreshed"] = _ipc_tree({i: x for i, x in enumerate(tree_leaves(one.params))
                                      if opt.specs[i].lowrank}, on_card)
@@ -4943,12 +5192,15 @@ def tpf_run(fam: str):
     return cut_depth(get_config(arch), TPF_LAYERS).with_(**extra), seq, batch, dict(rank=rank)
 
 
-def _tpf_worker(rank: int, world: int, out_dir: str, dev: str, inbox, outbox) -> None:
-    """One process of ``train_tp_families``: for each (family, run, shared
-    state) from ``inbox`` until None, the family's tensor-parallel path on a
-    (1, world) mesh and its FSDP path on a (world, 1) mesh of one gloo
-    group (``_tp_dense``), its summary to ``outbox`` (or the failure, then
-    it exits)."""
+def _world_worker(rank: int, world: int, out_dir: str, dev: str, run_ranks, inbox,
+                  outbox) -> None:
+    """One of the ``TP_WORLD`` processes of a two-rank phase
+    (``_world_main``): a gloo group, the meshes (1, world) ("tp") and (world,
+    1) ("fsdp") on it, then for each (label, spec) from ``inbox`` until None,
+    ``run_ranks(rank, devname, meshes, get_shared, label, spec)`` ({path:
+    summary}) to ``outbox``, or the failure (then it exits).  The item's
+    shared state follows it on ``inbox`` once the parent has made it:
+    ``get_shared()`` waits for it."""
     from datetime import timedelta
 
     import torch.distributed as dist
@@ -4958,7 +5210,7 @@ def _tpf_worker(rank: int, world: int, out_dir: str, dev: str, inbox, outbox) ->
     from repro_torch.launch import mesh as mesh_lib
 
     if dev == "cuda":
-        torch.cuda.set_device(0)
+        torch.cuda.set_device(0)  # every rank on the one card
         resolve_device("cuda")
         devname = "cuda:0"
     else:
@@ -4973,35 +5225,40 @@ def _tpf_worker(rank: int, world: int, out_dir: str, dev: str, inbox, outbox) ->
             item = inbox.get()
             if item is None:
                 break
-            fam, (cfg, seq, batch, opt_kw), shared = item
-            out = {}
+            label, spec = item
+            held = []
+
+            def get_shared():
+                if not held:
+                    held.append(inbox.get())
+                return held[0]
+
             try:
-                for kind in TPF_RUNS[fam][2]:
-                    mesh = meshes[kind]
-                    t = time.perf_counter()
-                    out[kind] = _tp_dense(rank, devname, mesh, shared, cfg, seq, batch,
-                                          fsdp=kind == "fsdp", opt_kw=opt_kw,
-                                          path=f"train_{kind}_{fam}")
-                    out[kind]["seconds"] = time.perf_counter() - t
+                out = run_ranks(rank, devname, meshes, get_shared, label, spec)
+                get_shared()  # taken off the inbox where the run did not need it
             except BaseException as e:
-                outbox.put((rank, fam, None, f"{type(e).__name__}: {e}"))
+                outbox.put((rank, label, None, f"{type(e).__name__}: {e}"))
                 raise
             finally:
-                del shared, item
+                del held, item
                 if dev == "cuda":
                     torch.cuda.empty_cache()
-            outbox.put((rank, fam, json.dumps(out, default=str), None))
+            outbox.put((rank, label, json.dumps(out, default=str), None))
     finally:
         dist.destroy_process_group()
 
 
-def _tpf_main(out_json: str, dev: str, runs) -> None:
-    """The process that ``train_tp_families`` spawns: ``TP_WORLD``
-    processes (``_tpf_worker``), then for each family of ``runs`` ({family:
-    (config, seq, batch, optimizer overrides)}) the single-process
-    reference (``_one_process_ref``) shared with them, their summaries
-    collected; everything to ``out_json``.  Fails if a rank fails or a
-    family outlives ``TP_TIMEOUT_S``."""
+def _world_main(out_json: str, dev: str, phase: str, run_ranks, reference, items) -> None:
+    """The process that ``run_world`` spawns: ``TP_WORLD`` processes
+    (``_world_worker``), then for each (label, spec) of ``items`` the ranks
+    get the item, this process makes its single-process reference
+    (``reference(label, spec, dev)`` -> (shared, ref)) and hands them the
+    shared state (CUDA IPC on the card), and while they finish it, the
+    next item's; their summaries and the references go to ``out_json``.  A
+    process of its own, so that everything it shared is freed when it ends
+    (CUDA IPC keeps a producer's shared memory until its consumers'
+    references are counted down, which exiting consumers do not reliably
+    do).  Fails if a rank fails or an item outlives ``TP_TIMEOUT_S``."""
     import queue
 
     sys.path.insert(0, str(ROOT / "src"))
@@ -5013,39 +5270,37 @@ def _tpf_main(out_json: str, dev: str, runs) -> None:
         resolve_device("cuda")
     else:
         torch.set_num_threads(1)
-    out_dir = fresh_dir("train_tp_families")
+        _count_plain_dispatch()  # a reference may count its launches
+    out_dir = fresh_dir(phase)
     out_dir.mkdir()
     ctx = torch.multiprocessing.get_context("spawn")
     inboxes, outbox = [ctx.Queue() for _ in range(TP_WORLD)], ctx.Queue()
-    procs = [ctx.Process(target=_tpf_worker, args=(r, TP_WORLD, str(out_dir),
-                                                   "cuda" if on_card else "cpu", inboxes[r],
-                                                   outbox))
+    procs = [ctx.Process(target=_world_worker,
+                         args=(r, TP_WORLD, str(out_dir), "cuda" if on_card else "cpu", run_ranks,
+                               inboxes[r], outbox))
              for r in range(TP_WORLD)]
     for p in procs:
         p.start()
     got = {}
 
-    def reference(fam):
-        cfg, seq, batch, extra = runs[fam]
-        opt_kw = dict(TRAIN_OPT, **extra) if on_card else dict(TRAIN_OPT, rank=8,
-                                                                svd_oversample=4)
+    def start(label, spec):
+        for box in inboxes:
+            box.put((label, spec))
         t = time.perf_counter()
-        shared, ref = _one_process_ref(cfg, seq, batch, opt_kw, dev)
+        shared, ref = reference(label, spec, dev)
         ref["seconds"] = time.perf_counter() - t
-        log(f"train_tp_families {fam}: the single-process run, losses {ref['losses']}, "
-            f"{ref['ms']} ms, {ref['seconds']:.1f} s")
-        return (cfg, seq, batch, opt_kw), shared, ref
+        log(f"{phase} {label}: the single-process run, losses {ref['losses']}, "
+            f"{ref['seconds']:.1f} s")
+        for box in inboxes:
+            box.put(shared)
+        return shared, ref
 
     try:
-        fams = list(runs)
-        nxt = reference(fams[0])
-        for i, fam in enumerate(fams):
-            run, shared, ref = nxt
-            for box in inboxes:
-                box.put((fam, run, shared))
-            # the next family's reference while the ranks run this one (the
-            # ranks wait on gloo's host staging most of the time)
-            nxt = reference(fams[i + 1]) if i + 1 < len(fams) else None
+        nxt = start(*items[0])
+        for i, (label, _) in enumerate(items):
+            shared, ref = nxt
+            # the next item's reference while the ranks finish this one
+            nxt = start(*items[i + 1]) if i + 1 < len(items) else None
             ranks = {}
             deadline = time.monotonic() + TP_TIMEOUT_S
             while len(ranks) < TP_WORLD:
@@ -5054,16 +5309,16 @@ def _tpf_main(out_json: str, dev: str, runs) -> None:
                 except queue.Empty:
                     if time.monotonic() > deadline or not all(p.is_alive() for p in procs):
                         raise AssertionError(
-                            f"train_tp_families {fam}: ranks ended with "
+                            f"{phase} {label}: ranks ended with "
                             f"{[p.exitcode for p in procs]} or outlived {TP_TIMEOUT_S} s")
                     continue
                 if err is not None:
-                    raise AssertionError(f"train_tp_families {f} rank {r}: {err}")
+                    raise AssertionError(f"{phase} {f} rank {r}: {err}")
                 ranks[r] = json.loads(summary)
-            del shared, run
+            del shared
             if on_card:
                 torch.cuda.empty_cache()
-            got[fam] = {"ref": ref, "ranks": [ranks[r] for r in range(TP_WORLD)]}
+            got[label] = {"ref": ref, "ranks": [ranks[r] for r in range(TP_WORLD)]}
         for box in inboxes:
             box.put(None)
         for p in procs:
@@ -5077,59 +5332,331 @@ def _tpf_main(out_json: str, dev: str, runs) -> None:
     Path(out_json).write_text(json.dumps(got, default=str))
 
 
-def train_tp_families(smi: str, dev: str = "cuda", runs=None):
-    """Phase 5e (paths ``train_tp_<family>`` and ``train_fsdp_<family>``, see
-    the constants): ``_tpf_main`` in a process of its own, then the checks
-    across its ranks.  Returns {path: run}.  ``runs`` overrides the
-    families' (config, seq, batch, optimizer overrides) for a CPU
-    rehearsal (its keys those of ``TPF_RUNS``, whose meshes they take)."""
-    runs = runs or {fam: tpf_run(fam) for fam in TPF_RUNS}
-    out_json = fresh_dir("train_tp_families.json")
+def run_world(phase: str, run_ranks, reference, items, dev: str = "cuda"):
+    """A two-rank phase (``train_tp_families``, ``train_tp_inners``):
+    ``_world_main`` in a process of its own, then the checks every path
+    takes -- each path's losses within ``TP_LOSS_GAP`` of its item's
+    single-process run, and the same on every rank.  Returns {path: (its
+    item's reference, [each rank's summary], loss gaps)}."""
+    out_json = fresh_dir(f"{phase}.json")
     proc = torch.multiprocessing.get_context("spawn").Process(
-        target=_tpf_main, args=(str(out_json), dev, runs))
+        target=_world_main, args=(str(out_json), dev, phase, run_ranks, reference, items))
     proc.start()
-    proc.join(len(runs) * TP_TIMEOUT_S + 120)
+    proc.join(len(items) * TP_TIMEOUT_S + 120)
     if proc.is_alive():
         proc.kill()
         proc.join()
-        raise AssertionError("train_tp_families: the phase's process was killed at its limit")
+        raise AssertionError(f"{phase}: the phase's process was killed at its limit")
     if proc.exitcode:
-        raise AssertionError(f"train_tp_families: the phase's process ended with "
-                             f"{proc.exitcode}")
+        raise AssertionError(f"{phase}: the phase's process ended with {proc.exitcode}")
     got = json.loads(out_json.read_text())
     out_json.unlink()
-    gib = lambda x: round(x / 2**30, 2)  # noqa: E731
     out = {}
-    for fam, res in got.items():
-        ref, ranks = res["ref"], res["ranks"]
-        for kind in TPF_RUNS[fam][2]:
-            path = f"train_{kind}_{fam}"
-            head = ranks[0][kind]
-            gaps = [abs(a - b) for a, b in zip(head["losses"], ref["losses"])]
+    for res in got.values():
+        ref = res["ref"]
+        for path in res["ranks"][0]:
+            ranks = [r[path] for r in res["ranks"]]
+            gaps = [abs(a - b) for a, b in zip(ranks[0]["losses"], ref["losses"])]
             if max(gaps) > TP_LOSS_GAP:
-                raise AssertionError(f"{path}: losses {head['losses']} against the "
+                raise AssertionError(f"{path}: losses {ranks[0]['losses']} against the "
                                      f"single-process {ref['losses']}: gaps {gaps}")
-            if any(r[kind]["losses"] != head["losses"] for r in ranks[1:]):
+            if any(r["losses"] != ranks[0]["losses"] for r in ranks[1:]):
                 raise AssertionError(f"{path}: the processes' losses differ "
-                                     f"{[r[kind]['losses'] for r in ranks]}")
-            log(f"{path} ({smi}; {TP_WORLD} processes sharing one card over gloo, so the "
-                f"times are not a parallel speed): {runs[fam][0].arch_id}, {head['seconds']:.1f} "
-                f"s; loss gaps {gaps}; step ms per rank {[r[kind]['ms'] for r in ranks]} "
-                f"against one process's {ref['ms']}; hot-step bytes {head['hot_bytes']} "
-                f"(formula {head['hot_bytes_formula']}); max_memory_allocated per step per "
-                f"rank {[[gib(x) for x in r[kind]['peaks']] for r in ranks]} GiB against one "
-                f"process's {[gib(x) for x in ref['peaks']]}; f32 from one state: hot "
-                f"{[r[kind]['hot_from_same_state'] for r in ranks]}, refresh (largest) "
-                f"{[max(b['rel'] for b in r[kind]['refresh_from_same_state']) for r in ranks]}")
-            out[path] = {"launches": head["launches"], "loss_gaps": gaps, "card": smi,
-                         "seconds": head["seconds"], "ref_ms": ref["ms"],
-                         "ref_peaks": ref["peaks"], "ref_seconds": ref["seconds"],
-                         "ranks": [r[kind] for r in ranks]}
+                                     f"{[r['losses'] for r in ranks]}")
+            out[path] = (ref, ranks, gaps)
     return out
 
 
+def _tpf_opt_kw(extra: dict, on_card: bool) -> dict:
+    """A family's optimizer keywords (the CPU rehearsal's rank 8)."""
+    return dict(TRAIN_OPT, **extra) if on_card else dict(TRAIN_OPT, rank=8, svd_oversample=4)
+
+
+def _tpf_ranks(rank: int, devname: str, meshes, get_shared, fam: str, run) -> dict:
+    """One process's run of a family of ``train_tp_families`` (``run_world``'s
+    ``run_ranks``): its paths on their meshes through ``_tp_dense``.  The
+    shared state is awaited first, so that a family's single-process run
+    (llava's peaks at ~43 GiB) never shares the card with its ranks' steps
+    (~21 GiB each)."""
+    cfg, seq, batch, extra = run
+    opt_kw = _tpf_opt_kw(extra, torch.device(devname).type == "cuda")
+    shared = get_shared()
+    out = {}
+    for kind in TPF_RUNS[fam][2]:
+        path = f"train_{kind}_{fam}"
+        t = time.perf_counter()
+        out[path] = _tp_dense(rank, devname, meshes[kind], lambda: shared, cfg, seq, batch,
+                              fsdp=kind == "fsdp", opt_kw=opt_kw, path=path)
+        out[path]["seconds"] = time.perf_counter() - t
+    return out
+
+
+def _tpf_reference(fam: str, run, dev: str):
+    """A family's single-process reference (``run_world``'s ``reference``)."""
+    cfg, seq, batch, extra = run
+    return _one_process_ref(cfg, seq, batch, _tpf_opt_kw(extra, torch.device(dev).type == "cuda"),
+                            dev)
+
+
+def train_tp_families(smi: str, dev: str = "cuda", runs=None):
+    """Phase 5e (paths ``train_tp_<family>`` and ``train_fsdp_<family>``, see
+    the constants) through ``run_world``.  Returns {path: run}.  ``runs``
+    overrides the families' (config, seq, batch, optimizer overrides) for a
+    CPU rehearsal (its keys those of ``TPF_RUNS``, whose meshes they
+    take)."""
+    runs = runs or {fam: tpf_run(fam) for fam in TPF_RUNS}
+    got = run_world("train_tp_families", _tpf_ranks, _tpf_reference, list(runs.items()), dev)
+    gib = lambda x: round(x / 2**30, 2)  # noqa: E731
+    out = {}
+    for path, (ref, ranks, gaps) in got.items():
+        head = ranks[0]
+        log(f"{path} ({smi}; {TP_WORLD} processes sharing one card over gloo, so the "
+            f"times are not a parallel speed): {head['arch']}, {head['seconds']:.1f} "
+            f"s; loss gaps {gaps}; step ms per rank {[r['ms'] for r in ranks]} "
+            f"against one process's {ref['ms']}; hot-step bytes {head['hot_bytes']} "
+            f"(formula {head['hot_bytes_formula']}); max_memory_allocated per step per "
+            f"rank {[[gib(x) for x in r['peaks']] for r in ranks]} GiB against one "
+            f"process's {[gib(x) for x in ref['peaks']]}; f32 from one state: hot "
+            f"{[r['hot_from_same_state'] for r in ranks]}, refresh (largest) "
+            f"{[max(b['rel'] for b in r['refresh_from_same_state']) for r in ranks]}")
+        out[path] = {"launches": head["launches"], "loss_gaps": gaps, "card": smi,
+                     "seconds": head["seconds"], "ref_ms": ref["ms"],
+                     "ref_peaks": ref["peaks"], "ref_seconds": ref["seconds"],
+                     "ranks": ranks}
+    return out
+
+# Phase 5f, ``train_tp_inners``: every optimizer under tensor parallelism
+# and ZeRO state on the FSDP step, on qwen2-1.5b at full width (d_model
+# 1536, 12 heads over 2 KV heads of 128, d_ff 8960, vocab 151936) cut to
+# TPI_LAYERS, seq 512, batch 8, rank 384 (the launcher's default at this
+# width), bf16 compute.  Its d_ff's blocks of 4480 at a model extent of 2
+# end 128 columns into 8-bit chunk 17 (llama3-8b's 7168 = 28 * 256 cut
+# none), its 2 KV heads leave one to a process, and at 1 layer it holds
+# ~0.5 B params.  Two processes share the card over gloo, one world for
+# every path: on the (1, 2) mesh the eight optimizers of ``TPI_RUNS``'
+# "tp" paths (each 3 steps, then from the single-process state after step
+# 1 one f32 gradient pass, an f32 hot step and an f32 refresh step under
+# ``TP_REFRESH_CARRY``, as ``_tp_dense``) and ``train_tp_loop`` (the loop
+# under a rank schedule 384 -> 192 with the spectrum logger and
+# ``track_subspace``, f32, one re-bucket); on the (2, 1) mesh the "fsdp"
+# paths with ZeRO state over data, each also held against the replicated
+# FSDP step from the same state (``DP_ZERO_TOL``) with both steps' state
+# bytes per process.  The process that spawns the world makes each path's
+# single-process reference while the ranks run the one before.
+TPI_ARCH = "qwen2-1.5b"
+TPI_LAYERS = 1
+TPI_RANK = 384
+TPI_ZERO = dict(state_sharding="zero", state_shards=TP_WORLD)
+# path: (optimizer, TRAIN_OPT overrides, mesh kind)
+TPI_RUNS = {
+    "train_tp_adam_mini": ("galore-sara-adam-mini", {}, "tp"),
+    "train_tp_adam8bit": ("galore-sara-adam8bit", {}, "tp"),
+    "train_tp_golore": ("golore-adam", {}, "tp"),
+    "train_tp_grass": ("grass-adam", {}, "tp"),
+    "train_tp_online_pca": ("online-pca-adam", {}, "tp"),
+    "train_tp_fira": ("fira-sara-adam", {}, "tp"),
+    "train_tp_adafactor": ("galore-sara-adafactor", {}, "tp"),
+    "train_tp_adam_reference": ("galore-sara-adam", {"engine": "reference"}, "tp"),
+    "train_fsdp_zero": ("galore-sara-adam", TPI_ZERO, "fsdp"),
+    "train_fsdp_zero_adam8bit": ("galore-sara-adam8bit", TPI_ZERO, "fsdp"),
+}
+TPI_LOOP = "train_tp_loop"
+TPI_SCHEDULE = f"step:{TPI_RANK}:{TPI_RANK // 2}@0.5"
+TPI_LOOP_STEPS = 5  # refreshes at 0, 2 (then the re-bucket) and 4, at tau 2
+# the loop's spectrum records against one process's (f32 both), and its
+# overlaps: SARA picks among the small singular vectors, which the card's
+# f32 SVD moves with the rounding of its input, and one of the r sampled
+# columns picked apart moves an overlap ||P1^T P2||^2 / r by up to 2 / r
+# (1e-3 relative failed: 4.4e-4, 5.2e-4 and 5.5e-4 apart in three runs on
+# an H100, NVIDIA H100 80GB HBM3 at 700 W, none a column apart)
+TPI_RECORD_RTOL = 1e-3
+TPI_OVERLAP_ATOL = 2.0 / (TPI_RANK // 2)
+for _path, (_name, _kw, _) in TPI_RUNS.items():
+    _inner = next(i for i in ("adam8bit", "adam-mini", "adafactor") if i in _name) \
+        if any(i in _name for i in ("adam8bit", "adam-mini", "adafactor")) else "adam"
+    _leaf = _kw.get("engine") == "reference" or "fira" in _name or _inner == "adafactor"
+    PATH_KERNELS[_path] = _MODEL_KERNELS + (() if _leaf else (
+        "galore_project_batched", UPDATE_KERNEL[_inner.replace("-", "_")])) + (
+        ("power_iter_batched",) if "online-pca" in _name else ())
+PATH_KERNELS[TPI_LOOP] = _TRAIN_COMMON + (UPDATE_KERNEL["adam"],)
+
+
+def tpi_cfg():
+    from repro_torch.configs.registry import get_config
+
+    return cut_depth(get_config(TPI_ARCH), TPI_LAYERS)
+
+
+def _tpi_opt_kw(path: str, on_card: bool) -> dict:
+    """A path's optimizer keywords (the CPU rehearsal's rank 8)."""
+    extra = TPI_RUNS[path][1] if path in TPI_RUNS else {}
+    return dict(TRAIN_OPT, rank=TPI_RANK if on_card else 8, **extra,
+                **({} if on_card else dict(svd_oversample=4)))
+
+
+def _tpi_loop(rank: int, devname: str, mesh, cfg, seq: int, batch: int):
+    """``train_loop`` of ``galore-sara-adam`` under ``TPI_SCHEDULE`` with
+    the spectrum logger and ``track_subspace`` (f32), on ``mesh`` (one
+    process where None): losses, the history's events, the tracker's
+    summary, the ranks, and the launches of each geometry (the counters
+    snapshotted in the re-bucket)."""
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.core import make_optimizer
+    from repro_torch.core.lowrank import tree_leaves
+    from repro_torch.core.schedules import cosine_with_warmup
+    from repro_torch.data.synthetic import SyntheticDataConfig, SyntheticDataset
+    from repro_torch.kernels import counters
+    from repro_torch.models import build_model
+    from repro_torch.train.loop import train_loop
+    from repro_torch.train.step import make_train_step
+
+    on_card = torch.device(devname).type == "cuda"
+    cfg32 = cfg.with_(dtype=torch.float32)
+    model = build_model(cfg32, device=devname)
+    data = SyntheticDataset(SyntheticDataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
+                                                global_batch=batch), device=devname)
+    ck = fresh_dir(f"train_tp_loop_{rank if mesh is not None else 'one'}")
+    tc = TrainConfig(total_steps=TPI_LOOP_STEPS, seed=SEED, checkpoint_every=0,
+                     checkpoint_dir=str(ck), log_spectrum=True)
+    params = model.init(torch.Generator(device=devname).manual_seed(SEED))
+    shapes = [tuple(p.shape) for p in tree_leaves(params)]
+    kw = dict(_tpi_opt_kw(TPI_LOOP, on_card), tau=2,
+              rank_schedule=TPI_SCHEDULE if on_card else "step:16:8@0.5")
+    if not on_card:
+        kw["rank"] = 16
+    opt = make_optimizer("galore-sara-adam", params, lr_schedule=cosine_with_warmup(
+        kw["lr"], TRAIN_WARMUP, TPI_LOOP_STEPS), **kw)
+    del params
+    fns = make_train_step(model, opt, mesh=mesh, train_cfg=tc)
+    geometries = []  # (local optimizer, launches before the re-bucket)
+
+    def hooked(f):
+        def rebuild(new_opt):
+            geometries.append((f["optimizer"], counters.snapshot()))
+            counters.reset()
+            return hooked(f["rebuild"](new_opt))
+        return dict(f, rebuild=rebuild)
+
+    counters.reset()
+    t = time.perf_counter()
+    res = train_loop(model, opt, data, tc, hooked(fns), log_every=1, handle_signals=False,
+                     track_subspace=True)
+    seconds = time.perf_counter() - t
+    geometries.append((make_train_step(model, res.optimizer, mesh=mesh)["optimizer"],
+                       counters.snapshot()))
+    shutil.rmtree(ck, ignore_errors=True)
+    if len(geometries) != 2:
+        raise AssertionError(f"{TPI_LOOP}: {len(geometries) - 1} re-buckets, not one")
+    # steps 0-2 at the first rank (refreshes 0 and 2), 3-4 at the second
+    # (the refresh at 4)
+    (o1, l1), (o2, l2) = geometries
+    want = [_train_expect(cfg, o1, 3, shapes, refreshes=2), _train_expect(cfg, o2, 2, shapes)]
+    if [l1, l2] != want:
+        raise AssertionError(f"{TPI_LOOP} rank {rank}: launches per geometry {[l1, l2]} != "
+                             f"{want}")
+    launches = {k: l1.get(k, 0) + l2.get(k, 0) for k in set(l1) | set(l2)}
+    events = [{k: v for k, v in r.items() if k != "path"} for r in res.history if "event" in r]
+    return {"losses": res.losses, "events": events, "subspace": res.subspace.summary(),
+            "ranks": [o1.config.rank, o2.config.rank], "launches": launches,
+            "launches_by_geometry": [l1, l2], "seconds": seconds,
+            "peak": torch.cuda.max_memory_allocated() if on_card else 0}
+
+
+def _tpi_ranks(rank: int, devname: str, meshes, get_shared, path: str, run) -> dict:
+    """One process's run of a path of ``train_tp_inners`` (``run_world``'s
+    ``run_ranks``): the loop, or ``_tp_dense`` with the path's optimizer,
+    whose steps run while the parent makes the reference."""
+    cfg, seq, batch = run
+    t = time.perf_counter()
+    if path == TPI_LOOP:
+        out = _tpi_loop(rank, devname, meshes["tp"], cfg, seq, batch)
+    else:
+        name, _, kind = TPI_RUNS[path]
+        out = _tp_dense(rank, devname, meshes[kind], get_shared, cfg, seq, batch,
+                        fsdp=kind == "fsdp", path=path, optimizer=name,
+                        opt_kw=_tpi_opt_kw(path, torch.device(devname).type == "cuda"))
+    out["seconds"] = time.perf_counter() - t
+    return {path: out}
+
+
+def _tpi_reference(path: str, run, dev: str):
+    """A path's single-process reference (``run_world``'s ``reference``):
+    the loop on one process (nothing shared), or ``_one_process_ref`` with
+    the path's optimizer (replicated state; 8-bit Adam's state after the
+    f32 hot step too)."""
+    cfg, seq, batch = run
+    if path == TPI_LOOP:
+        return None, _tpi_loop(0, dev, None, cfg, seq, batch)
+    name = TPI_RUNS[path][0]
+    opt_kw = {k: v for k, v in _tpi_opt_kw(path, torch.device(dev).type == "cuda").items()
+              if k not in TPI_ZERO}
+    return _one_process_ref(cfg, seq, batch, opt_kw, dev, optimizer=name,
+                            hot_state="adam8bit" in name)
+
+
+def _tpi_records_close(what: str, got, want, atol: float = 0.0) -> None:
+    """The loop's records (numbers, nested) within ``TPI_RECORD_RTOL`` of
+    one process's, or ``atol``, everything else equal."""
+    if isinstance(want, dict):
+        if set(got) != set(want):
+            raise AssertionError(f"{what}: keys {sorted(got)} != {sorted(want)}")
+        for k in want:
+            _tpi_records_close(f"{what}.{k}", got[k], want[k], atol)
+    elif isinstance(want, (list, tuple)):
+        if len(got) != len(want):
+            raise AssertionError(f"{what}: {len(got)} records, one process {len(want)}")
+        for i, (a, b) in enumerate(zip(got, want)):
+            _tpi_records_close(f"{what}[{i}]", a, b, atol)
+    elif isinstance(want, float):
+        if not abs(got - want) <= max(TPI_RECORD_RTOL * max(abs(want), 1e-6), atol):
+            raise AssertionError(f"{what}: {got} against one process's {want}")
+    elif got != want:
+        raise AssertionError(f"{what}: {got} != {want}")
+
+
+def train_tp_inners(smi: str, dev: str = "cuda", run=None):
+    """Phase 5f (paths of ``TPI_RUNS`` and ``TPI_LOOP``, see the constants)
+    through ``run_world``, then the loop's records against one process's.
+    Returns {path: run}.  ``run`` = (config, seq, batch) overrides
+    qwen2-1.5b's for a CPU rehearsal."""
+    run = run or (tpi_cfg(), TRAIN_SEQ, TRAIN_BATCH)
+    got = run_world("train_tp_inners", _tpi_ranks, _tpi_reference,
+                    [(path, run) for path in list(TPI_RUNS) + [TPI_LOOP]], dev)
+    gib = lambda x: round(x / 2**30, 3)  # noqa: E731
+    out = {}
+    for path, (ref, ranks, gaps) in got.items():
+        head = ranks[0]
+        if path == TPI_LOOP:
+            for r in ranks:
+                if r["ranks"] != ref["ranks"]:
+                    raise AssertionError(f"{path}: rank trajectory {r['ranks']} != {ref['ranks']}")
+                _tpi_records_close(f"{path} events", r["events"], ref["events"])
+                _tpi_records_close(f"{path} subspace", r["subspace"], ref["subspace"],
+                                   TPI_OVERLAP_ATOL)
+            log(f"{path} ({smi}): {head['seconds']:.1f} s; loss gaps {gaps}; ranks "
+                f"{head['ranks']}; events {head['events']}; subspace {head['subspace']} against "
+                f"one process's {ref['subspace']}; max_memory_allocated per rank "
+                f"{[gib(r['peak']) for r in ranks]} GiB against one process's "
+                f"{gib(ref['peak'])}")
+        else:
+            log(f"{path} ({smi}; {TP_WORLD} processes sharing one card over gloo): "
+                f"{head['seconds']:.1f} s; loss gaps {gaps}; step ms per rank "
+                f"{[r['ms'] for r in ranks]} against one process's {ref['ms']}; "
+                f"max_memory_allocated per step per rank {[[gib(x) for x in r['peaks']] for r in ranks]} "
+                f"GiB against one process's {[gib(x) for x in ref['peaks']]}; state bytes per "
+                f"rank {[r['state_bytes'] for r in ranks]}"
+                + (f" (ZeRO) against the replicated FSDP step's "
+                   f"{[r['replicated_state_bytes'] for r in ranks]}"
+                   if "replicated_state_bytes" in head else "")
+                + (f"; 8-bit codes {[r['codes'] for r in ranks]}" if "codes" in head else ""))
+        out[path] = {"launches": head["launches"], "loss_gaps": gaps, "card": smi,
+                     "seconds": head["seconds"], "ref": ref, "ranks": ranks}
+    return out
+
+
+
 PHASES = ("kernels", "serve", "train", "train_recovery", "train_rank_schedule", "resume",
-          "train_dp", "train_tp", "train_tp_families", "family_kernels", "serve_moe", "train_moe", "serve_ssm", "train_ssm",
+          "train_dp", "train_tp", "train_tp_families", "train_tp_inners", "family_kernels", "serve_moe", "train_moe", "serve_ssm", "train_ssm",
           "serve_hybrid", "train_hybrid", "encdec_vlm_kernels", "serve_vlm", "train_vlm",
           "serve_audio", "train_audio", "tables")
 
@@ -5184,7 +5711,8 @@ def main(argv=None) -> int:
 
     if "kernels" in only:
         cases += phase("kernels", lambda: kernel_cases(results) + optimizer_kernel_cases(results)
-                       + update_kernel_cases(results) + rank_kernel_cases(results))
+                       + update_kernel_cases(results) + rank_kernel_cases(results)
+                       + cut_adam8bit_cases(results))
     if "serve" in only:  # full width and depth, bf16
         runs["serve"] = phase("serve", lambda: serve(get_config("llama3-8b")))
     cfg_train = get_config("llama3-8b").with_(n_layers=TRAIN_LAYERS)
@@ -5214,6 +5742,8 @@ def main(argv=None) -> int:
          runs["train_fsdp_moe"]) = phase("train_tp", lambda: train_tp(smi))
     if "train_tp_families" in only:
         runs.update(phase("train_tp_families", lambda: train_tp_families(smi)))
+    if "train_tp_inners" in only:
+        runs.update(phase("train_tp_inners", lambda: train_tp_inners(smi)))
     if "family_kernels" in only:
         cases += phase("family_kernels", lambda: family_kernel_cases(results))
     if "serve_moe" in only:  # deepseek-moe-16b at full width and depth

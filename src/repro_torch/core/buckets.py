@@ -48,7 +48,11 @@ a stack dim over it), and a bucket may be cut on both axes, on a
 different dim by each.  A "d" bucket over ``data`` sums its partial R
 over ``data``; a refresh gathers over ``data`` where the bucket is "d"
 there, and takes the sketch route over ``data`` where it is "n" (then
-over ``model`` a "d" bucket gathers first).  ``dp_comm_model`` and
+over ``model`` a "d" bucket gathers first).  Where an axis cuts a 'left'
+bucket's n, Adam-mini's row sums and 8-bit Adam's 256-element row chunks
+span processes (``_cut_kwargs``); ZeRO state on the FSDP step keeps rows
+of the moments (``StateLayout.zero_rows``, ``bucketed_update``'s split
+schedule).  ``dp_comm_model`` and
 ``sharded_ckpt_model`` are the reference's host models of the bytes those
 steps hand to the collectives and write per checkpoint writer.  The rest
 of the modeled accounting waits for the benchmark slice (ROADMAP queue 1
@@ -101,6 +105,9 @@ class Bucket(NamedTuple):
     # ``data`` extent
     dsplit: str = ""
     dp: int = 1
+    # the global column of this process's first canonical column where an
+    # axis cuts n (0 otherwise): where 8-bit Adam's row chunks fall
+    n0: int = 0
 
     @property
     def batch(self) -> int:
@@ -112,6 +119,10 @@ class Bucket(NamedTuple):
         for kind, size in ((self.split, self.tp), (self.dsplit, self.dp)):
             d, n = (d * size, n) if kind == "d" else (d, n * size) if kind == "n" else (d, n)
         return d, n
+
+    def n_axes(self, tp_axes=None, fsdp_axes=None):
+        """The axes that cut the canonical n, or None."""
+        return next((ax for kind, ax in self.cuts(tp_axes, fsdp_axes) if kind == "n"), None)
 
     def cuts(self, tp_axes=None, fsdp_axes=None) -> List[Tuple[str, Any]]:
         """(kind, axes) of each axis that cuts a canonical dim of the
@@ -147,7 +158,7 @@ def tp_kind(side: str, split: Optional[int], ndim: int) -> str:
 def build_bucket_plan(flat_specs: Sequence, flat_params: Sequence, *,
                       split_sides: bool = False, tp_splits: Optional[Sequence] = None,
                       tp: int = 1, dp_splits: Optional[Sequence] = None,
-                      dp: int = 1) -> BucketPlan:
+                      dp: int = 1, tp_index: int = 0, dp_index: int = 0) -> BucketPlan:
     """Static bucketing: group low-rank leaves by (d, n, rank, dtype), in the
     sorted key order of the JAX plan.  The rank is clamped to d here.
     ``split_sides`` adds the side to the key and stamps it on the bucket
@@ -156,7 +167,9 @@ def build_bucket_plan(flat_specs: Sequence, flat_params: Sequence, *,
     global leaf splits over a ``model`` axis of ``tp`` (None: whole), the
     specs (side, rank) the global leaves'; the kind of split
     (``tp_kind``) joins the key, and the rank clamps to the global d.
-    ``dp_splits`` / ``dp`` are the same over ``data`` (FSDP)."""
+    ``dp_splits`` / ``dp`` are the same over ``data`` (FSDP); ``tp_index``
+    / ``dp_index`` are this process's places on the axes, which give
+    ``Bucket.n0``."""
     groups: Dict[Tuple, List[BucketEntry]] = {}
     for i, (spec, leaf) in enumerate(zip(flat_specs, flat_params)):
         if not spec.lowrank:
@@ -188,7 +201,9 @@ def build_bucket_plan(flat_specs: Sequence, flat_params: Sequence, *,
                side=k[4] if split_sides else "any",
                split=k[-3] if "tp" in k else "", tp=tp if "tp" in k and k[-3] else 1,
                lead_split=k[-1] if "tp" in k else -1,
-               dsplit=k[-2] if "tp" in k else "", dp=dp if "tp" in k and k[-2] else 1)
+               dsplit=k[-2] if "tp" in k else "", dp=dp if "tp" in k and k[-2] else 1,
+               n0=k[1] * (tp_index if "tp" in k and k[-3] == "n" else
+                          dp_index if "tp" in k and k[-2] == "n" else 0))
         for k, es in sorted(groups.items(), key=lambda kv: kv[0])
     )
     covered = frozenset(e.leaf_idx for bk in buckets for e in bk.entries)
@@ -245,7 +260,18 @@ class StateLayout(NamedTuple):
     (``state_sharding="zero"``): every stack is padded along its leading B
     to a multiple of ``shards`` with inert zero rows, so each process can
     own ``B_pad / shards`` contiguous rows.  Checkpoints of the canonical
-    format hold the unpadded per-leaf layout."""
+    format hold the unpadded per-leaf layout.
+
+    ``zero_rows`` (ZeRO state on the FSDP step, per bucket; empty for the
+    compressed steps, where every buffer of every bucket takes rows): the
+    buckets whose moments take rows of B over ``data`` -- those whose R is
+    whole over ``data`` once reduced ("d" over ``data``: the partial R is
+    reduce-scattered; "": the R of a leaf whole over ``data``).  A bucket
+    ``data`` cuts on n ("n"; the rules never cut a stack dim over it)
+    holds its block of every row already and keeps it, and the projector
+    stacks (this process's block of d over ``data`` where it cuts d) keep
+    every row: the hot step projects and back-projects every row of this
+    process's block of W."""
 
     plan: BucketPlan
     inner_name: str  # 'adam' | 'msgd' | 'adam_mini' | 'adam8bit'
@@ -253,6 +279,7 @@ class StateLayout(NamedTuple):
     templates: Dict[int, LeafStateTemplate]  # keyed by leaf_idx
     projector_dtype: torch.dtype = torch.float32
     shards: int = 1  # 1: replicated; > 1: ZeRO-sharded over the DP axes
+    zero_rows: Tuple[bool, ...] = ()
 
 
 def build_state_layout(
@@ -263,8 +290,10 @@ def build_state_layout(
     inner_name: str,
     projector_dtype=torch.float32,
     shards: int = 1,
+    fsdp_rows: bool = False,
 ) -> StateLayout:
-    """Canonical per-leaf templates for every bucketed leaf."""
+    """Canonical per-leaf templates for every bucketed leaf; ``fsdp_rows``
+    the FSDP step's ZeRO layout (``StateLayout.zero_rows``)."""
     del flat_specs
     if shards < 1:
         raise ValueError(f"shards must be >= 1, got {shards}")
@@ -290,7 +319,8 @@ def build_state_layout(
             m_scale = None
             if inner_name == "adam8bit":
                 m = _Like(mshape, torch.uint8)
-                m_scale = _Like(mshape[:-1] + (qz.num_blocks(mshape[-1]),), f32)
+                qoff = bucket.n0 % qz.QBLOCK if e.side == "left" else 0
+                m_scale = _Like(mshape[:-1] + (qz.num_blocks(qoff + mshape[-1]),), f32)
                 v = m
             elif inner_name == "adam_mini":
                 m = _Like(mshape, f32)
@@ -299,7 +329,8 @@ def build_state_layout(
                 m = _Like(mshape, f32)
                 v = m if has_v else None
             templates[e.leaf_idx] = LeafStateTemplate(proj, m, v, m_scale, m_scale)
-    return StateLayout(plan, inner_name, has_v, templates, projector_dtype, shards)
+    zero_rows = tuple(bk.dsplit in ("d", "") for bk in plan.buckets) if fsdp_rows else ()
+    return StateLayout(plan, inner_name, has_v, templates, projector_dtype, shards, zero_rows)
 
 
 def init_bucket_states(layout: StateLayout, device, tp_index: int = 0,
@@ -321,8 +352,9 @@ def init_bucket_states(layout: StateLayout, device, tp_index: int = 0,
         proj = eye.expand(B, d, r).clone()
         z = torch.zeros((B, r, n), dtype=torch.float32, device=device)
         if layout.inner_name == "adam8bit":
-            mc, ms = qz.quantize_stacked(z, bucket.side, signed=True)
-            vc, vs = qz.quantize_stacked(z, bucket.side, signed=False)
+            qoff = bucket.n0 % qz.QBLOCK if bucket.side == "left" else 0
+            mc, ms = qz.quantize_stacked(z, bucket.side, signed=True, offset=qoff)
+            vc, vs = qz.quantize_stacked(z, bucket.side, signed=False, offset=qoff)
             out.append(BucketState(proj, mc, vc, ms, vs))
             continue
         if layout.inner_name == "adam_mini":
@@ -360,8 +392,20 @@ def _pad_rows(x: torch.Tensor, rows: int) -> torch.Tensor:
     return torch.cat([x, pad], dim=0)
 
 
-def _map_state(bst: BucketState, fn) -> BucketState:
-    return BucketState(*[None if x is None else fn(x) for x in bst])
+def _map_state(bst: BucketState, fn, fields: Sequence[int] = range(5)) -> BucketState:
+    return BucketState(*[None if x is None else fn(x) if i in fields else x
+                         for i, x in enumerate(bst)])
+
+
+def zero_fields(layout: StateLayout, i: int) -> Tuple[int, ...]:
+    """The ``BucketState`` fields of bucket ``i`` that take rows of B: every
+    one in the compressed steps' layout, the moments of a ``zero_rows``
+    bucket on the FSDP step, none elsewhere."""
+    if layout.shards <= 1:
+        return ()
+    if not layout.zero_rows:
+        return (0, 1, 2, 3, 4)
+    return (1, 2, 3, 4) if layout.zero_rows[i] else ()
 
 
 def zero_pad_states(layout: StateLayout, bucket_states: Sequence[BucketState]
@@ -371,8 +415,8 @@ def zero_pad_states(layout: StateLayout, bucket_states: Sequence[BucketState]
         return tuple(bucket_states)
     return tuple(
         _map_state(bst, lambda x, bp=zero_padded_batch(bucket.batch, layout.shards):
-                   _pad_rows(x, bp))
-        for bucket, bst in zip(layout.plan.buckets, bucket_states))
+                   _pad_rows(x, bp), zero_fields(layout, i))
+        for i, (bucket, bst) in enumerate(zip(layout.plan.buckets, bucket_states)))
 
 
 def zero_unpad_states(layout: StateLayout, bucket_states: Sequence[BucketState]
@@ -380,8 +424,8 @@ def zero_unpad_states(layout: StateLayout, bucket_states: Sequence[BucketState]
     """Padded ZeRO stacks -> canonical-batch stacks (pad rows dropped)."""
     if layout.shards <= 1:
         return tuple(bucket_states)
-    return tuple(_map_state(bst, lambda x, b=bucket.batch: x[:b])
-                 for bucket, bst in zip(layout.plan.buckets, bucket_states))
+    return tuple(_map_state(bst, lambda x, b=bucket.batch: x[:b], zero_fields(layout, i))
+                 for i, (bucket, bst) in enumerate(zip(layout.plan.buckets, bucket_states)))
 
 
 def zero_pad_grad_stacks(layout: StateLayout, stacks: Sequence[torch.Tensor]
@@ -404,18 +448,22 @@ def zero_local_states(layout: StateLayout, bucket_states: Sequence[BucketState],
     """One shard's block of rows of full padded stacks, each a copy of its
     own (the full stacks can then be freed)."""
     out = []
-    for bucket, bst in zip(layout.plan.buckets, bucket_states):
+    for i, (bucket, bst) in enumerate(zip(layout.plan.buckets, bucket_states)):
         rows = zero_padded_batch(bucket.batch, layout.shards) // layout.shards
         lo = shard_index * rows
-        out.append(_map_state(bst, lambda x, lo=lo, rows=rows: x[lo:lo + rows].clone()))
+        out.append(_map_state(bst, lambda x, lo=lo, rows=rows: x[lo:lo + rows].clone(),
+                              zero_fields(layout, i)))
     return tuple(out)
 
 
-def zero_gather_states(local_states: Sequence[BucketState], axes
-                       ) -> Tuple[BucketState, ...]:
+def zero_gather_states(local_states: Sequence[BucketState], axes,
+                       layout: Optional[StateLayout] = None) -> Tuple[BucketState, ...]:
     """Every shard's rows gathered back into the full padded stacks (the
-    inverse of ``zero_local_states``)."""
-    return tuple(_map_state(bst, axes.all_gather) for bst in local_states)
+    inverse of ``zero_local_states``); ``layout`` says which fields took
+    rows (None: every one)."""
+    return tuple(_map_state(bst, axes.all_gather,
+                            range(5) if layout is None else zero_fields(layout, i))
+                 for i, bst in enumerate(local_states))
 
 
 def zero_gather_projectors(layout: StateLayout, local_states: Sequence[BucketState], axes
@@ -675,6 +723,7 @@ def bucketed_update(
     out_stacked: bool = False,
     tp_axes=None,
     fsdp_axes=None,
+    zero_rows=None,
 ) -> Tuple[Any, Tuple[BucketState, ...], List[torch.Tensor]]:
     """Run every bucket against its storage-layout state.  Returns
     ({leaf_idx: new param (apply) or update}, new bucket states,
@@ -689,7 +738,17 @@ def bucketed_update(
     fused update works row by row, so a block goes through the same
     kernels.  Under tensor parallelism (``tp_axes``) a "d" bucket's R is
     summed over ``model`` between the projection and the update (over
-    ``data`` under FSDP, ``fsdp_axes``)."""
+    ``data`` under FSDP, ``fsdp_axes``).  Where an axis cuts the n of a
+    'left' bucket, Adam-mini's row sums are summed over it and 8-bit
+    Adam's chunks keep their global places (``kernels/lowrank_update``).
+
+    ``zero_rows`` = (``data`` axes, ``StateLayout``): ZeRO state on the FSDP
+    step, whose ``zero_rows`` buckets hold this process's rows of their
+    moments.  Such a bucket's partial R is reduce-scattered over ``data``
+    ("d") or its rows are taken (""), the moments pass runs on the rows,
+    their N is all-gathered over ``data`` and every row of this process's
+    block of W is back-projected (the kernels' split schedule): the same
+    bytes over ``data`` as the all-reduce of R."""
     lr_alpha = lr * cfg.alpha
     lr_wd = lr * cfg.weight_decay if cfg.weight_decay else 0.0
     ik = cfg.inner_kwargs()
@@ -701,28 +760,34 @@ def bucketed_update(
         w = stacked_params[bi] if stacked_params is not None else _gather(bucket, flat_params)
         p = bst.projector
         g = stacked_grads[bi] if stacked_grads is not None else _gather(bucket, flat_grads)
-        r_g = g if projected else _tp_reduce_r(bucket, update_ops.bucketed_project(g, p),
-                                               tp_axes, fsdp_axes)
+        kw = dict(ik, **_cut_kwargs(cfg.inner, bucket, tp_axes, fsdp_axes))
+        if projected:
+            r_g = g
+        elif zero_rows is not None and zero_rows[1].zero_rows[bi]:
+            r_g, kw["gather"] = _zero_rows_r(bucket, update_ops.bucketed_project(g, p),
+                                             tp_axes, *zero_rows)
+        else:
+            r_g = _tp_reduce_r(bucket, update_ops.bucketed_project(g, p), tp_axes, fsdp_axes)
         del g
         if cfg.inner == "msgd":
             w_new, m_new = update_ops.bucketed_msgd_update(
-                w, p, r_g, bst.m, lr_alpha, lr_wd, **ik
+                w, p, r_g, bst.m, lr_alpha, lr_wd, **kw
             )
             new_bst = BucketState(projector=p, m=m_new, v=None)
         elif cfg.inner == "adam_mini":
             w_new, m_new, v_new = update_ops.bucketed_adam_mini_update(
-                w, p, r_g, bst.m, bst.v, step, lr_alpha, lr_wd, side=bucket.side, **ik
+                w, p, r_g, bst.m, bst.v, step, lr_alpha, lr_wd, side=bucket.side, **kw
             )
             new_bst = BucketState(projector=p, m=m_new, v=v_new)
         elif cfg.inner == "adam8bit":
             w_new, mc, ms, vc, vs = update_ops.bucketed_adam8bit_update(
                 w, p, r_g, bst.m, bst.m_scale, bst.v, bst.v_scale, step,
-                lr_alpha, lr_wd, side=bucket.side, **ik,
+                lr_alpha, lr_wd, side=bucket.side, **kw,
             )
             new_bst = BucketState(projector=p, m=mc, v=vc, m_scale=ms, v_scale=vs)
         else:
             w_new, m_new, v_new = update_ops.bucketed_adam_update(
-                w, p, r_g, bst.m, bst.v, step, lr_alpha, lr_wd, **ik
+                w, p, r_g, bst.m, bst.v, step, lr_alpha, lr_wd, **kw
             )
             new_bst = BucketState(projector=p, m=m_new, v=v_new)
         del r_g
@@ -739,6 +804,38 @@ def bucketed_update(
             out_leaves.update(_scatter(bucket, out, flat_params))
         new_states.append(new_bst)
     return (out_stacks if out_stacked else out_leaves), tuple(new_states), norm_sq
+
+
+def _cut_kwargs(inner: str, bucket: Bucket, tp_axes, fsdp_axes) -> Dict[str, Any]:
+    """The fused update's keywords for a 'left' bucket whose n an axis cuts:
+    Adam-mini's row sums summed over it, 8-bit Adam's chunk offset and the
+    largest absmax of a straddling chunk over it."""
+    ax = bucket.n_axes(tp_axes, fsdp_axes)
+    if ax is None or bucket.side != "left" or inner not in ("adam_mini", "adam8bit"):
+        return {}
+    n_total = bucket.global_dims()[1]
+    if inner == "adam_mini":
+        return dict(axes=ax, n_total=n_total)
+    return dict(qoff=bucket.n0 % qz.QBLOCK,
+                reduce=lambda am: qz.straddle_max(am, bucket.n0, n_total, ax))
+
+
+def _zero_rows_r(bucket: Bucket, r_full: torch.Tensor, tp_axes, data_axes, layout):
+    """(this process's rows of a ``zero_rows`` bucket's R, the gather of
+    their N to every row): the partial R reduce-scattered over ``data``
+    where it cuts d, else its rows taken; then summed over ``model`` where
+    that cuts d."""
+    bp = zero_padded_batch(bucket.batch, layout.shards)
+    padded = _pad_rows(r_full, bp)
+    if bucket.dsplit == "d":
+        r_g = data_axes.reduce_scatter(padded)
+    else:
+        rows = bp // layout.shards
+        r_g = padded[data_axes.index * rows:(data_axes.index + 1) * rows].contiguous()
+    del padded
+    if bucket.split == "d" and tp_axes is not None:
+        tp_axes.all_reduce_(r_g)
+    return r_g, lambda n_rows: data_axes.all_gather(n_rows)[:bucket.batch]
 
 
 # ---------------------------------------------------------------------------
@@ -817,7 +914,8 @@ def bucketed_refresh(
     bucket gathers its gradient and projector stacks over ``model``,
     refreshes them whole and keeps its rows of the new projectors; an "n"
     bucket refreshes through ``split_refresh_fn`` on its own columns (the
-    sketch route) where one is given, and gathers its gradients otherwise.
+    sketch route, ``projectors.refresh_projector_stacked_split``) where one
+    is given, and gathers its gradients otherwise.
     Under FSDP (``fsdp_axes``) the same holds over ``data``, which comes
     first: a bucket cut on both axes gathers over the one that cuts its d
     and takes the sketch route over the one that cuts its n.
@@ -867,7 +965,8 @@ def bucketed_refresh(
             elif sketch is not None:
                 # this process's rows of the global sketch
                 n, i = bucket.n, sketch.index
-                stacked = stacked._replace(omega=stacked.omega[:, i * n:(i + 1) * n])
+                if stacked.omega is not None:
+                    stacked = stacked._replace(omega=stacked.omega[:, i * n:(i + 1) * n])
                 new_stack = split_refresh_fn(g_stack, stacked, old_stack, bucket.rank,
                                              bucket.global_dims()[1], sketch)
             else:

@@ -9,6 +9,16 @@ Adam, momentum SGD, Adam-mini and 8-bit Adam each have a fused update on
 the bucketed engine (kernels/lowrank_update).  Adafactor has none, in
 either package: its factored state stays per leaf, and the bucketed
 engine runs it on the per-leaf loop.
+
+Under tensor parallelism and FSDP the per-leaf loop hands each inner this
+process's block of its tensor and a ``Cut`` (``init(x, cut)``,
+``update(g, state, step, cut)``): the axes that cut its dims and its
+global shape.  Adam and MSGD are elementwise and ignore it.  Every
+reduction the others make over a cut dim sums the local partial sums over
+the cutting axes and divides by the global count: Adam-mini's row means,
+Adafactor's row and column statistics, the mean of its row statistic and
+the RMS of its update; 8-bit Adam's chunks keep the whole row's
+(``kernels/lowrank_update/quantize.py``: ``offset``, ``straddle_max``).
 """
 from __future__ import annotations
 
@@ -17,14 +27,68 @@ from typing import Any, Callable, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.kernels.lowrank_update.quantize import dequantize_blockwise, quantize_blockwise
+from repro_torch.kernels.lowrank_update import quantize as qz
 from repro_torch.kernels.lowrank_update.ref import bias_corrections
+
+
+class Cut(NamedTuple):
+    """How processes cut the tensor an inner gets: (dim, axes) of each axis
+    that cuts a dim (``launch/mesh.DPAxes``; dims non-negative) and the
+    tensor's global shape."""
+
+    dims: Tuple[Tuple[int, Any], ...]
+    shape: Tuple[int, ...]
+
+    def axis(self, dim: int):
+        """The axes that cut ``dim`` (negative counts from the end), or None."""
+        dim %= len(self.shape)
+        return next((ax for d, ax in self.dims if d == dim), None)
+
+    def start(self, dim: int) -> int:
+        """The global index of this process's first element along ``dim``."""
+        ax = self.axis(dim)
+        return 0 if ax is None else ax.index * (self.shape[dim] // ax.size)
+
+
+def _cut_of(cut: Optional[Cut], dim: int):
+    return None if cut is None else cut.axis(dim)
+
+
+def _mean(x: torch.Tensor, dim: int, cut: Optional[Cut]) -> torch.Tensor:
+    """This process's block of the mean over ``dim`` of the global tensor
+    whose block ``x`` is: its partial sums summed over the axes that cut
+    ``dim``, over the global count."""
+    ax = _cut_of(cut, dim)
+    if ax is None:
+        return torch.mean(x, dim=dim)
+    return ax.all_reduce_(torch.sum(x, dim=dim)) / cut.shape[dim]
+
+
+def _mean_all(x: torch.Tensor, cut: Optional[Cut]) -> torch.Tensor:
+    """The mean of every element of the global tensor ``x``."""
+    if cut is None or not cut.dims:
+        return torch.mean(x)
+    total = torch.sum(x).reshape(1)
+    for _, ax in cut.dims:
+        ax.all_reduce_(total)
+    return total[0] / float(np.prod(cut.shape))
+
+
+def _qcut(cut: Optional[Cut]):
+    """(offset, reduce) of the 8-bit chunks of a tensor whose last dim may
+    be cut (``quantize.py``)."""
+    ax = _cut_of(cut, -1)
+    if ax is None:
+        return 0, None
+    start, n_total = cut.start(-1), cut.shape[-1]
+    return start % qz.QBLOCK, lambda am: qz.straddle_max(am, start, n_total, ax)
 
 
 class InnerOptimizer(NamedTuple):
     name: str
-    init: Callable[[torch.Tensor], Any]
-    update: Callable[[torch.Tensor, Any, int], Tuple[torch.Tensor, Any]]
+    # init(x, cut=None), update(g, state, step, cut=None): ``Cut`` above
+    init: Callable[..., Any]
+    update: Callable[..., Tuple[torch.Tensor, Any]]
     # Whether the bucketed engine has a fused update for this inner
     # (kernels/lowrank_update).
     fused_eligible: bool = False
@@ -36,13 +100,13 @@ class AdamState(NamedTuple):
 
 
 def adam(b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8) -> InnerOptimizer:
-    def init(x):
+    def init(x, cut=None):
         return AdamState(
             m=torch.zeros(x.shape, dtype=torch.float32, device=x.device),
             v=torch.zeros(x.shape, dtype=torch.float32, device=x.device),
         )
 
-    def update(g, state, step):
+    def update(g, state, step, cut=None):
         g = g.float()
         m = b1 * state.m + (1.0 - b1) * g
         v = b2 * state.v + (1.0 - b2) * g * g
@@ -60,10 +124,10 @@ class MSGDState(NamedTuple):
 def msgd(b1: float = 0.9) -> InnerOptimizer:
     """M_t = (1-b1) M_{t-1} + b1 G_t  (the paper/GoLore's convention)."""
 
-    def init(x):
+    def init(x, cut=None):
         return MSGDState(m=torch.zeros(x.shape, dtype=torch.float32, device=x.device))
 
-    def update(g, state, step):
+    def update(g, state, step, cut=None):
         del step
         m = (1.0 - b1) * state.m + b1 * g.float()
         return m, MSGDState(m=m)
@@ -104,7 +168,7 @@ def adafactor(
     first moment.  The ``1e-38`` guards are f32 subnormals, kept as such
     (PyTorch flushes none on the CPU or the card)."""
 
-    def init(x):
+    def init(x, cut=None):
         def z(shape):
             return torch.zeros(tuple(shape), dtype=torch.float32, device=x.device)
 
@@ -114,16 +178,20 @@ def adafactor(
             vr, vc, v = z((1,)), z((1,)), z(x.shape)
         return AdafactorState(m=z(x.shape), vr=vr, vc=vc, v=v)
 
-    def update(g, state, step):
+    def update(g, state, step, cut=None):
         g = g.float()
         b2t = adafactor_beta2(step, decay_pow)
         c2t = float(np.float32(1.0) - np.float32(b2t))  # 1 - b2t in f32
         g2 = g * g + eps1
         if g.dim() >= 2:
-            vr = b2t * state.vr + c2t * torch.mean(g2, dim=-1)
-            vc = b2t * state.vc + c2t * torch.mean(g2, dim=-2)
-            # V-hat = outer(vr, vc) / mean(vr): the rank-1 reconstruction
-            denom = torch.mean(vr, dim=-1, keepdim=True)
+            vr = b2t * state.vr + c2t * _mean(g2, -1, cut)
+            vc = b2t * state.vc + c2t * _mean(g2, -2, cut)
+            # V-hat = outer(vr, vc) / mean(vr): the rank-1 reconstruction;
+            # vr runs along g's rows, so the axes that cut those cut it
+            vr_cut = None if cut is None else Cut(
+                tuple((len(cut.shape) - 2, ax) for ax in (cut.axis(-2),) if ax is not None),
+                tuple(cut.shape[:-1]))
+            denom = _mean(vr, -1, vr_cut)[..., None]
             vhat = vr[..., :, None] * vc[..., None, :] / (denom[..., None] + 1e-38)
             u = g / (torch.sqrt(vhat) + 1e-38)
             v = state.v
@@ -132,7 +200,7 @@ def adafactor(
             u = g / (torch.sqrt(v) + 1e-38)
             vr, vc = state.vr, state.vc
         # update clipping by RMS (Shazeer-Stern eq. 5), one scalar per leaf
-        rms = torch.sqrt(torch.mean(u * u) + 1e-38)
+        rms = torch.sqrt(_mean_all(u * u, cut) + 1e-38)
         u = u / torch.clamp(rms / clip_threshold, min=1.0)
         m = b1 * state.m + (1.0 - b1) * u
         return m, AdafactorState(m=m, vr=vr, vc=vc, v=v)
@@ -149,18 +217,18 @@ def adam_mini(b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8) -> InnerOpti
     """Adam-mini: one second moment per row (the r basis rows of a projected
     gradient, the output rows of a full-rank 2-D leaf)."""
 
-    def init(x):
+    def init(x, cut=None):
         v_shape = tuple(x.shape[:-1]) if x.dim() >= 2 else (1,)
         return AdamMiniState(
             m=torch.zeros(x.shape, dtype=torch.float32, device=x.device),
             v=torch.zeros(v_shape, dtype=torch.float32, device=x.device),
         )
 
-    def update(g, state, step):
+    def update(g, state, step, cut=None):
         g = g.float()
         m = b1 * state.m + (1.0 - b1) * g
         if g.dim() >= 2:
-            v = b2 * state.v + (1.0 - b2) * torch.mean(g * g, dim=-1)
+            v = b2 * state.v + (1.0 - b2) * _mean(g * g, -1, cut)
             vb = v[..., None]
         else:
             v = b2 * state.v + (1.0 - b2) * torch.mean(g * g)
@@ -182,22 +250,27 @@ class Adam8bitState(NamedTuple):
 def adam8bit(b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8) -> InnerOptimizer:
     """Adam with blockwise 8-bit moments (kernels/lowrank_update/quantize.py)."""
 
-    def init(x):
+    def init(x, cut=None):
+        off, _ = _qcut(cut)
         z = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
-        mc, ms = quantize_blockwise(z, signed=True)
-        vc, vs = quantize_blockwise(z, signed=False)
+        mc, ms = qz.quantize_blockwise(z, signed=True, offset=off)
+        vc, vs = qz.quantize_blockwise(z, signed=False, offset=off)
         return Adam8bitState(m_codes=mc, m_scale=ms, v_codes=vc, v_scale=vs)
 
-    def update(g, state, step):
+    def update(g, state, step, cut=None):
+        off, reduce = _qcut(cut)
         g = g.float()
-        m = dequantize_blockwise(state.m_codes, state.m_scale, True)
-        v = dequantize_blockwise(state.v_codes, state.v_scale, False)
+        m = qz.dequantize_blockwise(state.m_codes, state.m_scale, True, off)
+        v = qz.dequantize_blockwise(state.v_codes, state.v_scale, False, off)
         m = b1 * m + (1.0 - b1) * g
         v = b2 * v + (1.0 - b2) * g * g
         bc1, bc2 = bias_corrections(b1, b2, step)
         direction = (m / bc1) / (torch.sqrt(v / bc2) + eps)
-        mc, ms = quantize_blockwise(m, signed=True)
-        vc, vs = quantize_blockwise(v, signed=False)
+        am = av = None
+        if reduce is not None:
+            am, av = reduce(qz.chunk_absmax(m, off)), reduce(qz.chunk_absmax(v, off))
+        mc, ms = qz.quantize_blockwise(m, signed=True, offset=off, absmax=am)
+        vc, vs = qz.quantize_blockwise(v, signed=False, offset=off, absmax=av)
         return direction, Adam8bitState(m_codes=mc, m_scale=ms, v_codes=vc, v_scale=vs)
 
     return InnerOptimizer("adam8bit", init, update, fused_eligible=True)

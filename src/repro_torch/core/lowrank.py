@@ -58,10 +58,19 @@ over ``model`` and the whole leaves counted once, so the global norm, the
 clip and the skip-step verdict are the same on every process.
 ``tp_global_opt_state`` / ``tp_local_opt_state`` convert between the
 blocks and the global canonical per-leaf state, what checkpoints hold.
-It covers the bucket-native engine with Adam or MSGD (elementwise
-moments); Adam-mini's per-row v and 8-bit Adam's per-row-chunk scales
-would need their rows reduced over ``model``, and Fira and Adafactor run
-the per-leaf loop: those raise under tensor parallelism.
+Every config takes it, as the reference's sharded step does: every inner,
+both engines, Fira and a rank schedule.  The fused buckets reduce what
+spans a cut dim (Adam-mini's row sums, 8-bit Adam's straddling chunks,
+``core/buckets.py``); the per-leaf loop (the reference engine, Fira,
+Adafactor) runs on this process's block of each leaf: R = P^T G summed
+over the axis that cuts d, the back-projection local, the refresh by the
+buckets' routes (``buckets.bucketed_refresh`` on a bucket of the one
+leaf), the inner handed a ``Cut`` (``core/inner.py``) and Fira's ratio of
+norms over the whole leaf.  Under FSDP with ``state_sharding="zero"``
+(``state_shards`` the ``data`` extent) the buckets whose R is whole over
+``data`` keep this process's rows of their moments
+(``buckets.StateLayout.zero_rows``); ``update(..., shard_axes=)`` then
+runs the split schedule of ``buckets.bucketed_update``.
 """
 from __future__ import annotations
 
@@ -76,6 +85,7 @@ from repro_torch.core import buckets as buckets_lib
 from repro_torch.core import inner as inner_lib
 from repro_torch.core import projectors as proj_lib
 from repro_torch.core.sampling import gumbel_noise
+from repro_torch.kernels.lowrank_update import quantize as qz
 
 PyTree = Any
 
@@ -456,12 +466,19 @@ def _tp_norm(values: Sequence[torch.Tensor], split_axes: Sequence[Tuple[Any, ...
     return torch.sqrt(sum(groups.values(), zero))
 
 
-def _safe_ratio(num: torch.Tensor, den: torch.Tensor) -> torch.Tensor:
+def _safe_ratio(num: torch.Tensor, den: torch.Tensor,
+                cut: Optional[inner_lib.Cut] = None) -> torch.Tensor:
     """||num|| / (||den|| + 1e-12), one scalar over the whole leaf (all its
-    stacked slices), as ``src/repro/core/lowrank.py:941``."""
-    nn = torch.linalg.vector_norm(num.float().reshape(-1))
-    dd = torch.linalg.vector_norm(den.float().reshape(-1))
-    return nn / (dd + 1e-12)
+    stacked slices), as ``src/repro/core/lowrank.py:941``; blocks of a
+    ``cut`` leaf sum their squares over the axes that cut it."""
+    if cut is None or not cut.dims:
+        nn = torch.linalg.vector_norm(num.float().reshape(-1))
+        dd = torch.linalg.vector_norm(den.float().reshape(-1))
+        return nn / (dd + 1e-12)
+    sq = torch.stack([torch.sum(num.float() ** 2), torch.sum(den.float() ** 2)])
+    for _, ax in cut.dims:
+        ax.all_reduce_(sq)
+    return torch.sqrt(sq[0]) / (torch.sqrt(sq[1]) + 1e-12)
 
 
 def _validate(cfg: OptimizerConfig) -> None:
@@ -517,14 +534,6 @@ def tensor_parallel_optimizer(optimizer: "LowRankOptimizer", mesh,
     if ax.size == 1 and all(dd is None for dd, _ in pairs):
         return optimizer
     cfg = optimizer.config
-    if cfg.engine != "bucketed" or cfg.inner not in ("adam", "msgd") or cfg.fira:
-        raise NotImplementedError(
-            f"tensor parallelism runs the bucketed engine with adam or msgd, no Fira; "
-            f"got engine={cfg.engine!r}, inner={cfg.inner!r}, fira={cfg.fira} "
-            "(ROADMAP queue 1 item 11, second half)")
-    if cfg.rank_schedule:
-        raise NotImplementedError("rank schedules under tensor parallelism are not ported "
-                                  "(ROADMAP queue 1 item 11, second half)")
     likes = []
     for (dd, md), like in zip(pairs, optimizer.likes):
         shape = tuple(like.shape)
@@ -534,10 +543,7 @@ def tensor_parallel_optimizer(optimizer: "LowRankOptimizer", mesh,
         likes.append(buckets_lib._Like(shape, like.dtype))
     plan = TPPlan(ax, tuple(md for _, md in pairs), dax,
                   tuple(dd for dd, _ in pairs) if fsdp else None)
-    out = _assemble(cfg, optimizer.specs, likes, plan)
-    if out.state_layout is None:
-        raise NotImplementedError("tensor parallelism needs bucket-native state")
-    return out
+    return _assemble(cfg, optimizer.specs, likes, plan)
 
 
 def _assemble(cfg: OptimizerConfig, specs: List[LeafSpec], flat_like: Sequence,
@@ -575,6 +581,8 @@ def _assemble(cfg: OptimizerConfig, specs: List[LeafSpec], flat_like: Sequence,
             split_sides=cfg.inner in buckets_lib.SIDE_HOMOGENEOUS_INNERS,
             tp_splits=tp_split, tp=tp_axes.size if tp_axes is not None else 1,
             dp_splits=dp_split, dp=fsdp_axes.size if fsdp_axes is not None else 1,
+            tp_index=tp_axes.index if tp_axes is not None else 0,
+            dp_index=fsdp_axes.index if fsdp_axes is not None else 0,
         )
         # bucket-native storage only where the fused engine covers every hot
         # step of every low-rank leaf: Adafactor (no fused update) and Fira
@@ -585,6 +593,7 @@ def _assemble(cfg: OptimizerConfig, specs: List[LeafSpec], flat_like: Sequence,
                 bucket_plan, specs, flat_like, inner_name=cfg.inner,
                 projector_dtype=cfg.projector_dtype,
                 shards=cfg.state_shards if cfg.state_sharding == "zero" else 1,
+                fsdp_rows=fsdp_axes is not None,
             )
     if cfg.state_sharding == "zero" and state_layout is None:
         raise ValueError(
@@ -597,28 +606,54 @@ def _assemble(cfg: OptimizerConfig, specs: List[LeafSpec], flat_like: Sequence,
     rest_indices = tuple(i for i in range(len(specs))
                          if bucket_plan is None or i not in bucket_plan.bucketed)
 
+    def leaf_cuts(i: int, ndim: int) -> List[Tuple[str, int, Any]]:
+        """(kind, dim, axes) of each axis that cuts leaf ``i``, ``data``
+        first: kind ``buckets.tp_kind`` for a low-rank leaf, "" otherwise."""
+        out = []
+        for d, ax in ((dp_split[i], fsdp_axes), (tp_split[i], tp_axes)):
+            if d is not None and ax is not None:
+                out.append((buckets_lib.tp_kind(specs[i].side, d, ndim) if specs[i].lowrank
+                            else "", d, ax))
+        return out
+
+    def inner_cut(i: int, x: torch.Tensor) -> Optional[inner_lib.Cut]:
+        """The ``Cut`` of the tensor leaf ``i``'s inner gets (its R, whole
+        along a d reduced over its axis; or its gradient)."""
+        dims = tuple((d, ax) for kind, d, ax in leaf_cuts(i, x.dim()) if kind != "d")
+        if not dims:
+            return None
+        shape = list(x.shape)
+        for d, ax in dims:
+            shape[d] *= ax.size
+        return inner_lib.Cut(dims, tuple(shape))
+
     def init(params: PyTree) -> LowRankOptState:
         flat = tree_leaves(params)
         device = flat[0].device
         leaves = []
-        for spec, p in zip(specs, flat):
+        for i, (spec, p) in enumerate(zip(specs, flat)):
             if spec.lowrank and state_layout is not None:
                 leaves.append(_placeholder(device))  # lives in the stacks
             elif spec.lowrank:
                 lead = tuple(p.shape[:-2])
-                d = min(p.shape[-2], p.shape[-1])
-                eye = torch.eye(d, spec.rank, dtype=cfg.projector_dtype, device=device)
+                d = p.shape[-2] if spec.side == "left" else p.shape[-1]
+                d_ax = next((ax for kind, _, ax in leaf_cuts(i, p.dim()) if kind == "d"), None)
+                if d_ax is None:
+                    eye = torch.eye(d, spec.rank, dtype=cfg.projector_dtype, device=device)
+                else:  # this process's rows of the global eye
+                    eye = torch.eye(d * d_ax.size, spec.rank, dtype=cfg.projector_dtype,
+                                    device=device)[d_ax.index * d:(d_ax.index + 1) * d]
                 proj = eye.expand(lead + (d, spec.rank)).clone()
                 if spec.side == "left":
                     rshape = lead + (spec.rank, p.shape[-1])
                 else:
                     rshape = lead + (p.shape[-2], spec.rank)
                 z = torch.zeros(rshape, dtype=torch.float32, device=device)
-                leaves.append(LeafState(projector=proj, inner=inner.init(z)))
+                leaves.append(LeafState(projector=proj, inner=inner.init(z, inner_cut(i, z))))
             else:
                 leaves.append(LeafState(
                     projector=torch.zeros((), dtype=torch.float32, device=device),
-                    inner=inner.init(p),
+                    inner=inner.init(p, inner_cut(i, p)),
                 ))
         bucket_states = (
             buckets_lib.init_bucket_states(state_layout, device,
@@ -643,9 +678,14 @@ def _assemble(cfg: OptimizerConfig, specs: List[LeafSpec], flat_like: Sequence,
         return draws.leaf(i, shape[:-2], proj_lib.draw_shapes(d, n, pcfg, spec.rank),
                           g.device)
 
-    def _carry(spec: LeafSpec, st: LeafState, new_p: torch.Tensor) -> Tuple[LeafState, torch.Tensor]:
+    def _carry(spec: LeafSpec, st: LeafState, new_p: torch.Tensor,
+               d_axes: Sequence[Any] = ()) -> Tuple[LeafState, torch.Tensor]:
+        """The refreshed leaf's state and overlap; ``d_axes`` cut the
+        projectors' d, so C = P_new^T P_old is summed over them."""
         old_p = st.projector
         c = torch.einsum("...dn,...do->...no", new_p, old_p)
+        for ax in d_axes:
+            ax.all_reduce_(c)
         overlap = torch.mean(torch.sum(c.float() ** 2, dim=(-2, -1)) / spec.rank)
         inner_state = st.inner
         if cfg.momentum_carry == "reset":
@@ -661,14 +701,55 @@ def _assemble(cfg: OptimizerConfig, specs: List[LeafSpec], flat_like: Sequence,
             inner_state = inner_state._replace(m=m2.to(m.dtype))
         return LeafState(projector=new_p, inner=inner_state), overlap
 
+    def _refresh_fn(g, leaf_draws, old_p, spec):
+        return proj_lib.refresh_projector(g, leaf_draws, old_p, pcfg, side=spec.side,
+                                          rank=spec.rank)
+
+    stacked_fn = split_fn = None
+    if proj_lib.batched_refresh_supported(pcfg):
+        def stacked_fn(gs, leaf_draws, old_ps, rank):
+            return proj_lib.refresh_projector_stacked(gs, leaf_draws, old_ps, pcfg, rank=rank)
+
+    if tp is not None and proj_lib.split_refresh_supported(pcfg):
+        def split_fn(gs, leaf_draws, old_ps, rank, n_total, axes):
+            return proj_lib.refresh_projector_stacked_split(
+                gs, leaf_draws, old_ps, pcfg, rank=rank, n_total=n_total, axes=axes)
+
+    def _tp_leaf_refresh(i: int, spec: LeafSpec, g: torch.Tensor, proj: torch.Tensor,
+                         flat_g, draws, cuts) -> torch.Tensor:
+        """This process's block of leaf ``i``'s refreshed projector: the
+        buckets' routes (``buckets.bucketed_refresh``) on a bucket of the
+        one leaf."""
+        kinds = {ax: (kind, d) for kind, d, ax in cuts}
+        mk, md = kinds.get(tp_axes, ("", None))
+        dk, _ = kinds.get(fsdp_axes, ("", None))
+        gs = buckets_lib._orient_in(g, spec.side)
+        lead = tuple(g.shape[:-2])
+        bk = buckets_lib.Bucket(
+            d=gs.shape[1], n=gs.shape[2], rank=spec.rank,
+            entries=(buckets_lib.BucketEntry(i, spec.side, gs.shape[0]),),
+            split=mk, tp=tp_axes.size if mk else 1, lead_split=md if mk == "b" else -1,
+            dsplit=dk, dp=fsdp_axes.size if dk else 1)
+        like = buckets_lib._Like(lead + (bk.d, spec.rank), proj.dtype)
+        layout = buckets_lib.StateLayout(
+            buckets_lib.BucketPlan((bk,), frozenset((i,))), cfg.inner, False,
+            {i: buckets_lib.LeafStateTemplate(like, None, None)}, proj.dtype)
+        bst = buckets_lib.BucketState(proj.reshape((-1,) + tuple(proj.shape[-2:])), None, None)
+        (new,), _ = buckets_lib.bucketed_refresh(
+            layout, (bst,), specs, flat_g, draws, pcfg, _refresh_fn, group=spec.group,
+            momentum_carry="keep", stacked_refresh_fn=stacked_fn, tp_axes=tp_axes,
+            split_refresh_fn=split_fn, fsdp_axes=fsdp_axes)
+        return new.projector.reshape(proj.shape)
+
     def _split_flags(stacked_in: bool, projected: bool) -> List[Tuple[Any, ...]]:
         """Per gradient tensor handed to the update (the leaves, or the
         bucket stacks then the rest): the axes it is a block over.  A "d"
-        bucket's R stack is whole once reduced."""
+        bucket's or leaf's R is whole once reduced."""
         if stacked_in:
             return ([bucket_axes(bk, projected) for bk in bucket_plan.buckets]
                     + [tp.leaf_axes(i) for i in rest_indices])
-        return [tp.leaf_axes(i) for i in range(len(specs))]
+        return [tuple(ax for kind, _, ax in leaf_cuts(i, len(likes[i].shape))
+                      if not (projected and kind == "d")) for i in range(len(specs))]
 
     def update(
         grads: PyTree,
@@ -718,7 +799,11 @@ def _assemble(cfg: OptimizerConfig, specs: List[LeafSpec], flat_like: Sequence,
         The squared norms and the gate's verdict are summed across the
         processes (one scalar each), so every process skips or applies
         together.  Without ``shard_axes`` a ZeRO optimizer computes on the
-        full padded stacks, which it unpads first and pads again after."""
+        full padded stacks, which it unpads first and pads again after.
+        On the FSDP step (``StateLayout.zero_rows``; ``shard_axes`` its
+        ``data`` axis) the update takes the per-leaf gradients, its hot step
+        runs the split schedule of ``buckets.bucketed_update`` and its
+        refresh gathers the rows as above."""
         if projected and refresh:
             raise ValueError("projected gradients cannot drive a refresh step")
         if projected and cfg.fira:
@@ -746,12 +831,15 @@ def _assemble(cfg: OptimizerConfig, specs: List[LeafSpec], flat_like: Sequence,
                 )
         zero_layout = state_layout is not None and state_layout.shards > 1
         shard_local = zero_layout and shard_axes is not None
+        fsdp_zero = shard_local and bool(state_layout.zero_rows)
+        # the compressed ZeRO hot step: its gradients are blocks of rows
+        rows_in = shard_local and not refresh and not fsdp_zero
         if shard_axes is not None and not zero_layout:
             raise ValueError(
                 "shard_axes is only meaningful for a zero-sharded "
                 "optimizer (state_sharding='zero', state_shards > 1)"
             )
-        if shard_local and not stacked_in:
+        if shard_local and not stacked_in and not fsdp_zero:
             raise ValueError(
                 "shard-local updates take StackedGrads (the reduce-"
                 "scattered hot payload or full refresh stacks)"
@@ -768,7 +856,7 @@ def _assemble(cfg: OptimizerConfig, specs: List[LeafSpec], flat_like: Sequence,
             shard_index = buckets_lib.zero_shard_index(shard_axes)
             if refresh:
                 # gather once, refresh and update replicated, keep the rows
-                full = buckets_lib.zero_gather_states(state.buckets, shard_axes)
+                full = buckets_lib.zero_gather_states(state.buckets, shard_axes, state_layout)
                 state = state._replace(
                     buckets=buckets_lib.zero_unpad_states(state_layout, full))
                 del full
@@ -788,9 +876,9 @@ def _assemble(cfg: OptimizerConfig, specs: List[LeafSpec], flat_like: Sequence,
             every_g = flat_g
         if tp is not None:
             gnorm = _tp_norm(every_g, _split_flags(stacked_in, projected),
-                             shard_axes if shard_local and not refresh else None,
+                             shard_axes if rows_in else None,
                              len(stacked_g) if stacked_in else 0, norm_axes)
-        elif shard_local and not refresh:
+        elif rows_in:
             # disjoint blocks of rows: the global norm is the summed local
             # squares (pad rows are zero) plus the replicated rest's
             bsq = sum(torch.sum(torch.square(x.float())) for x in stacked_g)
@@ -836,25 +924,6 @@ def _assemble(cfg: OptimizerConfig, specs: List[LeafSpec], flat_like: Sequence,
         bucket_norm_sq: List[torch.Tensor] = []
         if state_layout is not None:
             if refresh:
-                def _refresh_fn(g, leaf_draws, old_p, spec):
-                    return proj_lib.refresh_projector(
-                        g, leaf_draws, old_p, pcfg, side=spec.side, rank=spec.rank
-                    )
-
-                stacked_fn = None
-                if proj_lib.batched_refresh_supported(pcfg):
-                    def stacked_fn(gs, leaf_draws, old_ps, rank):
-                        return proj_lib.refresh_projector_stacked(
-                            gs, leaf_draws, old_ps, pcfg, rank=rank
-                        )
-
-                split_fn = None
-                if tp is not None and pcfg.method in ("dominant", "sara") \
-                        and pcfg.svd_backend == "randomized":
-                    def split_fn(gs, leaf_draws, old_ps, rank, n_total, axes):
-                        return proj_lib.refresh_projector_stacked_split(
-                            gs, leaf_draws, pcfg, rank=rank, n_total=n_total, axes=axes)
-
                 new_buckets, bucket_overlaps = buckets_lib.bucketed_refresh(
                     state_layout, state.buckets, specs, flat_g, draws,
                     pcfg, _refresh_fn, group=g_now,
@@ -863,7 +932,7 @@ def _assemble(cfg: OptimizerConfig, specs: List[LeafSpec], flat_like: Sequence,
                     fsdp_axes=fsdp_axes,
                 )
                 overlaps.extend(bucket_overlaps)
-            if shard_local and not refresh:
+            if rows_in:
                 # this process's rows of every W stack through the fused
                 # update, then the one gather of W'
                 local_w = buckets_lib.zero_local_param_stacks(state_layout, flat_p, shard_index)
@@ -883,6 +952,7 @@ def _assemble(cfg: OptimizerConfig, specs: List[LeafSpec], flat_like: Sequence,
                     bucket_plan, cfg, new_buckets, flat_g, flat_p, step, lr, apply=apply,
                     projected=projected, stacked_grads=stacked_g, tp_axes=tp_axes,
                     fsdp_axes=fsdp_axes,
+                    zero_rows=(shard_axes, state_layout) if fsdp_zero and not refresh else None,
                 )
         del stacked_g
 
@@ -895,7 +965,7 @@ def _assemble(cfg: OptimizerConfig, specs: List[LeafSpec], flat_like: Sequence,
                 new_leaves.append(st)
                 continue
             if not spec.lowrank:
-                direction, inner_state = inner.update(g, st.inner, step)
+                direction, inner_state = inner.update(g, st.inner, step, inner_cut(i, g))
                 upd = -lr * direction
                 if cfg.weight_decay:
                     upd = upd - lr * cfg.weight_decay * p.float()
@@ -904,16 +974,27 @@ def _assemble(cfg: OptimizerConfig, specs: List[LeafSpec], flat_like: Sequence,
                 flat_out.append((p + upd) if apply else upd)
                 new_leaves.append(LeafState(st.projector, inner_state))
                 continue
+            cuts = leaf_cuts(i, g.dim())
+            d_axes = [ax for kind, _, ax in cuts if kind == "d"]
             if refresh and spec.group == g_now:
-                new_p = proj_lib.refresh_projector(
-                    g, _leaf_draws(draws, i, spec, g), st.projector, pcfg,
-                    side=spec.side, rank=spec.rank,
-                ).to(st.projector.dtype)
-                st, ov = _carry(spec, st, new_p)
+                if cuts:
+                    new_p = _tp_leaf_refresh(i, spec, g, st.projector, flat_g, draws, cuts)
+                else:
+                    new_p = proj_lib.refresh_projector(
+                        g, _leaf_draws(draws, i, spec, g), st.projector, pcfg,
+                        side=spec.side, rank=spec.rank,
+                    ).to(st.projector.dtype)
+                st, ov = _carry(spec, st, new_p, d_axes)
                 overlaps.append(ov)
             proj = st.projector
-            r_g = g.float() if projected else proj_lib.project(g.float(), proj, spec.side)
-            direction, inner_state = inner.update(r_g, st.inner, step)
+            if projected:
+                r_g = g.float()
+            else:
+                r_g = proj_lib.project(g.float(), proj, spec.side)
+                for ax in d_axes:  # this process's rows of d: a partial sum
+                    ax.all_reduce_(r_g)
+            cut = inner_cut(i, r_g)
+            direction, inner_state = inner.update(r_g, st.inner, step, cut)
             full_dir = proj_lib.backproject(direction.to(proj.dtype), proj, spec.side)
             upd = -lr * cfg.alpha * full_dir.float()
             if cfg.fira:
@@ -921,7 +1002,7 @@ def _assemble(cfg: OptimizerConfig, specs: List[LeafSpec], flat_like: Sequence,
                 # the adapted direction's norm to the projected gradient's,
                 # capped by the limiter (spike protection)
                 s_res = g.float() - proj_lib.backproject(r_g, proj, spec.side).float()
-                ratio = torch.clamp(_safe_ratio(direction, r_g), max=cfg.fira_limiter)
+                ratio = torch.clamp(_safe_ratio(direction, r_g, cut), max=cfg.fira_limiter)
                 upd = upd - lr * cfg.alpha * ratio * s_res
                 del s_res
             if cfg.weight_decay:
@@ -938,11 +1019,11 @@ def _assemble(cfg: OptimizerConfig, specs: List[LeafSpec], flat_like: Sequence,
                 if bucket_norm_sq else []
             flags += [tp.leaf_axes(i) for i in range(len(specs)) if i not in fused]
             unorm = _tp_norm(list(bucket_norm_sq) + norm_sq, flags,
-                             shard_axes if shard_local and not refresh else None,
+                             shard_axes if rows_in else None,
                              len(bucket_norm_sq), norm_axes, squared=True)
         else:
             bucket_sq = sum(bucket_norm_sq, zero)
-            if shard_local and not refresh:
+            if rows_in:
                 # disjoint blocks of rows: one scalar sum across the processes
                 bucket_sq = shard_axes.all_reduce_scalars(bucket_sq.reshape(1))[0]
             unorm = torch.sqrt(sum(norm_sq, zero) + bucket_sq)
@@ -1011,17 +1092,24 @@ def project_grads(optimizer: LowRankOptimizer, grads: PyTree, state: LowRankOptS
     """The low-rank leaves' gradients in R-space under the current
     projectors (``src/repro/core/lowrank.py:947``), the others as they are:
     the per-leaf project-then-reduce payload.  P is the same on every
-    process, so the sum of the projections is the projection of the sum."""
+    process, so the sum of the projections is the projection of the sum.
+    Under tensor parallelism a leaf whose d ``model`` cuts is summed over
+    it, as the buckets' R is (``buckets.bucketed_project_grads``)."""
     stacked_projs: Dict[int, torch.Tensor] = {}
     layout = optimizer.state_layout
     if layout is not None and state.buckets:
         stacked_projs = buckets_lib.leaf_projectors(
             layout, buckets_lib.zero_unpad_states(layout, state.buckets))
+    tp = optimizer.tp
     out = []
     for i, (spec, st, g) in enumerate(zip(optimizer.specs, state.leaves, tree_leaves(grads))):
         if spec.lowrank:
             proj = stacked_projs.get(i, st.projector)
-            out.append(proj_lib.project(g.float(), proj, spec.side))
+            r = proj_lib.project(g.float(), proj, spec.side)
+            if tp is not None and tp.splits[i] is not None \
+                    and buckets_lib.tp_kind(spec.side, tp.splits[i], g.dim()) == "d":
+                tp.axes.all_reduce_(r)
+            out.append(r)
         else:
             out.append(g)
     return tree_unflatten(grads, out)
@@ -1127,15 +1215,63 @@ def storage_opt_state(optimizer: LowRankOptimizer, state: LowRankOptState) -> Lo
 # ---------------------------------------------------------------------------
 
 
-def _map_tp_leaf(spec: LeafSpec, st: LeafState, split: Optional[int], ndim: int, fn) -> LeafState:
-    """A canonical per-leaf state with ``fn(tensor, dim)`` applied to each
-    of its tensors that is split over ``model``: the projector along its d
-    ("d") or its stack dim ("b"), the moments along the leaf's own split
-    dim where that is not the projected one (a moment is the leaf's shape
-    with the projected dim replaced by the rank).  Other leaves' inner
-    state is shaped like the param."""
+def _chunk_block(scale: torch.Tensor, n_total: int, ax) -> torch.Tensor:
+    """This process's scales of 8-bit chunks along a row of ``n_total`` cut
+    over ``ax``: the chunks its block of columns touches
+    (``kernels/lowrank_update/quantize.py``)."""
+    n = n_total // ax.size
+    lo, hi = ax.index * n // qz.QBLOCK, qz.num_blocks(ax.index * n + n)
+    return scale[..., lo:hi].clone()
+
+
+def _chunk_gather(scale: torch.Tensor, n_total: int, ax) -> torch.Tensor:
+    """The whole row's chunk scales from every process's: each writes its
+    chunks into zeros and the largest is taken (a straddling chunk's scale
+    is the same on the processes that share it; a scale is positive)."""
+    n = n_total // ax.size
+    out = scale.new_zeros(tuple(scale.shape[:-1]) + (qz.num_blocks(n_total),))
+    lo = ax.index * n // qz.QBLOCK
+    out[..., lo:lo + scale.shape[-1]] = scale
+    return ax.all_reduce_(out, op="max")
+
+
+def _inner_dims(st: Any, mdim: int, ndim: int) -> List[Optional[int]]:
+    """Per field of a canonical inner state, the dim that a cut of its
+    moments along ``mdim`` (a leaf of ``ndim`` dims) cuts, or None: every
+    moment-shaped field along ``mdim``; Adam-mini's per-row v and
+    Adafactor's row statistic (the moment without its last dim) along it
+    unless it is the last; Adafactor's column statistic (without the
+    second to last) along its own place of it; 8-bit Adam's scales
+    (chunks of the last dim) along it, -1 meaning the chunks."""
+    if isinstance(st, inner_lib.AdafactorState):
+        vc = None if mdim == ndim - 2 else (mdim if mdim < ndim - 2 else ndim - 2)
+        return [mdim, mdim if mdim < ndim - 1 else None, vc, None]
+    if isinstance(st, inner_lib.AdamMiniState):
+        return [mdim, mdim if mdim < ndim - 1 else None]
+    if isinstance(st, inner_lib.Adam8bitState):
+        sc = mdim if mdim < ndim - 1 else -1
+        return [mdim, sc, mdim, sc]
+    return [mdim if torch.is_tensor(x) and x.dim() == ndim else None for x in st]
+
+
+def _map_tp_leaf(spec: LeafSpec, st: LeafState, split: Optional[int], ndim: int, ax,
+                 gather: bool) -> LeafState:
+    """A canonical per-leaf state with its tensors that are split over
+    ``ax`` cut into this process's block, or (``gather``) joined from every
+    process's: the projector along its d ("d") or its stack dim ("b"), the
+    moments along the leaf's own split dim where that is not the projected
+    one (a moment is the leaf's shape with the projected dim replaced by
+    the rank), and the rest of the inner state as ``_inner_dims`` says.
+    Other leaves' inner state is shaped like the param."""
     if split is None:
         return st
+
+    def fn(x, dim):
+        if gather:
+            return ax.all_gather(x, dim=dim)
+        n = x.shape[dim] // ax.size
+        return x.narrow(dim, ax.index * n, n).clone()
+
     proj, mdim = st.projector, split
     if spec.lowrank:
         kind = buckets_lib.tp_kind(spec.side, split, ndim)
@@ -1144,9 +1280,16 @@ def _map_tp_leaf(spec: LeafSpec, st: LeafState, split: Optional[int], ndim: int,
         mdim = None if kind == "d" else split
     if mdim is None or st.inner is None:
         return LeafState(proj, st.inner)
-    inner = type(st.inner)(*[fn(x, mdim) if torch.is_tensor(x) and x.dim() == ndim else x
-                             for x in st.inner])
-    return LeafState(proj, inner)
+    n_total = None
+    if isinstance(st.inner, inner_lib.Adam8bitState):
+        n_total = st.inner.m_codes.shape[-1] * (ax.size if gather else 1)
+    fields = []
+    for x, dim in zip(st.inner, _inner_dims(st.inner, mdim, ndim)):
+        if dim == -1:
+            fields.append((_chunk_gather if gather else _chunk_block)(x, n_total, ax))
+        else:
+            fields.append(x if dim is None else fn(x, dim))
+    return LeafState(proj, type(st.inner)(*fields))
 
 
 def _tp_cuts(optimizer: LowRankOptimizer):
@@ -1167,10 +1310,22 @@ def tp_global_opt_state(optimizer: LowRankOptimizer, state: LowRankOptState) -> 
     canon = canonical_opt_state(optimizer, state)
     leaves = list(canon.leaves)
     for ax, splits in _tp_cuts(optimizer):
-        leaves = [_map_tp_leaf(spec, st, d, len(like.shape),
-                               lambda x, dim, ax=ax: ax.all_gather(x, dim=dim))
+        leaves = [_map_tp_leaf(spec, st, d, len(like.shape), ax, gather=True)
                   for spec, st, d, like in zip(optimizer.specs, leaves, splits, optimizer.likes)]
     return canon._replace(leaves=leaves)
+
+
+def tp_global_projectors(optimizer: LowRankOptimizer, state: LowRankOptState
+                         ) -> Dict[str, torch.Tensor]:
+    """{path: the global projector} of every low-rank leaf of this
+    process's state of a ``tensor_parallel_optimizer`` (the projectors
+    alone gathered, on every process): what the subspace metrics read."""
+    canon = canonical_opt_state(optimizer, state)
+    leaves = [LeafState(st.projector, None) for st in canon.leaves]
+    for ax, splits in _tp_cuts(optimizer):
+        leaves = [_map_tp_leaf(spec, st, d, len(like.shape), ax, gather=True)
+                  for spec, st, d, like in zip(optimizer.specs, leaves, splits, optimizer.likes)]
+    return {spec.path: st.projector for spec, st in zip(optimizer.specs, leaves) if spec.lowrank}
 
 
 def tp_local_opt_state(optimizer: LowRankOptimizer, state: LowRankOptState) -> LowRankOptState:
@@ -1178,11 +1333,7 @@ def tp_local_opt_state(optimizer: LowRankOptimizer, state: LowRankOptState) -> L
     storage layout of ``optimizer`` (a ``tensor_parallel_optimizer``)."""
     leaves = list(state.leaves)
     for ax, splits in _tp_cuts(optimizer):
-        def block(x, dim, ax=ax):
-            n = x.shape[dim] // ax.size
-            return x.narrow(dim, ax.index * n, n).clone()
-
-        leaves = [_map_tp_leaf(spec, st, d, len(like.shape), block)
+        leaves = [_map_tp_leaf(spec, st, d, len(like.shape), ax, gather=False)
                   for spec, st, d, like in zip(optimizer.specs, leaves, splits, optimizer.likes)]
     return storage_opt_state(optimizer, LowRankOptState(
         step=state.step, draws=state.draws, leaves=leaves, buckets=()))

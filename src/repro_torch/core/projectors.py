@@ -256,24 +256,53 @@ def _refresh_stack(g: torch.Tensor, draws: LeafDraws, prev_p: Optional[torch.Ten
     return p.to(cfg.dtype)
 
 
+def split_refresh_supported(cfg: "ProjectorConfig") -> bool:
+    """Can ``refresh_projector_stacked_split`` refresh this config from the
+    columns of a stack split over processes?  The SVD-free methods, and
+    dominant and sara on the randomized backend; the exact SVD gathers."""
+    return cfg.method in _SVD_FREE_METHODS or (
+        cfg.method in ("dominant", "sara") and cfg.svd_backend == "randomized")
+
+
 def refresh_projector_stacked_split(
     g: torch.Tensor,  # (B, d, n) this process's columns of the oriented stack
     draws: LeafDraws,  # the sketch's rows of those columns; the Gumbel noise whole
+    prev_p: Optional[torch.Tensor],  # (B, d, r) outgoing projectors (online_pca)
     cfg: ProjectorConfig,
     *,
     rank: int,
     n_total: int,
     axes,
 ) -> torch.Tensor:
-    """``refresh_projector_stacked`` for dominant and sara on the randomized
-    backend, on this process's columns of a stack split over ``axes``
-    (``svd.randomized_svd_stacked(split=)``): the same (B, d, rank)
-    projectors on every process, chunked as the whole stack would be."""
-    if cfg.method not in ("dominant", "sara") or cfg.svd_backend != "randomized":
-        raise ValueError(f"the split refresh covers dominant and sara on the randomized "
-                         f"backend, not {cfg.method!r} on {cfg.svd_backend!r}")
+    """``refresh_projector_stacked`` on this process's columns of a stack
+    split over ``axes``, the same (B, d, rank) projectors on every process
+    and no gradient gathered: dominant and sara on the randomized backend
+    (``svd.randomized_svd_stacked(split=)``, chunked as the whole stack
+    would be); golore's basis (drawn for the global leaf; no gradient
+    read); grass's row energies, summed over ``axes``; online PCA's power
+    step, G G^T P = sum_k G_k (G_k^T P) through the kernel on the local
+    block, and its squared norms, summed over ``axes``."""
+    if not split_refresh_supported(cfg):
+        raise ValueError(f"the split refresh covers the SVD-free methods and dominant and "
+                         f"sara on the randomized backend, not {cfg.method!r} on "
+                         f"{cfg.svd_backend!r}")
     bsz, d, _ = g.shape
     rank = min(rank, d)
+    if cfg.method in ("identity", "golore"):
+        return _refresh_stack(g, draws, prev_p, cfg, rank)
+    if cfg.method == "grass":
+        row_energy = axes.all_reduce_(torch.sum(g.float() ** 2, dim=-1))  # (B, d)
+        idx = sampling_lib.gumbel_topk_indices_batched(row_energy, rank, draws.gumbel)
+        sel = torch.zeros((bsz, d, rank), dtype=cfg.dtype, device=g.device)
+        return sel.scatter_(1, idx[:, None, :], 1.0)
+    if cfg.method == "online_pca":
+        if prev_p is None:
+            raise ValueError("an 'online_pca' refresh needs the previous projector")
+        g32, p32 = g.float(), prev_p.float()
+        sq = axes.all_reduce_(torch.sum(g32 * g32, dim=(-2, -1)))
+        step = (cfg.online_pca_lr / (sq + 1e-12))[:, None, None]
+        y = p32 + step * axes.all_reduce_(power_ops.power_iter_step(g32, p32))
+        return svd_lib.qr_q(y).to(cfg.dtype)
     pool = _pool_size(d, cfg, rank)
     _, kp, _ = svd_lib.clamp_sketch(d, n_total, pool, cfg.svd_oversample, cfg.svd_power_iters)
     step = refresh_chunk(bsz, d, n_total, kp)

@@ -61,6 +61,8 @@ __global__ void adam_moments_kernel(const float* __restrict__ r,
 // w, w_out (B, d, n) f32/bf16; p (B, d, r) f32; r_g, m, v, m_out, v_out and
 // the scratch n_scr (B, r, n) f32; contiguous, one device.  c1 = 1 - b1,
 // c2 = 1 - b2, keep = 1 - lr_wd.  Returns the cudaError_t of the launches.
+// The split schedule (lowrank_apply.cuh): w null runs the moments pass
+// alone.
 extern "C" int repro_lowrank_adam_update_batched(
     const void* w, const void* p, const void* r_g, const void* m,
     const void* v, void* w_out, void* m_out, void* v_out, void* n_scr,
@@ -79,8 +81,26 @@ extern "C" int repro_lowrank_adam_update_batched(
       static_cast<const float*>(v), static_cast<float*>(m_out),
       static_cast<float*>(v_out), ns, total, b1, c1, b2, c2, eps, bc1, bc2);
   cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
+  if (err != cudaSuccess || w == nullptr) return static_cast<int>(err);
   return static_cast<int>(repro::launch_backproject(
       dtype, w, static_cast<const float*>(p), ns, w_out, B, d, n, rank,
       lr_alpha, keep, s));
+}
+
+// The split schedule's second half for every update (lowrank_apply.cuh):
+// W' = keep * W - lr_alpha * P @ N on every row of a block, from the N
+// (B, r, n) f32 gathered after the update's moments pass ran on this
+// process's rows.  w, w_out (B, d, n) f32/bf16; p (B, d, r) f32;
+// contiguous, one device.  Returns the cudaError_t of the launch.
+extern "C" int repro_lowrank_backproject(const void* w, const void* p,
+                                         const void* n_dir, void* w_out,
+                                         int dtype, int B, int d, int n,
+                                         int rank, float lr_alpha, float keep,
+                                         void* stream) {
+  if (repro::bad_update_shape(dtype, B, d, n, rank))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(repro::launch_backproject(
+      dtype, w, static_cast<const float*>(p),
+      static_cast<const float*>(n_dir), w_out, B, d, n, rank, lr_alpha, keep,
+      static_cast<cudaStream_t>(stream)));
 }

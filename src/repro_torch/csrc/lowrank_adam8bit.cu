@@ -35,6 +35,18 @@
 // r % 256 != 0 on 'right') is masked.  JAX sends those shapes to its jnp
 // version instead (ops.py::adam8bit_kernel_supported).
 //
+// A block of a row cut over processes (tensor parallelism or FSDP on the
+// free dim of a 'left' bucket, quantize.py): ``qoff`` is its first
+// column's place in its global chunk, so local chunk c covers local columns
+// [256 c - qoff, 256 (c + 1) - qoff) and a row holds ceil((qoff + n) / 256)
+// scales.  A chunk that straddles a block edge needs the whole chunk's
+// absmax: a first launch with ``am_out``/``av_out`` writes each chunk
+// piece's absmax of the new moments and nothing else, the caller takes the
+// largest over the processes, and the main launch quantizes with the given
+// absmax (``given_m``/``given_v``) instead of its own.  The pass is
+// recomputed bit for bit, so the moments it quantizes are the first
+// launch's.
+//
 // Design.  Two launches, as lowrank_adam.cu (Hopper blocks run in no
 // order): the chunk pass above, which writes codes and scales once and N
 // into an f32 scratch, then the back-projection of lowrank_apply.cuh.  The
@@ -100,17 +112,22 @@ __global__ void adam8bit_left_kernel(
     const float* __restrict__ vs, uint8_t* __restrict__ mc_out,
     float* __restrict__ ms_out, uint8_t* __restrict__ vc_out,
     float* __restrict__ vs_out, float* __restrict__ n_out, long long rows,
-    int n, int nb, AdamParams a) {
+    int n, int nb, int qoff, const float* __restrict__ given_m,
+    const float* __restrict__ given_v, float* __restrict__ am_out,
+    float* __restrict__ av_out, AdamParams a) {
   constexpr int kPerLane = kQBlock / 32;
   const int lane = threadIdx.x & 31;
   const long long warps = ((long long)gridDim.x * blockDim.x) >> 5;
   const long long chunks = rows * nb;
+  const bool absmax_only = am_out != nullptr;
   for (long long chunk = ((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
        chunk < chunks; chunk += warps) {
     const long long row = chunk / nb;
     const int c = static_cast<int>(chunk % nb);
-    const long long base = row * n + (long long)c * kQBlock;
-    const int len = min(kQBlock, n - c * kQBlock);
+    // local column of the chunk's first element (negative for a block that
+    // starts inside its first chunk)
+    const int col0 = c * kQBlock - qoff;
+    const long long base = row * n + col0;
     const float sm = ms[chunk], sv = vs[chunk];
     float mv[kPerLane], vv[kPerLane];
     float am = 0.f, av = 0.f;
@@ -118,21 +135,30 @@ __global__ void adam8bit_left_kernel(
     for (int t = 0; t < kPerLane; ++t) {
       const int k = lane + 32 * t;
       mv[t] = vv[t] = 0.f;
-      if (k < len) {
+      if (col0 + k >= 0 && col0 + k < n) {
         const long long o = base + k;
         mv[t] = dq_signed(mc[o], sm);
         vv[t] = dq_unsigned(vc[o], sv);
-        n_out[o] = adam_element(r[o], mv[t], vv[t], a);
+        const float nd = adam_element(r[o], mv[t], vv[t], a);
+        if (!absmax_only) n_out[o] = nd;
         am = fmaxf(am, fabsf(mv[t]));
         av = fmaxf(av, fabsf(vv[t]));
       }
     }
-    const float sm2 = chunk_scale(warp_max(am));
-    const float sv2 = chunk_scale(warp_max(av));
+    const float wm = warp_max(am), wv = warp_max(av);
+    if (absmax_only) {
+      if (lane == 0) {
+        am_out[chunk] = wm;
+        av_out[chunk] = wv;
+      }
+      continue;
+    }
+    const float sm2 = chunk_scale(given_m != nullptr ? given_m[chunk] : wm);
+    const float sv2 = chunk_scale(given_v != nullptr ? given_v[chunk] : wv);
 #pragma unroll
     for (int t = 0; t < kPerLane; ++t) {
       const int k = lane + 32 * t;
-      if (k < len) {
+      if (col0 + k >= 0 && col0 + k < n) {
         mc_out[base + k] = q_signed(mv[t], sm2);
         vc_out[base + k] = q_unsigned(vv[t], sv2);
       }
@@ -215,18 +241,26 @@ adam8bit_right_kernel(
 
 // w, w_out (B, d, n) f32/bf16; p (B, d, r) f32; r_g and the scratch n_scr
 // (B, r, n) f32; m_codes, v_codes and their outputs (B, r, n) uint8;
-// m_scale, v_scale and their outputs (B, r, ceil(n/256)) f32 for side 0
-// ('left'), (B, n, ceil(r/256)) for side 1 ('right'); contiguous, one
-// device.  c1 = 1 - b1, c2 = 1 - b2, bc1 = 1 - b1^t, bc2 = 1 - b2^t,
-// keep = 1 - lr_wd.  Returns the cudaError_t of the launches.
+// m_scale, v_scale and their outputs (B, r, ceil((qoff + n)/256)) f32 for
+// side 0 ('left'), (B, n, ceil(r/256)) for side 1 ('right'); contiguous,
+// one device.  c1 = 1 - b1, c2 = 1 - b2, bc1 = 1 - b1^t, bc2 = 1 - b2^t,
+// keep = 1 - lr_wd.  qoff, given_m/given_v and am_out/av_out (shaped like
+// the scales; null when unused) are side 0's cut rows (header); am_out set
+// runs the absmax launch alone.  The split schedule (lowrank_apply.cuh): w
+// null runs the chunk pass alone.  Returns the cudaError_t of the launches.
 extern "C" int repro_lowrank_adam8bit_update_batched(
     const void* w, const void* p, const void* r_g, const void* m_codes,
     const void* m_scale, const void* v_codes, const void* v_scale,
     void* w_out, void* m_codes_out, void* m_scale_out, void* v_codes_out,
-    void* v_scale_out, void* n_scr, int dtype, int B, int d, int n, int rank,
-    int side, float b1, float c1, float b2, float c2, float eps, float bc1,
-    float bc2, float lr_alpha, float keep, void* stream) {
-  if (repro::bad_update_shape(dtype, B, d, n, rank) || (side != 0 && side != 1))
+    void* v_scale_out, void* n_scr, const void* given_m, const void* given_v,
+    void* am_out, void* av_out, int dtype, int B, int d, int n, int rank,
+    int side, int qoff, float b1, float c1, float b2, float c2, float eps,
+    float bc1, float bc2, float lr_alpha, float keep, void* stream) {
+  const bool cut = qoff != 0 || given_m != nullptr || given_v != nullptr ||
+                   am_out != nullptr || av_out != nullptr;
+  if (repro::bad_update_shape(dtype, B, d, n, rank) || (side != 0 && side != 1) ||
+      (side == 1 && cut) || qoff < 0 || qoff >= repro::kQBlock ||
+      ((am_out == nullptr) != (av_out == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const repro::AdamParams a{b1, c1, b2, c2, eps, bc1, bc2};
@@ -241,12 +275,14 @@ extern "C" int repro_lowrank_adam8bit_update_batched(
   float* vso = static_cast<float*>(v_scale_out);
   float* ns = static_cast<float*>(n_scr);
   if (side == 0) {
-    const int nb = (n + repro::kQBlock - 1) / repro::kQBlock;
+    const int nb = (qoff + n + repro::kQBlock - 1) / repro::kQBlock;
     const long long rows = (long long)B * rank;
     const int threads = 256;  // 8 warps, one chunk each at a time
     repro::adam8bit_left_kernel<<<repro::elementwise_blocks(rows * nb * 32, threads),
                                   threads, 0, s>>>(
-        rr, mc, ms, vc, vs, mco, mso, vco, vso, ns, rows, n, nb, a);
+        rr, mc, ms, vc, vs, mco, mso, vco, vso, ns, rows, n, nb, qoff,
+        static_cast<const float*>(given_m), static_cast<const float*>(given_v),
+        static_cast<float*>(am_out), static_cast<float*>(av_out), a);
   } else {
     const int nb = (rank + repro::kQBlock - 1) / repro::kQBlock;
     const dim3 grid((n + repro::kRightCols - 1) / repro::kRightCols, nb, B);
@@ -255,7 +291,8 @@ extern "C" int repro_lowrank_adam8bit_update_batched(
         rr, mc, ms, vc, vs, mco, mso, vco, vso, ns, rank, n, nb, a);
   }
   cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
+  if (err != cudaSuccess || w == nullptr || am_out != nullptr)
+    return static_cast<int>(err);
   return static_cast<int>(repro::launch_backproject(
       dtype, w, static_cast<const float*>(p), ns, w_out, B, d, n, rank,
       lr_alpha, keep, s));

@@ -57,7 +57,8 @@ __global__ void adam_mini_moments_kernel(
 // w, w_out (B, d, n) f32/bf16; p (B, d, r) f32; r_g, m, m_out and the
 // scratch n_scr (B, r, n) f32; den (B, r) for side 0 ('left'), (B, n) for
 // side 1 ('right'), f32; contiguous, one device.  c1 = 1 - b1, bc1 = 1 -
-// b1^t, keep = 1 - lr_wd.  Returns the cudaError_t of the launches.
+// b1^t, keep = 1 - lr_wd.  Returns the cudaError_t of the launches.  The
+// split schedule (lowrank_apply.cuh): w null runs the moments pass alone.
 extern "C" int repro_lowrank_adam_mini_update_batched(
     const void* w, const void* p, const void* r_g, const void* m,
     const void* den, void* w_out, void* m_out, void* n_scr, int dtype, int B,
@@ -79,7 +80,7 @@ extern "C" int repro_lowrank_adam_mini_update_batched(
       static_cast<const float*>(den), static_cast<float*>(m_out), ns, total,
       rank, n, den_b, den_i, den_j, b1, c1, bc1);
   cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
+  if (err != cudaSuccess || w == nullptr) return static_cast<int>(err);
   return static_cast<int>(repro::launch_backproject(
       dtype, w, static_cast<const float*>(p), ns, w_out, B, d, n, rank,
       lr_alpha, keep, s));

@@ -9,6 +9,12 @@
 //
 // per element in W's dtype: the full-space direction P @ N never reaches
 // device memory, and W is read and written once.
+//
+// The split schedule (ZeRO state on the FSDP step, core/buckets.py): each
+// update's C entry runs its moments pass alone when W is null, on this
+// process's rows of the state; repro_lowrank_backproject (lowrank_adam.cu)
+// then runs this product alone on every row of its block of W, from the N
+// gathered in between.
 #pragma once
 
 #include "batched_gemm.cuh"

@@ -42,7 +42,8 @@ __global__ void msgd_moments_kernel(const float* __restrict__ r,
 
 // w, w_out (B, d, n) f32/bf16; p (B, d, r) f32; r_g, m, m_out (B, r, n)
 // f32; contiguous, one device.  c1 = 1 - b1, keep = 1 - lr_wd.  Returns the
-// cudaError_t of the launches.
+// cudaError_t of the launches.  The split schedule (lowrank_apply.cuh):
+// w null runs the moments pass alone (N is M').
 extern "C" int repro_lowrank_msgd_update_batched(
     const void* w, const void* p, const void* r_g, const void* m, void* w_out,
     void* m_out, int dtype, int B, int d, int n, int rank, float b1, float c1,
@@ -58,7 +59,7 @@ extern "C" int repro_lowrank_msgd_update_batched(
       static_cast<const float*>(r_g), static_cast<const float*>(m), mo, total,
       c1, b1);
   cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
+  if (err != cudaSuccess || w == nullptr) return static_cast<int>(err);
   return static_cast<int>(repro::launch_backproject(
       dtype, w, static_cast<const float*>(p), mo, w_out, B, d, n, rank,
       lr_alpha, keep, s));

@@ -61,6 +61,11 @@ SIGNATURES = {
         "repro_lowrank_adam_update_batched",
         [_P] * 9 + [_I] * 5 + [_F] * 9 + [_P],
     ),
+    "lowrank_backproject": (
+        "repro_lowrank_backproject",
+        [_P] * 4 + [_I] * 5 + [_F] * 2 + [_P],
+        "lowrank_adam",
+    ),
     "lowrank_msgd": (
         "repro_lowrank_msgd_update_batched",
         [_P] * 6 + [_I] * 5 + [_F] * 4 + [_P],
@@ -71,7 +76,7 @@ SIGNATURES = {
     ),
     "lowrank_adam8bit": (
         "repro_lowrank_adam8bit_update_batched",
-        [_P] * 13 + [_I] * 6 + [_F] * 9 + [_P],
+        [_P] * 17 + [_I] * 7 + [_F] * 9 + [_P],
     ),
     "power_iter": (
         "repro_power_iter_batched",

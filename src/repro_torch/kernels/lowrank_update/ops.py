@@ -3,7 +3,9 @@
 hand-written kernels, CPU tensors to the plain versions.  Every function
 takes stacked (B, d, n) / (B, d, r) / (B, r, n) operands in the canonical
 side='left' orientation (core/buckets.py transposes side='right' leaves
-on the way in and out).
+on the way in and out).  The updates' keywords for blocks of the state
+(``gather``, Adam-mini's ``axes`` / ``n_total``, 8-bit Adam's ``qoff`` /
+``reduce``) pass to both versions as they are (``kernel.py``).
 """
 from __future__ import annotations
 
@@ -37,16 +39,17 @@ def bucketed_adam_update(
     b1: float = 0.9,
     b2: float = 0.999,
     eps: float = 1e-8,
+    gather=None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """W' = (1-lr_wd) W - lr_alpha P@N, plus new moments, one call."""
     if w.device.type == "cpu":
         return ref_lib.lowrank_adam_update_ref(
             w, p, r_g, m, v, b1=b1, b2=b2, eps=eps, step=step,
-            lr_alpha=lr_alpha, lr_wd=lr_wd,
+            lr_alpha=lr_alpha, lr_wd=lr_wd, gather=gather,
         )
     return update_kernel.lowrank_adam_update_batched(
         w.contiguous(), p.contiguous(), r_g.contiguous(), m.contiguous(),
-        v.contiguous(), step, lr_alpha, lr_wd, b1=b1, b2=b2, eps=eps,
+        v.contiguous(), step, lr_alpha, lr_wd, b1=b1, b2=b2, eps=eps, gather=gather,
     )
 
 
@@ -59,15 +62,16 @@ def bucketed_msgd_update(
     lr_wd: float = 0.0,
     *,
     b1: float = 0.9,
+    gather=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """MSGD's fused update: (W', M')."""
     if w.device.type == "cpu":
         return ref_lib.lowrank_msgd_update_ref(
-            w, p, r_g, m, b1=b1, lr_alpha=lr_alpha, lr_wd=lr_wd
+            w, p, r_g, m, b1=b1, lr_alpha=lr_alpha, lr_wd=lr_wd, gather=gather
         )
     return update_kernel.lowrank_msgd_update_batched(
         w.contiguous(), p.contiguous(), r_g.contiguous(), m.contiguous(),
-        lr_alpha, lr_wd, b1=b1,
+        lr_alpha, lr_wd, b1=b1, gather=gather,
     )
 
 
@@ -85,15 +89,16 @@ def bucketed_adam_mini_update(
     b2: float = 0.95,
     eps: float = 1e-8,
     side: str = "left",
+    **cut,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Adam-mini's fused update with the per-row v: (W', M', v')."""
     if w.device.type == "cpu":
         return ref_lib.lowrank_adam_mini_update_ref(
-            w, p, r_g, m, v, step, lr_alpha, lr_wd, b1=b1, b2=b2, eps=eps, side=side
+            w, p, r_g, m, v, step, lr_alpha, lr_wd, b1=b1, b2=b2, eps=eps, side=side, **cut
         )
     return update_kernel.lowrank_adam_mini_update_batched(
         w.contiguous(), p.contiguous(), r_g.contiguous(), m.contiguous(),
-        v.contiguous(), step, lr_alpha, lr_wd, b1=b1, b2=b2, eps=eps, side=side,
+        v.contiguous(), step, lr_alpha, lr_wd, b1=b1, b2=b2, eps=eps, side=side, **cut,
     )
 
 
@@ -113,17 +118,19 @@ def bucketed_adam8bit_update(
     b2: float = 0.999,
     eps: float = 1e-8,
     side: str = "left",
+    **cut,
 ) -> Tuple[torch.Tensor, ...]:
     """8-bit Adam's fused update: (W', m codes, m scales, v codes, v
     scales).  Unlike JAX's dispatch (``adam8bit_kernel_supported``), every
-    shape goes to the kernel on the card: a short final chunk is masked,
-    not sent to the plain version."""
+    shape goes to the kernel on the card: a short final chunk, and a chunk
+    that straddles a block edge, are masked, not sent to the plain
+    version."""
     if w.device.type == "cpu":
         return ref_lib.lowrank_adam8bit_update_ref(
             w, p, r_g, m_codes, m_scale, v_codes, v_scale, step, lr_alpha, lr_wd,
-            b1=b1, b2=b2, eps=eps, side=side,
+            b1=b1, b2=b2, eps=eps, side=side, **cut,
         )
     return update_kernel.lowrank_adam8bit_update_batched(
         *(t.contiguous() for t in (w, p, r_g, m_codes, m_scale, v_codes, v_scale)),
-        step, lr_alpha, lr_wd, b1=b1, b2=b2, eps=eps, side=side,
+        step, lr_alpha, lr_wd, b1=b1, b2=b2, eps=eps, side=side, **cut,
     )

@@ -44,6 +44,27 @@ def bias_corrections(b1: float, b2: float, step: int) -> Tuple[float, float]:
     return bias_correction(b1, step), bias_correction(b2, step)
 
 
+def backproject_ref(w: torch.Tensor, p: torch.Tensor, n_dir: torch.Tensor, lr_alpha: float,
+                    lr_wd: float = 0.0) -> torch.Tensor:
+    """W' = (1 - lr_wd) W - lr_alpha * (P @ N), in W's dtype."""
+    w_new = (1.0 - lr_wd) * w.float() - lr_alpha * torch.einsum(
+        "...dr,...rn->...dn", p.float(), n_dir
+    )
+    return w_new.to(w.dtype)
+
+
+def _apply(w, p, n_dir, lr_alpha, lr_wd, gather):
+    """The back-projection of N, gathered first with ``gather`` (the split
+    schedule: this process's rows of N -> every row)."""
+    return backproject_ref(w, p, n_dir if gather is None else gather(n_dir), lr_alpha, lr_wd)
+
+
+# ``gather`` (every update below): the split schedule of ZeRO state on the
+# FSDP step (``core/buckets.py``).  r_g and the moments are then this
+# process's rows of the bucket, w and p every row of its block, and
+# ``gather`` takes the rows of N to every row before the back-projection.
+
+
 def lowrank_adam_update_ref(
     w: torch.Tensor,  # (..., d, n)
     p: torch.Tensor,  # (..., d, r)
@@ -57,16 +78,14 @@ def lowrank_adam_update_ref(
     step: int,
     lr_alpha: float,
     lr_wd: float = 0.0,
+    gather=None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     r32 = r_g.float()
     m_new = b1 * m.float() + (1.0 - b1) * r32
     v_new = b2 * v.float() + (1.0 - b2) * r32 * r32
     bc1, bc2 = bias_corrections(b1, b2, step)
     n_dir = (m_new / bc1) / (torch.sqrt(v_new / bc2) + eps)
-    w_new = (1.0 - lr_wd) * w.float() - lr_alpha * torch.einsum(
-        "...dr,...rn->...dn", p.float(), n_dir
-    )
-    return w_new.to(w.dtype), m_new, v_new
+    return _apply(w, p, n_dir, lr_alpha, lr_wd, gather), m_new, v_new
 
 
 def lowrank_msgd_update_ref(
@@ -78,12 +97,10 @@ def lowrank_msgd_update_ref(
     b1: float,
     lr_alpha: float,
     lr_wd: float = 0.0,
+    gather=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     m_new = (1.0 - b1) * m.float() + b1 * r_g.float()
-    w_new = (1.0 - lr_wd) * w.float() - lr_alpha * torch.einsum(
-        "...dr,...rn->...dn", p.float(), m_new
-    )
-    return w_new.to(w.dtype), m_new
+    return _apply(w, p, m_new, lr_alpha, lr_wd, gather), m_new
 
 
 def adam_mini_stats_ref(
@@ -94,14 +111,21 @@ def adam_mini_stats_ref(
     b2: float,
     eps: float,
     side: str = "left",
+    axes=None,
+    n_total: int = 0,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Adam-mini's per-row second moment and the direction's denominator:
     ``(v', den)`` with ``den`` broadcastable against the (..., r, n) stack.
-    Side 'right' reduces in the per-leaf orientation, as JAX does."""
+    Side 'right' reduces in the per-leaf orientation, as JAX does.  On a
+    'left' stack whose n ``axes`` cut (this process's columns of rows of
+    ``n_total``), the row sums are summed over ``axes`` before the mean."""
     r32 = r_g.float()
     bc2 = bias_correction(b2, step)
     if side == "left":
-        blk = torch.mean(r32 * r32, dim=-1)  # (..., r)
+        if axes is not None:
+            blk = axes.all_reduce_(torch.sum(r32 * r32, dim=-1)) / n_total
+        else:
+            blk = torch.mean(r32 * r32, dim=-1)  # (..., r)
         v_new = b2 * v + (1.0 - b2) * blk
         vb = v_new[..., :, None]
     else:
@@ -126,15 +150,28 @@ def lowrank_adam_mini_update_ref(
     b2: float,
     eps: float,
     side: str = "left",
+    axes=None,
+    n_total: int = 0,
+    gather=None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     r32 = r_g.float()
     m_new = b1 * m.float() + (1.0 - b1) * r32
-    v_new, den = adam_mini_stats_ref(r_g, v, step, b2=b2, eps=eps, side=side)
+    v_new, den = adam_mini_stats_ref(r_g, v, step, b2=b2, eps=eps, side=side, axes=axes,
+                                     n_total=n_total)
     n_dir = (m_new / bias_correction(b1, step)) / den
-    w_new = (1.0 - lr_wd) * w.float() - lr_alpha * torch.einsum(
-        "...dr,...rn->...dn", p.float(), n_dir
-    )
-    return w_new.to(w.dtype), m_new, v_new
+    return _apply(w, p, n_dir, lr_alpha, lr_wd, gather), m_new, v_new
+
+
+def adam8bit_moments_ref(r_g, m_codes, m_scale, v_codes, v_scale, step, *, b1, b2, eps,
+                         side="left", qoff=0):
+    """8-bit Adam's dequantized update: (N, M', V') in f32, canonical."""
+    r32 = r_g.float()
+    m = qz.dequantize_stacked(m_codes, m_scale, side, signed=True, offset=qoff)
+    v = qz.dequantize_stacked(v_codes, v_scale, side, signed=False, offset=qoff)
+    m_new = b1 * m + (1.0 - b1) * r32
+    v_new = b2 * v + (1.0 - b2) * r32 * r32
+    bc1, bc2 = bias_corrections(b1, b2, step)
+    return (m_new / bc1) / (torch.sqrt(v_new / bc2) + eps), m_new, v_new
 
 
 def lowrank_adam8bit_update_ref(
@@ -153,19 +190,20 @@ def lowrank_adam8bit_update_ref(
     b2: float,
     eps: float,
     side: str = "left",
+    qoff: int = 0,
+    reduce=None,
+    gather=None,
 ) -> Tuple[torch.Tensor, ...]:
     """Dequantize, Adam, requantize, W'.  Returns (W', m codes, m scales,
-    v codes, v scales)."""
-    r32 = r_g.float()
-    m = qz.dequantize_stacked(m_codes, m_scale, side, signed=True)
-    v = qz.dequantize_stacked(v_codes, v_scale, side, signed=False)
-    m_new = b1 * m + (1.0 - b1) * r32
-    v_new = b2 * v + (1.0 - b2) * r32 * r32
-    bc1, bc2 = bias_corrections(b1, b2, step)
-    n_dir = (m_new / bc1) / (torch.sqrt(v_new / bc2) + eps)
-    w_new = (1.0 - lr_wd) * w.float() - lr_alpha * torch.einsum(
-        "...dr,...rn->...dn", p.float(), n_dir
-    )
-    mc, ms = qz.quantize_stacked(m_new, side, signed=True)
-    vc, vs = qz.quantize_stacked(v_new, side, signed=False)
-    return w_new.to(w.dtype), mc, ms, vc, vs
+    v codes, v scales).  A 'left' block of cut rows (``quantize.py``):
+    ``qoff`` its first column's place in its chunk, ``reduce`` the map of
+    each chunk piece's absmax to the whole chunk's (``straddle_max``)."""
+    n_dir, m_new, v_new = adam8bit_moments_ref(r_g, m_codes, m_scale, v_codes, v_scale, step,
+                                               b1=b1, b2=b2, eps=eps, side=side, qoff=qoff)
+    am = av = None
+    if reduce is not None:
+        am = reduce(qz.chunk_absmax(m_new, qoff))
+        av = reduce(qz.chunk_absmax(v_new, qoff))
+    mc, ms = qz.quantize_stacked(m_new, side, signed=True, offset=qoff, absmax=am)
+    vc, vs = qz.quantize_stacked(v_new, side, signed=False, offset=qoff, absmax=av)
+    return _apply(w, p, n_dir, lr_alpha, lr_wd, gather), mc, ms, vc, vs

@@ -180,20 +180,22 @@ def shard_params(tree, mesh, splits: Optional[Sequence] = None):
     return tree_unflatten(tree, [block_of(x, d, mesh) for x, d in zip(tree_leaves(tree), splits)])
 
 
+def gather_leaf(x: torch.Tensor, split, mesh) -> torch.Tensor:
+    """One global leaf from every process's block (``block_of``'s
+    inverse): gathered over ``model``, then over ``data``."""
+    ddim, mdim = _pair(split)
+    if mdim is not None:
+        x = mesh.model_axes().all_gather(x, dim=mdim)
+    if ddim is not None:
+        x = mesh.data_axes().all_gather(x, dim=ddim)
+    return x
+
+
 def gather_params(tree, mesh, splits: Sequence):
     """The global params from every process's blocks (``shard_params``'
-    inverse; ``splits`` from the global shapes): gathered over ``model``,
-    then over ``data``."""
-    dax, max_ = mesh.data_axes(), mesh.model_axes()
-    out = []
-    for x, split in zip(tree_leaves(tree), splits):
-        ddim, mdim = _pair(split)
-        if mdim is not None:
-            x = max_.all_gather(x, dim=mdim)
-        if ddim is not None:
-            x = dax.all_gather(x, dim=ddim)
-        out.append(x)
-    return tree_unflatten(tree, out)
+    inverse; ``splits`` from the global shapes)."""
+    return tree_unflatten(tree, [gather_leaf(x, split, mesh)
+                                 for x, split in zip(tree_leaves(tree), splits)])
 
 
 def batch_rows(n: int, mesh) -> Tuple[int, int]:

@@ -55,12 +55,14 @@ Data and tensor parallel, one process per card: ``--mesh data,model``
 (or ``pod,data,model``) over the processes, ``--compressed-dp`` for the
 project-then-reduce step (``flat``, or ``--compressed-dp pod``),
 ``--state-sharding zero`` for ZeRO state (``--state-shards`` defaults to
-the compressed axes' replica count).  A ``model`` extent above 1 runs
-every family tensor parallel (MoE: expert parallel), and a ``data``
-extent above 1 without ``--compressed-dp`` runs it FSDP over ``data``
-(the reference's standard step), each process holding its blocks of the
-params and optimizer state (``train/step.py``); the bucketed engine with
-Adam or MSGD.  Start the
+the compressed axes' replica count, and to the ``data`` extent on the
+FSDP step).  A ``model`` extent above 1 runs every family tensor parallel
+(MoE: expert parallel), and a ``data`` extent above 1 without
+``--compressed-dp`` runs it FSDP over ``data`` (the reference's standard
+step), each process holding its blocks of the params and optimizer state
+(``train/step.py``), with every ``--optimizer``, both engines,
+``--rank-schedule`` and ``--log-spectrum``; ``--state-sharding zero`` on
+the FSDP step keeps each process's rows of the moments too.  Start the
 processes with torchrun, which sets ``RANK`` / ``WORLD_SIZE`` /
 ``MASTER_ADDR`` / ``MASTER_PORT``:
 
@@ -69,6 +71,12 @@ processes with torchrun, which sets ``RANK`` / ``WORLD_SIZE`` /
         --mesh 4,1 --compressed-dp --state-sharding zero --steps 100
     PYTHONPATH=src torchrun --nproc-per-node 8 -m repro_torch.launch.train \
         --arch llama3-8b --engine bucketed --svd-backend randomized --mesh 4,2
+    PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.train \
+        --arch qwen2-1.5b --optimizer galore-sara-adam8bit --engine bucketed \
+        --svd-backend randomized --mesh 1,2
+    PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \
+        --arch llama3-8b --engine bucketed --svd-backend randomized --mesh 4,1 \
+        --state-sharding zero
 
 
 or one launcher per process with ``--coordinator`` (``host:port``, or a
@@ -235,6 +243,8 @@ def main(argv=None) -> None:
     if args.state_sharding:
         dp = ("pod",) if args.compressed_dp == "pod" else (
             batch_axes(mesh) if mesh is not None else ())
+        if mesh is not None and not args.compressed_dp and mesh.dp > 1:
+            dp = ("data",)  # the FSDP step's rows are over data
         kw.update(state_sharding=args.state_sharding,
                   state_shards=args.state_shards or (axes_size(mesh, dp) if mesh else 1))
     if args.engine:

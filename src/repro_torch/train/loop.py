@@ -75,8 +75,14 @@ cadence, deferred metric fetch and subspace tracking.
     canonical per-leaf format, and a load reads the global state and cuts
     it (``fns["place_state"]``), so a tensor-parallel checkpoint resumes
     on one process and in JAX, and a one-process checkpoint resumes under
-    tensor parallelism or FSDP at any ``data`` extent.  Rank schedules, the spectrum logger and
-    ``track_subspace`` read the optimizer's leaves whole and raise here.
+    tensor parallelism or FSDP at any ``data`` extent.  The spectrum logger
+    reads the probe leaf gathered (``launch/sharding.gather_leaf``) and
+    ``track_subspace`` the gathered projectors
+    (``core/lowrank.tp_global_projectors``), so every process records one
+    process's values and the adaptive schedule proposes the same rank on
+    every process; a re-bucket gathers the global state, migrates it,
+    rebuilds the global optimizer and its steps at the new rank and places
+    the state again (the rebuilt steps cut the optimizer anew).
 """
 from __future__ import annotations
 
@@ -93,6 +99,7 @@ from repro_torch.core import lowrank as lowrank_lib
 from repro_torch.core import metrics as metrics_lib
 from repro_torch.core import rank_schedule as rank_schedule_lib
 from repro_torch.launch.mesh import barrier
+from repro_torch.launch.sharding import gather_leaf
 from repro_torch.train import checkpoint as ckpt_lib
 from repro_torch.train import recovery as recovery_lib
 from repro_torch.train import state as state_lib
@@ -173,11 +180,6 @@ def train_loop(
     tp = bool(step_fns.get("tp"))  # this process holds blocks of the leaves
     layout = optimizer.state_layout
     shard_spec = None
-    if tp and (track_subspace or train_cfg.log_spectrum or optimizer.config.rank_schedule):
-        raise NotImplementedError(
-            "rank schedules, the spectrum logger and track_subspace under tensor "
-            "parallelism or FSDP are not ported: each process holds blocks of the leaves "
-            "(ROADMAP queue 1 item 11, second half, the rest)")
     if tp:
         pass  # the canonical format, from the gathered state
     elif train_cfg.sharded_checkpoint and layout is not None and layout.shards > 1:
@@ -206,7 +208,8 @@ def train_loop(
     spectrum: Optional[SpectrumLogger] = None
     if train_cfg.log_spectrum or (rank_sched is not None and rank_sched.kind == "adaptive"):
         # the adaptive policy reads the probe, so it turns the logger on
-        spectrum = SpectrumLogger(optimizer.specs)
+        spectrum = SpectrumLogger(optimizer.specs, gather=(
+            lambda i, x: gather_leaf(x, step_fns["splits"][i], mesh)) if tp else None)
 
     def ckpt_meta() -> Optional[Dict[str, Any]]:
         """The rank(s) the state's bucket geometry was built at, for the
@@ -259,16 +262,18 @@ def train_loop(
                 want_rank = int(meta.get("rank", rank_now))
                 want_groups = tuple(int(g) for g in meta.get("group_ranks", ())) or groups_now
                 if (want_rank, want_groups) != (rank_now, groups_now):
+                    # the global params: a tensor-parallel skeleton holds blocks
+                    glob = step_fns["gather_state"](skel).params if tp else skel.params
                     if len(set(want_groups)) > 1:
-                        new_opt = lowrank_lib.rebuild_at_rank(optimizer, skel.params,
+                        new_opt = lowrank_lib.rebuild_at_rank(optimizer, glob,
                                                               group_ranks=want_groups)
                     else:
-                        new_opt = lowrank_lib.rebuild_at_rank(optimizer, skel.params,
+                        new_opt = lowrank_lib.rebuild_at_rank(optimizer, glob,
                                                               rank=want_rank)
                     adopt(new_opt)
                     # a skeleton at the new geometry, keeping the caller's
                     # kind of draw source
-                    skel = place(TrainState(skel.params, optimizer.init(skel.params)._replace(
+                    skel = place(TrainState(glob, optimizer.init(glob)._replace(
                         draws=skel.opt_state.draws)))
                 return load_one(skel, ck), ck
             except (OSError, ValueError, KeyError) as e:
@@ -402,16 +407,19 @@ def train_loop(
         # must be counted under recovery, as at every other wait
         drain_save_error()
         old_opt = optimizer
-        new_opt = lowrank_lib.rebuild_at_rank(old_opt, cur_state.params, rank=new_rank,
-                                              group_ranks=new_group_ranks)
+        # the global state (under tensor parallelism or FSDP, gathered on
+        # every process), whose params the rebuilt optimizer is made for
         full = step_fns["gather_state"](cur_state) if "gather_state" in step_fns else cur_state
+        new_opt = lowrank_lib.rebuild_at_rank(old_opt, full.params, rank=new_rank,
+                                              group_ranks=new_group_ranks)
         migrated = rank_schedule_lib.migrate_opt_state(old_opt, new_opt, full.opt_state)
+        params = full.params if tp else cur_state.params
         del full
         adopt(new_opt)
         rank_to, _ = lowrank_lib.current_ranks(new_opt)
         history.append({"event": "rebucket", "step": float(s), "rank_from": float(rank_from),
                         "rank_to": float(rank_to)})
-        return place(TrainState(cur_state.params, migrated))
+        return place(TrainState(params, migrated))
 
     guard = _PreemptionGuard(handle_signals)
     step = start_step
@@ -466,8 +474,12 @@ def train_loop(
                     if rec is not None and train_cfg.log_spectrum:
                         history.append(rec)
                 if tracker is not None and is_refresh:
-                    tracker.observe(metrics_lib.collect_projectors(
-                        state.opt_state, optimizer.specs, layout=optimizer.state_layout))
+                    if tp:
+                        tracker.observe(lowrank_lib.tp_global_projectors(
+                            step_fns["optimizer"], state.opt_state))
+                    else:
+                        tracker.observe(metrics_lib.collect_projectors(
+                            state.opt_state, optimizer.specs, layout=optimizer.state_layout))
                 if fault_plan is not None and fault_plan.preempt(step):
                     guard.requested = True  # as if SIGTERM had come
                 checkpoint_due = (train_cfg.checkpoint_every > 0

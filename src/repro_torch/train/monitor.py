@@ -215,9 +215,11 @@ class SpectrumLogger:
     reference's host copy: the old leaf (and, where it is a view of a
     bucket's W' stack, that stack) stays allocated through the refresh
     step.  ``effective_rank_for(group)`` is the adaptive schedule's
-    reading."""
+    reading.  ``gather(leaf index, block)`` (a process holding blocks of the
+    leaves) joins the probe leaf before it is read, on every process."""
 
-    def __init__(self, specs) -> None:
+    def __init__(self, specs, gather=None) -> None:
+        self.gather = gather
         self.probe: Dict[int, Tuple[int, str]] = {}
         best: Dict[int, int] = {}
         for idx, spec in enumerate(specs):
@@ -231,7 +233,9 @@ class SpectrumLogger:
         self.history: List[Dict[str, Any]] = []
 
     def _leaf(self, params, group: int):
-        return tree_leaves(params)[self.probe[group][0]]
+        i = self.probe[group][0]
+        x = tree_leaves(params)[i]
+        return x if self.gather is None else self.gather(i, x)
 
     def capture_before(self, params, group: int) -> None:
         """Keep the probe leaf of the params entering a refresh step."""

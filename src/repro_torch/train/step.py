@@ -44,8 +44,13 @@ optimizer state), the model gathers a block where it is used
 reduce-scattered, summed over ``data``: the step divides it by the batch
 replica count and sums it over ``pod``, while the leaves whole over
 ``data`` are averaged over (pod, data) as before.  The compressed steps
-keep the params whole over ``data``, as the reference's do; ZeRO state
-on the FSDP step raises (``FSDP_ZERO``).
+keep the params whole over ``data``, as the reference's do.  ZeRO state on
+the FSDP step (``state_sharding="zero"``, ``state_shards`` the ``data``
+extent) keeps this process's rows of the moments of the buckets whose R is
+whole over ``data`` (``core/buckets.StateLayout.zero_rows``): the hot step
+reduce-scatters their partial R over ``data`` in place of the all-reduce,
+updates its rows and all-gathers their direction N before each process
+back-projects its block of W (``update(..., shard_axes=)``).
 ``fns["place_state"]`` cuts a global state into this process's blocks and
 ``fns["gather_state"]`` returns the global state (the given optimizer's
 layout), which the loop's checkpoints hold.
@@ -84,11 +89,6 @@ from repro_torch.launch import sharding as shd
 from repro_torch.launch.mesh import axes_size, batch_axes
 from repro_torch.models import parallel as par
 from repro_torch.train.state import TrainState
-
-FSDP_ZERO = ("state_sharding='zero' on the FSDP step (the standard step at a data extent "
-             "above 1) is not ported (ROADMAP queue 1 item 11, second half): use "
-             "compressed='flat' or 'pod' for ZeRO state")
-
 
 def _value_and_grad(model, microbatch: int, accum_dtype=torch.float32, model_axes=None,
                     data_shards=None):
@@ -226,8 +226,11 @@ def make_train_step(
     compressed = "flat" if compressed is True else (compressed or "")
     # FSDP over data: the standard step at a data extent above 1
     fsdp = mesh is not None and not compressed and mesh.shape.get("data", 1) > 1
-    if fsdp and optimizer.config.state_sharding == "zero":
-        raise NotImplementedError(FSDP_ZERO)
+    if fsdp and optimizer.config.state_sharding == "zero" \
+            and optimizer.config.state_shards != mesh.dp:
+        raise ValueError(
+            f"state_sharding='zero' on the FSDP step shards over data: state_shards must be "
+            f"the data extent {mesh.dp}, got {optimizer.config.state_shards}")
     if (mesh is not None and mesh.tp > 1) or fsdp:
         optimizer = lowrank_lib.tensor_parallel_optimizer(optimizer, mesh, fsdp=fsdp)
     # this process holds blocks of the leaves (over model, data or both)
@@ -282,6 +285,10 @@ def make_train_step(
         if compressed == "pod" and "data" in mesh.axis_names:
             intra = mesh.axes(("data",))
     shard_axes = red if zero and compressed else None
+    # ZeRO on the FSDP step: the zero_rows buckets' moments, rows over data
+    fsdp_zero = zero and bool(layout.zero_rows)
+    if fsdp_zero:
+        shard_axes = mesh.data_axes()
     local_rows = shard_axes is not None and mesh.distributed
 
     def local_loss_and_grads(state: TrainState, batch):
@@ -338,6 +345,7 @@ def make_train_step(
         params, opt_state, aux = optimizer.update(
             grads, state.opt_state, state.params, refresh=refresh,
             group=group, apply=True, skip_nonfinite=skip_nonfinite,
+            shard_axes=shard_axes if local_rows else None,
         )
         del grads
         return finish(loss, metrics, aux, params, opt_state)
@@ -412,7 +420,7 @@ def make_train_step(
     def place_state(state: TrainState) -> TrainState:
         """A global state (the given optimizer's layout, or canonical) ->
         the step's layout: this process's blocks under tensor parallelism
-        and FSDP, then its rows of a ZeRO compressed step's stacks."""
+        and FSDP, then its rows of a ZeRO step's stacks."""
         if not (tp or local_rows):
             return state
         return shard_train_state(state, mesh, zero_dp_axes=shard_axes.names if local_rows
@@ -422,7 +430,7 @@ def make_train_step(
         """The inverse of ``place_state``: every process's rows gathered,
         then the blocks (the given optimizer's layout)."""
         if local_rows:
-            full = buckets_lib.zero_gather_states(state.opt_state.buckets, shard_axes)
+            full = buckets_lib.zero_gather_states(state.opt_state.buckets, shard_axes, layout)
             state = state._replace(opt_state=state.opt_state._replace(buckets=full))
         if tp:
             canon = lowrank_lib.tp_global_opt_state(optimizer, state.opt_state)
@@ -465,11 +473,21 @@ def shard_train_state(state: TrainState, mesh, *,
             canon = lowrank_lib.canonical_opt_state(optimizer, state.opt_state)
             state = TrainState(shd.shard_params(state.params, mesh, local.tp.pairs()),
                                lowrank_lib.tp_local_opt_state(local, canon))
+            optimizer = local
     if not zero_dp_axes:
         return state, None
     if not state.opt_state.buckets:
         raise ValueError("zero_dp_axes given for a state without bucket stacks")
-    rows = shd.zero_state_rows(state, mesh.axes(zero_dp_axes))
+    axes = mesh.axes(zero_dp_axes)
+    layout = optimizer.state_layout if optimizer is not None else None
+    if layout is not None and layout.zero_rows:
+        # the FSDP step's layout: the zero_rows buckets' moments only
+        local = buckets_lib.zero_local_states(layout, state.opt_state.buckets, axes.index)
+        rows = [(0, b.batch) if not layout.zero_rows[i] else
+                (axes.index * x.m.shape[0], (axes.index + 1) * x.m.shape[0])
+                for i, (b, x) in enumerate(zip(layout.plan.buckets, local))]
+        return state._replace(opt_state=state.opt_state._replace(buckets=local)), rows
+    rows = shd.zero_state_rows(state, axes)
     local = tuple(buckets_lib.BucketState(*[None if x is None else x[lo:hi].clone() for x in bst])
                   for (lo, hi), bst in zip(rows, state.opt_state.buckets))
     return state._replace(opt_state=state.opt_state._replace(buckets=local)), rows

@@ -591,13 +591,21 @@ def test_which_families_take_the_fsdp_step(arch):
 
 
 def test_zero_state_on_the_fsdp_step_raises():
-    """ZeRO state (``state_sharding="zero"``) on the FSDP step raises,
-    naming what is left; the compressed step takes it."""
+    """ZeRO state (``state_sharding="zero"``) on the FSDP step raises where
+    its ``state_shards`` is not the ``data`` extent, naming the extent; at
+    the extent the FSDP step takes it (the buckets whose R is whole over
+    ``data`` hold rows of their moments, ``StateLayout.zero_rows``), and
+    the compressed step takes it as before."""
     model, params, _ = setup("d128")
-    opt = W.optimizer(params, zero_shards=2)
     mesh = mesh_lib.Mesh(("data", "model"), (2, 1))
-    with pytest.raises(NotImplementedError, match="FSDP step .*ROADMAP queue 1 item 11"):
-        make_train_step(model, opt, mesh=mesh)
+    with pytest.raises(ValueError, match="state_shards must be the data extent 2, got 4"):
+        make_train_step(model, W.optimizer(params, zero_shards=4), mesh=mesh)
+    opt = W.optimizer(params, zero_shards=2)
+    fns = make_train_step(model, opt, mesh=mesh)
+    layout = fns["optimizer"].state_layout
+    assert fns["fsdp"] and layout.shards == 2
+    assert layout.zero_rows == tuple(b.dsplit in ("d", "") for b in layout.plan.buckets)
+    assert any(layout.zero_rows) and not all(layout.zero_rows)
     assert make_train_step(model, opt, mesh=mesh, compressed="flat")["optimizer"] is opt
 
 

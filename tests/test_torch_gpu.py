@@ -573,6 +573,118 @@ def test_adam8bit_update_kernel_matches_plain_on_gpu(case, dtype, state):
         assert float(got[2][0, 0, 0]) == float(got[4][0, 0, 0]) == 1.0
 
 
+# 8-bit Adam on a block of rows cut over processes: local widths whose
+# blocks end inside a 256-element chunk -- 192 and 320 (the CPU tests'),
+# 4480 (qwen2-1.5b's mlp at a model extent of 2) -- two blocks a row
+CUT_WIDTHS = {"n192": (2, 128, 192, 64), "n4480": (2, 1536, 4480, 384),
+              "n320": (2, 128, 320, 64)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(CUT_WIDTHS))
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("block", [0, 1])
+def test_adam8bit_kernel_on_cut_rows_on_gpu(case, dtype, block):
+    """Kernel 8 with a chunk offset and given scales: its absmax launch's
+    pieces never above their whole chunk's (the whole row's own absmax
+    launch's) and equal on the chunks the block holds whole, then its
+    outputs against the plain version's with the same offset and the plain
+    whole row's scales, and against the kernel's whole row cut to the
+    block (one process's): codes within one step, the scales and W' to the
+    tolerances."""
+    _require_card()
+    b, d, n, r = CUT_WIDTHS[case]
+    total = 2 * n
+    w, p, rg, m, v = _opt_inputs(21, (b, d, total, r), dtype)
+    mc, ms = qz.quantize_stacked(m, "left", signed=True)
+    vc, vs = qz.quantize_stacked(v, "left", signed=False)
+    kw = dict(b1=0.9, b2=0.999, eps=1e-8, side="left")
+    lo, hi = block * n, (block + 1) * n
+    c0, c1 = lo // qz.QBLOCK, qz.num_blocks(hi)
+    held = [c - c0 for c in range(c0, c1)
+            if c * qz.QBLOCK >= lo and min((c + 1) * qz.QBLOCK, total) <= hi]
+
+    def whole_row(fn):
+        """The whole row's update and the absmax pieces it asked about (at
+        offset 0 every chunk is whole, so they are the chunks' absmax)."""
+        seen = []
+        out = fn(w, p, rg, mc, ms, vc, vs, 3, 0.0025, 1e-3, reduce=lambda am: (
+            seen.append(am.clone()), am)[1], **kw)
+        return out, [x[..., c0:c1] for x in seen]
+
+    def given(wants):
+        calls = []
+
+        def reduce(am):
+            want = wants[len(calls) % 2]
+            calls.append(am)
+            assert not bool((am > want).any())
+            assert torch.equal(am[..., held], want[..., held])
+            return want.clone()
+        return reduce
+
+    cut = lambda x, a, z: x[..., a:z].contiguous()  # noqa: E731
+    args = (cut(w, lo, hi), p, cut(rg, lo, hi), cut(mc, lo, hi), cut(ms, c0, c1),
+            cut(vc, lo, hi), cut(vs, c0, c1), 3, 0.0025, 1e-3)
+    whole, k_abs = whole_row(lowrank_adam8bit_update_batched)
+    _, p_abs = whole_row(lowrank_adam8bit_update_ref)
+    got = lowrank_adam8bit_update_batched(*args, qoff=lo % qz.QBLOCK, reduce=given(k_abs), **kw)
+    want = lowrank_adam8bit_update_ref(*args, qoff=lo % qz.QBLOCK, reduce=given(p_abs), **kw)
+    one = (cut(whole[0], lo, hi), cut(whole[1], lo, hi), cut(whole[2], c0, c1),
+           cut(whole[3], lo, hi), cut(whole[4], c0, c1))
+    for ref in (want, one):
+        torch.testing.assert_close(got[0].float(), ref[0].float(), **TOL[dtype])
+        for i in (1, 3):
+            _assert_codes_close(got[i], ref[i])
+        for i in (2, 4):
+            torch.testing.assert_close(got[i], ref[i], rtol=1e-5, atol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("inner", ["adam", "msgd", "adam_mini", "adam8bit"])
+def test_update_kernels_split_schedule_on_gpu(inner):
+    """The split schedule of ZeRO state on the FSDP step -- each kernel's
+    moments launch on a block of rows of the state, ``gather`` of every
+    block's N, then its back-projection launch on every row -- against the
+    kernel's one call: two blocks of rows, bit-equal W' and moments, one
+    launch counted per call."""
+    _require_card()
+    from repro_torch.kernels import counters
+
+    b, d, n, r = (4, 136, 200, 24)
+    w, p, rg, m, v = _opt_inputs(22, (b, d, n, r), "float32")
+    if inner == "adam8bit":
+        state = (*qz.quantize_stacked(m, "left", signed=True),
+                 *qz.quantize_stacked(v, "left", signed=False))
+    elif inner == "adam_mini":
+        state = (m, v[:, :, 0].contiguous())
+    else:
+        state = (m, v) if inner == "adam" else (m,)
+    fn = {"adam": lambda *a, **k: lowrank_adam_update_batched(*a, 3, 0.0025, 1e-3, **k),
+          "msgd": lambda *a, **k: lowrank_msgd_update_batched(*a, 0.0025, 1e-3, **k),
+          "adam_mini": lambda *a, **k: lowrank_adam_mini_update_batched(*a, 3, 0.0025, 1e-3,
+                                                                        **k),
+          "adam8bit": lambda *a, **k: lowrank_adam8bit_update_batched(*a, 3, 0.0025, 1e-3,
+                                                                      **k)}[inner]
+    full = fn(w, p, rg, *state)
+    blocks = [slice(0, 2), slice(2, 4)]
+    ns = []
+    for rows in blocks:  # each block's N (its back-projection onto zeros dropped)
+        fn(w, p, rg[rows].contiguous(), *(x[rows].contiguous() for x in state),
+           gather=lambda x: (ns.append(x.clone()), torch.zeros((b,) + x.shape[1:],
+                                                               device=x.device))[1])
+    counters.reset()
+    split = fn(w, p, rg[blocks[1]].contiguous(), *(x[blocks[1]].contiguous() for x in state),
+               gather=lambda x: torch.cat([ns[0], x]))
+    assert counters.snapshot() == {
+        {"adam": "lowrank_adam_update_batched", "msgd": "lowrank_msgd_update_batched",
+         "adam_mini": "lowrank_adam_mini_update_batched",
+         "adam8bit": "lowrank_adam8bit_update_batched"}[inner]: 1}
+    assert torch.equal(split[0], full[0])
+    for got, want in zip(split[1:], full[1:]):
+        assert torch.equal(got, want[blocks[1]])
+
+
 @pytest.mark.gpu
 def test_inner_dispatch_launches_the_kernels_on_gpu():
     """The bucketed engine's dispatch sends CUDA tensors to the kernels (one

@@ -523,8 +523,9 @@ def test_launcher_runs_a_tp_world(launcher_runs, mesh):
 def test_other_families_raise_naming_what_is_left(arch):
     """ssm, hybrid, enc-dec and VLM build a tensor-parallel step with a
     ``model`` extent above 1 (the optimizer of this process's blocks, some
-    leaf split over ``model``); what is left of item 11's second half,
-    ZeRO state on the FSDP step, raises naming it."""
+    leaf split over ``model``) and take ZeRO state on the FSDP step at a
+    ``data`` extent of 2; what is left there, a ``state_shards`` other than
+    the ``data`` extent, raises naming it."""
     cfg = get_config(arch, smoke=True).with_(dtype=torch.float32)
     model = build_model(cfg, device="cpu")
     params = model.init(torch.Generator().manual_seed(0))
@@ -534,8 +535,10 @@ def test_other_families_raise_naming_what_is_left(arch):
     assert any(m is not None for _, m in fns["splits"])
     zopt = make_optimizer("galore-sara-adam", params, rank=8, engine="bucketed",
                           state_sharding="zero", state_shards=2)
-    with pytest.raises(NotImplementedError, match="item 11, second half"):
-        make_train_step(model, zopt, mesh=mesh_lib.Mesh(("data", "model"), (2, 1)))
+    zfns = make_train_step(model, zopt, mesh=mesh_lib.Mesh(("data", "model"), (2, 1)))
+    assert zfns["optimizer"].state_layout.shards == 2
+    with pytest.raises(ValueError, match="state_shards must be the data extent 4"):
+        make_train_step(model, zopt, mesh=mesh_lib.Mesh(("data", "model"), (4, 1)))
 
 
 def test_mesh_model_axis_and_blocks():

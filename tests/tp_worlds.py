@@ -1,5 +1,6 @@
-"""The processes' side of ``test_torch_tensor_parallel.py`` and
-``test_torch_family_parallel.py``: spawned gloo worlds that run the port's
+"""The processes' side of ``test_torch_tensor_parallel.py``,
+``test_torch_family_parallel.py`` and ``test_torch_parallel_inners*.py``:
+spawned gloo worlds that run the port's
 tensor-, expert- and FSDP-parallel paths and save what each process
 computed.  This module imports no JAX, so the spawned
 processes do not: the parent hands them JAX's numbers (params, gradients,
@@ -23,8 +24,8 @@ from repro_torch import bridge
 from repro_torch.configs.base import TrainConfig
 from repro_torch.configs.registry import get_config
 from repro_torch.core import make_optimizer
-from repro_torch.core.lowrank import (canonical_opt_state, fsdp_hot_comm_bytes, tree_leaves,
-                                      tree_unflatten)
+from repro_torch.core.lowrank import (canonical_opt_state, fsdp_hot_comm_bytes,
+                                      state_memory_bytes, tree_leaves, tree_unflatten)
 from repro_torch.core.projectors import LeafDraws
 from repro_torch.data.synthetic import SyntheticDataConfig, SyntheticDataset
 from repro_torch.launch import mesh as mesh_lib
@@ -318,8 +319,176 @@ def family_loop_case(mesh, case, ref_dir):
             "canonical": canonical_opt_state(opt, state.opt_state)}
 
 
+# ---------------------------------------------------------------------------
+# every optimizer under tensor parallelism and FSDP (test_torch_parallel_inners*.py)
+# ---------------------------------------------------------------------------
+
+# The eight optimizers of the inners worlds: (name, keywords over OPT_KW).
+INNER_RUNS = {
+    "adam_mini": ("galore-sara-adam-mini", {}),
+    "adam8bit": ("galore-sara-adam8bit", {}),
+    "golore": ("golore-adam", {}),
+    "grass": ("grass-adam", {}),
+    "online_pca": ("online-pca-adam", {}),
+    "fira": ("fira-sara-adam", {}),
+    "adafactor": ("galore-sara-adafactor", {}),
+    "reference": ("galore-sara-adam", dict(engine="reference")),
+}
+# Adam on the bucketed engine, beside them in the ZeRO worlds
+RUNS = dict(INNER_RUNS, adam=("galore-sara-adam", {}))
+# the loop under a rank schedule (16 -> 8 at the step-2 refresh: a
+# re-bucket), the spectrum logger and track_subspace, 6 steps at tau 2
+LOOP_KW = dict(rank=16, tau=2, rank_schedule="step:16:8@0.5")
+LOOP_STEPS = 6
+# d_ff 384: at a model extent of 2 gate_proj's and up_proj's blocks of 192
+# columns end inside 8-bit chunk 0 and cut Adam-mini's rows; d 128 splits
+# every weight over data at 2, k_proj and v_proj (64 columns) stay whole
+# over model; embed's 64-column blocks over data cut its chunk 0 too.
+INNERS_MODEL = dict(d_model=128, n_heads=4, n_kv_heads=2, head_dim=32, d_ff=384, n_layers=1)
+
+
+def inners_cfg():
+    return get_config("llama3-8b", smoke=True).with_(dtype=torch.float32, **INNERS_MODEL)
+
+
+def inners_setup():
+    cfg = inners_cfg()
+    model = build_model(cfg, device="cpu")
+    params = model.init(torch.Generator().manual_seed(0))
+    data = SyntheticDataset(SyntheticDataConfig(vocab_size=cfg.vocab_size, seq_len=SEQ,
+                                                global_batch=BATCH), device="cpu")
+    return model, params, data
+
+
+def inner_optimizer(params, run, **kw):
+    name, extra = RUNS[run]
+    return make_optimizer(name, params, **dict(OPT_KW, **extra, **kw))
+
+
+def inners_case(mesh, case, ref_dir):
+    """Each optimizer of ``case["runs"]`` (``INNER_RUNS``) through
+    ``make_train_step(mesh=)``: 3 steps from the seed's params (the
+    gathered params and losses), then from the one-process state after
+    step 1 (``inner_<run>_1.pt``) the step's reduced gradients and the
+    update of this process's blocks on them, hot and refresh (gathered
+    params and canonical state).  ``case["zero"]``: ZeRO state over data
+    as well, with the state bytes this process holds; ``case["compressed"]``
+    the compressed step's mode."""
+    model, params, data = inners_setup()
+    out = {}
+    for run in case["runs"]:
+        z = dict(state_sharding="zero", state_shards=mesh.dp) if case.get("zero") else {}
+        opt = inner_optimizer(params, run, **z)
+        fns = make_train_step(model, opt, mesh=mesh, compressed=case.get("compressed", ""))
+        lopt = fns["optimizer"]
+        state = fns["place_state"](TrainState(copy(params), opt.init(params)))
+        got = {"params": [], "losses": [], "fsdp": fns["fsdp"],
+               "state_bytes": state_memory_bytes(state.opt_state)}
+        for s in range(STEPS):
+            state, m = (fns["refresh_step"] if s == 0 else fns["step"])(state, data.batch_at(s))
+            got["losses"].append(float(m["loss"]))
+            got["params"].append(tree_leaves(fns["gather_state"](state).params))
+        ref = torch.load(os.path.join(ref_dir, f"inner_{run}_1.pt"), weights_only=False)
+        st = fns["place_state"](TrainState(ref["params"], ref["opt_state"]))
+        _, _, grads = fns["grads"](st, data.batch_at(2))
+        got["grads"] = tree_leaves(shd.gather_params(grads, mesh, fns["splits"]))
+        for kind in ("hot", "refresh"):
+            p, ost, _ = lopt.update(grads, st.opt_state, st.params, refresh=kind == "refresh",
+                                    apply=True, shard_axes=mesh.data_axes() if z else None)
+            full = fns["gather_state"](TrainState(p, ost))
+            got[kind] = tree_leaves(full.params)
+            got[kind + "_state"] = canonical_opt_state(opt, full.opt_state)
+        out[run] = got
+    return out
+
+
+def inners_jax_case(mesh, case, ref_dir):
+    """Each optimizer of ``case["runs"]`` from JAX's params
+    (``jax_<run>.pt``, written by the parent, which marks them done with
+    ``jax_ready`` while the world runs its other cases): the world's loss on
+    JAX's batch (this process's rows) and reduced gradients, then the
+    optimizer of this process's blocks on JAX's gradients -- a refresh with
+    JAX's draws, and a hot step from JAX's post-refresh state."""
+    deadline = time.monotonic() + TIMEOUT.total_seconds()
+    while not os.path.exists(os.path.join(ref_dir, "jax_ready")):
+        if time.monotonic() > deadline:
+            raise TimeoutError("the parent wrote no JAX references")
+        time.sleep(0.2)
+    model = build_model(inners_cfg(), device="cpu")
+    out = {}
+    for run in case["runs"]:
+        src = torch.load(os.path.join(ref_dir, f"jax_{run}.pt"), weights_only=False)
+        params = bridge.params_from_numpy(src["params"], "cpu")
+        batch = {k: torch.from_numpy(v) for k, v in src["batch"].items()}
+        opt = inner_optimizer(params, run, lr=0.01, grad_clip_norm=1.0, tau=200)
+        fns = make_train_step(model, opt, mesh=mesh)
+        topt, blocks = fns["optimizer"], fns["splits"]
+        local = fns["place_state"](TrainState(params, opt.init(params)._replace(
+            draws=RecordedDraws(src["draws"]))))
+        loss, _, grads = fns["grads"](local, batch)
+        g0 = shd.shard_params(bridge.params_from_numpy(src["grads0"], "cpu"), mesh, blocks)
+        p1, _, aux1 = topt.update(g0, local.opt_state, local.params, refresh=True, apply=True)
+        js1 = bridge.opt_state_from_numpy(opt, src["state1"], "cpu")
+        local1 = fns["place_state"](TrainState(bridge.params_from_numpy(src["params1"], "cpu"),
+                                               js1))
+        g1 = shd.shard_params(bridge.params_from_numpy(src["grads1"], "cpu"), mesh, blocks)
+        p2, s2, aux2 = topt.update(g1, local1.opt_state, local1.params, refresh=False,
+                                   apply=True)
+        out[run] = {"loss": float(loss), "grads": tree_leaves(shd.gather_params(grads, mesh,
+                                                                                 blocks)),
+                    "params1": tree_leaves(shd.gather_params(p1, mesh, blocks)),
+                    "params2": tree_leaves(shd.gather_params(p2, mesh, blocks)),
+                    "state2": canonical_opt_state(opt, fns["gather_state"](
+                        TrainState(p2, s2)).opt_state),
+                    "aux1": [float(aux1.grad_norm), float(aux1.update_norm),
+                             float(aux1.mean_refresh_overlap)],
+                    "aux2": [float(aux2.grad_norm), float(aux2.update_norm)]}
+    return out
+
+
+def inners_loop_case(mesh, case, ref_dir):
+    """``train_loop`` of ``galore-sara-adam`` on the inners model: with
+    ``case["schedule"]`` 6 steps under ``LOOP_KW`` with the spectrum logger
+    and ``track_subspace`` (losses, gathered params, the history's spectrum
+    and re-bucket records, the tracker's summary, the final rank), saving
+    at step 4 (at the re-bucketed rank), then a new loop at the schedule's
+    first rank resuming that checkpoint to step 6 (its gathered params),
+    both in ``case["write"]``; with
+    ``case["zero"]`` ZeRO state over data, 3 steps writing the gathered
+    checkpoint at step 2 into ``case["write"]``."""
+    model, params, data = inners_setup()
+    kw = dict(LOOP_KW) if case.get("schedule") else {}
+    if case.get("zero"):
+        kw.update(state_sharding="zero", state_shards=mesh.dp)
+    opt = make_optimizer("galore-sara-adam", params, **dict(OPT_KW, **kw))
+    fns = make_train_step(model, opt, mesh=mesh)
+    steps = LOOP_STEPS if case.get("schedule") else STEPS
+    every = 4 if case.get("schedule") else 2 if "write" in case else 0
+    tc = TrainConfig(total_steps=steps, checkpoint_every=every,
+                     checkpoint_dir=case.get("write") or os.path.join(ref_dir, f"il_{mesh.rank}"),
+                     async_checkpoint=False, log_spectrum=bool(case.get("schedule")))
+    res = train_loop(model, opt, data, tc, fns, log_every=1, handle_signals=False,
+                     track_subspace=bool(case.get("schedule")))
+    state = make_train_step(model, res.optimizer, mesh=mesh)["gather_state"](res.state)
+    out = {"fsdp": fns["fsdp"], "losses": res.losses, "params": tree_leaves(state.params),
+           "events": [r for r in res.history if "event" in r],
+           "subspace": res.subspace.summary() if res.subspace is not None else None,
+           "rank": res.optimizer.config.rank,
+           "canonical": canonical_opt_state(res.optimizer, state.opt_state)}
+    if case.get("schedule"):
+        # the rank-aware restore: a loop built at the first rank resumes the
+        # step-4 checkpoint, whose manifest carries the re-bucketed rank
+        again = train_loop(model, opt, data, tc, make_train_step(model, opt, mesh=mesh),
+                           log_every=1, handle_signals=False)
+        out["resumed"] = tree_leaves(make_train_step(model, again.optimizer, mesh=mesh)[
+            "gather_state"](again.state).params)
+        out["resumed_rank"] = again.optimizer.config.rank
+    return out
+
+
 CASES = {"traj": traj_case, "jax": jax_case, "loop": loop_case, "ep": ep_case,
-         "family": family_case, "family_loop": family_loop_case}
+         "family": family_case, "family_loop": family_loop_case, "inners": inners_case,
+         "inners_jax": inners_jax_case, "inners_loop": inners_loop_case}
 
 
 def world(rank, size, store, out_dir, ref_dir, plan):
