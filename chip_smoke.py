@@ -26,10 +26,11 @@ failure raises and the script exits non-zero:
               the dtype's peak, whichever is larger).  ``call_ms`` adds the
               host's launch time; flash cases record which of its two
               designs ran (bf16 must take the tensor cores).
-3. serve   -- full-width llama3-8b (32 layers, bf16, seeded random weights)
-              through ``ContinuousEngine(max_slots=4, page_size=16)``: 8
-              requests, prompts of 64..1024 tokens, 32 new tokens each,
-              staggered arrivals and a pool too small for four long
+3. serve   -- full-width llama3-8b (4 of its 32 layers, ``SERVE_LAYERS``,
+              bf16, seeded random weights) through
+              ``ContinuousEngine(max_slots=4, page_size=16)``: 8 requests,
+              prompts of 64..1024 tokens, 32 new tokens each, staggered
+              arrivals and a pool too small for four long
               requests, so admission waits, pages recycle and every slot
               turns over.  Checks every request's budget, the drained pool
               and each kernel's launch count; then request 0's prefill and
@@ -158,20 +159,43 @@ failure raises and the script exits non-zero:
               ``track_subspace`` (``train_tp_loop``), and ZeRO state on the
               FSDP step at (2, 1) (``train_fsdp_zero``,
               ``train_fsdp_zero_adam8bit``); the constants at ``TPI_RUNS``.
+5g. train_fault_world -- the multi-process fault harness: two processes
+              sharing the card over gloo train LLaMA-60M at full width (seq
+              256, batch 32, rank 128, tau 4) on the compressed step with
+              ZeRO state and shard-parallel checkpoints every 4 steps; phase
+              1 injects a straggler at step 5, a corrupt shard in the step-8
+              save and rank 1's death at step 9 (rank 0 must fail in its next
+              collective, naming step 9, within ``FW_EXIT_BAR_S``); phase 2
+              restarts the world, which resumes at step 4 past the corrupt
+              checkpoint and rolls back once in lockstep on NaN gradients in
+              one rank's share at steps 9-11, to step 12; phase 3, at world
+              1 in this process, loads step 12 at 1 shard bit-equal to a
+              replicated save and takes one compressed step.  Exact launches
+              per rank and step call; the seconds of the start-up (during
+              the phase before), the steps, the kill's detection, the
+              restart, the save and the load.
+5h. dryrun -- ``launch/dryrun.py`` on the meta device, held to the paths
+              that ran: its state bytes equal ``train``'s (llama3-8b at 1
+              layer), a ``train_tp`` rank's and ``train_tp_inners``' ZeRO
+              ranks' ``state_memory_bytes``, and its params + gradients +
+              state sit at or below each one's max_memory_allocated; then
+              whether full-depth llama3-8b and llava-next-34b fit 4 cards
+              (TP (1, 4), FSDP (4, 1), FSDP with ZeRO), printed as one
+              ``{"dryrun_fit": [...]}`` line.  It runs after ``tables``.
 6. families -- the MoE, SSM and hybrid families at full width:
               ``family_kernels`` (flash at hymba's GQA 25/5, D 64, window
               1024, S 2048 and deepseek's MHA 16/16; paged decode at MHA
               16/16; RMSNorm at widths 1600, 2048 and 3200; kernels 4, 5
               and 9 on deepseek-moe-16b's 192-slice expert bucket at rank
-              256), ``serve_moe`` (deepseek-moe-16b at 3 of its 28
+              256), ``serve_moe`` (deepseek-moe-16b at 1 of its 28
               layers, ``SERVE_MOE_LAYERS``, bf16 made
               leaf by leaf, through the paged engine on phase 3's trace;
               request 0's logits against the static exact path, the bar
               from the f32 model at the deepest depth that fits; host syncs
               per step), ``train_moe`` (1 layer, rank 256:
               kernel 9 runs),
-              ``train_ssm`` and ``serve_ssm`` (mamba2-370m at 16 of its 48
-              layers, ``SSM_LAYERS``; rank
+              ``train_ssm`` and ``serve_ssm`` (mamba2-370m at 16 and 4 of
+              its 48 layers, ``SSM_LAYERS``, ``SERVE_SSM_LAYERS``; rank
               512: kernel 9 launches 0 times), ``train_hybrid`` and
               ``serve_hybrid`` (hymba-1.5b cut to 1 of its 32 layers,
               ``HYBRID_LAYERS``; seq 2048; prompts of
@@ -187,7 +211,7 @@ failure raises and the script exits non-zero:
               prefill at S 1600; paged decode at GQA 56/8 over
               ``PAGED_FILLS`` + 576; kernels 4, 5 and 9 on llava's mlp
               bucket, 4 and 5 on whisper's 1024 x 1024 bucket),
-              ``serve_vlm`` (llava-next-34b at 6 of its 60 layers,
+              ``serve_vlm`` (llava-next-34b at 2 of its 60 layers,
               ``SERVE_VLM_LAYERS``, made
               leaf by leaf in bf16, the init's peak printed; phase 3's trace
               with each request's own 576 seeded patch embeddings ahead of
@@ -249,9 +273,10 @@ import torch  # noqa: E402
 ROOT = Path(__file__).resolve().parent
 
 # H100 SXM published peaks (dense): device memory rate, and the operation
-# rate for each input type (bf16 on the tensor cores, f32 on the CUDA cores).
-HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12}
+# rate for each input type (bf16 on the tensor cores, f32 on the CUDA cores),
+# from the port's ``roofline/hw.py`` (which the dry run's roofline reads).
+sys.path.insert(0, str(ROOT / "src"))
+from repro_torch.roofline.hw import HBM_BYTES_PER_S, PEAK_OPS_PER_S  # noqa: E402
 
 # Kernel vs plain version, per dtype: |kernel - plain| <= atol + rtol*|plain|.
 # f32: both sum in f32 in different orders (2e-5 is the JAX repo's own
@@ -371,6 +396,11 @@ MAX_SLOTS = 4
 NEW_TOKENS = 32
 PROMPT_LENS = [1024, 128, 517, 1000, 255, 777, 64, 333]
 ARRIVALS = [0, 0, 1, 2, 4, 8, 12, 20]
+# llama3-8b serves at 4 of its 32 layers since the fault harness and the dry
+# run joined (at full depth the phase took 27.4 s on an H100 80GB HBM3 at
+# 700 W, 17 s of it the profile window's key_averages over 32 layers; 11.1
+# s at 8)
+SERVE_LAYERS = 4
 POOL_PAGES = 160  # usable pages: fewer than four 1024-token requests need
 # paged-decode kernel cases: the serving case (an empty slot, two ragged
 # slots, a full one) and the bandwidth case: 32 slots of 1024 + 64 i tokens
@@ -568,14 +598,18 @@ TIE_BAR_SIGMAS = 4
 # until the FSDP paths joined (52.2 s), at 14 of 28 layers until the other
 # families' TP and FSDP paths joined, at 7 until every optimizer's TP and
 # FSDP paths joined (15.5 s at 7, 8.8 s at 4; 19.7 s at 7 on a card whose
-# whole script ran 1223 s), at 3 since
+# whole script ran 1223 s), at 3 until the fault harness and the dry run
+# joined (7.9 s at 3), at 1 since
 MOE_TRAIN_LAYERS = 1
-SERVE_MOE_LAYERS = 3
-# mamba2-370m serves and trains at 16 of its 48 layers since every
-# optimizer's TP and FSDP paths joined (24 until then; the two took 39.1 s
-# at 48, 28.4 s at 24 on a card whose whole script ran 1223 s); not below
-# 16, where d_skip's (L, 32) leaf leaves the low-rank plan (min_dim 16)
+SERVE_MOE_LAYERS = 1
+# mamba2-370m trains at 16 of its 48 layers since every optimizer's TP and
+# FSDP paths joined (24 until then; the two paths took 39.1 s at 48, 28.4 s
+# at 24 on a card whose whole script ran 1223 s); not below 16, where
+# d_skip's (L, 32) leaf leaves the low-rank plan (min_dim 16).  It serves
+# at 4 since the fault harness and the dry run joined (16 until then:
+# 11.0 s, NVIDIA H100 80GB HBM3, 700.00 W); serving has no plan to keep.
 SSM_LAYERS = 16
+SERVE_SSM_LAYERS = 4
 # rank 256 for moe and hybrid: SARA's pool (4 r) then leaves k' 1032 below
 # the narrow side of their leaves, so kernel 9 runs; at the launcher's 512
 # it spans every leaf's narrow side and the power iterations drop (as
@@ -611,11 +645,12 @@ PATH_KERNELS["train_hybrid"] = _TRAIN_COMMON + (UPDATE_KERNEL["adam"],)
 # (Whisper's text context).
 VLM_ARCH, AUDIO_ARCH = "llava-next-34b", "whisper-medium"
 VLM_POOL_PAGES = 250
-# llava serves at 6 of its 60 layers since every optimizer's TP and FSDP
-# paths joined (15 until then, 30 until the other families' joined; at full
-# depth, 65 GiB of bf16 weights, it took 27.3 s; 5.7 s at 8, 11.9 s at 15
-# on a card whose whole script ran 1223 s)
-SERVE_VLM_LAYERS = 6
+# llava serves at 2 of its 60 layers since the fault harness and the dry
+# run joined (6 until then, 15 until every optimizer's TP and FSDP paths
+# joined, 30 until the other families' joined; at full depth, 65 GiB of
+# bf16 weights, it took 27.3 s; 5.7 s at 8, 11.9 s at 15 on a card whose
+# whole script ran 1223 s, 5.4 s at 6)
+SERVE_VLM_LAYERS = 2
 AUDIO_PROMPT_LENS = [64, 4, 48, 17, 33, 8, 56, 25]
 AUDIO_NEW_TOKENS = 64
 AUDIO_MAX_SEQ = 448
@@ -1788,7 +1823,7 @@ def train(cfg, optimizer: str = "galore-sara-adam", expect_buckets=TRAIN_BUCKETS
 
     from repro_torch.configs.base import TrainConfig
     from repro_torch.core import make_optimizer
-    from repro_torch.core.lowrank import tree_leaves
+    from repro_torch.core.lowrank import state_memory_bytes, tree_leaves
     from repro_torch.core.schedules import cosine_with_warmup
     from repro_torch.data.synthetic import SyntheticDataConfig, SyntheticDataset
     from repro_torch.kernels import counters
@@ -1934,7 +1969,7 @@ def train(cfg, optimizer: str = "galore-sara-adam", expect_buckets=TRAIN_BUCKETS
         "refresh_step_ms": step_ms[0], "hot_step_ms": step_ms[1:],
         "hot_tokens_per_s": tokens / hot_ms * 1e3,
         "max_memory_allocated": peak, "max_memory_allocated_per_step": step_peak,
-        "memory_by_phase": phase_mem,
+        "memory_by_phase": phase_mem, "state_bytes": state_memory_bytes(state.opt_state),
         "launches": launches, "expected": expect,
         "hot_step_parity": parity, "profile": profile,
     }
@@ -5655,10 +5690,528 @@ def train_tp_inners(smi: str, dev: str = "cuda", run=None):
 
 
 
+# Phase 5g, ``train_fault_world``: the multi-process fault harness of
+# ``tests/test_torch_multihost.py`` on the card.  Two processes sharing it
+# over gloo (as ``train_tp``'s) train LLaMA-60M at full width (the
+# ``llama-60m`` preset: 8 layers, d_model 512, vocab 32100; bf16 compute,
+# as ``tables``) at seq 256, global batch 32, ``galore-sara-adam`` at rank
+# 128, tau 4, on the compressed "flat" step with ZeRO state over ``data``
+# (mesh (2, 1), 2 shards) and shard-parallel checkpoints every 4 steps, 12
+# steps (16 in the CPU test and in JAX's: the last refresh and its hot
+# steps, which no fault touches, paid for the phase's time).  Phase 1: a
+# straggler at step 5, one corrupt shard in the step-8 save (save ordinal
+# 2), and rank 1 killed at step 9 (``ProcessKilled``): rank 0 must fail in
+# its next collective, naming step 9, within ``FW_EXIT_BAR_S`` of rank 1's
+# end; checkpoint 8 fails verification, checkpoint 4 passes.  Phase 2: the
+# same world again resumes at step 4 past the corrupt step 8, NaN
+# gradients at steps 9-11 in rank 1's share make both skip (the summed
+# verdict) and roll back once, in lockstep, to the step-8 checkpoint it
+# wrote again; the run ends at 12 in the shard-parallel format.  Phase 3,
+# in this process at world 1: step 12 loaded at 1 shard equals rank 0's
+# replicated save of its gathered state bit for bit, and one compressed
+# step on the (1, 1) mesh has a finite loss.  Each rank's launches are exact per step call
+# (a skipped hot step projects and updates nothing after; a skipped
+# refresh runs none of the optimizer's kernels).  At rank 128 SARA's pool
+# sketch (4 r = 512) spans d 512, so kernel 9 launches 0 times, as in
+# ``tables``.  Both worlds' processes start during the phase before
+# (``fw_prestart``: their imports, CUDA start-up, model and a warm-up
+# forward, backward and factorization, ~25 s, off this phase's time) and
+# wait: phase 1's until the phase begins, phase 2's until phase 1 ended.
+FW_WORLD = 2
+FW_PRESET = "llama-60m"
+FW_STEPS, FW_EVERY = 12, 4
+FW_NAN_STEPS = (9, 10, 11)
+FW_OPT = dict(tau=4, lr=1e-3, alpha=0.25, engine="bucketed", svd_backend="randomized")
+FW_KILLED = FW_NAN_RANK = 1
+FW_SLOW_S = 0.3
+FW_FIRED = [("slow_step", 5), ("ckpt_corrupt_shard", 2), ("kill_process", 9)]
+FW_GROUP_TIMEOUT_S = 60
+FW_TIMEOUT_S = 300  # a world past this has failed (its processes are killed)
+FW_WAIT_S = 900  # a process waiting this long for its world gives up
+FW_EXIT_BAR_S = 20.0
+PATH_KERNELS["train_fault_world"] = _MODEL_KERNELS + ("galore_project_batched",
+                                                     UPDATE_KERNEL["adam"])
+PATH_NEVER["train_fault_world"] = ("power_iter_batched",)
+
+
+def fw_setup(devname: str, preset=None, cfg_kw=None):
+    """(cfg, model, data, opt, its keywords) of the fault world at
+    ``FW_PRESET``'s widths and rank (``preset`` / ``cfg_kw`` override them
+    for a CPU rehearsal)."""
+    from repro_torch.benchmarks import common
+    from repro_torch.core import make_optimizer
+    from repro_torch.examples.pretrain_lm import PRESETS
+
+    p = dict(PRESETS[FW_PRESET], **(preset or {}))
+    cfg, model = common.bench_model(
+        d_model=p["d_model"], n_layers=p["n_layers"], device=devname,
+        **dict(dict(vocab=p["vocab_size"], n_heads=p["n_heads"], n_kv_heads=p["n_kv_heads"],
+                    head_dim=p["head_dim"], d_ff=p["d_ff"], dtype=torch.bfloat16,
+                    rope_theta=10000.0, loss_chunk=2048), **(cfg_kw or {})))
+    data = common.bench_data(cfg, seq=p["seq"], batch=p["batch"], device=devname)
+    params = model.init(torch.Generator(device=devname).manual_seed(SEED))
+    opt_kw = dict(FW_OPT, rank=p["rank"], **({} if devname.startswith("cuda")
+                                            else dict(svd_oversample=4)))
+    opt = make_optimizer("galore-sara-adam", params, state_sharding="zero",
+                         state_shards=FW_WORLD, **opt_kw)
+    del params
+    return cfg, model, data, opt, opt_kw
+
+
+def _fw_expect(cfg, opt, calls) -> dict:
+    """Exact launches of the step calls ``calls`` ([(refresh, skipped)],
+    skipped None for a call that failed): the model's norms and attention
+    every call (a call that failed ran its forward and backward: on the
+    data-parallel mesh the step's first collective follows them); the
+    projection every hot call; the update every call that was not skipped,
+    the power iterations every refresh that was not."""
+    (fwd_n, fwd_a), (rem_n, rem_a) = forward_launches(cfg)
+    nb = len(opt.bucket_plan.buckets)
+    ran = [(r, sk) for r, sk in calls if sk is not None]
+    hot = sum(1 for r, _ in ran if not r)
+    refresh_done = sum(1 for r, sk in ran if r and not sk)
+    done = sum(1 for _, sk in ran if not sk)
+    expect = {"rmsnorm": len(calls) * (fwd_n + rem_n),
+              "flash_attention_fwd": len(calls) * (fwd_a + rem_a),
+              "galore_project_batched": (hot + refresh_done) * nb,
+              UPDATE_KERNEL["adam"]: done * nb,
+              "power_iter_batched": refresh_done * power_iter_calls(opt, None)}
+    return {k: v for k, v in expect.items() if v}
+
+
+def _fw_rank(rank: int, phase: int, out_dir: str, dev: str, preset, cfg_kw, go) -> None:
+    """One process of the fault world, in phase 1 or 2 (see the constants).
+    It sets up its model and optimizer, waits for ``go`` (phase 2's
+    processes start beside phase 1's and join their world only when it
+    has ended: a restarted world whose processes did their imports
+    before), then runs.  It writes what it saw to ``out_dir`` and leaves
+    with ``os._exit``: 0 when the phase ran to its end, 3 on
+    ``ProcessKilled``, 1 on any other exception (a broken group is not
+    torn down)."""
+    import numpy as np
+    from datetime import timedelta
+
+    import torch.distributed as dist
+
+    rec = {"rank": rank, "t0": time.time()}
+    code = 0
+    try:
+        sys.path.insert(0, str(ROOT / "src"))
+        from repro_torch.configs.base import TrainConfig
+        from repro_torch.core.lowrank import tree_leaves, tree_unflatten
+        from repro_torch.device import resolve_device
+        from repro_torch.kernels import counters
+        from repro_torch.launch import mesh as mesh_lib
+        from repro_torch.train import checkpoint as ckpt_lib
+        from repro_torch.train import state as state_lib
+        from repro_torch.train.faults import FaultPlan, FaultSpec, ProcessKilled
+        from repro_torch.train.loop import train_loop
+        from repro_torch.train.monitor import CollectiveWatchdog
+        from repro_torch.train.recovery import RecoveryPolicy
+        from repro_torch.train.state import TrainState
+        from repro_torch.train.step import make_train_step
+
+        if dev == "cuda":
+            torch.cuda.set_device(0)  # both ranks on the one card
+            resolve_device("cuda")
+            devname = "cuda:0"
+        else:
+            torch.set_num_threads(1)
+            _count_plain_dispatch()
+            devname = "cpu"
+        cfg, model, data, opt, _ = fw_setup(devname, preset, cfg_kw)
+        # a warm-up: the first forward, backward and factorization set up
+        # their libraries (and compile RMSNorm's Triton kernel) while this
+        # process waits, not in the phase's first step
+        params = model.init(torch.Generator(device=devname).manual_seed(SEED))
+        leaves = [p.requires_grad_(True) for p in tree_leaves(params)]
+        loss, _ = model.loss(tree_unflatten(params, leaves), data.batch_at(0))
+        torch.autograd.grad(loss, leaves)
+        torch.linalg.svd(torch.linalg.qr(torch.randn(64, 16, device=devname))[0])
+        del params, leaves, loss
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+        rec["t_setup"] = time.time()
+        if not go.wait(FW_WAIT_S):
+            raise TimeoutError(f"phase {phase} was never started")
+        rec["t_go"] = time.time()
+        dist.init_process_group("gloo", init_method=f"file://{out_dir}/store{phase}",
+                                world_size=FW_WORLD, rank=rank,
+                                timeout=timedelta(seconds=FW_GROUP_TIMEOUT_S))
+        rec["t_group"] = time.time()
+        mesh = mesh_lib.make_mesh((FW_WORLD, 1))
+        pol = RecoveryPolicy()
+        wd = CollectiveWatchdog(timeout_s=600.0)
+        fns = make_train_step(model, opt, mesh=mesh, compressed="flat", recovery=pol,
+                              watchdog=wd)
+        calls, losses, call_s = [], [], []
+
+        def recording(name):
+            def run(*a, _fn=fns[name], **k):
+                t = time.time()
+                try:
+                    st, m = _fn(*a, **k)
+                except Exception:
+                    calls.append((name == "refresh_step", None))
+                    raise
+                calls.append((name == "refresh_step", float(m["skipped"]) >= 1.0))
+                losses.append(float(m["loss"]))
+                call_s.append(round(time.time() - t, 3))
+                return st, m
+            return run
+
+        loop_fns = dict(fns, step=recording("step"), refresh_step=recording("refresh_step"))
+        ckdir = os.path.join(out_dir, "ck")
+        tc = TrainConfig(total_steps=FW_STEPS, checkpoint_every=FW_EVERY, seed=SEED,
+                         async_checkpoint=False, checkpoint_dir=ckdir)
+        if phase == 1:
+            specs = [FaultSpec("slow_step", step=5, value=FW_SLOW_S),
+                     FaultSpec("ckpt_corrupt_shard", save_index=2)]
+            if rank == FW_KILLED:
+                specs.append(FaultSpec("kill_process", step=9))
+        else:
+            specs = ([FaultSpec("nan_grads", step=s) for s in FW_NAN_STEPS]
+                     if rank == FW_NAN_RANK else [])
+        plan = FaultPlan(specs)
+        if dev == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        counters.reset()
+        rec["t_start"] = time.time()
+        try:
+            res = train_loop(model, opt, data, tc, loop_fns, log_every=1, handle_signals=False,
+                             recovery=pol, fault_plan=plan)
+        finally:
+            if dev == "cuda":
+                torch.cuda.synchronize()
+            rec.update(t_loop=time.time(), fired=list(plan.fired), calls=calls, losses=losses,
+                       call_s=call_s,
+                       launches=counters.snapshot(), expected=_fw_expect(cfg, opt, calls),
+                       peak=torch.cuda.max_memory_allocated() if dev == "cuda" else 0)
+        mesh_lib.barrier(mesh)  # the other writer leaves the loop before the commit
+        events = [r for r in res.history if "event" in r]
+        rec.update(final_step=res.final_step, events=events,
+                   first_step=min(r["step"] for r in res.history if "loss" in r),
+                   skips=[r["skip_steps"] for r in res.history if "skip_steps" in r][-1],
+                   fallbacks=[s for s, _ in res.checkpoints.fallbacks],
+                   latest=ckpt_lib.latest_step(ckdir), watchdog=list(wd.fired),
+                   format=ckpt_lib.checkpoint_format(ckdir, FW_STEPS),
+                   last_save=res.checkpoints.last_save, last_load=res.checkpoints.last_load,
+                   loss_tail=res.losses[-4:])
+        full = fns["gather_state"](res.state)  # both processes join the gather
+        if rank == 0:
+            canon, loc = state_lib.checkpoint_converters(opt)
+            ckpt_lib.CheckpointManager(os.path.join(out_dir, "replicated"), canonicalize=canon,
+                                       localize=loc).save(full, FW_STEPS)
+        del full
+        mesh_lib.barrier(mesh)
+    except BaseException as e:  # noqa: BLE001 -- what a survivor saw is the result
+        code = 3 if type(e).__name__ == "ProcessKilled" else 1
+        rec["error"] = (type(e).__name__, str(e)[:300], list(getattr(e, "__notes__", [])))
+    rec["t_end"] = time.time()
+    Path(out_dir, f"phase{phase}_rank{rank}.json").write_text(json.dumps(rec, default=str))
+    if code == 0:
+        import torch.distributed as dist
+
+        dist.destroy_process_group()
+    sys.stdout.flush()
+    sys.stderr.flush()
+    os._exit(code)
+
+
+def fw_prestart(dev: str = "cuda", preset=None, cfg_kw=None) -> dict:
+    """Start both worlds' processes of ``train_fault_world``, each waiting
+    for its world's event (daemons: they end with this process)."""
+    ctx = torch.multiprocessing.get_context("spawn")
+    out_dir = fresh_dir("fault_world")
+    out_dir.mkdir()
+    go = {phase: ctx.Event() for phase in (1, 2)}
+    procs = {phase: [ctx.Process(target=_fw_rank, daemon=True,
+                                 args=(r, phase, str(out_dir), dev, preset, cfg_kw, go[phase]))
+                     for r in range(FW_WORLD)] for phase in (1, 2)}
+    for phase in (1, 2):
+        for p in procs[phase]:
+            p.start()
+    return {"out_dir": out_dir, "go": go, "procs": procs, "t": time.time()}
+
+
+def _fw_world(out_dir: Path, phase: int, procs, t: float):
+    """Join one phase's processes (started, or let go, at ``t``): (exit
+    codes, records)."""
+    deadline = t + FW_TIMEOUT_S
+    for p in procs:
+        p.join(max(deadline - time.time(), 0.0))
+    hung = [r for r, p in enumerate(procs) if p.is_alive()]
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join()
+    if hung:
+        raise AssertionError(f"train_fault_world phase {phase}: ranks {hung} outlived "
+                             f"{FW_TIMEOUT_S} s")
+    recs = []
+    for r in range(FW_WORLD):
+        f = out_dir / f"phase{phase}_rank{r}.json"
+        if not f.exists():
+            raise AssertionError(f"train_fault_world phase {phase}: rank {r} wrote no record "
+                                 f"(exit {procs[r].exitcode})")
+        recs.append(json.loads(f.read_text()))
+    return [p.exitcode for p in procs], recs
+
+
+def _fw_launches(phase: int, recs) -> None:
+    for r in recs:
+        got = {k: v for k, v in r["launches"].items() if v}
+        if got != r["expected"]:
+            raise AssertionError(f"train_fault_world phase {phase} rank {r['rank']}: launches "
+                                 f"{got} != {r['expected']} (calls {r['calls']})")
+
+
+def train_fault_world(smi: str, dev: str = "cuda", preset=None, cfg_kw=None, pre=None):
+    """Phase 5g (path ``train_fault_world``, see the constants) on the
+    processes ``pre`` (``fw_prestart``'s; started here where None).
+    Returns the path's run: rank 0's launches over phases 1 and 2 and this
+    process's in phase 3, each phase's checks passed; ``preset`` /
+    ``cfg_kw`` shrink it for a CPU rehearsal (``dev="cpu"``)."""
+    import math
+
+    from repro_torch.core.lowrank import state_tensors, tree_leaves
+    from repro_torch.kernels import counters
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.train import checkpoint as ckpt_lib
+    from repro_torch.train import state as state_lib
+    from repro_torch.train.state import TrainState
+    from repro_torch.train.step import make_train_step
+
+    pre = pre or fw_prestart(dev, preset, cfg_kw)
+    out_dir = pre["out_dir"]
+    ckdir = str(out_dir / "ck")
+    secs = {}
+    try:
+        # phase 1: a straggler, a corrupt shard, a killed rank
+        t = time.time()
+        pre["go"][1].set()
+        codes, recs = _fw_world(out_dir, 1, pre["procs"][1], t)
+        secs["phase1"] = time.time() - t
+        secs["start_up"] = max(r["t_setup"] for r in recs) - pre["t"]
+        secs["group"] = max(r["t_group"] for r in recs) - t
+        want_codes = [3 if r == FW_KILLED else 1 for r in range(FW_WORLD)]
+        errors = [r.get("error") for r in recs]
+        if codes != want_codes or errors[FW_KILLED][0] != "ProcessKilled":
+            raise AssertionError(f"train_fault_world phase 1: exit codes {codes} (want "
+                                 f"{want_codes}), errors {errors}")
+        t_kill = recs[FW_KILLED]["t_end"]
+        for r in recs:
+            if not any("step 9 failed" in n for n in r["error"][2]):
+                raise AssertionError(f"train_fault_world rank {r['rank']} did not name step 9: "
+                                     f"{r['error']}")
+            if r["t_end"] - t_kill > FW_EXIT_BAR_S:
+                raise AssertionError(f"train_fault_world rank {r['rank']} ended "
+                                     f"{r['t_end'] - t_kill:.1f} s after the killed rank")
+        fired = [set(map(tuple, r["fired"])) for r in recs]
+        if set().union(*fired) != set(FW_FIRED) or fired[0] != {FW_FIRED[0], FW_FIRED[1]} \
+                or fired[FW_KILLED] != {FW_FIRED[0], FW_FIRED[2]}:
+            raise AssertionError(f"train_fault_world phase 1 fired {fired}")
+        verified = {s: ckpt_lib.verify_checkpoint(ckdir, s) for s in (4, 8)}
+        if verified != {4: True, 8: False}:
+            raise AssertionError(f"train_fault_world: checkpoints verify as {verified}")
+        # steps 0-8 on both ranks, and the survivor's step 9 up to its failed collective
+        if [len(r["calls"]) for r in recs] != [9 if r == FW_KILLED else 10
+                                                for r in range(FW_WORLD)] \
+                or not all(math.isfinite(x) for r in recs for x in r["losses"]) \
+                or recs[0]["losses"] != recs[1]["losses"]:
+            raise AssertionError(f"train_fault_world phase 1 losses {[r['losses'] for r in recs]}")
+        _fw_launches(1, recs)
+        secs["detect_kill"] = max(r["t_end"] for r in recs) - t_kill
+        secs["steps1"] = max(r["t_loop"] - r["t_start"] for r in recs)
+        log(f"train_fault_world phase 1 ({smi}; {FW_WORLD} processes sharing one card over "
+            f"gloo): fired {[r['fired'] for r in recs]}; exit codes {codes}; rank 0's error "
+            f"{recs[0]['error'][0]}: {recs[0]['error'][2]}; the survivor ended "
+            f"{secs['detect_kill']:.2f} s after the killed rank; checkpoints verify {verified}; "
+            f"losses {recs[0]['losses']}; step call s per rank {[r['call_s'] for r in recs]}; "
+            f"launches per rank {[r['launches'] for r in recs]}")
+        # phase 2: the restart, a divergence rolled back in lockstep
+        t = time.time()
+        pre["go"][2].set()
+        codes, recs2 = _fw_world(out_dir, 2, pre["procs"][2], t)
+        secs["phase2"] = time.time() - t
+        secs["restart"] = max(r["t_start"] for r in recs2) - t
+        secs["steps2"] = max(r["t_loop"] - r["t_start"] for r in recs2)
+        if codes != [0] * FW_WORLD:
+            raise AssertionError(f"train_fault_world phase 2: exit codes {codes}, errors "
+                                 f"{[r.get('error') for r in recs2]}")
+        for r in recs2:
+            rbs = [e for e in r["events"] if e["event"] == "rollback"]
+            if (r["final_step"], r["first_step"], r["fallbacks"], r["latest"], r["format"],
+                    r["skips"], r["watchdog"]) != (FW_STEPS, 4.0, [8], FW_STEPS, "sharded", 3.0,
+                                                   []) \
+                    or [(e["step"], e["from_step"]) for e in rbs] != [(8.0, FW_NAN_STEPS[-1])]:
+                raise AssertionError(f"train_fault_world phase 2 rank {r['rank']}: {r}")
+            if len(rbs) != 1 or "cross-process bad-step verdict" not in rbs[0]["reason"]:
+                raise AssertionError(f"train_fault_world phase 2 rank {r['rank']}: rollbacks "
+                                     f"{rbs}")
+            if not all(math.isfinite(x) for x in r["loss_tail"]):
+                raise AssertionError(f"train_fault_world phase 2 losses {r['losses']}")
+        if recs2[0]["losses"] != recs2[1]["losses"]:
+            raise AssertionError("train_fault_world phase 2: the ranks' losses differ")
+        _fw_launches(2, recs2)
+        log(f"train_fault_world phase 2 ({smi}): resumed at step {recs2[0]['first_step']} past "
+            f"{recs2[0]['fallbacks']}; events {[(e['event'], e.get('step')) for e in recs2[0]['events']]}; "
+            f"losses {recs2[0]['losses']}; save {recs2[0]['last_save']}, load "
+            f"{recs2[0]['last_load']}; max_memory_allocated per rank "
+            f"{[round(r['peak'] / 2**30, 2) for r in recs2]} GiB; step call s per rank "
+            f"{[r['call_s'] for r in recs2]}; launches per rank "
+            f"{[r['launches'] for r in recs2]}")
+        # phase 3, here at world 1: the elastic resume and one live step
+        devname = "cuda:0" if dev == "cuda" else "cpu"
+        cfg, model, data, opt2, opt_kw = fw_setup(devname, preset, cfg_kw)
+        from repro_torch.core import make_optimizer
+
+        t = time.time()
+        params = model.init(torch.Generator(device=devname).manual_seed(SEED))
+        opt1 = make_optimizer("galore-sara-adam", params, state_sharding="zero", state_shards=1,
+                              **opt_kw)
+        skel = TrainState(params, opt1.init(params))
+        del params
+        t_load = time.time()
+        got, step = ckpt_lib.CheckpointManager(
+            ckdir, canonical_rows=state_lib.bucket_canonical_rows(opt1)).load_latest(skel)
+        secs["load_1_shard"] = time.time() - t_load
+        canon, loc = state_lib.checkpoint_converters(opt1)
+        ref, _ = ckpt_lib.CheckpointManager(str(out_dir / "replicated"), canonicalize=canon,
+                                            localize=loc).load_latest(skel)
+        ca = state_tensors(state_lib.canonical_train_state(opt1, got).opt_state) \
+            + tree_leaves(got.params)
+        cb = state_tensors(state_lib.canonical_train_state(opt1, ref).opt_state) \
+            + tree_leaves(ref.params)
+        if step != FW_STEPS or len(ca) != len(cb) or not all(
+                torch.equal(a, b) for a, b in zip(ca, cb)) \
+                or got.opt_state.draws.key().tolist() != ref.opt_state.draws.key().tolist():
+            raise AssertionError(f"train_fault_world phase 3: step {step}, the 1-shard load "
+                                 "differs from the replicated save")
+        n_leaves = len(ca)
+        del ref, ca, cb, skel
+        fns = make_train_step(model, opt1, mesh=mesh_lib.single_device_mesh(),
+                              compressed="flat")
+        before = counters.snapshot()
+        _, m = fns["step"](fns["place_state"](got), data.batch_at(FW_STEPS))
+        loss3 = float(m["loss"])
+        launches3 = _launches_since(before)
+        want3 = _fw_expect(cfg, opt1, [(False, False)])
+        if not math.isfinite(loss3) or launches3 != want3:
+            raise AssertionError(f"train_fault_world phase 3: loss {loss3}, launches "
+                                 f"{launches3} != {want3}")
+        secs["phase3"] = time.time() - t
+        del got, fns, m
+        log(f"train_fault_world phase 3 (this process, world 1): step {step} at 1 shard "
+            f"bit-equal to the replicated save ({n_leaves} tensors), loaded in "
+            f"{secs['load_1_shard']:.2f} s; a compressed step on the (1, 1) mesh, loss "
+            f"{loss3:.4f}; launches {launches3}")
+    finally:
+        for p in pre["procs"][2]:  # phase 1 failed: its waiting successors go too
+            if p.is_alive():
+                p.kill()
+                p.join()
+        shutil.rmtree(out_dir, ignore_errors=True)
+    launches = {}
+    for part in (recs[0]["launches"], recs2[0]["launches"], launches3):
+        for k, v in part.items():
+            launches[k] = launches.get(k, 0) + v
+    log(f"train_fault_world seconds ({smi}): " + ", ".join(f"{k} {v:.2f}" for k, v in secs.items()))
+    return {"launches": {k: v for k, v in launches.items() if v}, "card": smi, "seconds": secs,
+            "launches_by_rank": [[r["launches"] for r in recs], [r["launches"] for r in recs2]],
+            "losses": [recs[0]["losses"], recs2[0]["losses"], loss3],
+            "events": recs2[0]["events"], "last_save": recs2[0]["last_save"],
+            "last_load": recs2[0]["last_load"], "peaks": [r["peak"] for r in recs2]}
+
+
+# Phase 5h, ``dryrun``: ``launch/dryrun.py`` on the cells of the paths that
+# ran, held to what they measured: llama3-8b at 1 layer in one process
+# (``train``), a ``train_tp`` rank at (1, 2) and the ZeRO ranks of
+# ``train_tp_inners`` (qwen2-1.5b, (2, 1)): the dry run's optimizer-state
+# bytes equal each path's ``state_memory_bytes``, and its params +
+# gradients + state sit at or below each path's max_memory_allocated
+# (which adds the activations).  Then the question of PERF.md §7 at full
+# depth: whether llama3-8b and llava-next-34b fit 4 cards (params,
+# gradients, state; activations not counted) tensor parallel at (1, 4),
+# FSDP at (4, 1), and FSDP with ZeRO state.
+DRY_FIT_ARCHS = ("llama3-8b", "llava-next-34b")
+DRY_FIT_MESHES = (("tp", "1,4", ""), ("fsdp", "4,1", ""), ("fsdp_zero", "4,1", "zero"))
+
+
+def _dry_args(**kw):
+    from repro_torch.launch import dryrun
+
+    args = dryrun.parser().parse_args([])
+    for k, v in kw.items():
+        setattr(args, k, v)
+    return args
+
+
+def dryrun_phase(smi: str, runs) -> dict:
+    """Phase 5h (see the constants): {"checks": [...], "fit": [...]}.  A
+    check runs where its path ran in this script (``runs``)."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch import dryrun
+
+    checks = []
+
+    def held(path, arch, cfg, mesh, measured, optimizer="galore-sara-adam", **kw):
+        rep = dryrun.run_cell(arch, "train_4k", _dry_args(
+            mesh=mesh, optimizer=optimizer, rank=kw.pop("rank", TRAIN_OPT["rank"]), **kw),
+            cfg=cfg)
+        mem = rep.memory_per_device
+        resident = mem["param_bytes"] + mem["grad_bytes"] + mem["opt_state_bytes"]
+        for r, (state_bytes, peak) in enumerate(measured):
+            if mem["opt_state_bytes"] != state_bytes or resident > peak:
+                raise AssertionError(
+                    f"dryrun {path} rank {r}: state {mem['opt_state_bytes']:.0f} bytes (measured "
+                    f"{state_bytes}), params + gradients + state {resident:.0f} above the "
+                    f"measured peak {peak}")
+        checks.append({"path": path, "mesh": mesh, "state_bytes": mem["opt_state_bytes"],
+                       "resident_bytes": resident, "measured": measured})
+        log(f"dryrun {path} at {mesh}: state {mem['opt_state_bytes']:.0f} bytes = measured "
+            f"{[m[0] for m in measured]}; params + gradients + state "
+            f"{resident / 2**30:.2f} GiB <= measured peaks "
+            f"{[round(m[1] / 2**30, 2) for m in measured]} GiB")
+
+    llama1 = get_config("llama3-8b").with_(n_layers=TRAIN_RUN_LAYERS)
+    if "train" in runs:
+        r = runs["train"]
+        held("train", "llama3-8b", llama1, "1,1", [(r["state_bytes"], r["max_memory_allocated"])])
+    if "train_tp" in runs:
+        held("train_tp", "llama3-8b", get_config("llama3-8b").with_(n_layers=TP_LAYERS), "1,2",
+             [(r["dense"]["state_bytes"], r["dense"]["max_memory_allocated"])
+              for r in runs["train_tp"]["ranks"]])
+    for path in ("train_fsdp_zero", "train_fsdp_zero_adam8bit"):
+        if path in runs:
+            held(path, TPI_ARCH, tpi_cfg(), "2,1",
+                 [(r["state_bytes"], r["max_memory_allocated"]) for r in runs[path]["ranks"]],
+                 optimizer=TPI_RUNS[path][0], rank=TPI_RANK, state_sharding="zero")
+    fit = []
+    for arch in DRY_FIT_ARCHS:
+        for name, mesh, zero in DRY_FIT_MESHES:
+            rep = dryrun.run_cell(arch, "train_4k", _dry_args(mesh=mesh, state_sharding=zero))
+            mem = rep.memory_per_device
+            fit.append({"arch": arch, "layers": rep.extra["n_layers"], "layout": name,
+                        "mesh": mesh, "param_bytes": mem["param_bytes"],
+                        "grad_bytes": mem["grad_bytes"], "state_bytes": mem["opt_state_bytes"],
+                        "total_bytes": mem["total_bytes"], "fits_80GB": rep.extra["fits"],
+                        "bytes_over_model": rep.collectives.get("model"),
+                        "bytes_over_data": rep.collectives.get("data")})
+    log(f"dryrun ({smi}): full depth on 4 cards, per process (params + gradients + state; "
+        f"activations not counted): " + "; ".join(
+            f"{f['arch']} {f['layout']} {f['total_bytes'] / 1e9:.2f} GB "
+            f"({'fits' if f['fits_80GB'] else 'does not fit'} 80 GB)" for f in fit))
+    print(json.dumps({"dryrun_fit": fit}))
+    return {"checks": checks, "fit": fit}
+
+
 PHASES = ("kernels", "serve", "train", "train_recovery", "train_rank_schedule", "resume",
-          "train_dp", "train_tp", "train_tp_families", "train_tp_inners", "family_kernels", "serve_moe", "train_moe", "serve_ssm", "train_ssm",
+          "train_dp", "train_tp", "train_tp_families", "train_tp_inners", "train_fault_world",
+          "family_kernels", "serve_moe", "train_moe", "serve_ssm", "train_ssm",
           "serve_hybrid", "train_hybrid", "encdec_vlm_kernels", "serve_vlm", "train_vlm",
-          "serve_audio", "train_audio", "tables")
+          "serve_audio", "train_audio", "tables", "dryrun")
 
 
 def main(argv=None) -> int:
@@ -5713,8 +6266,9 @@ def main(argv=None) -> int:
         cases += phase("kernels", lambda: kernel_cases(results) + optimizer_kernel_cases(results)
                        + update_kernel_cases(results) + rank_kernel_cases(results)
                        + cut_adam8bit_cases(results))
-    if "serve" in only:  # full width and depth, bf16
-        runs["serve"] = phase("serve", lambda: serve(get_config("llama3-8b")))
+    if "serve" in only:  # full width, SERVE_LAYERS of 32, bf16
+        runs["serve"] = phase("serve", lambda: serve(cut_depth(get_config("llama3-8b"),
+                                                               SERVE_LAYERS)))
     cfg_train = get_config("llama3-8b").with_(n_layers=TRAIN_LAYERS)
     cfg_runs = cfg_train.with_(n_layers=TRAIN_RUN_LAYERS)
     if "train" in only:
@@ -5742,8 +6296,13 @@ def main(argv=None) -> int:
          runs["train_fsdp_moe"]) = phase("train_tp", lambda: train_tp(smi))
     if "train_tp_families" in only:
         runs.update(phase("train_tp_families", lambda: train_tp_families(smi)))
+    # the fault world's processes start up while the phase before it runs
+    fw_pre = fw_prestart() if "train_fault_world" in only else None
     if "train_tp_inners" in only:
         runs.update(phase("train_tp_inners", lambda: train_tp_inners(smi)))
+    if "train_fault_world" in only:
+        runs["train_fault_world"] = phase("train_fault_world",
+                                          lambda: train_fault_world(smi, pre=fw_pre))
     if "family_kernels" in only:
         cases += phase("family_kernels", lambda: family_kernel_cases(results))
     if "serve_moe" in only:  # deepseek-moe-16b at full width and depth
@@ -5755,7 +6314,7 @@ def main(argv=None) -> int:
         serve_path = path.replace("train", "serve")
         if path == "train_moe" or serve_path not in only:
             continue
-        cfg, lens = (cut_depth(get_config(SSM_ARCH), SSM_LAYERS), PROMPT_LENS) \
+        cfg, lens = (cut_depth(get_config(SSM_ARCH), SERVE_SSM_LAYERS), PROMPT_LENS) \
             if path == "train_ssm" else \
             (get_config(HYBRID_ARCH).with_(n_layers=HYBRID_LAYERS), HYBRID_PROMPT_LENS)
         runs[serve_path] = phase(serve_path, lambda: serve_slots(cfg, lens))
@@ -5776,6 +6335,7 @@ def main(argv=None) -> int:
     if "tables" in only:  # the paper's experiments at LLaMA-60M
         runs["tables"] = phase("tables", lambda: paper_tables(smi, results))
         cases += runs["tables"].pop("cases")
+    dry = phase("dryrun", lambda: dryrun_phase(smi, runs)) if "dryrun" in only else None
     log(f"phase seconds {phase_s}; all {time.perf_counter() - t_start:.1f} s ({smi})")
 
     for name, r in results.items():
@@ -5795,7 +6355,7 @@ def main(argv=None) -> int:
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         {"card": smi, "phase_seconds": phase_s, "kernels": list(results.values()),
-         "cases": cases, **runs}, indent=1, default=str))
+         "cases": cases, "dryrun": dry, **runs}, indent=1, default=str))
     ratios = [{"kernel": c["kernel"], "case": c["case"], "dtype": c["dtype"],
                "ms": c["ms"], "library_ms": c["library_ms"],
                "ratio": c["ms"] / c["library_ms"]} for c in cases if c.get("library_ms")]

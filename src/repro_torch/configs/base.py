@@ -5,13 +5,14 @@ hybrid, enc-dec and VLM), with the JAX config's names and defaults, so a
 config compares field by field with its reference; only the dtypes are
 torch's.  ``RankSchedule`` is the reference's rank schedule, field for
 field (its evaluation lives in ``core/rank_schedule.py``).  ``MeshConfig``
-names the data-parallel mesh (``launch/mesh.py``).  Shape configs come
-with the launch slice (ROADMAP queue 1 item 12).
+names the data-parallel mesh (``launch/mesh.py``).  ``ShapeConfig`` and
+``SHAPES`` are the reference's four input shapes, which with the archs
+make the cells (``registry.cells``, ``launch/dryrun.py``).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
@@ -76,6 +77,27 @@ class ModelConfig:
     @property
     def kv_dim(self) -> int:
         return self.n_kv_heads * self.head_dim
+
+
+# ---------------------------------------------------------------------------
+# Input shapes (the assigned shape set)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # train | prefill | decode
+
+
+SHAPES: Dict[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
+}
 
 
 @dataclasses.dataclass(frozen=True)

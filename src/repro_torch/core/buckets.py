@@ -52,11 +52,16 @@ over ``model`` a "d" bucket gathers first).  Where an axis cuts a 'left'
 bucket's n, Adam-mini's row sums and 8-bit Adam's 256-element row chunks
 span processes (``_cut_kwargs``); ZeRO state on the FSDP step keeps rows
 of the moments (``StateLayout.zero_rows``, ``bucketed_update``'s split
-schedule).  ``dp_comm_model`` and
-``sharded_ckpt_model`` are the reference's host models of the bytes those
-steps hand to the collectives and write per checkpoint writer.  The rest
-of the modeled accounting waits for the benchmark slice (ROADMAP queue 1
-item 12).
+schedule).
+
+The modeled accounting is the reference's, on the host, from the plan's
+shapes alone: ``modeled_hbm_bytes`` / ``update_num_ops`` /
+``reference_num_ops`` (a hot step of either engine),
+``finite_check_model`` (the skip-step gate), ``refresh_num_ops`` /
+``modeled_refresh_hbm_bytes`` (a randomized refresh),
+``modeled_state_bytes`` (the resident state), ``sharded_ckpt_model``
+(one checkpoint writer) and ``dp_comm_model`` (the data-parallel
+collectives' bytes).  ``launch/dryrun.py`` records them per cell.
 """
 from __future__ import annotations
 
@@ -1150,6 +1155,195 @@ def sharded_ckpt_model(plan: BucketPlan, inner: str = "adam", shards: int = 1
         "stack_files_per_host": float(len(plan.buckets) * fields),
         "shards": float(shards),
     }
+
+
+def _moment_traffic_bytes(bk: Bucket, inner: str, engine: str) -> int:
+    """Moment-buffer bytes one hot step moves for one bucket: adam's M and V
+    read and written; msgd's M; adam_mini's M, the extra R read of its
+    per-row statistic and the small v; adam8bit's codes of both moments and
+    their scales (the fused update keeps the f32 moments on chip), plus, on
+    the reference engine, the dequantized f32 M and V written and read."""
+    B, n, r = bk.batch, bk.n, bk.rank
+    rn = B * r * n * 4
+    if inner == "msgd":
+        return 2 * rn
+    if inner == "adam_mini":
+        rows = r if bk.side != "right" else n
+        return 2 * rn + rn + 2 * B * rows * 4
+    if inner == "adam8bit":
+        rows, rowlen = (r, n) if bk.side != "right" else (n, r)
+        codes = 4 * B * r * n  # M, V codes read + write, 1 byte each
+        scales = 4 * B * rows * qz.num_blocks(rowlen) * 4
+        if engine != "bucketed":
+            codes += 4 * rn  # dequantized f32 M, V temporaries, w + r
+        return codes + scales
+    return 4 * rn  # adam
+
+
+def modeled_hbm_bytes(
+    plan: BucketPlan,
+    engine: str,
+    itemsize: int = 4,
+    projected: bool = False,
+    state_layout: str = "bucketed",
+    track_update_norm: bool = False,
+    inner: str = "adam",
+) -> int:
+    """Modeled optimizer-path bytes per hot step of the bucketed leaves
+    (``buckets.py:1097``).  bucketed: G read once, R written and read, P
+    read twice, the moments (``_moment_traffic_bytes``), W read and W'
+    written; ``projected`` (the compressed step) drops the projection;
+    ``state_layout="perleaf"`` adds the moments' and projectors' stack and
+    unstack passes; ``track_update_norm`` the re-read of W' and W.
+    reference: the projection, the inner on R, the direction N written and
+    read, the back-projection to d x n and the separate apply pass."""
+    total = 0
+    for bk in plan.buckets:
+        B, d, n, r = bk.batch, bk.d, bk.n, bk.rank
+        wn = B * d * n * itemsize
+        pr = B * d * r * 4
+        rn = B * r * n * 4
+        moments = _moment_traffic_bytes(bk, inner, engine)
+        if engine == "bucketed":
+            proj = 0 if projected else (wn + pr + rn)  # read G, P; write R
+            upd = wn + pr + rn + moments + wn  # W r, P, R, moments, W' w
+            extra = 0
+            if state_layout == "perleaf":
+                extra += 2 * moments + 2 * pr
+            if track_update_norm:
+                extra += 2 * wn  # re-read W' and W for ||W' - W||
+            total += proj + upd + extra
+        else:
+            proj = 0 if projected else (wn + pr + rn)
+            inner_tr = rn + moments  # R read, moments r/w
+            direction = rn + 2 * rn  # N = f(M', V') r-space write + read
+            backproj = pr + rn + 2 * wn  # P, N_r -> full-space dir d x n
+            apply = 3 * wn  # params read + dir read + params write
+            total += proj + inner_tr + direction + backproj + apply
+    return total
+
+
+def update_num_ops(plan: BucketPlan, inner: str = "adam", projected: bool = False) -> int:
+    """Launches per bucketed hot step: the projection (unless the gradients
+    come projected) and the fused update per bucket, plus adam_mini's
+    per-row statistic (one reduction per bucket)."""
+    per_bucket = 1 if projected else 2
+    if inner == "adam_mini":
+        per_bucket += 1
+    return len(plan.buckets) * per_bucket
+
+
+def reference_num_ops(plan: BucketPlan, projected: bool = False, inner: str = "adam") -> int:
+    """The per-leaf chain on the reference engine: project, moments,
+    direction, back-project and apply per low-rank leaf; adam8bit adds the
+    dequantize and requantize passes, adam_mini the per-row statistic."""
+    n_leaves = sum(len(bk.entries) for bk in plan.buckets)
+    per_leaf = 4 if projected else 5
+    if inner == "adam8bit":
+        per_leaf += 2
+    elif inner == "adam_mini":
+        per_leaf += 1
+    return n_leaves * per_leaf
+
+
+def finite_check_model(plan: BucketPlan, projected: bool = False, itemsize: int = 4
+                       ) -> Dict[str, float]:
+    """The skip-step gate's cost (``bucketed_all_finite``): one
+    ``all(isfinite)`` reduction per bucket stack over the (B, r, n) R
+    stacks on the projected step, the full (B, d, n) stacks otherwise."""
+    nbytes = 0
+    for bk in plan.buckets:
+        rows = bk.rank if projected else bk.d
+        nbytes += bk.batch * rows * bk.n * itemsize
+    return {"modeled_hbm_bytes": float(nbytes), "dispatched_ops": float(len(plan.buckets))}
+
+
+# The refresh models describe the randomized (SARA pool) chain, as the
+# reference's (``buckets.py:1282-1297``): "perleaf" is the baseline of
+# record, one chain per refreshed leaf with the (n, k') Z = G^T Q written
+# out and re-orthonormalized each power iteration; "batched" one chain per
+# bucket with refreshed entries, thin-QR iterations on the fused power
+# step (kernel 9), plus the gradient stack's concat.
+
+
+def _refresh_chain_ops(engine: str, power_iters: int) -> int:
+    """One chain's launches: sketch draw, sketch product, final QR, B =
+    Q^T G, the small SVD, the Gumbel draw and the column gather (7), plus
+    per power iteration QR and the fused step (batched, 2) or QR, Z, QR,
+    Y (perleaf, 4); ``power_iters`` after ``svd.clamp_sketch``."""
+    per_iter = 2 if engine == "batched" else 4
+    return 7 + per_iter * power_iters
+
+
+def refresh_num_ops(
+    plan: BucketPlan,
+    flat_specs: Sequence,
+    *,
+    engine: str,
+    group: int = 0,
+    oversample: int = 8,
+    power_iters: int = 2,
+    pool_factor: int = 4,
+) -> int:
+    """Launches of one randomized refresh of ``group``, clamped as
+    ``modeled_refresh_hbm_bytes`` (a bucket whose sketch spans its range
+    runs no power iteration)."""
+    from repro_torch.core import svd as svd_lib
+
+    total = 0
+    for bk in plan.buckets:
+        k = min(bk.d, pool_factor * bk.rank)
+        _, _, iters = svd_lib.clamp_sketch(bk.d, bk.n, k, oversample, power_iters)
+        chain = _refresh_chain_ops(engine, iters)
+        n_hot = sum(1 for e in bk.entries if flat_specs[e.leaf_idx].group == group)
+        total += chain * (min(n_hot, 1) if engine == "batched" else n_hot)
+    return total
+
+
+def modeled_refresh_hbm_bytes(
+    plan: BucketPlan,
+    flat_specs: Sequence,
+    *,
+    engine: str,
+    group: int = 0,
+    oversample: int = 8,
+    power_iters: int = 2,
+    pool_factor: int = 4,
+    itemsize: int = 4,
+) -> int:
+    """Modeled bytes of one randomized refresh step (``buckets.py:1341``):
+    per refreshed (d, n) slice at sketch width k' (``svd.clamp_sketch``),
+    the sketch product, the power iterations (per engine, above), the
+    final QR, B = Q^T G, the small SVD, U = Q U_b and the sampled (d, r)
+    projector written; the batched engine also pays the gradient stack's
+    concat where a bucket has more than one refreshed entry."""
+    from repro_torch.core import svd as svd_lib
+
+    total = 0
+    for bk in plan.buckets:
+        d, n, r = bk.d, bk.n, bk.rank
+        k = min(d, pool_factor * r)
+        _, kp, iters = svd_lib.clamp_sketch(d, n, k, oversample, power_iters)
+        dn, dkp, nkp = d * n, d * kp, n * kp
+        per_slice = dn + nkp + dkp  # sketch: G read, omega read, Y write
+        if engine == "batched":
+            # thin QR (Y r/w) + fused step (G read twice, Q read, Y write)
+            per_slice += iters * (2 * dkp + 2 * dn + 2 * dkp)
+        else:
+            # QR(Y) + Z = G^T Q (written) + QR(Z) + Y = G Z
+            per_slice += iters * (2 * dkp + (dn + dkp + nkp) + 2 * nkp + (dn + nkp + dkp))
+        per_slice += 2 * dkp  # final QR
+        per_slice += dkp + dn + nkp  # B = Q^T G
+        per_slice += nkp + kp * kp + kp  # small SVD of B
+        per_slice += 2 * dkp + kp * kp  # U = Q @ U_b
+        per_slice += kp + d * r  # spectrum read + sampled projector write
+        hot = [e for e in bk.entries if flat_specs[e.leaf_idx].group == group]
+        n_slices = sum(e.batch for e in hot)
+        bucket_bytes = n_slices * per_slice
+        if engine == "batched" and len(hot) > 1:
+            bucket_bytes += 2 * n_slices * dn  # gradient stack concat r/w
+        total += bucket_bytes * itemsize
+    return total
 
 
 def dp_comm_model(

@@ -17,9 +17,10 @@
     or extend with the fill codes that dequantize to 0 under any scale
     (127 signed, 0 unsigned) and scale 1.0, so nothing re-quantizes.
 
-The modeled-bytes models, ``scheduled_state_model`` and
-``rebucket_cost_model``, need the bucket engine's modeled accounting and
-wait for it (ROADMAP queue 1 item 12).
+``scheduled_state_model`` (the resident state over the run: peak,
+time-weighted average and the static baseline) and ``rebucket_cost_model``
+(one re-bucket event) are the reference's models, on
+``buckets.modeled_state_bytes``.
 """
 from __future__ import annotations
 
@@ -36,8 +37,6 @@ from repro_torch.core import lowrank as lowrank_lib
 from repro_torch.kernels.lowrank_update import quantize as qz
 
 PyTree = Any
-
-_ITEM_12 = "ROADMAP queue 1 item 12"
 
 
 def parse_rank_schedule(spec: str, **overrides: Any) -> RankSchedule:
@@ -165,20 +164,74 @@ def schedule_rank_plans(cfg: "lowrank_lib.OptimizerConfig", params_like: PyTree,
             for r, w in sorted(weights.items(), reverse=True)]
 
 
-def scheduled_state_model(*args: Any, **kwargs: Any) -> Dict[str, Any]:
-    """The schedule's modeled state bytes: waits for the bucket engine's
-    modeled accounting."""
-    raise NotImplementedError(
-        f"scheduled_state_model needs the modeled accounting of core/buckets.py, "
-        f"which is not yet ported to repro_torch ({_ITEM_12})")
+def scheduled_state_model(cfg: "lowrank_lib.OptimizerConfig", params_like: PyTree,
+                          sched: RankSchedule, *, total_steps: int,
+                          sub_tau: Optional[int] = None, state_shards: int = 1,
+                          lowrank_filter: Optional[Callable] = None) -> Dict[str, Any]:
+    """The schedule's resident state over the run (``rank_schedule.py:229``):
+    the modeled state bytes of each segment, their peak (the provisioning
+    number) and time-weighted average (the memory actually paid), against
+    the static run that holds ``sched.start`` throughout."""
+    if sub_tau is None:
+        sub_tau = max(cfg.tau // max(cfg.refresh_groups, 1), 1)
+    traj = rank_trajectory(sched, total_steps=total_steps, sub_tau=sub_tau)
+    shards = max(state_shards, 1)
+    weights: Dict[int, float] = {}
+    for i, (start, rank) in enumerate(traj):
+        end = traj[i + 1][0] if i + 1 < len(traj) else total_steps
+        weights[rank] = weights.get(rank, 0.0) + (end - start) / total_steps
+    plan_at: Dict[int, buckets_lib.BucketPlan] = {}
+    bytes_at: Dict[int, float] = {}
+
+    def rank_bytes(rank: int) -> float:
+        if rank not in bytes_at:
+            plan_at[rank] = plan_at_rank(cfg, params_like, rank, lowrank_filter)
+            bytes_at[rank] = buckets_lib.modeled_state_bytes(
+                plan_at[rank], inner=cfg.inner, shards=shards)["total"]
+        return bytes_at[rank]
+
+    static = rank_bytes(sched.start)
+    seg = [(w, rank_bytes(r)) for r, w in weights.items()]
+    plans = [(w, plan_at[r]) for r, w in sorted(weights.items(), reverse=True)]
+    avg = sum(w * b for w, b in seg) / (sum(w for w, _ in seg) or 1.0)
+    peak = max(b for _, b in seg)
+    return {
+        "schedule": sched.spec(),
+        "sub_tau": sub_tau,
+        "total_steps": total_steps,
+        "trajectory": [{"step": s, "rank": r, "modeled_state_bytes": rank_bytes(r)}
+                       for s, r in traj],
+        "num_rebuckets": max(len(traj) - 1, 0),
+        "modeled_state_bytes_peak": peak,
+        "modeled_state_bytes_avg": avg,
+        "modeled_state_bytes_static": static,
+        "avg_savings_vs_static": 1.0 - avg / static if static else 0.0,
+        "rank_plans": plans,
+    }
 
 
-def rebucket_cost_model(*args: Any, **kwargs: Any) -> Dict[str, float]:
-    """The modeled cost of a re-bucket event: waits for the bucket engine's
-    modeled accounting."""
-    raise NotImplementedError(
-        f"rebucket_cost_model needs the modeled accounting of core/buckets.py, "
-        f"which is not yet ported to repro_torch ({_ITEM_12})")
+def _migrated_fields(inner: str) -> int:
+    """Buffers migrated per bucket at a re-bucket (the projector and the
+    live moment buffers, as ``buckets.sharded_ckpt_model`` counts them)."""
+    if inner == "msgd":
+        return 2
+    if inner == "adam8bit":
+        return 5
+    return 3
+
+
+def rebucket_cost_model(old_plan: buckets_lib.BucketPlan, new_plan: buckets_lib.BucketPlan,
+                        inner: str = "adam") -> Dict[str, float]:
+    """One re-bucket event: every state buffer of the old layout read and
+    the new layout's written (the sum of both footprints), and one slice or
+    pad per stack buffer on each side."""
+    old_b = buckets_lib.modeled_state_bytes(old_plan, inner=inner)["total"]
+    new_b = buckets_lib.modeled_state_bytes(new_plan, inner=inner)["total"]
+    fields = _migrated_fields(inner)
+    return {
+        "modeled_hbm_bytes": float(old_b + new_b),
+        "dispatched_ops": float(fields * (len(old_plan.buckets) + len(new_plan.buckets))),
+    }
 
 
 # ---------------------------------------------------------------------------

@@ -28,6 +28,7 @@ def resolve_device(device: DeviceLike = "cuda") -> torch.device:
         # would keep only ~3 decimal digits of them.
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
-    elif dev.type != "cpu":
-        raise ValueError(f"unsupported device {device!r}: use 'cuda' or 'cpu'")
+    elif dev.type not in ("cpu", "meta"):
+        # meta: shapes and dtypes without storage (launch/dryrun.py)
+        raise ValueError(f"unsupported device {device!r}: use 'cuda', 'cpu' or 'meta'")
     return dev

@@ -91,13 +91,23 @@ every leaf whole over ``data``, the MoE smoke configs split their expert
 ``model``).  Each process feeds the global batch
 (``--batch``) and runs its own rows of it.
 
-Beyond the reference's flags, ``--svd-backend`` picks the refresh's SVD
-(the reference's default, exact, or randomized, whose power iterations
-run on the CUDA kernel), and ``--dist`` the synthetic corpus (bigram or
-zipf).  The heartbeat flags (``--heartbeat-timeout``, ``--stale-action``)
-wait for ROADMAP queue 1 item 11, second half (the fault harness): every process beats just
-before it checks, so no worker can go stale and the run's closing line
-has no stale-worker count; Fira's limiter keeps its default, as the
+Each process beats a ``HeartbeatRegistry`` (``--heartbeat-timeout``
+seconds) as ``worker<process id>`` every step, and a worker that goes
+stale is escalated per ``--stale-action``: ``log`` (a ``stale_worker``
+record), ``rollback`` or ``abort``.  The registry is the reference's, held
+in the process, and the closing line counts its stale workers.  A process
+that dies takes its world down: its peers' next collective raises (gloo;
+NCCL aborts under ``TORCH_NCCL_ASYNC_ERROR_HANDLING=1``, the ``overlap``
+preset of ``launch/runtime.py``), each survivor exits non-zero with the
+step it was in (``[train] step N failed``), and running the same
+command again resumes from the newest checkpoint that verifies.
+
+``--shape`` names the cell's shape (``configs/base.SHAPES``), as the
+reference's launcher takes it; as there, the batch comes from ``--seq``
+and ``--batch``.  Beyond the reference's flags, ``--svd-backend`` picks
+the refresh's SVD (the reference's default, exact, or randomized, whose
+power iterations run on the CUDA kernel), and ``--dist`` the synthetic
+corpus (bigram or zipf); Fira's limiter keeps its default, as the
 reference's launcher has no flag for it either.
 """
 from __future__ import annotations
@@ -138,8 +148,11 @@ def maybe_init_distributed(args) -> bool:
 
 
 def main(argv=None) -> None:
+    from repro_torch.configs.base import SHAPES
+
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="llama3-8b")
+    ap.add_argument("--shape", default="train_4k", choices=tuple(SHAPES))
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--optimizer", default="galore-sara-adam")
@@ -173,8 +186,11 @@ def main(argv=None) -> None:
                     help="consecutive bad steps before a rollback")
     ap.add_argument("--loss-spike-factor", type=float, default=0.0,
                     help=">0: loss > factor x windowed median is a bad step")
+    ap.add_argument("--stale-action", default="log", choices=("log", "rollback", "abort"),
+                    help="escalation for a stale worker heartbeat")
     ap.add_argument("--collective-timeout", type=float, default=0.0,
                     help=">0: arm the step watchdog (a sync per step)")
+    ap.add_argument("--heartbeat-timeout", type=float, default=60.0)
     ap.add_argument("--mesh", default="",
                     help="'data,model' or 'pod,data,model' over the processes "
                          "(model > 1: tensor parallel; data > 1 without --compressed-dp: "
@@ -204,7 +220,7 @@ def main(argv=None) -> None:
     from repro_torch.models import build_model, count_params
     from repro_torch.core.rank_schedule import parse_rank_schedule
     from repro_torch.train.loop import train_loop
-    from repro_torch.train.monitor import CollectiveWatchdog
+    from repro_torch.train.monitor import CollectiveWatchdog, HeartbeatRegistry
     from repro_torch.train.recovery import RecoveryPolicy
     from repro_torch.train.step import make_train_step
 
@@ -273,7 +289,9 @@ def main(argv=None) -> None:
         recovery = RecoveryPolicy(
             max_bad_steps=args.max_bad_steps, loss_spike_factor=args.loss_spike_factor,
             max_rollbacks=args.max_rollbacks, rollback_backoff_s=0.5,
+            stale_worker_action=args.stale_action,
         )
+    heartbeats = HeartbeatRegistry(timeout_s=args.heartbeat_timeout)
     watchdog = None
     if args.collective_timeout > 0:
         watchdog = CollectiveWatchdog(
@@ -289,7 +307,8 @@ def main(argv=None) -> None:
               f"{n_params / 1e6:.1f}M params")
     try:
         res = train_loop(model, opt, data, tc, fns, log_every=max(args.steps // 20, 1),
-                         recovery=recovery)
+                         recovery=recovery, heartbeats=heartbeats,
+                         worker_name=f"worker{args.process_id}")
     finally:
         if distributed:
             torch.distributed.destroy_process_group()
@@ -306,7 +325,8 @@ def main(argv=None) -> None:
               f"{int(last['rollbacks'])} rollbacks, "
               f"{int(last['save_retries'])} save retries, "
               f"{int(last['save_failures'])} save failures, "
-              f"{len(events)} recovery events")
+              f"{len(events)} recovery events, "
+              f"stale workers: {int(last.get('stale_workers', 0))}")
 
 
 if __name__ == "__main__":

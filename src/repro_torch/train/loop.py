@@ -72,10 +72,13 @@ cadence, deferred metric fetch and subspace tracking.
     standard step at ``data`` above 1): the state holds this process's
     blocks; a save gathers the global state on every
     process (``fns["gather_state"]``) and the first process writes JAX's
-    canonical per-leaf format, and a load reads the global state and cuts
-    it (``fns["place_state"]``), so a tensor-parallel checkpoint resumes
-    on one process and in JAX, and a one-process checkpoint resumes under
-    tensor parallelism or FSDP at any ``data`` extent.  The spectrum logger
+    canonical per-leaf format (a compressed step's ZeRO state: the
+    shard-parallel format, each writer of ``checkpoint.local_shard_ids``
+    its block of the gathered stacks' rows), and a load reads the global
+    state and cuts it (``fns["place_state"]``), so a tensor-parallel
+    checkpoint resumes on one process and in JAX, and a one-process
+    checkpoint resumes under tensor parallelism or FSDP at any ``data``
+    extent.  The spectrum logger
     reads the probe leaf gathered (``launch/sharding.gather_leaf``) and
     ``track_subspace`` the gathered projectors
     (``core/lowrank.tp_global_projectors``), so every process records one
@@ -83,6 +86,12 @@ cadence, deferred metric fetch and subspace tracking.
     every process; a re-bucket gathers the global state, migrates it,
     rebuilds the global optimizer and its steps at the new rank and places
     the state again (the rebuilt steps cut the optimizer anew).
+  * **A lost process.**  An exception out of a step (a collective whose
+    peer died raises on gloo; NCCL aborts under
+    ``TORCH_NCCL_ASYNC_ERROR_HANDLING``) leaves the loop with a note naming
+    the step, so each surviving process of a world ends with the step it
+    was in; running the world again resumes from the newest checkpoint
+    that verifies.
 """
 from __future__ import annotations
 
@@ -181,7 +190,13 @@ def train_loop(
     layout = optimizer.state_layout
     shard_spec = None
     if tp:
-        pass  # the canonical format, from the gathered state
+        # from the gathered state: the canonical format, or, for a ZeRO
+        # state of the compressed step, each writer its block of rows of the
+        # full padded stacks
+        if (train_cfg.sharded_checkpoint and not step_fns.get("fsdp")
+                and layout is not None and layout.shards > 1):
+            shard_spec = ckpt_lib.ShardSpec(num_shards=layout.shards,
+                                            shard_ids=ckpt_lib.local_shard_ids(layout.shards))
     elif train_cfg.sharded_checkpoint and layout is not None and layout.shards > 1:
         shard_spec = ckpt_lib.ShardSpec(
             num_shards=layout.shards, shard_ids=ckpt_lib.local_shard_ids(layout.shards),
@@ -529,6 +544,11 @@ def train_loop(
                                 "from_step": float(rb.step), "attempt": float(attempt),
                                 "reason": rb.reason})
                 step = ck_step
+            except Exception as e:
+                # a dead peer's collective, a failed kernel: say where
+                e.add_note(f"[train] step {step} failed ({type(e).__name__}); a restart "
+                           f"resumes from the newest checkpoint that verifies")
+                raise
     finally:
         try:
             flush(state, swallow_aborts=True)

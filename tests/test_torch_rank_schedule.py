@@ -1,6 +1,6 @@
 """The port's rank schedules against the JAX package's, on the CPU (the
 cases of tests/test_rank_schedule.py but its two modeled-bytes ones, which
-wait for the modeled accounting, ROADMAP queue 1 item 12):
+``test_torch_accounting.py`` holds on the full-width plans of every arch):
 
 * schedule evaluation -- parsing, ``scheduled_rank`` over a grid of specs,
   steps and current ranks, the adaptive proposal, the trajectory -- equal
@@ -120,9 +120,10 @@ def test_schedule_errors_match_jax():
             lib.scheduled_rank(cls.parse("cosine:128:32"), 10)
         with pytest.raises(ValueError):
             lib.rank_trajectory(cls.parse("constant:8"), total_steps=0)
-    for fn in (rs_lib.scheduled_state_model, rs_lib.rebucket_cost_model):
-        with pytest.raises(NotImplementedError, match="item 12"):
-            fn()
+        # the state model walks the same trajectory first
+        with pytest.raises(ValueError):
+            lib.scheduled_state_model(None, None, cls.parse("constant:8"), total_steps=0,
+                                      sub_tau=1)
 
 
 # ---------------------------------------------------------------------------

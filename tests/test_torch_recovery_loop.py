@@ -5,8 +5,8 @@ resample, the budget running out), corrupt checkpoints (the rollback's and
 the restart's fallback), write errors (retried, lost, lost in the
 background), preemption and resume, a slow step with heartbeats, and an
 injected process loss followed by a restart from the last committed
-checkpoint.  (The zero-sharded lockstep case waits for the distributed
-slice, ROADMAP queue 1 item 11.)
+checkpoint.  (The zero-sharded lockstep case needs a world of processes:
+``test_torch_distributed.py`` and ``test_torch_multihost.py`` run it.)
 
 Each case checks the same ``fired`` list, the same recovery events and
 counters, losses to 1e-6 and the final params within
