@@ -23,9 +23,15 @@ failure raises and the script exits non-zero:
               call (torch.profiler) beside its plain version's, a PyTorch
               yardstick's (``LIBRARY_CALL`` says what it covers), and its
               bound on the H100 (bytes over 3.35 TB/s or operations over
-              the dtype's peak, whichever is larger).  ``call_ms`` adds the
-              host's launch time; flash cases record which of its two
-              designs ran (bf16 must take the tensor cores).
+              the dtype's peak, whichever is larger; the power iteration's
+              cases also record ``bound_tf32_split_ms``, the same
+              operations as the three TF32 products of an f32-accurate
+              split on the tensor cores, two for bf16 G).  ``call_ms`` adds
+              the host's launch time; flash cases record which of its two
+              designs ran (bf16 must take the tensor cores).  On one slice
+              of the mlp bucket the power iteration and its plain version
+              are each also held against an f64 product made on the card
+              (``kernel_err_f64`` and ``plain_err_f64``, over max |Y|).
 3. serve   -- full-width llama3-8b (4 of its 32 layers, ``SERVE_LAYERS``,
               bf16, seeded random weights) through
               ``ContinuousEngine(max_slots=4, page_size=16)``: 8 requests,
@@ -276,7 +282,11 @@ ROOT = Path(__file__).resolve().parent
 # rate for each input type (bf16 on the tensor cores, f32 on the CUDA cores),
 # from the port's ``roofline/hw.py`` (which the dry run's roofline reads).
 sys.path.insert(0, str(ROOT / "src"))
-from repro_torch.roofline.hw import HBM_BYTES_PER_S, PEAK_OPS_PER_S  # noqa: E402
+from repro_torch.roofline.hw import (  # noqa: E402
+    HBM_BYTES_PER_S,
+    PEAK_OPS_PER_S,
+    PEAK_TF32_OPS_PER_S,
+)
 
 # Kernel vs plain version, per dtype: |kernel - plain| <= atol + rtol*|plain|.
 # f32: both sum in f32 in different orders (2e-5 is the JAX repo's own
@@ -808,10 +818,46 @@ def device_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return call_ms(fn, iters, warmup)
 
 
+# "tf32": the TF32 tensor cores, the rate of an f32-accurate split's products
+PEAK_RATES = {**PEAK_OPS_PER_S, "tf32": PEAK_TF32_OPS_PER_S}
+
+
 def bound(nbytes: float, ops: float, dtype_name: str):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_OPS_PER_S[dtype_name] * 1e3
+    t_ops = ops / PEAK_RATES[dtype_name] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def power_iter_timing(g, q, iters: int) -> dict:
+    """Kernel 9's, its plain version's and ``bmm(G, bmm(G^T, Q))``'s device
+    ms on ``g``, ``q``, beside two bounds: ``bound_ms`` on the f32 CUDA
+    cores, as the kernel computes, and ``bound_tf32_split_ms``, the same
+    operations as an f32-accurate TF32 split's products on the tensor cores
+    (three: hi hi + hi lo + lo hi; two for a bf16 G, whose lo is 0)."""
+    from repro_torch.kernels.power_iter.kernel import power_iter_batched
+    from repro_torch.kernels.power_iter.ref import power_iter_ref
+
+    b, d, n = g.shape
+    kp = q.shape[2]
+    nbytes = g.element_size() * b * d * n + 4 * 2 * b * d * kp
+    ops = 4 * b * d * n * kp
+    products = 3 if g.dtype == torch.float32 else 2
+    t = timed_case(lambda: power_iter_batched(g, q), lambda: power_iter_ref(g, q),
+                   lambda: torch.bmm(g, torch.bmm(g.transpose(1, 2), q)),
+                   *bound(nbytes, ops, "float32"), iters)
+    t["bound_tf32_split_ms"], t["bound_tf32_split_by"] = bound(nbytes, products * ops, "tf32")
+    return t
+
+
+def f64_errors(g, q, got, plain) -> dict:
+    """Kernel 9's (``got``) and its plain version's largest error on one
+    slice (g (m, n), q (m, k')) against an f64 product made on the card,
+    over the largest |Y|."""
+    g64 = g.double()
+    y64 = g64 @ (g64.T @ q.double())
+    scale = float(y64.abs().max())
+    return {"kernel_err_f64": float((got.double() - y64).abs().max()) / scale,
+            "plain_err_f64": float((plain.double() - y64).abs().max()) / scale}
 
 
 def off_tolerance(got, want, atol: float, rtol: float, rel_atol: bool = False):
@@ -1233,11 +1279,10 @@ def optimizer_kernel_cases(results):
             torch.cuda.synchronize()
             err = check_close(f"power_iter {label} k'={kp}", got, want,
                               *TOL["power_iter_batched"]["float32"], rel_atol=True)
+            acc = f64_errors(g[0], q[0], got[0], want[0]) if main else {}
             del got, want
-            b_ms, b_by = bound(4 * (b * d * n + 2 * b * d * kp), 4 * b * d * n * kp, "float32")
-            record("power_iter_batched", f"{label} k'={kp}", torch.float32, err, main, timed_case(
-                lambda: power_iter_batched(g, q), lambda: power_iter_ref(g, q),
-                lambda: torch.bmm(g, torch.bmm(g.transpose(1, 2), q)), b_ms, b_by, 3))
+            record("power_iter_batched", f"{label} k'={kp}", torch.float32, err, main,
+                   {**acc, **power_iter_timing(g, q, 3)})
             del g, q
             torch.cuda.empty_cache()
 
@@ -1253,10 +1298,8 @@ def optimizer_kernel_cases(results):
         err = check_close(f"power_iter {label}", got, want,
                           *TOL["power_iter_batched"]["float32"], rel_atol=True)
         del got, want
-        b_ms, b_by = bound(4 * (b * d * n + 2 * b * d * r), 4 * b * d * n * r, "float32")
-        record("power_iter_batched", label, torch.float32, err, False, timed_case(
-            lambda: power_iter_batched(g, q), lambda: power_iter_ref(g, q),
-            lambda: torch.bmm(g, torch.bmm(g.transpose(1, 2), q)), b_ms, b_by, 5))
+        record("power_iter_batched", label, torch.float32, err, False,
+               power_iter_timing(g, q, 5))
         del g, q
         torch.cuda.empty_cache()
 
@@ -2550,13 +2593,8 @@ def rank_kernel_cases(results, ranks=RANK_CASES, shape=None, power: bool = True,
         err = check_close(f"power_iter {label} k'={k_sketch}", power_iter_batched(g, q),
                           power_iter_ref(g, q), *TOL["power_iter_batched"]["float32"],
                           rel_atol=True)
-        b_ms, b_by = bound(4 * (b * d * n + 2 * b * d * k_sketch), 4 * b * d * n * k_sketch,
-                           "float32")
         record_case(cases, results, "power_iter_batched", f"{label} k'={k_sketch}",
-                    torch.float32, err, False, timed_case(lambda: power_iter_batched(g, q),
-                                      lambda: power_iter_ref(g, q),
-                                      lambda: torch.bmm(g, torch.bmm(g.transpose(1, 2), q)),
-                                      b_ms, b_by, 3))
+                    torch.float32, err, False, power_iter_timing(g, q, 3))
         del g, q
         torch.cuda.empty_cache()
     return cases

@@ -181,6 +181,7 @@ def test_hw_holds_the_h100_datasheet_numbers():
     assert hw.HBM_BYTES_PER_S == 3.35e12
     assert hw.PEAK_OPS_PER_S == {"bfloat16": 989e12, "float32": 67e12}
     assert hw.PEAK_FLOPS_BF16 == 989e12 and hw.HBM_BYTES == 80e9
+    assert hw.PEAK_TF32_OPS_PER_S == 495e12  # kernel 9's split, dense TF32
     assert hw.NVLINK_BYTES_PER_S == 900e9 and hw.COLLECTIVE_BYTES_PER_S == 450e9
 
 

@@ -410,6 +410,70 @@ def test_power_iter_kernel_on_fsdp_blocks_on_gpu(shape, dtype):
                                atol=1e-5 * float(want.abs().max()))
 
 
+# Kernel 9 at the mlp bucket's width and at its edges, (B, m, n, k'): one
+# main-width slice; k' 8 and 2056 (8 columns past 16 tiles of 128) with n
+# 130 and m 1100, whose f32 rows of G do not start on 16 bytes; k' 130
+# (Q's and Y's rows off 16 bytes, a ragged 8-column tail)
+POWER_ITER_EDGES = {"main_width": (1, 4096, 14336, 2056), "kp8_n130_m1100": (2, 1100, 130, 8),
+                    "kp2056_n130_m1100": (1, 1100, 130, 2056),
+                    "kp130_m1100": (2, 1100, 520, 130)}
+
+
+def _power_inputs(seed, shape, dtype, offset=0):
+    """G (0.1 unit-normal, ``offset`` elements into its buffer: 0, or 1 to
+    start it off 16 bytes) and Q with unit-norm columns (orthonormal where
+    k' <= m)."""
+    b, m, n, kp = shape
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    buf = (0.1 * torch.randn(b * m * n + offset, generator=gen, device="cuda")).to(TORCH[dtype])
+    g = buf[offset:].view(b, m, n)
+    q = torch.randn(b, m, kp, generator=gen, device="cuda")
+    q = torch.linalg.qr(q)[0].contiguous() if kp <= m else q / m**0.5
+    return g, q
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(POWER_ITER_EDGES))
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_power_iter_kernel_at_main_width_and_edges_on_gpu(case, dtype):
+    _require_card()
+    g, q = _power_inputs(15, POWER_ITER_EDGES[case], dtype)
+    want = power_iter_ref(g, q)
+    torch.testing.assert_close(power_iter_batched(g, q), want, rtol=1e-5,
+                               atol=1e-5 * float(want.abs().max()))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_power_iter_kernel_with_g_off_16_bytes_on_gpu(dtype):
+    """G starting one element into its buffer: every row of G is read
+    element by element in both products."""
+    _require_card()
+    g, q = _power_inputs(16, (2, 300, 260, 72), dtype, offset=1)
+    assert g.data_ptr() % 16 != 0 and g.is_contiguous()
+    want = power_iter_ref(g, q)
+    torch.testing.assert_close(power_iter_batched(g, q), want, rtol=1e-5,
+                               atol=1e-5 * float(want.abs().max()))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_power_iter_kernel_across_a_wide_range_on_gpu(dtype):
+    """G's rows and Q's columns scaled by 2^-20 ... 2^20: the products keep
+    each value's relative precision whatever its exponent."""
+    _require_card()
+    b, m, n, kp = 2, 1024, 2048, 264
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    rows = torch.exp2(torch.randint(-20, 21, (b, m, 1), generator=gen, device="cuda").float())
+    cols = torch.exp2(torch.randint(-20, 21, (b, 1, kp), generator=gen, device="cuda").float())
+    g = (0.1 * torch.randn(b, m, n, generator=gen, device="cuda") * rows).to(TORCH[dtype])
+    q = torch.linalg.qr(torch.randn(b, m, kp, generator=gen, device="cuda"))[0]
+    q = (q * cols).contiguous()
+    want = power_iter_ref(g, q)
+    torch.testing.assert_close(power_iter_batched(g, q), want, rtol=1e-5,
+                               atol=1e-5 * float(want.abs().max()))
+
+
 @pytest.mark.gpu
 def test_optimizer_wrappers_count_launches_and_reject_bad_inputs_on_gpu():
     _require_card()

@@ -32,11 +32,13 @@ ROOT = Path(__file__).resolve().parents[1]
 
 
 def worker(tree: Path) -> dict:
-    sys.path.insert(0, str(tree / "src"))
     sys.path.insert(0, str(ROOT))
     import torch
 
-    import chip_smoke as cs
+    import chip_smoke as cs  # with this checkout's package; then the tree's:
+    for name in [k for k in sys.modules if k.split(".")[0] == "repro_torch"]:
+        del sys.modules[name]
+    sys.path.insert(0, str(tree / "src"))
     from repro_torch.kernels.flash_attention_decode import kernel as km
     from repro_torch.kernels.flash_attention_decode.ref import paged_decode_attention_ref
 
